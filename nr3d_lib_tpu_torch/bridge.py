@@ -1,4 +1,4 @@
-"""State bridge: a JAX model's state → the port's `state_dict`.
+"""State bridge between a JAX model's state and the port's `state_dict`.
 
 The JAX model's state arrives as numpy arrays keyed by nnx path, joined
 with "/" (for example `field/implicit_surface/decoder/ws/0`), so the port
@@ -21,7 +21,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["from_jax_state"]
+__all__ = ["from_jax_state", "to_jax_paths"]
 
 
 def from_jax_state(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -35,3 +35,11 @@ def from_jax_state(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             raise ValueError(f"{path}: float64 state; the model is float32")
         out[path.replace("/", ".")] = torch.from_numpy(arr.copy())
     return out
+
+
+def to_jax_paths(named: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse: {state_dict key or parameter name: tensor} → {nnx path:
+    numpy array}, so that the port's gradients or updated parameters can
+    be compared with the JAX package's by path."""
+    return {key.replace(".", "/"): t.detach().cpu().numpy()
+            for key, t in named.items()}

@@ -8,13 +8,14 @@ with the validity and cached SDF values carried along as payloads.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from nr3d_lib_tpu_torch.graphics.nerf import ray_alpha_to_vw
 from nr3d_lib_tpu_torch.graphics.neus import neus_ray_sdf_to_alpha
-from nr3d_lib_tpu_torch.graphics.raysample import batch_sample_pdf
+from nr3d_lib_tpu_torch.graphics.raysample import (CDF_EPS, Draw,
+                                                   batch_sample_pdf)
 
 __all__ = ["_upsample_rounds"]
 
@@ -30,14 +31,20 @@ def _sort_tvs(t, valid, sdf, far):
     return torch.where(v_s, key_s, far[:, None].expand_as(key_s)), v_s, sdf_s
 
 
+@torch.no_grad()
 def _upsample_rounds(sdf_fn, o_n: torch.Tensor, d_n: torch.Tensor,
                      t: torch.Tensor, valid: torch.Tensor, far: torch.Tensor,
                      inv_s_base: float, upsample_inv_s_factors: Sequence[float],
-                     n_importance: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                     n_importance: int, draw: Optional[Draw] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Iterative NeuS importance sampling. Each round: alphas at growing
     sharpness → CDF sample → merge-sort into the slab. SDF values are cached
-    across rounds: only each round's new samples hit the network. Returns
-    (t [R, S + rounds·n_importance] sorted, valid); t carries no gradient."""
+    across rounds: only each round's new samples hit the network. `draw`
+    perturbs the CDF samples, one draw of [R, n_importance] per round in
+    the JAX package's key order; None samples the fixed quantiles.
+    Returns (t [R, S + rounds·n_importance] sorted, valid). Sample
+    placement carries no gradient, so the rounds run under no_grad (the
+    reference's `with torch.no_grad()` around the loop)."""
     r = t.shape[0]
 
     def eval_sdf(t_):
@@ -51,11 +58,13 @@ def _upsample_rounds(sdf_fn, o_n: torch.Tensor, d_n: torch.Tensor,
         alpha = neus_ray_sdf_to_alpha(sdf_m, inv_s_base * factor,
                                       append_cdf_1=False)          # [R,S-1]
         w = ray_alpha_to_vw(alpha)
-        t_new = batch_sample_pdf(t, w, n_importance)               # [R,n_imp]
+        u = None if draw is None else \
+            draw((r, n_importance), CDF_EPS, 1.0 - CDF_EPS)
+        t_new = batch_sample_pdf(t, w, n_importance, u)            # [R,n_imp]
         sdf_new = eval_sdf(t_new)           # only the new samples
         t = torch.cat([t, t_new], -1)
         valid = torch.cat([valid, torch.ones_like(t_new, dtype=torch.bool)],
                           -1)
         sdf = torch.cat([sdf, sdf_new], -1)
     t, valid, _ = _sort_tvs(t, valid, sdf, far)
-    return t.detach(), valid
+    return t, valid

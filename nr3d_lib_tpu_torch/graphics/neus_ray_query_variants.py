@@ -9,7 +9,7 @@ samples.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -18,6 +18,7 @@ from nr3d_lib_tpu_torch.graphics import pack_ops as po
 from nr3d_lib_tpu_torch.graphics.nerf import ray_alpha_to_vw
 from nr3d_lib_tpu_torch.graphics.neus import neus_ray_sdf_to_alpha
 from nr3d_lib_tpu_torch.graphics.neus_ray_query import _upsample_rounds
+from nr3d_lib_tpu_torch.graphics.raysample import Draw
 
 __all__ = ["neus_ray_query_march_occ_multi_upsample_compressed"]
 
@@ -29,17 +30,26 @@ def neus_ray_query_march_occ_multi_upsample_compressed(
         upsample_inv_s_factors: Sequence[float] = (1.0, 4.0, 16.0),
         n_importance: int = 32, upsample_inv_s: float = 64.0,
         compression_factor: float = 0.25, early_stop_eps: float = 1e-4,
-        march_budget_factor: float = 1.0, with_rgb: bool = True
+        march_budget_factor: float = 1.0, with_rgb: bool = True,
+        draw: Optional[Draw] = None
         ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """``march_budget_factor`` < 1 budget-compacts the marched slab to
     factor × S_max slots per ray before the upsample loop; a ray with more
     occupied samples than that keeps its nearest ones (see the JAX
-    docstring)."""
+    docstring).
+
+    ``draw`` (see `graphics.raysample`) perturbs the samples for training:
+    one [R, S_max] draw jitters the march, then one draw per upsample
+    round, the order in which the JAX version splits its key. None
+    renders unperturbed. Only the final query and inv_s carry gradients:
+    the sampling rounds and the early-stop SDF pass run under no_grad."""
     rays_o, rays_d = ray_tested["rays_o"], ray_tested["rays_d"]
     near, far, ray_mask = ray_tested["near"], ray_tested["far"], \
         ray_tested["mask"]
     o_n, d_n = space.normalize_rays(rays_o, rays_d)
-    t, _, smask = accel.ray_march(o_n, d_n, near, far)
+    u_march = None if draw is None else \
+        draw((rays_o.shape[0], accel.max_steps_per_ray), 0.0, 1.0)
+    t, _, smask = accel.ray_march(o_n, d_n, near, far, u=u_march)
 
     def sdf_fn(x):
         return model.forward_sdf(x)["sdf"]
@@ -50,20 +60,22 @@ def neus_ray_query_march_occ_multi_upsample_compressed(
 
     t, valid = _upsample_rounds(sdf_fn, o_n, d_n, t, smask, far,
                                 upsample_inv_s, upsample_inv_s_factors,
-                                n_importance)
+                                n_importance, draw)
     r, s = t.shape
-    big = torch.full_like(t, _BIG_SDF)
-    # cheap SDF-only pass → alphas → keep-mask (early termination)
-    x = o_n[:, None, :] + d_n[:, None, :] * t[..., None]
-    sdf = torch.where(valid, sdf_fn(x.reshape(r * s, 3)).reshape(r, s), big)
     inv_s = model.forward_inv_s()
-    alpha = neus_ray_sdf_to_alpha(sdf, inv_s, append_cdf_1=True)
-    alpha = torch.where(valid & ray_mask[:, None], alpha,
-                        torch.zeros_like(alpha))
-    trans_excl = _scan.cumprod(
-        torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha[:, :-1]], -1),
-        -1)
-    keep = valid & (trans_excl > early_stop_eps) & (alpha > 0)
+    with torch.no_grad():
+        # cheap SDF-only pass → alphas → keep-mask (early termination)
+        big = torch.full_like(t, _BIG_SDF)
+        x = o_n[:, None, :] + d_n[:, None, :] * t[..., None]
+        sdf = torch.where(valid, sdf_fn(x.reshape(r * s, 3)).reshape(r, s),
+                          big)
+        alpha = neus_ray_sdf_to_alpha(sdf, inv_s, append_cdf_1=True)
+        alpha = torch.where(valid & ray_mask[:, None], alpha,
+                            torch.zeros_like(alpha))
+        trans_excl = _scan.cumprod(
+            torch.cat([torch.ones_like(alpha[:, :1]), 1.0 - alpha[:, :-1]],
+                      -1), -1)
+        keep = valid & (trans_excl > early_stop_eps) & (alpha > 0)
 
     b1 = max(int(s * compression_factor), 1)
     (t_b,), valid_b = po.dense_to_budgeted([t], keep, b1)

@@ -27,6 +27,9 @@ class LearnedVar(nn.Module):
     def inv_s(self) -> torch.Tensor:
         return torch.exp(self.ln_s * 10.0)
 
+    def set_iter(self, it: int) -> None:
+        """A learned inv_s has no schedule."""
+
 
 def get_neus_var_ctrl(type: str = "learned", device=None, **kwargs):
     t = type.lower()
@@ -54,6 +57,9 @@ class LoTDNeuS(nn.Module):
 
     def forward_sdf(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.implicit_surface.forward_sdf(x)
+
+    def forward_sdf_nablas(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.implicit_surface.forward_sdf_nablas(x)
 
     def forward_inv_s(self) -> torch.Tensor:
         return self.var_ctrl.inv_s()

@@ -48,8 +48,10 @@ class LoTDSDF(nn.Module):
     def forward_sdf_nablas(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(sdf, h, nablas=∂sdf/∂x), split as in the JAX brick path:
         nablas = ∂sdf/∂x_direct + J_encᵀ·∂sdf/∂h_enc, the decoder term by
-        `torch.func.vjp` (works under `no_grad`), the encoding term by the
-        encoding's nablas kernel (B3)."""
+        `torch.func.vjp` (works under `no_grad`; under outer autograd its
+        outputs stay differentiable, so an eikonal loss reaches the decoder
+        weights), the encoding term by the encoding's nablas kernel (B3,
+        whose backward is B4)."""
         batch = x.shape[:-1]
         xf = x.reshape(-1, 3)
         h_enc = self.encoding(xf)

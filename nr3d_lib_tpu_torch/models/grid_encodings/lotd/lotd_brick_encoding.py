@@ -62,6 +62,10 @@ class LoTDBrickEncoding(nn.Module):
         self.flattened_params = nn.Parameter(
             ((init * 2.0 - 1.0) * param_init_std).to(device))
 
+    def set_anneal_iter(self, it: int) -> None:
+        """No anneal window on the brick backend (the JAX package patches
+        the same no-op onto it)."""
+
     @property
     def n_params(self) -> int:
         return self._param_offsets[-1]

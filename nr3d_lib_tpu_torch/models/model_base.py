@@ -4,6 +4,10 @@ nr3d_lib_tpu/models/model_base.py `ModelMixin`, `LoTDNeuSModel`).
 A renderable model owns (field net, space, accel) and dispatches
 `ray_query` to the strategy function of its query mode. Only the
 `march_occ_multi_upsample_compressed` mode is ported; the others raise.
+
+Randomness: `jax.random` keys become a `torch.Generator` (`ray_query`'s
+`generator`, `training_before_per_step`'s), or a `draw` callable through
+which a caller hands the query its uniforms (`graphics.raysample`).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 from torch import nn
 
 from nr3d_lib_tpu_torch.device import resolve_device
+from nr3d_lib_tpu_torch.graphics.raysample import Draw, uniform_draw
 from nr3d_lib_tpu_torch.models.accelerations import OccGridAccel
 from nr3d_lib_tpu_torch.models.spatial import AABBSpace
 
@@ -27,11 +32,30 @@ class ModelMixin:
     def populate(self, **kwargs):
         pass
 
+    def training_before_per_step(self, it: int,
+                                 generator: Optional[torch.Generator] = None):
+        pass
+
+    def training_after_per_step(self, it: int,
+                                generator: Optional[torch.Generator] = None):
+        pass
+
+    @property
+    def lifecycle_update_every(self) -> int:
+        """The interval at which the expensive lifecycle work (the
+        occupancy EMA update) does anything: the accel's own update
+        interval. A trainer that gates `training_before_per_step` to an
+        interval derives it from here."""
+        return int(getattr(getattr(self, "accel", None), "update_every", 1)
+                   or 1)
+
     def ray_test(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
                  near=None, far=None) -> Dict:
         return self.space.ray_test(rays_o, rays_d, near=near, far=far)
 
-    def ray_query(self, ray_tested: Dict, with_rgb: bool = True
+    def ray_query(self, ray_tested: Dict,
+                  generator: Optional[torch.Generator] = None,
+                  with_rgb: bool = True, draw: Optional[Draw] = None
                   ) -> Tuple[Dict, Dict]:
         raise NotImplementedError
 
@@ -59,6 +83,9 @@ class LoTDNeuSModel(nn.Module, ModelMixin):
     def forward_sdf(self, x: torch.Tensor):
         return self.field.forward_sdf(x)
 
+    def forward_sdf_nablas(self, x: torch.Tensor):
+        return self.field.forward_sdf_nablas(x)
+
     def forward_inv_s(self):
         return self.field.forward_inv_s()
 
@@ -76,16 +103,35 @@ class LoTDNeuSModel(nn.Module, ModelMixin):
         """Initialize the occupancy values from the field."""
         self.accel.init(self.query_occ_val)
 
-    def ray_query(self, ray_tested: Dict, with_rgb: bool = True
+    def training_before_per_step(self, it: int,
+                                 generator: Optional[torch.Generator] = None):
+        """Per-step schedules, then the occupancy EMA update (every
+        `lifecycle_update_every` steps). No generator → one seeded by `it`
+        (JAX: `jax.random.key(it)`)."""
+        self.field.implicit_surface.encoding.set_anneal_iter(it)
+        self.field.var_ctrl.set_iter(it)
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(it)
+        with torch.no_grad():
+            self.accel.step(it, generator, self.query_occ_val)
+
+    def ray_query(self, ray_tested: Dict,
+                  generator: Optional[torch.Generator] = None,
+                  with_rgb: bool = True, draw: Optional[Draw] = None
                   ) -> Tuple[Dict, Dict]:
+        """Render the tested rays. A `generator` (or a `draw` callable,
+        which takes precedence) perturbs the samples, as for training;
+        neither renders unperturbed."""
         cfg = dict(self.ray_query_cfg)
         mode = cfg.pop("query_mode", "march_occ_multi_upsample")
+        if draw is None and generator is not None:
+            draw = uniform_draw(generator)
         if mode == "march_occ_multi_upsample_compressed":
             from nr3d_lib_tpu_torch.graphics.neus_ray_query_variants import (
                 neus_ray_query_march_occ_multi_upsample_compressed)
 
             return neus_ray_query_march_occ_multi_upsample_compressed(
                 self, self.accel, self.space, ray_tested, with_rgb=with_rgb,
-                **cfg)
+                draw=draw, **cfg)
         raise NotImplementedError(
             f"query_mode {mode!r} is not ported yet (ROADMAP.md A8)")

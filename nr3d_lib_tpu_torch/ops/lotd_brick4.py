@@ -1,7 +1,7 @@
 """bf16-packed brick LoTD encoding — 4 feats/vertex at one row fetch.
 
-Port of nr3d_lib_tpu/ops/lotd_brick4.py (forward and nablas; the
-training-time backward kernels B2/B4 are the next slice of the port).
+Port of nr3d_lib_tpu/ops/lotd_brick4.py: forward (B1), its backward (B2),
+nablas (B3) and the nablas' backward (B4).
 
 Layouts
   * unpacked (user/param space): f32 [rows, 256], lane u = vertex·4 + f.
@@ -9,20 +9,28 @@ Layouts
     bits bf16(f=2·f2) | bf16(f=2·f2+1) << 16.
 
 Values are quantized to bf16 by the packed path; `brick4_encode_xla` (the
-plain version) quantizes the same way, so both compute one function.
+plain version) quantizes the same way, so both compute one function. The
+table gradient is straight-through: full-precision cotangents, as in JAX.
 
-Routes: `brick4_encode` (B1) and `brick4_nablas` (B3) take the plain
-PyTorch version for a CPU tensor and launch the CUDA kernel of
-`csrc/brick4.cu` for a CUDA tensor. The kernels are forward-only: a CUDA
-call that would need a gradient raises.
+Routes: `brick4_encode` and `brick4_nablas` take the plain PyTorch version
+(and torch autograd) for a CPU tensor, and the CUDA kernels of
+`csrc/brick4.cu` for a CUDA tensor. On CUDA a gradient goes through two
+`torch.autograd.Function`s whose backwards are kernels too:
+`_Brick4Encode` (B1 forward, B2 backward; B1 saves the packed corner words
+for B2's dL/dx when x requires grad) and `_Brick4Nablas` (B3 forward, B4
+backward). Neither backward is itself differentiable. The plain versions
+of the backwards, `brick4_encode_bwd_xla` and `brick4_nablas_bwd_xla`,
+are for tests and for holding the kernels against.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from nr3d_lib_tpu_torch.ops import _build
 from nr3d_lib_tpu_torch.ops.lotd_brick import (BRICK_W, LANES, BrickMeta,
@@ -32,15 +40,12 @@ from nr3d_lib_tpu_torch.ops.lotd_brick import (BRICK_W, LANES, BrickMeta,
                                                vertex_grid_to_brick_rows)
 
 __all__ = ["make_brick4_meta", "brick4_encode", "brick4_encode_xla",
-           "brick4_nablas", "brick4_nablas_xla", "pack_table4",
-           "dense_brick4_index", "materialize_dense_brick4"]
+           "brick4_corner_words_xla", "brick4_encode_bwd_xla",
+           "brick4_nablas", "brick4_nablas_xla", "brick4_nablas_bwd_xla",
+           "pack_table4", "dense_brick4_index", "materialize_dense_brick4"]
 
 N_FEAT4 = 4
 MAX_LEVELS = 4
-
-_TRAINING_SLICE = ("the CUDA brick4 kernels are forward-only; their "
-                   "backward (B2/B4) is slice 2 of the port in ROADMAP.md. "
-                   "Run under torch.no_grad(), or on the CPU")
 
 
 def make_brick4_meta(lod_res, lod_types, hashmap_rows: int = 4096
@@ -116,6 +121,20 @@ def brick4_encode_xla(x: torch.Tensor, table: torch.Tensor,
     return torch.cat(outs, -1)
 
 
+def brick4_corner_words_xla(x: torch.Tensor, table: torch.Tensor,
+                            meta: BrickMeta) -> torch.Tensor:
+    """Plain version of B1's want_g output: the packed words of each
+    (point, level)'s 8 corners → [N, L, 8, 2] int32 (a copy)."""
+    words = pack_table4(table).view(torch.int32).reshape(-1, 2)  # per vertex
+    bits = _corner_bits(x.device)
+    corner_v = (bits[:, 0] * BRICK_W + bits[:, 1]) * BRICK_W + bits[:, 2]
+    out = []
+    for level in meta.levels:
+        row, lane0, _ = _level_rows_and_lanes(x, level)
+        out.append(words[row[:, None] * 64 + lane0[:, None] // 2 + corner_v])
+    return torch.stack(out, 1)
+
+
 def brick4_nablas_xla(g_up: torch.Tensor, x: torch.Tensor,
                       table: torch.Tensor, meta: BrickMeta) -> torch.Tensor:
     """Plain PyTorch version of B3: J_enc(x)ᵀ·g_up [N,3], written out
@@ -134,6 +153,31 @@ def brick4_nablas_xla(g_up: torch.Tensor, x: torch.Tensor,
             da = torch.sum(h * sign[:, a] * s[..., b] * s[..., c], -1)
             dx[a] = dx[a] + da * float(level.res[a] - 2)
     return torch.stack(dx, -1)
+
+
+def brick4_encode_bwd_xla(x: torch.Tensor, table: torch.Tensor,
+                          g: torch.Tensor, meta: BrickMeta,
+                          need_dx: bool = True):
+    """Plain PyTorch version of B2: the vjp of `brick4_encode_xla` →
+    (dL/dx [N,3] or None, dL/dtable [rows,256])."""
+    with torch.enable_grad():
+        xr = x.detach().requires_grad_(need_dx)
+        tr = table.detach().requires_grad_(True)
+        y = brick4_encode_xla(xr, tr, meta)
+        grads = torch.autograd.grad(y, (xr, tr) if need_dx else (tr,), g)
+    return (grads[0] if need_dx else None), grads[-1]
+
+
+def brick4_nablas_bwd_xla(g_up: torch.Tensor, x: torch.Tensor,
+                          table: torch.Tensor, gg: torch.Tensor,
+                          meta: BrickMeta):
+    """Plain PyTorch version of B4: the vjp of `brick4_nablas_xla` →
+    (dL/dg_up [N,4L], dL/dx [N,3], dL/dtable [rows,256])."""
+    with torch.enable_grad():
+        gr, xr, tr = (t.detach().requires_grad_(True)
+                      for t in (g_up, x, table))
+        nab = brick4_nablas_xla(gr, xr, tr, meta)
+        return torch.autograd.grad(nab, (gr, xr, tr), gg)
 
 
 # ------------------------------------------------------------ CUDA route
@@ -162,8 +206,10 @@ def _c_meta(meta: BrickMeta) -> _Meta:
 def _lib():
     vp, n = _build.VP, ctypes.c_longlong
     return _build.load("brick4", {
-        "brick4_fwd": [vp, vp, _Meta, vp, n, vp],
-        "brick4_dydx": [vp, vp, vp, _Meta, vp, n, vp]})
+        "brick4_fwd": [vp, vp, _Meta, vp, vp, n, vp],
+        "brick4_bwd": [vp, vp, vp, vp, _Meta, vp, vp, n, vp],
+        "brick4_dydx": [vp, vp, vp, _Meta, vp, n, vp],
+        "brick4_bwd2": [vp, vp, vp, vp, _Meta, vp, vp, vp, n, vp]})
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -174,9 +220,6 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _check_cuda_args(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta,
                      what: str, *extra: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, table, *extra)):
-        raise NotImplementedError(f"{what}: {_TRAINING_SLICE}")
     if x.dim() != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
         raise ValueError(f"{what}: x must be [N,3] float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -189,17 +232,48 @@ def _check_cuda_args(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta,
             raise ValueError(f"{what}: all inputs must be on {x.device}")
 
 
-def _fwd_cuda(x: torch.Tensor, packed: torch.Tensor, meta: BrickMeta
-              ) -> torch.Tensor:
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _fwd_cuda(x: torch.Tensor, packed: torch.Tensor, meta: BrickMeta,
+              want_g: bool = False):
+    """B1 → y [N,4L]; with `want_g` → (y, words [N,L,8,2] int32), the
+    packed corner words that B2 reads back for dL/dx. Counted as
+    `brick4_fwd` or `brick4_fwd_g`."""
     x = _aligned(x)
-    y = torch.empty((x.shape[0], N_FEAT4 * meta.n_levels), device=x.device,
-                    dtype=torch.float32)
+    n, L = x.shape[0], meta.n_levels
+    y = torch.empty((n, N_FEAT4 * L), device=x.device, dtype=torch.float32)
+    words = torch.empty((n, L, 8, 2), device=x.device,
+                        dtype=torch.int32) if want_g else None
     err = _lib().brick4_fwd(x.data_ptr(), packed.data_ptr(), _c_meta(meta),
-                            y.data_ptr(), x.shape[0],
+                            y.data_ptr(), _ptr(words), n,
                             _build.stream_ptr(x.device))
-    _build.check(err, "brick4_fwd")
-    _build.LAUNCHES["brick4_fwd"] += 1
-    return y
+    name = "brick4_fwd_g" if want_g else "brick4_fwd"
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return (y, words) if want_g else y
+
+
+def _bwd_cuda(x: torch.Tensor, g: torch.Tensor, meta: BrickMeta, *,
+              need_dx: bool, words: Optional[torch.Tensor] = None,
+              packed: Optional[torch.Tensor] = None):
+    """B2 → (dL/dx [N,3] or None, dL/dtable [rows,256]). dL/dx reads the
+    corner values from `words` (the want_g forward's) or else from the
+    packed table."""
+    if need_dx and words is None and packed is None:
+        raise ValueError("brick4_bwd: dL/dx needs the forward's words or "
+                         "the packed table")
+    x, g = _aligned(x), _aligned(g)
+    dtab = torch.empty((meta.total_rows, 2 * LANES), device=x.device,
+                       dtype=torch.float32)
+    dx = torch.empty_like(x) if need_dx else None
+    err = _lib().brick4_bwd(x.data_ptr(), g.data_ptr(), _ptr(words),
+                            _ptr(packed), _c_meta(meta), dtab.data_ptr(),
+                            _ptr(dx), x.shape[0], _build.stream_ptr(x.device))
+    _build.check(err, "brick4_bwd")
+    _build.LAUNCHES["brick4_bwd"] += 1
+    return dx, dtab
 
 
 def _dydx_cuda(g_up: torch.Tensor, x: torch.Tensor, packed: torch.Tensor,
@@ -215,24 +289,97 @@ def _dydx_cuda(g_up: torch.Tensor, x: torch.Tensor, packed: torch.Tensor,
     return dx
 
 
+def _bwd2_cuda(g_up: torch.Tensor, x: torch.Tensor, packed: torch.Tensor,
+               gg: torch.Tensor, meta: BrickMeta, need_dx: bool = True):
+    """B4 → (dL/dg_up [N,4L], dL/dx [N,3] or None, dL/dtable [rows,256])."""
+    g_up, x, gg = _aligned(g_up), _aligned(x), _aligned(gg)
+    dgup = torch.empty_like(g_up)
+    dtab = torch.empty((meta.total_rows, 2 * LANES), device=x.device,
+                       dtype=torch.float32)
+    dx = torch.empty_like(x) if need_dx else None
+    err = _lib().brick4_bwd2(g_up.data_ptr(), x.data_ptr(), packed.data_ptr(),
+                             gg.data_ptr(), _c_meta(meta), dgup.data_ptr(),
+                             dtab.data_ptr(), _ptr(dx), x.shape[0],
+                             _build.stream_ptr(x.device))
+    _build.check(err, "brick4_bwd2")
+    _build.LAUNCHES["brick4_bwd2"] += 1
+    return dgup, dx, dtab
+
+
+class _Brick4Encode(torch.autograd.Function):
+    """B1 forward, B2 backward. `want_g` (x requires grad) makes B1 save
+    the corner words that B2's dL/dx reads; dL/dx is computed only when x
+    needs it."""
+
+    @staticmethod
+    def forward(ctx, x, table, meta, want_g):
+        packed = pack_table4(table)
+        ctx.meta = meta
+        if want_g:
+            y, words = _fwd_cuda(x, packed, meta, want_g=True)
+            ctx.save_for_backward(x, words)
+        else:
+            y = _fwd_cuda(x, packed, meta)
+            ctx.save_for_backward(x)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, *words = ctx.saved_tensors
+        need_dx = ctx.needs_input_grad[0]
+        dx, dtab = _bwd_cuda(x, g, ctx.meta, need_dx=need_dx,
+                             words=words[0] if words else None)
+        return dx, (dtab if ctx.needs_input_grad[1] else None), None, None
+
+
+class _Brick4Nablas(torch.autograd.Function):
+    """B3 forward, B4 backward."""
+
+    @staticmethod
+    def forward(ctx, g_up, x, table, meta):
+        packed = pack_table4(table)
+        ctx.meta = meta
+        ctx.save_for_backward(g_up, x, packed)
+        return _dydx_cuda(g_up, x, packed, meta)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gg):
+        g_up, x, packed = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dgup, dx, dtab = _bwd2_cuda(g_up, x, packed, gg, ctx.meta,
+                                    need_dx=need[1])
+        return (dgup if need[0] else None, dx,
+                dtab if need[2] else None, None)
+
+
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 # ----------------------------------------------------------- the wrappers
 def brick4_encode(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta
                   ) -> torch.Tensor:
     """F=4 packed brick encode (B1): [N,3] in [0,1] × unpacked
     [rows,256] → [N, 4L]. CPU tensor → plain version; CUDA tensor → the
-    `brick4_fwd` kernel (forward-only)."""
+    `brick4_fwd` kernel, with B2 as its backward when a gradient is
+    needed."""
     if x.device.type == "cpu":
         return brick4_encode_xla(x, table, meta)
     if x.device.type != "cuda":
         raise ValueError(f"brick4_encode: unsupported device {x.device}")
     _check_cuda_args(x, table, meta, "brick4_encode")
+    if _wants_grad(x, table):
+        return _Brick4Encode.apply(x, table, meta, _wants_grad(x))
     return _fwd_cuda(x, pack_table4(table), meta)
 
 
 def brick4_nablas(g_up: torch.Tensor, x: torch.Tensor, table: torch.Tensor,
                   meta: BrickMeta) -> torch.Tensor:
     """nablas J_enc(x)ᵀ·g_up (B3): g_up [N,4L], x [N,3] → [N,3]. CPU
-    tensor → plain version; CUDA tensor → the `brick4_dydx` kernel."""
+    tensor → plain version; CUDA tensor → the `brick4_dydx` kernel, with
+    B4 as its backward when a gradient is needed."""
     if x.device.type == "cpu":
         return brick4_nablas_xla(g_up, x, table, meta)
     if x.device.type != "cuda":
@@ -242,4 +389,6 @@ def brick4_nablas(g_up: torch.Tensor, x: torch.Tensor, table: torch.Tensor,
             g_up.dtype != torch.float32:
         raise ValueError(f"brick4_nablas: g_up must be [N, {4 * meta.n_levels}]"
                          f" float32, got {tuple(g_up.shape)} {g_up.dtype}")
+    if _wants_grad(g_up, x, table):
+        return _Brick4Nablas.apply(g_up, x, table, meta)
     return _dydx_cuda(g_up, x, pack_table4(table), meta)

@@ -24,14 +24,16 @@ __all__ = ["march_steps", "occgrid_query_axes", "occgrid_query",
 
 def march_steps(near: torch.Tensor, far: torch.Tensor, n_steps: int,
                 step_size: float, dt_gamma: float = 0.0,
-                max_step_size: Optional[float] = None
+                max_step_size: Optional[float] = None,
+                u: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Closed-form step sequence per ray, sampled at step midpoints.
+    """Closed-form step sequence per ray.
 
     Returns (t [R,S], dt [R,S], in_range [R,S]) with
     dt_i = clip(step_size·(1+γ)^i, ·, max_step_size), t cumulative from
-    near. (The JAX version's `perturb_key` jitter is not ported: the
-    serving path marches unperturbed.)"""
+    near and sampled at t_start + u·dt: `u` [R,S] in [0,1) jitters the
+    samples (the JAX version's `perturb_key` draw, handed in), None
+    takes the midpoints."""
     r = near.shape[0]
     i = torch.arange(n_steps, dtype=near.dtype, device=near.device)
     if dt_gamma > 0.0:
@@ -44,9 +46,9 @@ def march_steps(near: torch.Tensor, far: torch.Tensor, n_steps: int,
     t_end = _scan.cumsum(dt, 0)
     t_start = (t_end - dt)[None, :] + near[:, None]          # [R,S]
     dt = dt[None, :].expand(r, n_steps)
-    t_mid = t_start + 0.5 * dt
-    in_range = (t_mid < far[:, None]) & (t_start >= near[:, None] - 1e-9)
-    return t_mid, dt, in_range
+    t = t_start + (0.5 if u is None else u) * dt
+    in_range = (t < far[:, None]) & (t_start >= near[:, None] - 1e-9)
+    return t, dt, in_range
 
 
 def grid_rows_lanes(shp, x0: torch.Tensor, x1: torch.Tensor,
@@ -84,12 +86,14 @@ def occgrid_march_dense(occ: torch.Tensor, rays_o: torch.Tensor,
                         rays_d: torch.Tensor, near: torch.Tensor,
                         far: torch.Tensor, *, n_steps: int, step_size: float,
                         dt_gamma: float = 0.0,
-                        max_step_size: Optional[float] = None
+                        max_step_size: Optional[float] = None,
+                        u: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """March normalized-space rays through an occupancy grid → dense
-    (t [R,S], dt [R,S], mask [R,S]), mask = in-range ∧ voxel-occupied."""
+    (t [R,S], dt [R,S], mask [R,S]), mask = in-range ∧ voxel-occupied;
+    `u` jitters the steps as in `march_steps`."""
     t, dt, in_range = march_steps(near, far, n_steps, step_size, dt_gamma,
-                                  max_step_size)
+                                  max_step_size, u)
     xs = [rays_o[:, None, a] + rays_d[:, None, a] * t for a in range(3)]
     occ_hit = occgrid_query_axes(occ, *xs)
     return t, dt, in_range & occ_hit

@@ -7,8 +7,11 @@ whose Python has no JAX, run without the suite's conftest:
 
 Whether a card is present is decided inside the `cuda` fixture, never at
 import time. Tolerances: B1 sums 8 weighted corners in another order
-(1e-5 relative to the output scale); B3 sums over corners, features and
-levels and scales by res-2 (1e-4); B5 is a copy (exact).
+(1e-5 relative to the output scale), and its want_g words are a copy
+(exact); B3 sums over corners, features and levels and scales by res-2
+(1e-4); B2's and B4's table gradients are sums by atomics, in an order that
+changes from run to run (1e-5 relative to the largest entry), their dL/dx
+and dL/dg_up scale by res-2 (1e-4); B5 is a copy (exact).
 """
 
 import numpy as np
@@ -88,20 +91,115 @@ def test_gather1d_kernel_matches_plain(cuda):
                                rtol=0, atol=0)
 
 
-def test_cuda_route_refuses_gradients(cuda):
-    meta, x, table = _inputs(cuda, 128)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        B4.brick4_encode(x, table.requires_grad_(True), meta)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        B4.brick4_nablas(torch.zeros(128, 8, device=cuda), x, table, meta)
+def _close(got, want, rel):
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=rel * float(want.abs().max()) + 1e-7)
 
 
-def test_render_goes_through_the_kernels(cuda):
+@pytest.mark.parametrize("n", [1, 255, 100_000])
+def test_brick4_want_g_kernel_matches_plain(cuda, n):
+    meta, x, table = _inputs(cuda, max(n, 66), seed=2)
+    x = x[:n]
+    before = _build.LAUNCHES["brick4_fwd_g"]
+    y, words = B4._fwd_cuda(x, B4.pack_table4(table), meta, want_g=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["brick4_fwd_g"] == before + 1
+    _close(y, B4.brick4_encode_xla(x, table, meta), 1e-5)
+    assert torch.equal(words, B4.brick4_corner_words_xla(x, table, meta))
+
+
+@pytest.mark.parametrize("n", [1, 255, 100_000])
+@pytest.mark.parametrize("form", ["no_dx", "dx_words", "dx_table"])
+def test_brick4_bwd_kernel_matches_plain(cuda, n, form):
+    meta, x, table = _inputs(cuda, max(n, 66), seed=3)
+    x = x[:n]
+    g = torch.randn(n, 8, device=cuda)
+    packed = B4.pack_table4(table)
+    kw = {}
+    if form == "dx_words":
+        kw["words"] = B4._fwd_cuda(x, packed, meta, want_g=True)[1]
+    elif form == "dx_table":
+        kw["packed"] = packed
+    before = _build.LAUNCHES["brick4_bwd"]
+    dx, dtab = B4._bwd_cuda(x, g, meta, need_dx=form != "no_dx", **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["brick4_bwd"] == before + 1
+    dx_p, dtab_p = B4.brick4_encode_bwd_xla(x, table, g, meta,
+                                            form != "no_dx")
+    _close(dtab, dtab_p, 1e-5)
+    if form == "no_dx":
+        assert dx is None
+    else:
+        _close(dx, dx_p, 1e-4)
+
+
+@pytest.mark.parametrize("n", [1, 255, 100_000])
+def test_brick4_bwd2_kernel_matches_plain(cuda, n):
+    meta, x, table = _inputs(cuda, max(n, 66), seed=4)
+    x = x[:n]
+    g_up, gg = torch.randn(n, 8, device=cuda), torch.randn(n, 3, device=cuda)
+    before = _build.LAUNCHES["brick4_bwd2"]
+    dg, dx, dtab = B4._bwd2_cuda(g_up, x, B4.pack_table4(table), gg, meta)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["brick4_bwd2"] == before + 1
+    dg_p, dx_p, dtab_p = B4.brick4_nablas_bwd_xla(g_up, x, table, gg, meta)
+    _close(dg, dg_p, 1e-4)
+    _close(dx, dx_p, 1e-4)
+    _close(dtab, dtab_p, 1e-5)
+
+
+def test_cuda_gradients_match_cpu_route(cuda):
+    """The CUDA route's autograd (B1/B2, B3/B4) against the CPU route's
+    (plain versions, torch autograd) on the same inputs."""
+    meta, x, table = _inputs(cuda, 4096, seed=5)
+    g, gg = torch.randn(4096, 8, device=cuda), torch.randn(4096, 3,
+                                                            device=cuda)
+    gu = torch.randn(4096, 8, device=cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xs, ts, gs = (t.detach().to(dev).requires_grad_(True)
+                      for t in (x, table, gu))
+        loss = (B4.brick4_encode(xs, ts, meta) * g.to(dev)).sum() + \
+            (B4.brick4_nablas(gs, xs, ts, meta) * gg.to(dev)).sum()
+        grads.append([t.cpu() for t in torch.autograd.grad(loss,
+                                                           (xs, ts, gs))])
+    for a, b, rel in zip(*grads, (1e-4, 1e-5, 1e-4)):
+        _close(a, b, rel)
+
+
+def test_train_step_goes_through_the_kernels(cuda):
+    from nr3d_lib_tpu_torch.models.loss.regularization import eikonal_loss
+
+    model = _small_model()
+    o, d = _small_rays(cuda)
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        model.populate()
+    for it in (15, 16):                      # 16: the occupancy update
+        _build.LAUNCHES.clear()
+        model.training_before_per_step(it, gen)
+        opt.zero_grad()
+        rendered, vb = model.ray_query(model.ray_test(o, d), generator=gen)
+        loss = torch.mean((rendered["rgb_volume"] - d.abs()) ** 2) + \
+            0.1 * eikonal_loss(vb["nablas_packed"], vb["ridx"] < o.shape[0])
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {
+            "brick4_fwd": 6 + (it == 16), "brick4_bwd": 1, "brick4_dydx": 1,
+            "brick4_bwd2": 1, "gather1d": 1}, (it, dict(_build.LAUNCHES))
+        assert torch.isfinite(loss)
+        for p in model.parameters():
+            assert p.grad is not None and torch.isfinite(p.grad).all()
+
+
+def _small_model():
     from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel
 
     enc = {"lotd_cfg": {"lod_res": [16, 64], "lod_n_feats": 4,
                         "lod_types": ["Dense", "Hash"]}, "backend": "brick"}
-    model = LoTDNeuSModel(
+    return LoTDNeuSModel(
         field_cfg={"surface_cfg": {"encoding_cfg": enc,
                                    "decoder_cfg": {"D": 1, "W": 64}},
                    "radiance_cfg": {"D": 2, "W": 64}},
@@ -109,12 +207,20 @@ def test_render_goes_through_the_kernels(cuda):
                    "step_size": 2.0 / 48},
         ray_query_cfg={"query_mode": "march_occ_multi_upsample_compressed",
                        "march_budget_factor": 0.5})
-    assert model.device.type == "cuda"
+
+
+def _small_rays(dev):
     rng = np.random.default_rng(3)
     o = rng.normal(size=(256, 3))
     o = (o / np.linalg.norm(o, axis=-1, keepdims=True) * 2.0)
     d = -o / np.linalg.norm(o, axis=-1, keepdims=True)
-    o, d = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (o, d))
+    return (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (o, d))
+
+
+def test_render_goes_through_the_kernels(cuda):
+    model = _small_model()
+    assert model.device.type == "cuda"
+    o, d = _small_rays(cuda)
     with torch.no_grad():
         model.populate()
         _build.LAUNCHES.clear()
