@@ -5,38 +5,45 @@
 
 1. Prints the card (name, power limit), torch and CUDA versions.
 2. Builds every CUDA kernel of the port from `nr3d_lib_tpu_torch/csrc/`
-   with nvcc for sm_90a, all sources at once, and prints the build time and
-   the ptxas register / shared-memory lines.
-3. One phase per kernel at the shapes of the serving render: B1
-   (brick4_fwd) at 589,824 points, B3 (brick4_dydx) at 147,456 points, B5
-   (gather1d) at 393,216 lookups into a [4096, 64] table. Each compares the
-   kernel with its plain PyTorch version on the card (tolerance printed),
-   times kernel, plain version and, for B5, the one-call PyTorch
-   equivalent with CUDA events after warm-up, and prints the bound.
-   Then one phase per training kernel at the train step's shapes (147,456
-   packed points): B1 with want_g (brick4_fwd_g), B2 (brick4_bwd) with and
-   without dL/dx, and B4 (brick4_bwd2), each held against its plain
-   version, timed and bounded the same way.
-4. Slice 1, serving: the production F=4 brick-LoTD NeuS (`LoTDNeuSModel`,
-   the configuration of experiments/bench_render.py `main_train` kind
-   neus_compressed_w4) with seeded weights, a seeded 15% occupancy and
-   4096 seeded rays, through populate → ray_test → ray_query under
-   torch.no_grad(). Launch counters are zeroed just before the timed
-   renders and read just after; every kernel of the path must have run
-   (6 B1, 1 B3 and 1 B5 launch per render). The same rays are rendered
-   by the port on the CPU (plain versions) and the share of rays whose rgb
-   and depth agree within 1e-4 must be ≥ 99%.
-5. The nablas by autograd (`forward_sdf` with x requiring grad, then
-   `torch.autograd.grad`), the path that runs B1 want_g and B2 with dL/dx,
-   against the split nablas of `forward_sdf_nablas` (B3).
-6. Slice 2, training: one step's loss and every parameter's gradient on
-   the card against the CPU port from the same weights and the same
-   uniforms (drawn on the card, replayed on the CPU); then the production
-   train step (perturbed query, MSE(rgb, |d|) + 0.1·eikonal, Adam(5e-3),
-   `training_before_per_step` every step) for 2 warm-up and 20 timed
-   steps that cross an occupancy update: ms/step, Krays/s, peak memory,
-   the loss of every step, exact launches per step, and a profile.
-7. A `{"kernels": [...]}` JSON line, then the card's name and power limit,
+   (brick4.cu, brick.cu, gather1d.cu) with nvcc for sm_90a, one nvcc per
+   source, all started together, and prints the build time and the ptxas
+   register / shared-memory lines.
+3. One phase per kernel at the shapes of the paths below. Each compares
+   the kernel with its plain PyTorch version on the card (tolerance
+   printed), times kernel, plain version and, where one exists, a
+   one-call PyTorch equivalent with CUDA events after warm-up, and prints
+   the bound. F=4 (slices 1 and 2): B1 (brick4_fwd) at 589,824 points, B3
+   (brick4_dydx) at 147,456, B5 (gather1d) at 393,216 lookups into a
+   [4096, 64] table; B1 want_g, B2 (brick4_bwd, with and without dL/dx)
+   and B4 (brick4_bwd2) at the train step's 147,456 points. F=2 (slice 3):
+   B6 (brick_fwd) at the NeRF render's 196,608 points × 6 levels and at
+   the NeuS render's 589,824 × 4; B6 want_g, B7 (brick_bwd, with and
+   without dL/dx), B8 (brick_dydx) and B9 (brick_bwd2) at 147,456 × 4.
+4. The paths, each through the entry points a user calls, with seeded
+   weights, a seeded 15% occupancy and seeded rays. Launch counters are
+   zeroed just before each path and read just after; every count must be
+   exact. Each render is also rendered by the port on the CPU (plain
+   versions), and the share of rays whose rgb and depth agree within 1e-4
+   must be ≥ 99%.
+   - F=4 NeuS serving (`LoTDNeuSModel`, experiments/bench_render.py
+     `main_train` kind neus_compressed_w4): 10 renders of 4096 rays (6 B1,
+     1 B3, 1 B5 per render); the nablas by autograd (B1 want_g, B2 with
+     dL/dx) against the split nablas (B3); one train step against the CPU
+     port; 2 warm-up and 20 timed train steps that cross an occupancy
+     update (6 B1 + 1 per update, 1 each of B2, B3, B4, B5 per step).
+   - Path A, F=2 NeRF serving (`LoTDNeRFModel`, bench_render.py `main`
+     with use_brick=True, mode march_occ_compressed; 23,005 table rows):
+     10 renders of 8192 rays (1 B6 and 1 B5 per render), then one render
+     in the model's default mode march_occ (1 B6 on 786,432 points, 1 B5).
+   - Path B, F=2 NeuS (`LoTDNeuSModel`, bench_render.py `main_train` kind
+     neus_compressed with use_brick=True; 9,648 table rows): 10 renders of
+     4096 rays (6 B6, 1 B8, 1 B5 per render); the autograd nablas (B6
+     want_g, B7 with dL/dx); one train step against the CPU port; 2
+     warm-up and 20 timed steps (6 B6 + 1 per update, 1 each of B7, B8,
+     B9, B5 per step).
+   Each path prints ms per call (median, quartiles), Krays/s, peak memory
+   and a device-time profile by kernel.
+5. A `{"kernels": [...]}` JSON line, then the card's name and power limit,
    then the last line `{"ok": true, "device": {...}}`.
 
 TF32 is off for matmuls and cuDNN (`allow_tf32 = False`): the reference
@@ -57,7 +64,8 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
-N_RAYS = 4096
+N_RAYS = 4096             # the NeuS paths' batch
+N_RAYS_NERF = 8192        # the NeRF path's batch
 N_RENDERS = 10
 N_WARMUP_STEPS = 2
 N_STEPS = 20              # timed; it = 3..22 crosses the update at it = 16
@@ -65,19 +73,41 @@ CPU_STEP_BUDGET_S = 60.0  # the GPU-vs-CPU step check cuts its rays to fit
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
 
-# the production configuration (experiments/bench_render.py:143-175)
-PROD_CFG = dict(
-    field_cfg={"surface_cfg": {
-        "encoding_cfg": {"lotd_cfg": {"lod_res": [16, 64], "lod_n_feats": 4,
-                                      "lod_types": ["Dense", "Hash"],
-                                      "hashmap_size": 2 ** 16},
-                         "backend": "brick"},
-        "decoder_cfg": {"D": 1, "W": 64}},
+
+def _neus_cfg(lotd_cfg: dict) -> dict:
+    """experiments/bench_render.py:143-175, the compressed NeuS."""
+    return dict(
+        field_cfg={"surface_cfg": {
+            "encoding_cfg": {"lotd_cfg": lotd_cfg, "backend": "brick"},
+            "decoder_cfg": {"D": 1, "W": 64}},
+            "radiance_cfg": {"D": 2, "W": 64}},
+        accel_cfg={"resolution": 64, "max_steps_per_ray": 96,
+                   "step_size": 2.0 / 96},
+        ray_query_cfg={"query_mode": "march_occ_multi_upsample_compressed",
+                       "compression_factor": 0.25,
+                       "march_budget_factor": 0.5})
+
+
+# the production F=4 configuration (kind neus_compressed_w4)
+PROD_CFG = _neus_cfg({"lod_res": [16, 64], "lod_n_feats": 4,
+                      "lod_types": ["Dense", "Hash"], "hashmap_size": 2 ** 16})
+# path B: kind neus_compressed, use_brick=True (F=2)
+NEUS_F2_CFG = _neus_cfg({"lod_res": [16, 32, 64, 128], "lod_n_feats": 2,
+                         "lod_types": ["Dense", "Dense", "Hash", "Hash"],
+                         "hashmap_size": 2 ** 16})
+# path A: experiments/bench_render.py:21-55, use_brick=True,
+# mode march_occ_compressed (F=2)
+NERF_CFG = dict(
+    field_cfg={"encoding_cfg": {"lotd_cfg": {
+        "lod_res": [16, 32, 64, 128, 256, 512], "lod_n_feats": 2,
+        "lod_types": ["Dense", "Dense", "Dense", "Hash", "Hash", "Hash"],
+        "hashmap_size": 2 ** 17}, "backend": "brick"},
+        "density_decoder_cfg": {"D": 1, "W": 64},
         "radiance_cfg": {"D": 2, "W": 64}},
     accel_cfg={"resolution": 64, "max_steps_per_ray": 96,
                "step_size": 2.0 / 96},
-    ray_query_cfg={"query_mode": "march_occ_multi_upsample_compressed",
-                   "compression_factor": 0.25, "march_budget_factor": 0.5})
+    ray_query_cfg={"query_mode": "march_occ_compressed",
+                   "compression_factor": 0.25})
 
 
 def _smi() -> str:
@@ -118,7 +148,7 @@ def _bound(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _profile(run, wall_ms: float, what: str = "render") -> None:
+def _profile(run, wall_ms: float, what: str) -> None:
     """Device time by kernel over two calls of `run` (torch.profiler), and
     the share of one call's wall time `wall_ms` that the device is busy.
     Only device-side events count (kernels, memsets, copies): an aten op's
@@ -149,9 +179,10 @@ def _profile(run, wall_ms: float, what: str = "render") -> None:
           f"{total:.3f} ms in {sum(r[1] for r in rows):.0f} device events "
           f"(kernels, memsets, copies); busy {total / wall_ms * 100:.1f}% "
           f"of the {wall_ms:.3f} ms wall time")
-    ours = sum(r[0] for r in rows if r[2].startswith(("brick4", "gather1d")))
-    print(f"[profile] the port's kernels (brick4_*, gather1d): {ours:.4f} "
-          f"ms, {ours / max(total, 1e-9) * 100:.1f}% of the device time")
+    ours = sum(r[0] for r in rows if r[2].startswith(("brick", "gather1d")))
+    print(f"[profile] the port's kernels (brick4_*, brick_*, gather1d): "
+          f"{ours:.4f} ms, {ours / max(total, 1e-9) * 100:.1f}% of the "
+          f"device time")
     for ms, count, key in rows[:12]:
         print(f"[profile]   {ms:8.4f} ms {ms / max(total, 1e-9) * 100:5.1f}% "
               f"x{count:<4.0f} {key[:90]}")
@@ -182,17 +213,17 @@ def _ray_points(o, d, n_per_ray: int, seed: int):
     return (x.reshape(-1, 3) * 0.5 + 0.5).clamp(0.0, 1.0).contiguous()
 
 
-def _set_weights(model, seed: int) -> None:
+def _seed_weights(model, enc, seed: int) -> None:
     """Seeded weights that give a non-trivial render: table values in
-    ±0.1 (the init is ±1e-4) and ln_s = ln(64)/10."""
+    ±0.1 (the init is ±1e-4), and ln_s = ln(64)/10 for a NeuS."""
     import torch
 
     rng = np.random.default_rng(seed)
-    enc = model.field.implicit_surface.encoding
     with torch.no_grad():
         enc.flattened_params.copy_(torch.from_numpy(rng.uniform(
             -0.1, 0.1, enc.n_params).astype(np.float32)))
-        model.field.var_ctrl.ln_s.fill_(float(np.log(64.0) / 10.0))
+        if hasattr(model.field, "var_ctrl"):
+            model.field.var_ctrl.ln_s.fill_(float(np.log(64.0) / 10.0))
 
 
 def _step_loss(model, o, d, **query):
@@ -207,10 +238,36 @@ def _step_loss(model, o, d, **query):
                                      vb["ridx"] < o.shape[0])
 
 
-def _autograd_nablas(model, x01) -> dict:
-    """The nablas by autograd through `forward_sdf` (B1 want_g forward, B2
-    with dL/dx backward) against `forward_sdf_nablas` (B3) on the same
-    points; returns the launches of the autograd path."""
+def _kernel_row(kernels, *, name, key, path, source, replaces, err, ms,
+                plain_ms, bound, library_ms=None, **extra) -> None:
+    kernels.append(dict(name=name, route="cuda", source=source,
+                        replaces=replaces, key=key, path=path,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound[0], bound_by=bound[1],
+                        library_ms=library_ms, **extra))
+
+
+def _check(label: str, n: int, parts) -> float:
+    """Print and require each (what, err, tol, why) of a kernel phase;
+    returns the largest error."""
+    print(f"[{label}] N={n}: max|kernel-plain| " + "; ".join(
+        f"{what} {err:.3e} (tolerance {tol:.3e}: {why})"
+        for what, err, tol, why in parts))
+    for what, err, tol, _ in parts:
+        _require(err <= tol, f"{label}: {what} disagrees with its plain "
+                 f"version")
+    return max(p[1] for p in parts)
+
+
+def _err(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def _autograd_nablas(model, x01, prefix: str) -> dict:
+    """The nablas by autograd through `forward_sdf` (the want_g encode
+    forward, the encode backward with dL/dx) against `forward_sdf_nablas`
+    (the nablas kernel) on the same points; returns the launches of the
+    autograd path. `prefix` names the kernels (brick4 or brick)."""
     import torch
     from nr3d_lib_tpu_torch.ops import _build
 
@@ -222,18 +279,19 @@ def _autograd_nablas(model, x01) -> dict:
     launches = dict(_build.LAUNCHES)
     with torch.no_grad():
         ref = model.forward_sdf_nablas(x)["nablas"]
-    err = float((nab - ref).abs().max())
+    err = _err(nab, ref)
     tol = 1e-5 + 1e-4 * float(ref.abs().max())
-    print(f"[autograd nablas] {x.shape[0]} points: launches {launches}; "
-          f"max|autograd - split| {err:.3e} (tolerance {tol:.3e}: B2's "
-          f"dL/dx and B3 sum the same terms in another order)")
-    _require(launches == {"brick4_fwd_g": 1, "brick4_bwd": 1},
-             "the autograd nablas did not run B1 want_g and B2 once each")
+    print(f"[{prefix} autograd nablas] {x.shape[0]} points: launches "
+          f"{launches}; max|autograd - split| {err:.3e} (tolerance "
+          f"{tol:.3e}: the encode backward's dL/dx and the nablas kernel "
+          f"sum the same terms in another order)")
+    _require(launches == {f"{prefix}_fwd_g": 1, f"{prefix}_bwd": 1},
+             "the autograd nablas did not run want_g and the backward once")
     _require(err <= tol, "autograd and split nablas disagree")
     return launches
 
 
-def _step_vs_cpu(model, cpu, o, d, cpu_render_s: float) -> None:
+def _step_vs_cpu(model, cpu, o, d, cpu_render_s: float, label: str) -> None:
     """One step's loss and gradients on the card against the CPU port from
     the same weights and uniforms: the card's draws are recorded and
     replayed on the CPU. The ray count is cut when the CPU step, estimated
@@ -246,8 +304,8 @@ def _step_vs_cpu(model, cpu, o, d, cpu_render_s: float) -> None:
     while n > 256 and 3.0 * cpu_render_s * n / N_RAYS > CPU_STEP_BUDGET_S:
         n //= 2
     if n < N_RAYS:
-        print(f"[step vs cpu] cut to {n} of {N_RAYS} rays: the CPU render of "
-              f"{N_RAYS} rays took {cpu_render_s:.1f} s")
+        print(f"[{label} step vs cpu] cut to {n} of {N_RAYS} rays: the CPU "
+              f"render of {N_RAYS} rays took {cpu_render_s:.1f} s")
     draws, base = [], uniform_draw(
         torch.Generator(device=o.device).manual_seed(8))
 
@@ -274,20 +332,20 @@ def _step_vs_cpu(model, cpu, o, d, cpu_render_s: float) -> None:
     gc = to_jax_paths({k: p.grad for k, p in cpu.named_parameters()})
     errs = {k: float(np.linalg.norm(gg[k] - gc[k]) /
                      max(np.linalg.norm(gc[k]), 1e-12)) for k in gc}
-    print(f"[step vs cpu] {n} rays, CPU step {cpu_step_s:.1f} s: loss card "
-          f"{loss_g:.7f} cpu {loss_c:.7f}, relative "
+    print(f"[{label} step vs cpu] {n} rays, CPU step {cpu_step_s:.1f} s: "
+          f"loss card {loss_g:.7f} cpu {loss_c:.7f}, relative "
           f"{rel_loss:.2e} (tolerance 1e-4); gradients, relative L2 per "
           f"tensor (tolerance 1e-2: the render's discrete choices move a "
           f"few rays whole between routes, and atomics sum in another "
           f"order): max {max(errs.values()):.2e}")
     for k, e in sorted(errs.items()):
-        print(f"[step vs cpu]   {k}: {e:.3e}")
+        print(f"[{label} step vs cpu]   {k}: {e:.3e}")
     _require(rel_loss <= 1e-4, "card and CPU step losses disagree")
     _require(max(errs.values()) <= 1e-2, "card and CPU gradients disagree")
     model.zero_grad(set_to_none=True)
 
 
-def _train(model, o, d, smi: str) -> dict:
+def _train(model, o, d, smi: str, prefix: str, label: str) -> dict:
     """The production train step: warm-up, then N_STEPS timed steps that
     cross an occupancy update. Returns the timed steps' launches."""
     import torch
@@ -325,26 +383,481 @@ def _train(model, o, d, smi: str) -> dict:
     med = statistics.median(times)
     q1, _, q3 = statistics.quantiles(times, n=4)
     vals = [float(v) for v in losses]
-    print(f"[train] {N_RAYS} rays x {N_STEPS} steps (it {timed[0]}.."
+    print(f"[{label} train] {N_RAYS} rays x {N_STEPS} steps (it {timed[0]}.."
           f"{timed[-1]}) on {smi}: median {med:.3f} ms/step (quartiles "
           f"{q1:.3f}/{q3:.3f}, min {min(times):.3f}, max {max(times):.3f}) "
           f"-> {N_RAYS / med:.1f} Krays/s | peak memory {peak_mib:.1f} MiB")
-    print(f"[train] loss per step: {' '.join(f'{v:.6f}' for v in vals)}")
-    print(f"[train] launches in the {N_STEPS} timed steps: {launches}")
+    print(f"[{label} train] loss per step: "
+          f"{' '.join(f'{v:.6f}' for v in vals)}")
+    print(f"[{label} train] launches in the {N_STEPS} timed steps: "
+          f"{launches}")
     n_upd = sum(it % model.lifecycle_update_every == 0 for it in timed)
-    expect = {"brick4_fwd": 6 * N_STEPS + n_upd, "brick4_bwd": N_STEPS,
-              "brick4_dydx": N_STEPS, "brick4_bwd2": N_STEPS,
+    expect = {f"{prefix}_fwd": 6 * N_STEPS + n_upd, f"{prefix}_bwd": N_STEPS,
+              f"{prefix}_dydx": N_STEPS, f"{prefix}_bwd2": N_STEPS,
               "gather1d": N_STEPS}
-    print(f"[train] expected: {expect} (6 B1 per step + 1 at each of the "
-          f"{n_upd} occupancy updates)")
+    print(f"[{label} train] expected: {expect} (6 encodes per step + 1 at "
+          f"each of the {n_upd} occupancy updates)")
     _require(launches == expect, "the train step's launches are not exact")
     _require(all(np.isfinite(vals)), "a loss is not finite")
     last5 = float(np.mean(vals[-5:]))
-    print(f"[train] mean loss of the last 5 steps {last5:.6f} vs the first "
-          f"step's {vals[0]:.6f}")
+    print(f"[{label} train] mean loss of the last 5 steps {last5:.6f} vs the "
+          f"first step's {vals[0]:.6f}")
     _require(last5 < vals[0], "the loss did not fall")
-    _profile(step, med, "train step")
+    _profile(step, med, f"{label} train step")
     return launches
+
+
+def _serve(model, cpu_model, o, d, per_render: dict, label: str, smi: str,
+           n_renders: int = N_RENDERS):
+    """Timed renders under no_grad with exact launches per render, all
+    outputs finite, a device profile, and the same rays rendered by the
+    CPU port: ≥ 99% of rays must agree within 1e-4 in rgb and depth.
+    Returns (launches, seconds of the CPU render)."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import _build
+
+    n_rays = o.shape[0]
+
+    def render():
+        return model.ray_query(model.ray_test(o, d))
+
+    with torch.no_grad():
+        render()                                            # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        times = []
+        for _ in range(n_renders):
+            t0 = time.perf_counter()
+            rendered, vb = render()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_build.LAUNCHES)
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        med = statistics.median(times)
+        quart = ""
+        if n_renders > 1:
+            q1, _, q3 = statistics.quantiles(times, n=4)
+            quart = f" (quartiles {q1:.3f}/{q3:.3f}, min {min(times):.3f}, " \
+                f"max {max(times):.3f})"
+        compact = f" | n_compact {int(vb['n_compact'])} of " \
+            f"{vb['valid'].numel()} slots" if "n_compact" in vb else ""
+        print(f"[{label}] {n_rays} rays x {n_renders} renders on {smi}: "
+              f"median {med:.3f} ms/render{quart} -> {n_rays / med:.1f} "
+              f"Krays/s | peak memory {peak_mib:.1f} MiB{compact}")
+        print(f"[{label}] launches in the {n_renders} timed renders: "
+              f"{launches}")
+        expect = {k: v * n_renders for k, v in per_render.items()}
+        _require(launches == expect, f"{label}: launches {launches}, "
+                 f"expected {expect}")
+        for k, v in rendered.items():
+            _require(bool(torch.isfinite(v).all()), f"{k} is not finite")
+        mask_mean = float(rendered["mask_volume"].mean())
+        print(f"[{label}] all outputs finite; mean mask_volume "
+              f"{mask_mean:.4f}")
+        _require(mask_mean > 0.1, "the render is trivially empty")
+        _profile(render, med, label)
+
+        cpu_model.ray_query_cfg = dict(model.ray_query_cfg)
+        t0 = time.perf_counter()
+        r_cpu, _ = cpu_model.ray_query(cpu_model.ray_test(o.cpu(), d.cpu()))
+        cpu_s = time.perf_counter() - t0
+    ok = torch.ones(n_rays, dtype=torch.bool)
+    errs = []
+    for k in ("rgb_volume", "depth_volume"):
+        e = (rendered[k].cpu() - r_cpu[k]).abs().reshape(n_rays, -1)
+        e = e.amax(-1)
+        errs.append(e)
+        ok &= e <= 1e-4
+    e_max = torch.stack(errs).amax(0)
+    share = float(ok.float().mean())
+    print(f"[{label}] GPU vs CPU port ({cpu_s:.1f} s on the CPU): "
+          f"{share * 100:.2f}% of rays agree within 1e-4 on rgb and depth "
+          f"({float((e_max <= 1e-3).float().mean()) * 100:.2f}% within "
+          f"1e-3; max {float(e_max.max()):.3e})")
+    _require(share >= 0.99, f"{label}: GPU and CPU renders disagree")
+    return launches, cpu_s
+
+
+def _f4_kernel_phases(model, o, d, kernels) -> "torch.Tensor":
+    """Slices 1 and 2: B1, B3, B5 at the serving render's shapes; B1 want_g,
+    B2 and B4 at the train step's. Returns the step's 147,456 points."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import gather1d as G
+    from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
+    from nr3d_lib_tpu_torch.ops import occgrid_march as OM
+
+    src = "nr3d_lib_tpu_torch/csrc/brick4.cu"
+    rep = "nr3d_lib_tpu/ops/lotd_brick4.py"
+    dev = o.device
+    enc = model.field.implicit_surface.encoding
+    meta = enc.meta
+    with torch.no_grad():
+        table = enc._build_table()
+        packed = B4.pack_table4(table)
+        table_bytes = packed.numel() * 4
+        L = meta.n_levels
+
+        # ------------------------------------------------ B1 brick4_fwd
+        x1 = _ray_points(o, d, 144, seed=2)              # 589,824 points
+        n = x1.shape[0]
+        y_p = B4.brick4_encode_xla(x1, table, meta)
+        err = _check(f"B1 brick4_fwd, L={L}", n, [(
+            "y", _err(B4.brick4_encode(x1, table, meta), y_p),
+            1e-5 + 1e-5 * float(y_p.abs().max()),
+            "8-term sums in another order")])
+        ms = _time_ms(lambda: B4._fwd_cuda(x1, packed, meta))
+        plain_ms = _time_ms(lambda: B4.brick4_encode_xla(x1, table, meta),
+                            iters=5)
+        # each (point, level): 8 corners × (2 weight muls + 4 FMAs) + 3 axes
+        # × 4 (scale, offset, floor, frac) → 92 float ops
+        bound = _bound(n * (12 + 16 * L) + table_bytes, n * L * 92)
+        print(f"[B1 brick4_fwd] kernel {ms:.4f} ms | plain {plain_ms:.4f} ms"
+              f" | bound {bound[0]:.4f} ms ({bound[1]}) | library: none")
+        _kernel_row(kernels, name="brick4_fwd (B1)", key="brick4_fwd",
+                    path="f4 render", source=src, replaces=f"{rep}:172",
+                    err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+
+        # ----------------------------------------------- B3 brick4_dydx
+        x3 = _ray_points(o, d, 36, seed=3)               # 147,456 points
+        n = x3.shape[0]
+        g3 = torch.randn(n, 4 * L, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+        n_p = B4.brick4_nablas_xla(g3, x3, table, meta)
+        err = _check("B3 brick4_dydx", n, [(
+            "nablas", _err(B4.brick4_nablas(g3, x3, table, meta), n_p),
+            1e-4 + 1e-4 * float(n_p.abs().max()),
+            f"sums over 8 corners × 4 feats × {L} levels, scaled by res-2, "
+            f"in another order")])
+        ms = _time_ms(lambda: B4._dydx_cuda(g3, x3, packed, meta))
+        plain_ms = _time_ms(lambda: B4.brick4_nablas_xla(g3, x3, table, meta),
+                            iters=5)
+        # each (point, level): 8 corners × (7 for g·val + 3 axes × 3) +
+        # 3 axes × 4 index ops + 3 scale FMAs → 146 float ops
+        bound = _bound(n * (12 + 16 * L + 12) + table_bytes, n * L * 146)
+        print(f"[B3 brick4_dydx] kernel {ms:.4f} ms | plain {plain_ms:.4f} "
+              f"ms | bound {bound[0]:.4f} ms ({bound[1]}) | library: none")
+        _kernel_row(kernels, name="brick4_dydx (B3)", key="brick4_dydx",
+                    path="f4 render", source=src, replaces=f"{rep}:803",
+                    err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+
+        # ---------------------------------------------------- B5 gather1d
+        rt = model.ray_test(o, d)
+        o_n, d_n = model.space.normalize_rays(o, d)
+        t5, _, _ = OM.march_steps(rt["near"], rt["far"], 96, 2.0 / 96)
+        xs = [o_n[:, None, a] + d_n[:, None, a] * t5 for a in range(3)]
+        row, lane, _ = OM.grid_rows_lanes((64, 64, 64), *xs)
+        row, lane = row.reshape(-1).contiguous(), lane.reshape(-1).contiguous()
+        values = model.accel.occ.occ().reshape(4096, 64).to(torch.float32)
+        n = row.numel()
+        err = _check(f"B5 gather1d, table {tuple(values.shape)}", n, [(
+            "values", _err(G.gather_rows_lanes(values, row, lane),
+                           G.gather_rows_lanes_plain(values, row, lane)),
+            0.0, "a copy")])
+        ms = _time_ms(lambda: G.gather_rows_lanes(values, row, lane))
+        plain_ms = _time_ms(
+            lambda: G.gather_rows_lanes_plain(values, row, lane))
+        rl, ll = row.long(), lane.long()
+        library_ms = _time_ms(lambda: values[rl, ll])
+        bound = _bound(n * 12 + values.numel() * 4, 0)
+        print(f"[B5 gather1d] kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+              f"values[row, lane] {library_ms:.4f} ms | bound "
+              f"{bound[0]:.4f} ms ({bound[1]})")
+        _kernel_row(kernels, name="gather1d (B5)", key="gather1d",
+                    path="f4 render",
+                    source="nr3d_lib_tpu_torch/csrc/gather1d.cu",
+                    replaces="nr3d_lib_tpu/ops/gather1d.py:30", err=err,
+                    ms=ms, plain_ms=plain_ms, bound=bound,
+                    library_ms=library_ms)
+
+        # --------------------- training kernels at the step's 147,456 points
+        n = x3.shape[0]
+        gen_k = torch.Generator(device=dev).manual_seed(6)
+        g2 = torch.randn(n, 4 * L, device=dev, generator=gen_k)
+        gg4 = torch.randn(n, 3, device=dev, generator=gen_k)
+        dtab_bytes = meta.total_rows * 256 * 4       # the zeroed f32 output
+
+        # B1 with want_g: y and the corner words B2 reads back for dL/dx
+        y_k, words = B4._fwd_cuda(x3, packed, meta, want_g=True)
+        y_p = B4.brick4_encode_xla(x3, table, meta)
+        words_ok = bool(torch.equal(
+            words, B4.brick4_corner_words_xla(x3, table, meta)))
+        err = _check("B1 want_g brick4_fwd_g", n, [
+            ("y", _err(y_k, y_p), 1e-5 + 1e-5 * float(y_p.abs().max()),
+             "as B1"),
+            ("corner words", 0.0 if words_ok else float("inf"), 0.0,
+             "a copy")])
+        ms = _time_ms(lambda: B4._fwd_cuda(x3, packed, meta, want_g=True))
+        plain_ms = _time_ms(lambda: (
+            B4.brick4_encode_xla(x3, table, meta),
+            B4.brick4_corner_words_xla(x3, table, meta)), iters=5)
+        # B1's bytes and operations plus 8 corners × 8 B of words per level
+        bound = _bound(n * (12 + 16 * L + 64 * L) + table_bytes, n * L * 92)
+        print(f"[B1 want_g brick4_fwd_g] kernel {ms:.4f} ms | plain "
+              f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}) | "
+              f"library: none")
+        _kernel_row(kernels, name="brick4_fwd want_g (B1)",
+                    key="brick4_fwd_g", path="f4 autograd nablas",
+                    source=src, replaces=f"{rep}:172", err=err, ms=ms,
+                    plain_ms=plain_ms, bound=bound)
+
+        # B2: dL/dtable by float4 atomics; dL/dx from the want_g words
+        dx_p, dtab_p = B4.brick4_encode_bwd_xla(x3, table, g2, meta, True)
+        _, dtab_k = B4._bwd_cuda(x3, g2, meta, need_dx=False)
+        dx_k, dtab_k2 = B4._bwd_cuda(x3, g2, meta, need_dx=True, words=words)
+        err = _check("B2 brick4_bwd", n, [
+            ("dL/dtable", max(_err(dtab_k, dtab_p), _err(dtab_k2, dtab_p)),
+             1e-6 + 1e-5 * float(dtab_p.abs().max()),
+             "~150 terms per dense slot summed by atomics in an order that "
+             "changes from run to run"),
+            ("dL/dx", _err(dx_k, dx_p), 1e-4 + 1e-4 * float(dx_p.abs().max()),
+             "sums over corners, feats and levels scaled by res-2")])
+        ms = _time_ms(lambda: B4._bwd_cuda(x3, g2, meta, need_dx=False))
+        ms_dx = _time_ms(lambda: B4._bwd_cuda(x3, g2, meta, need_dx=True,
+                                              words=words))
+        plain_ms = _time_ms(lambda: B4.brick4_encode_bwd_xla(
+            x3, table, g2, meta, False), iters=5)
+        plain_dx = _time_ms(lambda: B4.brick4_encode_bwd_xla(
+            x3, table, g2, meta, True), iters=5)
+        # each (point, level): 12 index ops + 8 corners × (2 weight muls +
+        # 4 products + 4 adds) = 92; with dL/dx + 8 × (7 for g·val + 9)
+        bound = _bound(n * (12 + 16 * L) + dtab_bytes, n * L * 92)
+        bound_dx = _bound(n * (12 + 16 * L + 64 * L + 12) + dtab_bytes,
+                          n * L * (92 + 128))
+        print(f"[B2 brick4_bwd] need_dx false (the step's form): kernel "
+              f"{ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); need_dx true: kernel "
+              f"{ms_dx:.4f} ms | plain {plain_dx:.4f} ms | bound "
+              f"{bound_dx[0]:.4f} ms ({bound_dx[1]}) | library: none")
+        _kernel_row(kernels, name="brick4_bwd (B2)", key="brick4_bwd",
+                    path="f4 train step", source=src, replaces=f"{rep}:380",
+                    err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                    ms_need_dx=ms_dx, plain_ms_need_dx=plain_dx,
+                    bound_ms_need_dx=bound_dx[0])
+
+        # B4: the nablas' backward
+        dg_p, dx4_p, dt4_p = B4.brick4_nablas_bwd_xla(g2, x3, table, gg4,
+                                                      meta)
+        dg_k, dx4_k, dt4_k = B4._bwd2_cuda(g2, x3, packed, gg4, meta)
+        _, none_dx, dt4_k2 = B4._bwd2_cuda(g2, x3, packed, gg4, meta,
+                                           need_dx=False)
+        _require(none_dx is None, "B4 wrote dL/dx without need_dx")
+        err = _check("B4 brick4_bwd2", n, [
+            ("dL/dg_up", _err(dg_k, dg_p),
+             1e-4 + 1e-4 * float(dg_p.abs().max()),
+             "sums over corners scaled by res-2 in another order"),
+            ("dL/dx", _err(dx4_k, dx4_p),
+             1e-4 + 1e-4 * float(dx4_p.abs().max()),
+             "sums over corners scaled by (res-2)^2 in another order"),
+            ("dL/dtable", max(_err(dt4_k, dt4_p), _err(dt4_k2, dt4_p)),
+             1e-6 + 1e-5 * float(dt4_p.abs().max()),
+             "atomics, order changes from run to run")])
+        ms = _time_ms(lambda: B4._bwd2_cuda(g2, x3, packed, gg4, meta,
+                                            need_dx=False))
+        ms_dx = _time_ms(lambda: B4._bwd2_cuda(g2, x3, packed, gg4, meta))
+        plain_ms = _time_ms(lambda: B4.brick4_nablas_bwd_xla(
+            g2, x3, table, gg4, meta), iters=5)
+        # each (point, level): 18 index/scale ops + 8 corners × (11 for c_k
+        # + 8 for dL/dg_up + 8 for dL/dtable) = 234; dL/dx + 8 × 25
+        io = n * (16 * L + 12 + 12 + 16 * L) + table_bytes + dtab_bytes
+        bound = _bound(io, n * L * 234)
+        bound_dx = _bound(io + n * 12, n * L * 434)
+        print(f"[B4 brick4_bwd2] need_dx false (the step's form): kernel "
+              f"{ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}); need_dx "
+              f"true: kernel {ms_dx:.4f} ms | bound {bound_dx[0]:.4f} ms "
+              f"({bound_dx[1]}); plain (all three gradients) {plain_ms:.4f}"
+              f" ms | library: none")
+        _kernel_row(kernels, name="brick4_bwd2 (B4)", key="brick4_bwd2",
+                    path="f4 train step", source=src, replaces=f"{rep}:875",
+                    err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                    ms_need_dx=ms_dx, bound_ms_need_dx=bound_dx[0])
+    return x3
+
+
+def _f2_kernel_phases(nerf, neus, o8, d8, o, d, kernels) -> "torch.Tensor":
+    """Slice 3: B6 at the NeRF render's and the NeuS render's shapes; B6
+    want_g, B7, B8 and B9 at the NeuS train step's 147,456 points × 4
+    levels. Returns those points."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import lotd_brick as B
+
+    src = "nr3d_lib_tpu_torch/csrc/brick.cu"
+    rep = "nr3d_lib_tpu/ops/lotd_brick.py"
+    dev = o.device
+    with torch.no_grad():
+        # ------------------------------------------------- B6 brick_fwd
+        shapes = []
+        for what, enc, x in (
+                ("NeRF render", nerf.field.encoding,
+                 _ray_points(o8, d8, 24, seed=12)),        # 196,608 points
+                ("NeuS render", neus.field.implicit_surface.encoding,
+                 _ray_points(o, d, 144, seed=13))):        # 589,824 points
+            meta, table = enc.meta, enc._build_table()
+            n, L = x.shape[0], meta.n_levels
+            y_p = B.brick_encode_xla(x, table, meta)
+            err = _check(f"B6 brick_fwd, {what}, L={L}", n, [(
+                "y", _err(B.brick_encode(x, table, meta), y_p),
+                1e-5 + 1e-5 * float(y_p.abs().max()),
+                "8-term sums in another order")])
+            ms = _time_ms(lambda: B._fwd_cuda(x, table, meta))
+            plain_ms = _time_ms(lambda: B.brick_encode_xla(x, table, meta),
+                                iters=5)
+            # each (point, level): 3 axes × 4 index ops + 8 corners × (2
+            # weight muls + 2 FMAs) → 60 float ops
+            bound = _bound(n * (12 + 8 * L) + table.numel() * 4, n * L * 60)
+            print(f"[B6 brick_fwd, {what}] kernel {ms:.4f} ms | plain "
+                  f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]})"
+                  f" | library: none")
+            shapes.append(dict(n=n, levels=L, err=err, ms=ms,
+                               plain_ms=plain_ms, bound=bound))
+        a, b = shapes
+        _kernel_row(kernels, name="brick_fwd (B6)", key="brick_fwd",
+                    path="nerf render", source=src, replaces=f"{rep}:440",
+                    err=max(a["err"], b["err"]), ms=a["ms"],
+                    plain_ms=a["plain_ms"], bound=a["bound"], n_points=a["n"],
+                    ms_neus_render=b["ms"], plain_ms_neus_render=b["plain_ms"],
+                    bound_ms_neus_render=b["bound"][0],
+                    n_points_neus_render=b["n"])
+
+        # ------------------ the NeuS train step's shapes (147,456 × 4)
+        enc = neus.field.implicit_surface.encoding
+        meta, table = enc.meta, enc._build_table()
+        x3 = _ray_points(o, d, 36, seed=14)
+        n, L = x3.shape[0], meta.n_levels
+        gen = torch.Generator(device=dev).manual_seed(15)
+        g2 = torch.randn(n, 2 * L, device=dev, generator=gen)
+        gg = torch.randn(n, 3, device=dev, generator=gen)
+        tab_bytes = table.numel() * 4      # = the zeroed f32 gradient's
+
+        # B6 want_g: y and the corner values B7 reads back for dL/dx
+        y_k, corners = B._fwd_cuda(x3, table, meta, want_g=True)
+        y_p = B.brick_encode_xla(x3, table, meta)
+        c_ok = bool(torch.equal(corners,
+                                B.brick_corner_values_xla(x3, table, meta)))
+        err = _check("B6 want_g brick_fwd_g", n, [
+            ("y", _err(y_k, y_p), 1e-5 + 1e-5 * float(y_p.abs().max()),
+             "as B6"),
+            ("corner values", 0.0 if c_ok else float("inf"), 0.0,
+             "a copy")])
+        ms = _time_ms(lambda: B._fwd_cuda(x3, table, meta, want_g=True))
+        plain_ms = _time_ms(lambda: (
+            B.brick_encode_xla(x3, table, meta),
+            B.brick_corner_values_xla(x3, table, meta)), iters=5)
+        # B6's bytes and operations plus 8 corners × 8 B per level
+        bound = _bound(n * (12 + 8 * L + 64 * L) + tab_bytes, n * L * 60)
+        print(f"[B6 want_g brick_fwd_g] kernel {ms:.4f} ms | plain "
+              f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}) | "
+              f"library: none")
+        _kernel_row(kernels, name="brick_fwd want_g (B6)", key="brick_fwd_g",
+                    path="f2 autograd nablas", source=src,
+                    replaces=f"{rep}:440", err=err, ms=ms, plain_ms=plain_ms,
+                    bound=bound)
+
+        # B7: dL/dtable by float2 atomics; dL/dx from the want_g corners
+        dx_p, dtab_p = B.brick_encode_bwd_xla(x3, table, g2, meta, True)
+        _, dtab_k = B._bwd_cuda(x3, g2, meta, need_dx=False)
+        dx_k, dtab_k2 = B._bwd_cuda(x3, g2, meta, need_dx=True,
+                                    corners=corners)
+        err = _check("B7 brick_bwd", n, [
+            ("dL/dtable", max(_err(dtab_k, dtab_p), _err(dtab_k2, dtab_p)),
+             1e-6 + 1e-5 * float(dtab_p.abs().max()),
+             "hundreds of terms per dense slot summed by atomics in an "
+             "order that changes from run to run"),
+            ("dL/dx", _err(dx_k, dx_p), 1e-4 + 1e-4 * float(dx_p.abs().max()),
+             "sums over corners, features and levels scaled by res-2")])
+        ms = _time_ms(lambda: B._bwd_cuda(x3, g2, meta, need_dx=False))
+        ms_dx = _time_ms(lambda: B._bwd_cuda(x3, g2, meta, need_dx=True,
+                                             corners=corners))
+        plain_ms = _time_ms(lambda: B.brick_encode_bwd_xla(
+            x3, table, g2, meta, False), iters=5)
+        plain_dx = _time_ms(lambda: B.brick_encode_bwd_xla(
+            x3, table, g2, meta, True), iters=5)
+        # each (point, level): 12 index ops + 8 corners × (2 weight muls +
+        # 2 products) = 44; with dL/dx + 8 × (3 for g·val + 9) = 140
+        bound = _bound(n * (12 + 8 * L) + tab_bytes, n * L * 44)
+        bound_dx = _bound(n * (12 + 8 * L + 64 * L + 12) + tab_bytes,
+                          n * L * 140)
+        print(f"[B7 brick_bwd] need_dx false (the step's form): kernel "
+              f"{ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); need_dx true: kernel "
+              f"{ms_dx:.4f} ms | plain {plain_dx:.4f} ms | bound "
+              f"{bound_dx[0]:.4f} ms ({bound_dx[1]}) | library: none")
+        _kernel_row(kernels, name="brick_bwd (B7)", key="brick_bwd",
+                    path="f2 train step", source=src, replaces=f"{rep}:787",
+                    err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                    ms_need_dx=ms_dx, plain_ms_need_dx=plain_dx,
+                    bound_ms_need_dx=bound_dx[0])
+
+        # B8: the nablas
+        n_p = B.brick_nablas_xla(g2, x3, table, meta)
+        err = _check("B8 brick_dydx", n, [(
+            "nablas", _err(B.brick_nablas(g2, x3, table, meta), n_p),
+            1e-4 + 1e-4 * float(n_p.abs().max()),
+            f"sums over 8 corners × 2 feats × {L} levels, scaled by res-2, "
+            f"in another order")])
+        ms = _time_ms(lambda: B._dydx_cuda(g2, x3, table, meta))
+        plain_ms = _time_ms(lambda: B.brick_nablas_xla(g2, x3, table, meta),
+                            iters=5)
+        # each (point, level): 12 index ops + 8 corners × (3 for g·val + 9)
+        # + 3 scale FMAs → 111 float ops
+        bound = _bound(n * (12 + 8 * L + 12) + tab_bytes, n * L * 111)
+        print(f"[B8 brick_dydx] kernel {ms:.4f} ms | plain {plain_ms:.4f} ms"
+              f" | bound {bound[0]:.4f} ms ({bound[1]}) | library: none")
+        _kernel_row(kernels, name="brick_dydx (B8)", key="brick_dydx",
+                    path="f2 render", source=src, replaces=f"{rep}:992",
+                    err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+
+        # B9: the nablas' backward
+        dg_p, dx_p, dt_p = B.brick_nablas_bwd_xla(g2, x3, table, gg, meta)
+        dg_k, dx_k, dt_k = B._bwd2_cuda(g2, x3, table, gg, meta)
+        _, none_dx, dt_k2 = B._bwd2_cuda(g2, x3, table, gg, meta,
+                                         need_dx=False)
+        _require(none_dx is None, "B9 wrote dL/dx without need_dx")
+        err = _check("B9 brick_bwd2", n, [
+            ("dL/dg_up", _err(dg_k, dg_p),
+             1e-4 + 1e-4 * float(dg_p.abs().max()),
+             "sums over corners scaled by res-2 in another order"),
+            ("dL/dx", _err(dx_k, dx_p), 1e-4 + 1e-4 * float(dx_p.abs().max()),
+             "sums over corners scaled by (res-2)^2 in another order"),
+            ("dL/dtable", max(_err(dt_k, dt_p), _err(dt_k2, dt_p)),
+             1e-6 + 1e-5 * float(dt_p.abs().max()),
+             "atomics, order changes from run to run")])
+        ms = _time_ms(lambda: B._bwd2_cuda(g2, x3, table, gg, meta,
+                                           need_dx=False))
+        ms_dx = _time_ms(lambda: B._bwd2_cuda(g2, x3, table, gg, meta))
+        plain_ms = _time_ms(lambda: B.brick_nablas_bwd_xla(
+            g2, x3, table, gg, meta), iters=5)
+        # each (point, level): 18 index/scale ops + 8 corners × (11 for c_k
+        # + 4 for dL/dg_up + 4 for dL/dtable) = 170; dL/dx + 8 × 25
+        io = n * (8 * L + 12 + 12 + 8 * L) + 2 * tab_bytes
+        bound = _bound(io, n * L * 170)
+        bound_dx = _bound(io + n * 12, n * L * 370)
+        print(f"[B9 brick_bwd2] need_dx false (the step's form): kernel "
+              f"{ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}); need_dx "
+              f"true: kernel {ms_dx:.4f} ms | bound {bound_dx[0]:.4f} ms "
+              f"({bound_dx[1]}); plain (all three gradients) {plain_ms:.4f}"
+              f" ms | library: none")
+        _kernel_row(kernels, name="brick_bwd2 (B9)", key="brick_bwd2",
+                    path="f2 train step", source=src, replaces=f"{rep}:1077",
+                    err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                    ms_need_dx=ms_dx, bound_ms_need_dx=bound_dx[0])
+    return x3
+
+
+def _seed_occupancy(model) -> None:
+    """A seeded 15% occupancy grid (experiments/bench_render.py seeds the
+    same share, so the compressed paths have real sparsity)."""
+    import torch
+
+    occ = np.random.default_rng(5).uniform(size=(64, 64, 64)) < 0.15
+    model.accel.occ.val_grid.copy_(torch.from_numpy(occ.astype(np.float32)))
+
+
+def _cpu_twin(model, cls, cfg):
+    """The same model on the CPU (plain versions), from the same state."""
+    cpu = cls(**cfg, seed=0, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return cpu
 
 
 def main() -> int:
@@ -362,11 +875,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel
+    from nr3d_lib_tpu_torch.models.model_base import (LoTDNeRFModel,
+                                                      LoTDNeuSModel)
     from nr3d_lib_tpu_torch.ops import _build
-    from nr3d_lib_tpu_torch.ops import gather1d as G
-    from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
-    from nr3d_lib_tpu_torch.ops import occgrid_march as OM
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -388,310 +899,74 @@ def main() -> int:
                                        "spill", "(cached)")):
                 print(f"[build] {name}: {line.strip()}")
 
-    # ----------------------------------------------------------- model
-    model = LoTDNeuSModel(**PROD_CFG, seed=0)
-    _set_weights(model, seed=1)
-    t0 = time.perf_counter()
-    model.populate()
-    torch.cuda.synchronize()
-    print(f"[populate] occupancy init from the field at 64^3 cell centers: "
-          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
-    occ_np = np.random.default_rng(5).uniform(size=(64, 64, 64)) < 0.15
-    model.accel.occ.val_grid.copy_(torch.from_numpy(occ_np.astype(np.float32)))
-    enc = model.field.implicit_surface.encoding
-    meta = enc.meta
-    o_np, d_np = _rays(N_RAYS, seed=0)
-    o, d = torch.from_numpy(o_np).to(dev), torch.from_numpy(d_np).to(dev)
-    kernels = []
-
-    with torch.no_grad():
-        table = enc._build_table()
-        packed = B4.pack_table4(table)
-        table_bytes = packed.numel() * 4
-        L = meta.n_levels
-
-        # ------------------------------------------------ B1 brick4_fwd
-        x1 = _ray_points(o, d, 144, seed=2)              # 589,824 points
-        y_k = B4.brick4_encode(x1, table, meta)
-        y_p = B4.brick4_encode_xla(x1, table, meta)
-        err = float((y_k - y_p).abs().max())
-        tol = 1e-5 + 1e-5 * float(y_p.abs().max())
-        print(f"[B1 brick4_fwd] N={x1.shape[0]} L={L}: max|kernel-plain| "
-              f"{err:.3e} (tolerance {tol:.3e}: 8-term sums in another "
-              f"order)")
-        _require(err <= tol, "B1 disagrees with its plain version")
-        n = x1.shape[0]
-        ms = _time_ms(lambda: B4._fwd_cuda(x1, packed, meta))
-        plain_ms = _time_ms(lambda: B4.brick4_encode_xla(x1, table, meta),
-                            iters=5)
-        # each (point, level): 8 corners × (2 weight muls + 4 FMAs) + 3 axes
-        # × 4 (scale, offset, floor, frac) → 92 float ops
-        bound_ms, bound_by = _bound(n * (12 + 16 * L) + table_bytes,
-                                    n * L * 92)
-        print(f"[B1 brick4_fwd] kernel {ms:.4f} ms | plain {plain_ms:.4f} ms"
-              f" | bound {bound_ms:.4f} ms ({bound_by}) | library: none")
-        kernels.append(dict(
-            name="brick4_fwd (B1)", route="cuda",
-            source="nr3d_lib_tpu_torch/csrc/brick4.cu",
-            replaces="nr3d_lib_tpu/ops/lotd_brick4.py:172",
-            key="brick4_fwd", path="render", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
-
-        # ----------------------------------------------- B3 brick4_dydx
-        x3 = _ray_points(o, d, 36, seed=3)               # 147,456 points
-        g3 = torch.randn(x3.shape[0], 4 * L, device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(4))
-        n_k = B4.brick4_nablas(g3, x3, table, meta)
-        n_p = B4.brick4_nablas_xla(g3, x3, table, meta)
-        err = float((n_k - n_p).abs().max())
-        tol = 1e-4 + 1e-4 * float(n_p.abs().max())
-        print(f"[B3 brick4_dydx] N={x3.shape[0]}: max|kernel-plain| "
-              f"{err:.3e} (tolerance {tol:.3e}: sums over 8 corners × 4 "
-              f"feats × {L} levels, scaled by res-2, in another order)")
-        _require(err <= tol, "B3 disagrees with its plain version")
-        n = x3.shape[0]
-        ms = _time_ms(lambda: B4._dydx_cuda(g3, x3, packed, meta))
-        plain_ms = _time_ms(lambda: B4.brick4_nablas_xla(g3, x3, table, meta),
-                            iters=5)
-        # each (point, level): 8 corners × (7 for g·val + 3 axes × 3) +
-        # 3 axes × 4 index ops + 3 scale FMAs → 146 float ops
-        bound_ms, bound_by = _bound(n * (12 + 16 * L + 12) + table_bytes,
-                                    n * L * 146)
-        print(f"[B3 brick4_dydx] kernel {ms:.4f} ms | plain {plain_ms:.4f} "
-              f"ms | bound {bound_ms:.4f} ms ({bound_by}) | library: none")
-        kernels.append(dict(
-            name="brick4_dydx (B3)", route="cuda",
-            source="nr3d_lib_tpu_torch/csrc/brick4.cu",
-            replaces="nr3d_lib_tpu/ops/lotd_brick4.py:803",
-            key="brick4_dydx", path="render", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
-
-        # ---------------------------------------------------- B5 gather1d
-        rt = model.ray_test(o, d)
-        o_n, d_n = model.space.normalize_rays(o, d)
-        t5, _, _ = OM.march_steps(rt["near"], rt["far"], 96, 2.0 / 96)
-        xs = [o_n[:, None, a] + d_n[:, None, a] * t5 for a in range(3)]
-        row, lane, _ = OM.grid_rows_lanes((64, 64, 64), *xs)
-        row, lane = row.reshape(-1).contiguous(), lane.reshape(-1).contiguous()
-        values = model.accel.occ.occ().reshape(4096, 64).to(torch.float32)
-        v_k = G.gather_rows_lanes(values, row, lane)
-        v_p = G.gather_rows_lanes_plain(values, row, lane)
-        err = float((v_k - v_p).abs().max())
-        print(f"[B5 gather1d] N={row.numel()} table {tuple(values.shape)}: "
-              f"max|kernel-plain| {err:.3e} (tolerance 0: a copy)")
-        _require(err == 0.0, "B5 disagrees with its plain version")
-        n = row.numel()
-        ms = _time_ms(lambda: G.gather_rows_lanes(values, row, lane))
-        plain_ms = _time_ms(
-            lambda: G.gather_rows_lanes_plain(values, row, lane))
-        rl, ll = row.long(), lane.long()
-        library_ms = _time_ms(lambda: values[rl, ll])
-        bound_ms, bound_by = _bound(n * 12 + values.numel() * 4, 0)
-        print(f"[B5 gather1d] kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-              f"values[row, lane] {library_ms:.4f} ms | bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
-        kernels.append(dict(
-            name="gather1d (B5)", route="cuda",
-            source="nr3d_lib_tpu_torch/csrc/gather1d.cu",
-            replaces="nr3d_lib_tpu/ops/gather1d.py:30",
-            key="gather1d", path="render", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
-
-        # ------------------------ training kernels at the step's 147,456 points
-        n = x3.shape[0]
-        gen_k = torch.Generator(device=dev).manual_seed(6)
-        g2 = torch.randn(n, 4 * L, device=dev, generator=gen_k)
-        gg4 = torch.randn(n, 3, device=dev, generator=gen_k)
-        dtab_bytes = meta.total_rows * 256 * 4       # the zeroed f32 output
-
-        # B1 with want_g: y and the corner words B2 reads back for dL/dx
-        y_k, words = B4._fwd_cuda(x3, packed, meta, want_g=True)
-        y_p = B4.brick4_encode_xla(x3, table, meta)
-        err = float((y_k - y_p).abs().max())
-        tol = 1e-5 + 1e-5 * float(y_p.abs().max())
-        words_ok = bool(torch.equal(words,
-                                    B4.brick4_corner_words_xla(x3, table,
-                                                               meta)))
-        print(f"[B1 want_g brick4_fwd_g] N={n}: max|kernel-plain| {err:.3e} "
-              f"(tolerance {tol:.3e}, as B1); corner words equal: "
-              f"{words_ok} (tolerance 0: a copy)")
-        _require(err <= tol and words_ok,
-                 "B1 want_g disagrees with its plain version")
-        ms = _time_ms(lambda: B4._fwd_cuda(x3, packed, meta, want_g=True))
-        plain_ms = _time_ms(lambda: (
-            B4.brick4_encode_xla(x3, table, meta),
-            B4.brick4_corner_words_xla(x3, table, meta)), iters=5)
-        # B1's bytes and operations plus 8 corners × 8 B of words per level
-        bound_ms, bound_by = _bound(n * (12 + 16 * L + 64 * L) + table_bytes,
-                                    n * L * 92)
-        print(f"[B1 want_g brick4_fwd_g] kernel {ms:.4f} ms | plain "
-              f"{plain_ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}) | "
-              f"library: none")
-        kernels.append(dict(
-            name="brick4_fwd want_g (B1)", route="cuda",
-            source="nr3d_lib_tpu_torch/csrc/brick4.cu",
-            replaces="nr3d_lib_tpu/ops/lotd_brick4.py:172",
-            key="brick4_fwd_g", path="autograd nablas", max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None))
-
-        # B2: dL/dtable by float4 atomics; dL/dx from the want_g words
-        dx_p, dtab_p = B4.brick4_encode_bwd_xla(x3, table, g2, meta, True)
-        _, dtab_k = B4._bwd_cuda(x3, g2, meta, need_dx=False)
-        dx_k, dtab_k2 = B4._bwd_cuda(x3, g2, meta, need_dx=True, words=words)
-        err_t = max(float((dtab_k - dtab_p).abs().max()),
-                    float((dtab_k2 - dtab_p).abs().max()))
-        tol_t = 1e-6 + 1e-5 * float(dtab_p.abs().max())
-        err_x = float((dx_k - dx_p).abs().max())
-        tol_x = 1e-4 + 1e-4 * float(dx_p.abs().max())
-        print(f"[B2 brick4_bwd] N={n}: max|kernel-plain| dL/dtable "
-              f"{err_t:.3e} (tolerance {tol_t:.3e}: ~150 terms per dense "
-              f"slot summed by atomics in an order that changes from run to "
-              f"run), dL/dx {err_x:.3e} (tolerance {tol_x:.3e}: sums over "
-              f"corners, feats and levels scaled by res-2)")
-        _require(err_t <= tol_t and err_x <= tol_x,
-                 "B2 disagrees with its plain version")
-        ms = _time_ms(lambda: B4._bwd_cuda(x3, g2, meta, need_dx=False))
-        ms_dx = _time_ms(lambda: B4._bwd_cuda(x3, g2, meta, need_dx=True,
-                                              words=words))
-        plain_ms = _time_ms(lambda: B4.brick4_encode_bwd_xla(
-            x3, table, g2, meta, False), iters=5)
-        plain_ms_dx = _time_ms(lambda: B4.brick4_encode_bwd_xla(
-            x3, table, g2, meta, True), iters=5)
-        # each (point, level): 12 index ops + 8 corners × (2 weight muls +
-        # 4 products + 4 adds) = 92; with dL/dx + 8 × (7 for g·val + 9)
-        bound_ms, bound_by = _bound(n * (12 + 16 * L) + dtab_bytes,
-                                    n * L * 92)
-        bound_dx, bound_dx_by = _bound(
-            n * (12 + 16 * L + 64 * L + 12) + dtab_bytes, n * L * (92 + 128))
-        print(f"[B2 brick4_bwd] need_dx false (the step's form): kernel "
-              f"{ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound_ms:.4f}"
-              f" ms ({bound_by}); need_dx true: kernel {ms_dx:.4f} ms | "
-              f"plain {plain_ms_dx:.4f} ms | bound {bound_dx:.4f} ms "
-              f"({bound_dx_by}) | library: none")
-        kernels.append(dict(
-            name="brick4_bwd (B2)", route="cuda",
-            source="nr3d_lib_tpu_torch/csrc/brick4.cu",
-            replaces="nr3d_lib_tpu/ops/lotd_brick4.py:380",
-            key="brick4_bwd", path="train step", max_abs_err=max(err_t, err_x),
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None, ms_need_dx=ms_dx, plain_ms_need_dx=plain_ms_dx,
-            bound_ms_need_dx=bound_dx))
-
-        # B4: the nablas' backward
-        dg_p, dx4_p, dt4_p = B4.brick4_nablas_bwd_xla(g2, x3, table, gg4,
-                                                      meta)
-        dg_k, dx4_k, dt4_k = B4._bwd2_cuda(g2, x3, packed, gg4, meta)
-        _, none_dx, dt4_k2 = B4._bwd2_cuda(g2, x3, packed, gg4, meta,
-                                           need_dx=False)
-        _require(none_dx is None, "B4 wrote dL/dx without need_dx")
-        e_g = float((dg_k - dg_p).abs().max())
-        e_x = float((dx4_k - dx4_p).abs().max())
-        e_t = max(float((dt4_k - dt4_p).abs().max()),
-                  float((dt4_k2 - dt4_p).abs().max()))
-        t_g = 1e-4 + 1e-4 * float(dg_p.abs().max())
-        t_x = 1e-4 + 1e-4 * float(dx4_p.abs().max())
-        t_t = 1e-6 + 1e-5 * float(dt4_p.abs().max())
-        print(f"[B4 brick4_bwd2] N={n}: max|kernel-plain| dL/dg_up {e_g:.3e}"
-              f" (tolerance {t_g:.3e}), dL/dx {e_x:.3e} (tolerance "
-              f"{t_x:.3e}): sums over corners scaled by (res-2)^2 in "
-              f"another order; dL/dtable {e_t:.3e} (tolerance {t_t:.3e}: "
-              f"atomics, order changes from run to run)")
-        _require(e_g <= t_g and e_x <= t_x and e_t <= t_t,
-                 "B4 disagrees with its plain version")
-        ms = _time_ms(lambda: B4._bwd2_cuda(g2, x3, packed, gg4, meta,
-                                            need_dx=False))
-        ms_dx = _time_ms(lambda: B4._bwd2_cuda(g2, x3, packed, gg4, meta))
-        plain_ms = _time_ms(lambda: B4.brick4_nablas_bwd_xla(
-            g2, x3, table, gg4, meta), iters=5)
-        # each (point, level): 18 index/scale ops + 8 corners × (11 for c_k
-        # + 8 for dL/dg_up + 8 for dL/dtable) = 234; dL/dx + 8 × 25
-        io = n * (16 * L + 12 + 12 + 16 * L) + table_bytes + dtab_bytes
-        bound_ms, bound_by = _bound(io, n * L * 234)
-        bound_dx, bound_dx_by = _bound(io + n * 12, n * L * 434)
-        print(f"[B4 brick4_bwd2] need_dx false (the step's form): kernel "
-              f"{ms:.4f} ms | bound {bound_ms:.4f} ms ({bound_by}); need_dx "
-              f"true: kernel {ms_dx:.4f} ms | bound {bound_dx:.4f} ms "
-              f"({bound_dx_by}); plain (all three gradients) {plain_ms:.4f}"
-              f" ms | library: none")
-        kernels.append(dict(
-            name="brick4_bwd2 (B4)", route="cuda",
-            source="nr3d_lib_tpu_torch/csrc/brick4.cu",
-            replaces="nr3d_lib_tpu/ops/lotd_brick4.py:875",
-            key="brick4_bwd2", path="train step",
-            max_abs_err=max(e_g, e_x, e_t), ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            ms_need_dx=ms_dx, bound_ms_need_dx=bound_dx))
-
-        # ---------------------------------------------------- the slice
-        def render():
-            rendered, vb = model.ray_query(model.ray_test(o, d))
-            return rendered, vb
-
-        render()                                            # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _build.LAUNCHES.clear()
-        times = []
-        for _ in range(N_RENDERS):
-            t0 = time.perf_counter()
-            rendered, vb = render()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        launches = dict(_build.LAUNCHES)
-        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-        med = statistics.median(times)
-        q1, _, q3 = statistics.quantiles(times, n=4)
-        print(f"[slice] {N_RAYS} rays x {N_RENDERS} renders on {smi}: "
-              f"median {med:.3f} ms/render (quartiles {q1:.3f}/{q3:.3f}, "
-              f"min {min(times):.3f}, max {max(times):.3f}) -> "
-              f"{N_RAYS / med:.1f} Krays/s | peak memory {peak_mib:.1f} MiB"
-              f" | n_compact {int(vb['n_compact'])} of "
-              f"{vb['valid'].numel()} slots")
-        print(f"[slice] launches in the {N_RENDERS} timed renders: "
-              f"{launches}")
-        expect = {"brick4_fwd": 6, "brick4_dydx": 1, "gather1d": 1}
-        for key, per in expect.items():
-            got = launches.get(key, 0)
-            _require(got == per * N_RENDERS,
-                     f"{key}: {got} launches, expected {per} per render")
-        for k, v in rendered.items():
-            _require(bool(torch.isfinite(v).all()), f"{k} is not finite")
-        mask_mean = float(rendered["mask_volume"].mean())
-        print(f"[slice] all outputs finite; mean mask_volume {mask_mean:.4f}")
-        _require(mask_mean > 0.1, "the render is trivially empty")
-        _profile(render, med)
-        path_launches = {"render": (launches, N_RENDERS)}
-
-        # same rays, same weights, the CPU port (plain versions)
-        cpu = LoTDNeuSModel(**PROD_CFG, seed=0, device="cpu")
-        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    # ----------------------------------------------------------- models
+    def seeded(cls, cfg, enc_of, seed):
+        m = cls(**cfg, seed=0)
+        _seed_weights(m, enc_of(m), seed)
         t0 = time.perf_counter()
-        r_cpu, _ = cpu.ray_query(cpu.ray_test(o.cpu(), d.cpu()))
-        cpu_s = time.perf_counter() - t0
-        ok = torch.ones(N_RAYS, dtype=torch.bool)
-        errs = []
-        for k in ("rgb_volume", "depth_volume"):
-            e = (rendered[k].cpu() - r_cpu[k]).abs().reshape(N_RAYS, -1)
-            e = e.amax(-1)
-            errs.append(e)
-            ok &= e <= 1e-4
-        e_max = torch.stack(errs).amax(0)
-        share = float(ok.float().mean())
-        print(f"[slice] GPU vs CPU port ({cpu_s:.1f} s on the CPU): "
-              f"{share * 100:.2f}% of rays agree within 1e-4 on rgb and "
-              f"depth ({float((e_max <= 1e-3).float().mean()) * 100:.2f}% "
-              f"within 1e-3; max {float(e_max.max()):.3e})")
-        _require(share >= 0.99, "GPU and CPU renders disagree")
+        m.populate()
+        torch.cuda.synchronize()
+        print(f"[populate] {cls.__name__} "
+              f"({enc_of(m).meta.total_rows} table rows, F="
+              f"{enc_of(m).n_feats}): {(time.perf_counter() - t0) * 1e3:.1f}"
+              f" ms")
+        _seed_occupancy(m)
+        return m
 
-    path_launches["autograd nablas"] = (_autograd_nablas(model, x3), 1)
-    _step_vs_cpu(model, cpu, o, d, cpu_s)
-    path_launches["train step"] = (_train(model, o, d, smi), N_STEPS)
+    def neus_enc(m):
+        return m.field.implicit_surface.encoding
+
+    model = seeded(LoTDNeuSModel, PROD_CFG, neus_enc, 1)
+    neus2 = seeded(LoTDNeuSModel, NEUS_F2_CFG, neus_enc, 3)
+    nerf = seeded(LoTDNeRFModel, NERF_CFG, lambda m: m.field.encoding, 2)
+    o, d = (torch.from_numpy(a).to(dev) for a in _rays(N_RAYS, seed=0))
+    o8, d8 = (torch.from_numpy(a).to(dev)
+              for a in _rays(N_RAYS_NERF, seed=0))
+    kernels, paths = [], {}
+
+    # --------------------------------------------------- kernel phases
+    x3 = _f4_kernel_phases(model, o, d, kernels)
+    x3b = _f2_kernel_phases(nerf, neus2, o8, d8, o, d, kernels)
+
+    # ----------------------------------- slices 1 and 2: the F=4 NeuS
+    cpu = _cpu_twin(model, LoTDNeuSModel, PROD_CFG)
+    launches, cpu_s = _serve(model, cpu, o, d, {
+        "brick4_fwd": 6, "brick4_dydx": 1, "gather1d": 1}, "f4 render", smi)
+    paths["f4 render"] = (launches, N_RENDERS)
+    paths["f4 autograd nablas"] = (_autograd_nablas(model, x3, "brick4"), 1)
+    _step_vs_cpu(model, cpu, o, d, cpu_s, "f4")
+    paths["f4 train step"] = (_train(model, o, d, smi, "brick4", "f4"),
+                              N_STEPS)
+
+    # ------------------------------------ path A: the F=2 NeRF serving
+    nerf_cpu = _cpu_twin(nerf, LoTDNeRFModel, NERF_CFG)
+    launches, _ = _serve(nerf, nerf_cpu, o8, d8, {"brick_fwd": 1,
+                                                  "gather1d": 1},
+                         "nerf render", smi)
+    paths["nerf render"] = (launches, N_RENDERS)
+    nerf.ray_query_cfg = {"query_mode": "march_occ"}   # the default mode
+    launches, _ = _serve(nerf, nerf_cpu, o8, d8, {"brick_fwd": 1,
+                                                  "gather1d": 1},
+                         "nerf march_occ render", smi, n_renders=1)
+    paths["nerf march_occ render"] = (launches, 1)
+
+    # ------------------------------------ path B: the F=2 NeuS
+    cpu2 = _cpu_twin(neus2, LoTDNeuSModel, NEUS_F2_CFG)
+    launches, cpu_s = _serve(neus2, cpu2, o, d, {
+        "brick_fwd": 6, "brick_dydx": 1, "gather1d": 1}, "f2 render", smi)
+    paths["f2 render"] = (launches, N_RENDERS)
+    paths["f2 autograd nablas"] = (_autograd_nablas(neus2, x3b, "brick"), 1)
+    _step_vs_cpu(neus2, cpu2, o, d, cpu_s, "f2")
+    paths["f2 train step"] = (_train(neus2, o, d, smi, "brick", "f2"),
+                              N_STEPS)
 
     for kd in kernels:
-        got, calls = path_launches[kd["path"]]
-        kd["launches"] = got.get(kd.pop("key"), 0)
+        key = kd.pop("key")
+        got, calls = paths[kd["path"]]
+        kd["launches"] = got.get(key, 0)
         kd["launches_per_call"] = kd["launches"] / calls
+        kd["launches_per_call_by_path"] = {
+            p: g[key] / c for p, (g, c) in paths.items() if key in g}
         _require(kd["launches"] > 0, f"{kd['name']}: no launch on its path")
     print(json.dumps({"kernels": kernels}))
     print(f"[device] {smi}")

@@ -1,5 +1,5 @@
 """Volume-render weights (port of nr3d_lib_tpu/graphics/nerf.py
-`ray_alpha_to_vw`)."""
+`tau_to_alpha`, `ray_alpha_to_vw`)."""
 
 from __future__ import annotations
 
@@ -7,7 +7,12 @@ import torch
 
 from nr3d_lib_tpu_torch.graphics import _scan
 
-__all__ = ["ray_alpha_to_vw"]
+__all__ = ["tau_to_alpha", "ray_alpha_to_vw"]
+
+
+def tau_to_alpha(tau: torch.Tensor) -> torch.Tensor:
+    """Optical depth per interval → opacity."""
+    return 1.0 - torch.exp(-tau)
 
 
 def ray_alpha_to_vw(alpha: torch.Tensor) -> torch.Tensor:

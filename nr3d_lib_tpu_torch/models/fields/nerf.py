@@ -1,9 +1,9 @@
-"""Radiance head (port of nr3d_lib_tpu/models/fields/nerf.py
-`RadianceNet`)."""
+"""NeRF field nets (port of nr3d_lib_tpu/models/fields/nerf.py `trunc_exp`,
+`RadianceNet`, `LoTDNeRF`)."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -11,7 +11,29 @@ from torch import nn
 from nr3d_lib_tpu_torch.models.blocks import MLP
 from nr3d_lib_tpu_torch.models.embedders import get_embedder
 
-__all__ = ["RadianceNet"]
+__all__ = ["trunc_exp", "RadianceNet", "LoTDNeRF"]
+
+
+class _TruncExp(torch.autograd.Function):
+    """exp(clip(x, −15, 15)) whose gradient is g·exp(clip(x, −15, 15)) for
+    every x, as the JAX custom_vjp defines it (autograd of exp∘clamp would
+    give 0 outside the clip)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.exp(torch.clamp(x, -15.0, 15.0))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * y
+
+
+def trunc_exp(x: torch.Tensor) -> torch.Tensor:
+    """exp with a clipped input and the NGP trunc_exp gradient."""
+    return _TruncExp.apply(x)
 
 
 class RadianceNet(nn.Module):
@@ -46,3 +68,49 @@ class RadianceNet(nn.Module):
         if h_extra is not None:
             feats.append(h_extra)
         return self.mlp(torch.cat(feats, -1))
+
+
+class LoTDNeRF(nn.Module):
+    """LoTD-encoded NeRF: brick grid encoding → small density decoder →
+    radiance head. Module names mirror the JAX package's (`encoding`,
+    `decoder`, `radiance/mlp`), so the state bridge maps them unchanged."""
+
+    def __init__(self, *, encoding_cfg: Optional[dict] = None,
+                 density_decoder_cfg: Optional[dict] = None,
+                 radiance_cfg: Optional[dict] = None,
+                 n_geo_feat: int = 15, seed: int = 0, device=None):
+        super().__init__()
+        from nr3d_lib_tpu_torch.models.grid_encodings.lotd import \
+            get_lotd_encoding
+
+        enc_cfg = dict(encoding_cfg or {})
+        if "lotd_cfg" not in enc_cfg:
+            raise ValueError("encoding_cfg needs a lotd_cfg (the JAX "
+                             "default is the unported XLA backend)")
+        self.encoding = get_lotd_encoding(3, **enc_cfg, seed=seed,
+                                          device=device)
+        # NeRF density never differentiates w.r.t. positions (no eikonal),
+        # so the brick backward computes dL/dtable only; frozen_x=False
+        # keeps the position gradient (pose refinement).
+        self._frozen_x = (enc_cfg.get("backend", "xla") == "brick"
+                          and bool(enc_cfg.get("frozen_x", True)))
+        self.n_geo_feat = n_geo_feat
+        dec_cfg = dict(density_decoder_cfg or {})
+        dec_cfg.setdefault("D", 1)
+        dec_cfg.setdefault("W", 64)
+        self.decoder = MLP(self.encoding.out_features, 1 + n_geo_feat,
+                           **dec_cfg, seed=seed + 1, device=device)
+        self.radiance = RadianceNet(n_extra_feat=n_geo_feat,
+                                    **(radiance_cfg or {}), seed=seed + 2,
+                                    device=device)
+
+    def forward_density(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """x in [-1,1] → {sigma, h}."""
+        h = self.decoder(self.encoding(x, frozen_x=self._frozen_x))
+        return {"sigma": trunc_exp(h[..., 0]), "h": h[..., 1:]}
+
+    def forward(self, x: torch.Tensor, v: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        out = self.forward_density(x)
+        out["rgb"] = self.radiance(x, v, None, out["h"])
+        return out

@@ -50,8 +50,8 @@ class LoTDSDF(nn.Module):
         nablas = ∂sdf/∂x_direct + J_encᵀ·∂sdf/∂h_enc, the decoder term by
         `torch.func.vjp` (works under `no_grad`; under outer autograd its
         outputs stay differentiable, so an eikonal loss reaches the decoder
-        weights), the encoding term by the encoding's nablas kernel (B3,
-        whose backward is B4)."""
+        weights), the encoding term by the encoding's nablas kernel (B8
+        for F=2, B3 for F=4; their backwards are B9 and B4)."""
         batch = x.shape[:-1]
         xf = x.reshape(-1, 3)
         h_enc = self.encoding(xf)

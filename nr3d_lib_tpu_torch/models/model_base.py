@@ -1,9 +1,11 @@
-"""ModelMixin lifecycle API + the LoTD NeuS model (port of
-nr3d_lib_tpu/models/model_base.py `ModelMixin`, `LoTDNeuSModel`).
+"""ModelMixin lifecycle API + the LoTD NeuS and NeRF models (port of
+nr3d_lib_tpu/models/model_base.py `ModelMixin`, `LoTDNeuSModel`,
+`LoTDNeRFModel`).
 
 A renderable model owns (field net, space, accel) and dispatches
-`ray_query` to the strategy function of its query mode. Only the
-`march_occ_multi_upsample_compressed` mode is ported; the others raise.
+`ray_query` to the strategy function of its query mode. Ported modes: the
+NeuS `march_occ_multi_upsample_compressed`, the NeRF `march_occ` and
+`march_occ_compressed`; the others raise.
 
 Randomness: `jax.random` keys become a `torch.Generator` (`ray_query`'s
 `generator`, `training_before_per_step`'s), or a `draw` callable through
@@ -22,7 +24,7 @@ from nr3d_lib_tpu_torch.graphics.raysample import Draw, uniform_draw
 from nr3d_lib_tpu_torch.models.accelerations import OccGridAccel
 from nr3d_lib_tpu_torch.models.spatial import AABBSpace
 
-__all__ = ["ModelMixin", "LoTDNeuSModel"]
+__all__ = ["ModelMixin", "LoTDNeuSModel", "LoTDNeRFModel"]
 
 
 class ModelMixin:
@@ -134,4 +136,73 @@ class LoTDNeuSModel(nn.Module, ModelMixin):
                 self, self.accel, self.space, ray_tested, with_rgb=with_rgb,
                 draw=draw, **cfg)
         raise NotImplementedError(
-            f"query_mode {mode!r} is not ported yet (ROADMAP.md A8)")
+            f"query_mode {mode!r} is not ported yet (ROADMAP.md A8b)")
+
+
+class LoTDNeRFModel(nn.Module, ModelMixin):
+    """LoTD NeRF + AABB space + occ-grid accel + marched ray query.
+    `device=None` means CUDA (raises without a card); tests pass
+    `device="cpu"`."""
+
+    def __init__(self, *, field_cfg: Optional[dict] = None,
+                 space_cfg: Optional[dict] = None,
+                 accel_cfg: Optional[dict] = None,
+                 ray_query_cfg: Optional[dict] = None, seed: int = 0,
+                 device=None):
+        super().__init__()
+        from nr3d_lib_tpu_torch.models.fields.nerf import LoTDNeRF
+
+        self.device = resolve_device(device)
+        self.field = LoTDNeRF(**(field_cfg or {}), seed=seed,
+                              device=self.device)
+        self.space = AABBSpace(**(space_cfg or {}), device=self.device)
+        self.accel = OccGridAccel(**(accel_cfg or {}), device=self.device)
+        self.ray_query_cfg = dict(ray_query_cfg or {})
+
+    def forward_density(self, x: torch.Tensor):
+        return self.field.forward_density(x)
+
+    def radiance(self, x, v, n, h):
+        return self.field.radiance(x, v, n, h)
+
+    def query_density(self, x: torch.Tensor) -> torch.Tensor:
+        return self.field.forward_density(x)["sigma"]
+
+    @torch.no_grad()
+    def populate(self):
+        """The occupancy grid keeps its initial value (all occupied): the
+        JAX model's `accel.init(key, None)`."""
+        self.accel.init(None)
+
+    def training_before_per_step(self, it: int,
+                                 generator: Optional[torch.Generator] = None):
+        """Per-step schedules, then the occupancy EMA update from the
+        density (every `lifecycle_update_every` steps). No generator → one
+        seeded by `it`."""
+        self.field.encoding.set_anneal_iter(it)
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(it)
+        with torch.no_grad():
+            self.accel.step(it, generator, self.query_density)
+
+    def ray_query(self, ray_tested: Dict,
+                  generator: Optional[torch.Generator] = None,
+                  with_rgb: bool = True, draw: Optional[Draw] = None
+                  ) -> Tuple[Dict, Dict]:
+        """Render the tested rays. A `generator` (or a `draw` callable,
+        which takes precedence) jitters the march; neither marches at the
+        step midpoints."""
+        from nr3d_lib_tpu_torch.graphics import nerf_ray_query as Q
+
+        cfg = dict(self.ray_query_cfg)
+        mode = cfg.pop("query_mode", "march_occ")
+        if draw is None and generator is not None:
+            draw = uniform_draw(generator)
+        fn = {"march_occ": Q.nerf_ray_query_march_occ,
+              "march_occ_compressed": Q.nerf_ray_query_march_occ_compressed
+              }.get(mode)
+        if fn is None:
+            raise NotImplementedError(
+                f"query_mode {mode!r} is not ported yet (ROADMAP.md A8b)")
+        return fn(self, self.accel, self.space, ray_tested,
+                  with_rgb=with_rgb, draw=draw, **cfg)

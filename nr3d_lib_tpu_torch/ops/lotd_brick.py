@@ -1,28 +1,48 @@
-"""Brick-layout LoTD geometry (the subset the F=4 path needs).
+"""Brick-layout LoTD encoding, F=2: geometry, plain versions and kernels.
 
 Port of nr3d_lib_tpu/ops/lotd_brick.py: a 4×4×4-vertex brick is packed
-into one 128-lane row, so one row fetch per (point, level) holds all eight
-interpolation corners. Bricks cover 3×3×3 cells and overlap by one vertex
-plane. Dense levels lay bricks out in C order; hash levels hash the brick
-coordinates with the NGP XOR-primes.
+into one 128-lane row (lane = vertex·2 + f), so one row fetch per (point,
+level) holds all eight interpolation corners. Bricks cover 3×3×3 cells and
+overlap by one vertex plane. Dense levels lay bricks out in C order; hash
+levels hash the brick coordinates with the NGP XOR-primes. The geometry
+here is shared with the F=4 packed path (`ops/lotd_brick4.py`).
 
 The brick hash multiplies and XORs in uint32. PyTorch has no full uint32
 multiply, so it runs in int64 with `& 0xFFFFFFFF` after each product (the
 CUDA kernels use native `uint32_t`).
+
+Kernels (`csrc/brick.cu`): the encode (B6), its backward (B7), the nablas
+(B8) and the nablas' backward (B9). `brick_encode`,
+`brick_encode_frozen_x` and `brick_nablas` take the plain PyTorch version
+(and torch autograd) for a CPU tensor, and the kernels for a CUDA tensor.
+On CUDA a gradient goes through two `torch.autograd.Function`s whose
+backwards are kernels too: `_BrickEncode` (B6 forward, B7 backward; when x
+requires grad, B6 saves the corner values that B7 reads for dL/dx) and
+`_BrickNablas` (B8 forward, B9 backward). Neither backward is itself
+differentiable. The plain backwards `brick_encode_bwd_xla` and
+`brick_nablas_bwd_xla` are for tests and for holding the kernels against.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
 from functools import cached_property
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
+
+from nr3d_lib_tpu_torch.ops import _build
 
 __all__ = ["BrickLevel", "BrickMeta", "make_brick_meta",
-           "vertex_grid_to_brick_rows", "HASH_PRIMES", "BRICK_W", "LANES"]
+           "vertex_grid_to_brick_rows", "materialize_dense_brick_table",
+           "brick_encode", "brick_encode_frozen_x", "brick_nablas",
+           "brick_encode_xla", "brick_corner_values_xla",
+           "brick_encode_bwd_xla", "brick_nablas_xla", "brick_nablas_bwd_xla",
+           "HASH_PRIMES", "BRICK_W", "LANES", "MAX_LEVELS"]
 
 # nr3d_lib_tpu/ops/lotd.py HASH_PRIMES (copied: the port imports nothing of
 # the JAX package)
@@ -34,6 +54,7 @@ BRICK_W = 4           # vertices per axis in a brick
 BRICK_CELLS = 3       # cells per axis covered (stride)
 LANES = 128
 N_FEAT = 2            # features per vertex of the F=2 lane layout
+MAX_LEVELS = 8        # levels the F=2 kernels take (16 lanes each on a TPU)
 
 
 @dataclass(frozen=True)
@@ -157,3 +178,342 @@ def vertex_grid_to_brick_rows(level: BrickLevel) -> np.ndarray:
     lanes[:, 0::2] = flat * N_FEAT
     lanes[:, 1::2] = flat * N_FEAT + 1
     return lanes
+
+
+def materialize_dense_brick_table(vertex_params: torch.Tensor,
+                                  level: BrickLevel) -> torch.Tensor:
+    """Canonical vertex params [res³·2] → brick rows [n_rows, 128].
+    Differentiable: gradients accumulate onto shared boundary vertices, so
+    the encoding stays C0 like the reference Dense type. (The encoding
+    module keeps this index on the device and gathers with it directly.)"""
+    index = torch.as_tensor(vertex_grid_to_brick_rows(level),
+                            device=vertex_params.device).long()
+    return vertex_params[index]
+
+
+# ---------------------------------------------------------- plain versions
+def _level_corners(x: torch.Tensor, t_flat: torch.Tensor, level,
+                   n_feat: int):
+    """Corner values [N,8,n_feat] and fractional coords [N,3] of one level
+    of a table whose rows hold 64 vertices × n_feat values (`t_flat` is
+    the table flattened)."""
+    row, lane0, frac = _level_rows_and_lanes(x, level)
+    bits = _corner_bits(x.device)
+    corner_v = (bits[:, 0] * BRICK_W + bits[:, 1]) * BRICK_W + bits[:, 2]
+    vert = row[:, None] * 64 + lane0[:, None] // N_FEAT + corner_v  # [N,8]
+    idx = vert[..., None] * n_feat + torch.arange(n_feat, device=x.device)
+    return t_flat[idx], frac
+
+
+def _encode_plain(x: torch.Tensor, t_flat: torch.Tensor, meta: BrickMeta,
+                  n_feat: int) -> torch.Tensor:
+    """Σ_corners w·value per level → [N, n_feat·L], column l·n_feat + f."""
+    outs = []
+    for level in meta.levels:
+        vals, frac = _level_corners(x, t_flat, level, n_feat)
+        w = _corner_weights(frac).to(vals.dtype)                     # [N,8]
+        outs.append(torch.sum(w[..., None] * vals, 1))
+    return torch.cat(outs, -1)
+
+
+def _nablas_plain(g_up: torch.Tensor, x: torch.Tensor, t_flat: torch.Tensor,
+                  meta: BrickMeta, n_feat: int) -> torch.Tensor:
+    """J_enc(x)ᵀ·g_up [N,3], written out analytically (the JAX reference
+    takes the vjp of the plain encode):
+    dx_a = Σ_l (res_a−2) Σ_corners (g_up·val)·(2·bit_a−1)·Π_{b≠a} s_b."""
+    cb = _corner_bits(x.device).to(x.dtype)                          # [8,3]
+    sign = 2.0 * cb - 1.0
+    dx = [0.0, 0.0, 0.0]
+    for l, level in enumerate(meta.levels):
+        vals, frac = _level_corners(x, t_flat, level, n_feat)
+        h = torch.sum(vals * g_up[:, None, n_feat * l:n_feat * (l + 1)], -1)
+        s = frac[:, None, :] * cb + (1.0 - frac[:, None, :]) * (1.0 - cb)
+        for a in range(3):
+            b, c = [i for i in range(3) if i != a]
+            da = torch.sum(h * sign[:, a] * s[..., b] * s[..., c], -1)
+            dx[a] = dx[a] + da * float(level.res[a] - 2)
+    return torch.stack(dx, -1)
+
+
+def brick_encode_xla(x: torch.Tensor, table: torch.Tensor,
+                     meta: BrickMeta) -> torch.Tensor:
+    """Plain PyTorch version of B6 (CPU route; the card's reference).
+    x [N,3] in [0,1]; table [rows, 128]. Returns [N, 2L], column l·2+f;
+    differentiable in x and table."""
+    return _encode_plain(x, table.reshape(-1), meta, N_FEAT)
+
+
+def brick_corner_values_xla(x: torch.Tensor, table: torch.Tensor,
+                            meta: BrickMeta) -> torch.Tensor:
+    """Plain version of B6's want_g output: the 8 corners' 2 features of
+    each (point, level) → [N, L, 8, 2] f32 (a copy)."""
+    t_flat = table.reshape(-1)
+    return torch.stack([_level_corners(x, t_flat, lv, N_FEAT)[0]
+                        for lv in meta.levels], 1)
+
+
+def brick_nablas_xla(g_up: torch.Tensor, x: torch.Tensor,
+                     table: torch.Tensor, meta: BrickMeta) -> torch.Tensor:
+    """Plain PyTorch version of B8: J_enc(x)ᵀ·g_up [N,3]."""
+    return _nablas_plain(g_up, x, table.reshape(-1), meta, N_FEAT)
+
+
+def _vjp(fn, inputs, need, cot):
+    """The vjp of fn at detached copies of `inputs`, for those flagged in
+    `need` (None for the others)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n) for t, n in zip(inputs, need)]
+        grads = iter(torch.autograd.grad(
+            fn(*ins), [t for t, n in zip(ins, need) if n], cot))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def brick_encode_bwd_xla(x: torch.Tensor, table: torch.Tensor,
+                         g: torch.Tensor, meta: BrickMeta,
+                         need_dx: bool = True):
+    """Plain PyTorch version of B7: the vjp of `brick_encode_xla` →
+    (dL/dx [N,3] or None, dL/dtable [rows,128])."""
+    return _vjp(lambda xx, tt: brick_encode_xla(xx, tt, meta), (x, table),
+                (need_dx, True), g)
+
+
+def brick_nablas_bwd_xla(g_up: torch.Tensor, x: torch.Tensor,
+                         table: torch.Tensor, gg: torch.Tensor,
+                         meta: BrickMeta):
+    """Plain PyTorch version of B9: the vjp of `brick_nablas_xla` →
+    (dL/dg_up [N,2L], dL/dx [N,3], dL/dtable [rows,128])."""
+    return _vjp(lambda a, b, c: brick_nablas_xla(a, b, c, meta),
+                (g_up, x, table), (True, True, True), gg)
+
+
+# ------------------------------------------------------ CUDA route (shared)
+class _Level(ctypes.Structure):
+    _fields_ = [("res", ctypes.c_int * 3), ("bpa", ctypes.c_int * 3),
+                ("n_rows", ctypes.c_int), ("row_offset", ctypes.c_int),
+                ("is_hash", ctypes.c_int)]
+
+
+def meta_struct(max_levels: int) -> type:
+    """The ctypes mirror of a kernel source's meta struct
+    (`{int n_levels; Level lv[max_levels];}`)."""
+    return type(f"_Meta{max_levels}", (ctypes.Structure,), {
+        "_fields_": [("n_levels", ctypes.c_int),
+                     ("lv", _Level * max_levels)]})
+
+
+_Meta = meta_struct(MAX_LEVELS)
+
+
+def c_meta(meta: BrickMeta, struct: type = _Meta):
+    """A BrickMeta as the kernels' by-value meta argument."""
+    cap = struct._fields_[1][1]._length_
+    if meta.n_levels > cap:
+        raise ValueError(f"the brick kernels take at most {cap} levels, got "
+                         f"{meta.n_levels}")
+    m = struct()
+    m.n_levels = meta.n_levels
+    for i, lv in enumerate(meta.levels):
+        m.lv[i].res[:] = list(lv.res)
+        m.lv[i].bpa[:] = list(lv.bricks_per_axis)
+        m.lv[i].n_rows = lv.n_rows
+        m.lv[i].row_offset = lv.row_offset
+        m.lv[i].is_hash = int(lv.kind == "hash")
+    return m
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned (the kernels load vectors)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def check_cuda_args(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta,
+                    width: int, what: str, *extra: torch.Tensor) -> None:
+    """Shapes, types and devices a brick kernel takes; raises otherwise."""
+    if x.dim() != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
+        raise ValueError(f"{what}: x must be [N,3] float32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if table.shape != (meta.total_rows, width) or \
+            table.dtype != torch.float32:
+        raise ValueError(f"{what}: table must be [{meta.total_rows}, {width}]"
+                         f" float32, got {tuple(table.shape)} {table.dtype}")
+    for t in (table, *extra):
+        if t.device != x.device:
+            raise ValueError(f"{what}: all inputs must be on {x.device}")
+
+
+# ------------------------------------------------------- CUDA route (F=2)
+def _lib():
+    vp, n = _build.VP, ctypes.c_longlong
+    return _build.load("brick", {
+        "brick_fwd": [vp, vp, _Meta, vp, vp, n, vp],
+        "brick_bwd": [vp, vp, vp, vp, _Meta, vp, vp, n, vp],
+        "brick_dydx": [vp, vp, vp, _Meta, vp, n, vp],
+        "brick_bwd2": [vp, vp, vp, vp, _Meta, vp, vp, vp, n, vp]})
+
+
+def _fwd_cuda(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta,
+              want_g: bool = False):
+    """B6 → y [N,2L]; with `want_g` → (y, corners [N,L,8,2]), the corner
+    values that B7 reads back for dL/dx. Counted as `brick_fwd` or
+    `brick_fwd_g`."""
+    x, table = aligned(x), aligned(table)
+    n, L = x.shape[0], meta.n_levels
+    y = torch.empty((n, N_FEAT * L), device=x.device, dtype=torch.float32)
+    corners = torch.empty((n, L, 8, N_FEAT), device=x.device,
+                          dtype=torch.float32) if want_g else None
+    err = _lib().brick_fwd(x.data_ptr(), table.data_ptr(), c_meta(meta),
+                           y.data_ptr(), ptr(corners), n,
+                           _build.stream_ptr(x.device))
+    name = "brick_fwd_g" if want_g else "brick_fwd"
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
+    return (y, corners) if want_g else y
+
+
+def _bwd_cuda(x: torch.Tensor, g: torch.Tensor, meta: BrickMeta, *,
+              need_dx: bool, corners: Optional[torch.Tensor] = None,
+              table: Optional[torch.Tensor] = None):
+    """B7 → (dL/dx [N,3] or None, dL/dtable [rows,128]). dL/dx reads the
+    corner values from `corners` (the want_g forward's) or else from the
+    table."""
+    if need_dx and corners is None and table is None:
+        raise ValueError("brick_bwd: dL/dx needs the forward's corners or "
+                         "the table")
+    x, g = aligned(x), aligned(g)
+    table = None if table is None else aligned(table)
+    dtab = torch.empty((meta.total_rows, LANES), device=x.device,
+                       dtype=torch.float32)
+    dx = torch.empty_like(x) if need_dx else None
+    err = _lib().brick_bwd(x.data_ptr(), g.data_ptr(), ptr(corners),
+                           ptr(table), c_meta(meta), dtab.data_ptr(),
+                           ptr(dx), x.shape[0], _build.stream_ptr(x.device))
+    _build.check(err, "brick_bwd")
+    _build.LAUNCHES["brick_bwd"] += 1
+    return dx, dtab
+
+
+def _dydx_cuda(g_up: torch.Tensor, x: torch.Tensor, table: torch.Tensor,
+               meta: BrickMeta) -> torch.Tensor:
+    """B8 → J_enc(x)ᵀ·g_up [N,3]."""
+    g_up, x, table = aligned(g_up), aligned(x), aligned(table)
+    dx = torch.empty_like(x)
+    err = _lib().brick_dydx(g_up.data_ptr(), x.data_ptr(), table.data_ptr(),
+                            c_meta(meta), dx.data_ptr(), x.shape[0],
+                            _build.stream_ptr(x.device))
+    _build.check(err, "brick_dydx")
+    _build.LAUNCHES["brick_dydx"] += 1
+    return dx
+
+
+def _bwd2_cuda(g_up: torch.Tensor, x: torch.Tensor, table: torch.Tensor,
+               gg: torch.Tensor, meta: BrickMeta, need_dx: bool = True):
+    """B9 → (dL/dg_up [N,2L], dL/dx [N,3] or None, dL/dtable [rows,128])."""
+    g_up, x, table, gg = (aligned(t) for t in (g_up, x, table, gg))
+    dgup = torch.empty_like(g_up)
+    dtab = torch.empty((meta.total_rows, LANES), device=x.device,
+                       dtype=torch.float32)
+    dx = torch.empty_like(x) if need_dx else None
+    err = _lib().brick_bwd2(g_up.data_ptr(), x.data_ptr(), table.data_ptr(),
+                            gg.data_ptr(), c_meta(meta), dgup.data_ptr(),
+                            dtab.data_ptr(), ptr(dx), x.shape[0],
+                            _build.stream_ptr(x.device))
+    _build.check(err, "brick_bwd2")
+    _build.LAUNCHES["brick_bwd2"] += 1
+    return dgup, dx, dtab
+
+
+class _BrickEncode(torch.autograd.Function):
+    """B6 forward, B7 backward. `want_g` (x requires grad) makes B6 save
+    the corner values that B7's dL/dx reads; dL/dx is computed only when x
+    needs it."""
+
+    @staticmethod
+    def forward(ctx, x, table, meta, want_g):
+        ctx.meta = meta
+        if want_g:
+            y, corners = _fwd_cuda(x, table, meta, want_g=True)
+            ctx.save_for_backward(x, corners)
+        else:
+            y = _fwd_cuda(x, table, meta)
+            ctx.save_for_backward(x)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, *corners = ctx.saved_tensors
+        dx, dtab = _bwd_cuda(x, g, ctx.meta, need_dx=ctx.needs_input_grad[0],
+                             corners=corners[0] if corners else None)
+        return dx, (dtab if ctx.needs_input_grad[1] else None), None, None
+
+
+class _BrickNablas(torch.autograd.Function):
+    """B8 forward, B9 backward."""
+
+    @staticmethod
+    def forward(ctx, g_up, x, table, meta):
+        ctx.meta = meta
+        ctx.save_for_backward(g_up, x, table)
+        return _dydx_cuda(g_up, x, table, meta)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gg):
+        g_up, x, table = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dgup, dx, dtab = _bwd2_cuda(g_up, x, table, gg, ctx.meta,
+                                    need_dx=need[1])
+        return (dgup if need[0] else None, dx,
+                dtab if need[2] else None, None)
+
+
+# ----------------------------------------------------------- the wrappers
+def brick_encode(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta
+                 ) -> torch.Tensor:
+    """F=2 brick encode (B6): [N,3] in [0,1] × [rows,128] → [N, 2L]. CPU
+    tensor → plain version; CUDA tensor → the `brick_fwd` kernel, with B7
+    as its backward when a gradient is needed."""
+    if x.device.type == "cpu":
+        return brick_encode_xla(x, table, meta)
+    if x.device.type != "cuda":
+        raise ValueError(f"brick_encode: unsupported device {x.device}")
+    check_cuda_args(x, table, meta, LANES, "brick_encode")
+    if wants_grad(x, table):
+        return _BrickEncode.apply(x, table, meta, wants_grad(x))
+    return _fwd_cuda(x, table, meta)
+
+
+def brick_encode_frozen_x(x: torch.Tensor, table: torch.Tensor,
+                          meta: BrickMeta) -> torch.Tensor:
+    """`brick_encode` for paths where positions carry no gradient (plain
+    radiance-field training): x is taken as a constant, so the backward
+    (B7) computes dL/dtable only."""
+    return brick_encode(x.detach(), table, meta)
+
+
+def brick_nablas(g_up: torch.Tensor, x: torch.Tensor, table: torch.Tensor,
+                 meta: BrickMeta) -> torch.Tensor:
+    """nablas J_enc(x)ᵀ·g_up (B8): g_up [N,2L], x [N,3] → [N,3]. CPU
+    tensor → plain version; CUDA tensor → the `brick_dydx` kernel, with B9
+    as its backward when a gradient is needed."""
+    if x.device.type == "cpu":
+        return brick_nablas_xla(g_up, x, table, meta)
+    if x.device.type != "cuda":
+        raise ValueError(f"brick_nablas: unsupported device {x.device}")
+    check_cuda_args(x, table, meta, LANES, "brick_nablas", g_up)
+    if g_up.shape != (x.shape[0], N_FEAT * meta.n_levels) or \
+            g_up.dtype != torch.float32:
+        raise ValueError(f"brick_nablas: g_up must be [N, {2 * meta.n_levels}]"
+                         f" float32, got {tuple(g_up.shape)} {g_up.dtype}")
+    if wants_grad(g_up, x, table):
+        return _BrickNablas.apply(g_up, x, table, meta)
+    return _dydx_cuda(g_up, x, table, meta)

@@ -33,11 +33,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from nr3d_lib_tpu_torch.ops import _build
-from nr3d_lib_tpu_torch.ops.lotd_brick import (BRICK_W, LANES, BrickMeta,
-                                               _corner_bits, _corner_weights,
-                                               _level_rows_and_lanes,
-                                               make_brick_meta,
-                                               vertex_grid_to_brick_rows)
+from nr3d_lib_tpu_torch.ops.lotd_brick import (
+    BRICK_W, LANES, BrickMeta, _corner_bits, _encode_plain,
+    _level_rows_and_lanes, _nablas_plain, _vjp, aligned, c_meta,
+    check_cuda_args, make_brick_meta, meta_struct, ptr,
+    vertex_grid_to_brick_rows, wants_grad)
 
 __all__ = ["make_brick4_meta", "brick4_encode", "brick4_encode_xla",
            "brick4_corner_words_xla", "brick4_encode_bwd_xla",
@@ -95,16 +95,6 @@ def materialize_dense_brick4(vertex_params: torch.Tensor, level
 
 
 # ---------------------------------------------------------- plain versions
-def _level_corners(x: torch.Tensor, tq_flat: torch.Tensor, level):
-    """Corner values [N,8,4] and fractional coords [N,3] of one level."""
-    row, lane0, frac = _level_rows_and_lanes(x, level)
-    bits = _corner_bits(x.device)
-    corner_v = (bits[:, 0] * BRICK_W + bits[:, 1]) * BRICK_W + bits[:, 2]
-    base = (row[:, None] * 64 + lane0[:, None] // 2 + corner_v) * 4  # [N,8]
-    idx = base[..., None] + torch.arange(4, device=x.device)         # [N,8,4]
-    return tq_flat[idx], frac
-
-
 def brick4_encode_xla(x: torch.Tensor, table: torch.Tensor,
                       meta: BrickMeta) -> torch.Tensor:
     """Plain PyTorch version of B1 (CPU route; the card's reference).
@@ -112,13 +102,7 @@ def brick4_encode_xla(x: torch.Tensor, table: torch.Tensor,
     x [N,3] in [0,1]; table UNPACKED [rows, 256]. Returns [N, 4L], column
     l·4+f. Values are bf16-quantized to match the packed kernel exactly;
     differentiable in x and table."""
-    tq = _quantize4(table).reshape(-1)
-    outs = []
-    for level in meta.levels:
-        vals, frac = _level_corners(x, tq, level)
-        w = _corner_weights(frac).to(vals.dtype)                     # [N,8]
-        outs.append(torch.sum(w[..., None] * vals, 1))               # [N,4]
-    return torch.cat(outs, -1)
+    return _encode_plain(x, _quantize4(table).reshape(-1), meta, N_FEAT4)
 
 
 def brick4_corner_words_xla(x: torch.Tensor, table: torch.Tensor,
@@ -137,22 +121,10 @@ def brick4_corner_words_xla(x: torch.Tensor, table: torch.Tensor,
 
 def brick4_nablas_xla(g_up: torch.Tensor, x: torch.Tensor,
                       table: torch.Tensor, meta: BrickMeta) -> torch.Tensor:
-    """Plain PyTorch version of B3: J_enc(x)ᵀ·g_up [N,3], written out
-    analytically (the JAX reference takes the vjp of the plain encode):
-    dx_a = Σ_l (res_a−2) Σ_corners (g_up·val)·(2·bit_a−1)·Π_{b≠a} s_b."""
-    tq = _quantize4(table).reshape(-1)
-    cb = _corner_bits(x.device).to(x.dtype)                          # [8,3]
-    sign = 2.0 * cb - 1.0
-    dx = [0.0, 0.0, 0.0]
-    for l, level in enumerate(meta.levels):
-        vals, frac = _level_corners(x, tq, level)
-        h = torch.sum(vals * g_up[:, None, 4 * l:4 * l + 4], -1)    # [N,8]
-        s = frac[:, None, :] * cb + (1.0 - frac[:, None, :]) * (1.0 - cb)
-        for a in range(3):
-            b, c = [i for i in range(3) if i != a]
-            da = torch.sum(h * sign[:, a] * s[..., b] * s[..., c], -1)
-            dx[a] = dx[a] + da * float(level.res[a] - 2)
-    return torch.stack(dx, -1)
+    """Plain PyTorch version of B3: J_enc(x)ᵀ·g_up [N,3] on the
+    bf16-quantized values."""
+    return _nablas_plain(g_up, x, _quantize4(table).reshape(-1), meta,
+                         N_FEAT4)
 
 
 def brick4_encode_bwd_xla(x: torch.Tensor, table: torch.Tensor,
@@ -160,12 +132,8 @@ def brick4_encode_bwd_xla(x: torch.Tensor, table: torch.Tensor,
                           need_dx: bool = True):
     """Plain PyTorch version of B2: the vjp of `brick4_encode_xla` →
     (dL/dx [N,3] or None, dL/dtable [rows,256])."""
-    with torch.enable_grad():
-        xr = x.detach().requires_grad_(need_dx)
-        tr = table.detach().requires_grad_(True)
-        y = brick4_encode_xla(xr, tr, meta)
-        grads = torch.autograd.grad(y, (xr, tr) if need_dx else (tr,), g)
-    return (grads[0] if need_dx else None), grads[-1]
+    return _vjp(lambda xx, tt: brick4_encode_xla(xx, tt, meta), (x, table),
+                (need_dx, True), g)
 
 
 def brick4_nablas_bwd_xla(g_up: torch.Tensor, x: torch.Tensor,
@@ -173,34 +141,12 @@ def brick4_nablas_bwd_xla(g_up: torch.Tensor, x: torch.Tensor,
                           meta: BrickMeta):
     """Plain PyTorch version of B4: the vjp of `brick4_nablas_xla` →
     (dL/dg_up [N,4L], dL/dx [N,3], dL/dtable [rows,256])."""
-    with torch.enable_grad():
-        gr, xr, tr = (t.detach().requires_grad_(True)
-                      for t in (g_up, x, table))
-        nab = brick4_nablas_xla(gr, xr, tr, meta)
-        return torch.autograd.grad(nab, (gr, xr, tr), gg)
+    return _vjp(lambda a, b, c: brick4_nablas_xla(a, b, c, meta),
+                (g_up, x, table), (True, True, True), gg)
 
 
 # ------------------------------------------------------------ CUDA route
-class _Level(ctypes.Structure):
-    _fields_ = [("res", ctypes.c_int * 3), ("bpa", ctypes.c_int * 3),
-                ("n_rows", ctypes.c_int), ("row_offset", ctypes.c_int),
-                ("is_hash", ctypes.c_int)]
-
-
-class _Meta(ctypes.Structure):
-    _fields_ = [("n_levels", ctypes.c_int), ("lv", _Level * MAX_LEVELS)]
-
-
-def _c_meta(meta: BrickMeta) -> _Meta:
-    m = _Meta()
-    m.n_levels = meta.n_levels
-    for i, lv in enumerate(meta.levels):
-        m.lv[i].res[:] = list(lv.res)
-        m.lv[i].bpa[:] = list(lv.bricks_per_axis)
-        m.lv[i].n_rows = lv.n_rows
-        m.lv[i].row_offset = lv.row_offset
-        m.lv[i].is_hash = int(lv.kind == "hash")
-    return m
+_Meta = meta_struct(MAX_LEVELS)
 
 
 def _lib():
@@ -212,42 +158,18 @@ def _lib():
         "brick4_bwd2": [vp, vp, vp, vp, _Meta, vp, vp, vp, n, vp]})
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned (the kernels load float4/uint2)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _check_cuda_args(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta,
-                     what: str, *extra: torch.Tensor) -> None:
-    if x.dim() != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
-        raise ValueError(f"{what}: x must be [N,3] float32, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    if table.shape != (meta.total_rows, 2 * LANES) or \
-            table.dtype != torch.float32:
-        raise ValueError(f"{what}: table must be [{meta.total_rows}, 256] "
-                         f"float32, got {tuple(table.shape)} {table.dtype}")
-    for t in (table, *extra):
-        if t.device != x.device:
-            raise ValueError(f"{what}: all inputs must be on {x.device}")
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def _fwd_cuda(x: torch.Tensor, packed: torch.Tensor, meta: BrickMeta,
               want_g: bool = False):
     """B1 → y [N,4L]; with `want_g` → (y, words [N,L,8,2] int32), the
     packed corner words that B2 reads back for dL/dx. Counted as
     `brick4_fwd` or `brick4_fwd_g`."""
-    x = _aligned(x)
+    x = aligned(x)
     n, L = x.shape[0], meta.n_levels
     y = torch.empty((n, N_FEAT4 * L), device=x.device, dtype=torch.float32)
     words = torch.empty((n, L, 8, 2), device=x.device,
                         dtype=torch.int32) if want_g else None
-    err = _lib().brick4_fwd(x.data_ptr(), packed.data_ptr(), _c_meta(meta),
-                            y.data_ptr(), _ptr(words), n,
+    err = _lib().brick4_fwd(x.data_ptr(), packed.data_ptr(),
+                            c_meta(meta, _Meta), y.data_ptr(), ptr(words), n,
                             _build.stream_ptr(x.device))
     name = "brick4_fwd_g" if want_g else "brick4_fwd"
     _build.check(err, name)
@@ -264,13 +186,13 @@ def _bwd_cuda(x: torch.Tensor, g: torch.Tensor, meta: BrickMeta, *,
     if need_dx and words is None and packed is None:
         raise ValueError("brick4_bwd: dL/dx needs the forward's words or "
                          "the packed table")
-    x, g = _aligned(x), _aligned(g)
+    x, g = aligned(x), aligned(g)
     dtab = torch.empty((meta.total_rows, 2 * LANES), device=x.device,
                        dtype=torch.float32)
     dx = torch.empty_like(x) if need_dx else None
-    err = _lib().brick4_bwd(x.data_ptr(), g.data_ptr(), _ptr(words),
-                            _ptr(packed), _c_meta(meta), dtab.data_ptr(),
-                            _ptr(dx), x.shape[0], _build.stream_ptr(x.device))
+    err = _lib().brick4_bwd(x.data_ptr(), g.data_ptr(), ptr(words),
+                            ptr(packed), c_meta(meta, _Meta), dtab.data_ptr(),
+                            ptr(dx), x.shape[0], _build.stream_ptr(x.device))
     _build.check(err, "brick4_bwd")
     _build.LAUNCHES["brick4_bwd"] += 1
     return dx, dtab
@@ -278,11 +200,11 @@ def _bwd_cuda(x: torch.Tensor, g: torch.Tensor, meta: BrickMeta, *,
 
 def _dydx_cuda(g_up: torch.Tensor, x: torch.Tensor, packed: torch.Tensor,
                meta: BrickMeta) -> torch.Tensor:
-    x = _aligned(x)
-    g_up = _aligned(g_up)
+    x = aligned(x)
+    g_up = aligned(g_up)
     dx = torch.empty_like(x)
     err = _lib().brick4_dydx(g_up.data_ptr(), x.data_ptr(), packed.data_ptr(),
-                             _c_meta(meta), dx.data_ptr(), x.shape[0],
+                             c_meta(meta, _Meta), dx.data_ptr(), x.shape[0],
                              _build.stream_ptr(x.device))
     _build.check(err, "brick4_dydx")
     _build.LAUNCHES["brick4_dydx"] += 1
@@ -292,14 +214,15 @@ def _dydx_cuda(g_up: torch.Tensor, x: torch.Tensor, packed: torch.Tensor,
 def _bwd2_cuda(g_up: torch.Tensor, x: torch.Tensor, packed: torch.Tensor,
                gg: torch.Tensor, meta: BrickMeta, need_dx: bool = True):
     """B4 → (dL/dg_up [N,4L], dL/dx [N,3] or None, dL/dtable [rows,256])."""
-    g_up, x, gg = _aligned(g_up), _aligned(x), _aligned(gg)
+    g_up, x, gg = aligned(g_up), aligned(x), aligned(gg)
     dgup = torch.empty_like(g_up)
     dtab = torch.empty((meta.total_rows, 2 * LANES), device=x.device,
                        dtype=torch.float32)
     dx = torch.empty_like(x) if need_dx else None
     err = _lib().brick4_bwd2(g_up.data_ptr(), x.data_ptr(), packed.data_ptr(),
-                             gg.data_ptr(), _c_meta(meta), dgup.data_ptr(),
-                             dtab.data_ptr(), _ptr(dx), x.shape[0],
+                             gg.data_ptr(), c_meta(meta, _Meta),
+                             dgup.data_ptr(), dtab.data_ptr(), ptr(dx),
+                             x.shape[0],
                              _build.stream_ptr(x.device))
     _build.check(err, "brick4_bwd2")
     _build.LAUNCHES["brick4_bwd2"] += 1
@@ -354,10 +277,6 @@ class _Brick4Nablas(torch.autograd.Function):
                 dtab if need[2] else None, None)
 
 
-def _wants_grad(*ts: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
 # ----------------------------------------------------------- the wrappers
 def brick4_encode(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta
                   ) -> torch.Tensor:
@@ -369,9 +288,9 @@ def brick4_encode(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta
         return brick4_encode_xla(x, table, meta)
     if x.device.type != "cuda":
         raise ValueError(f"brick4_encode: unsupported device {x.device}")
-    _check_cuda_args(x, table, meta, "brick4_encode")
-    if _wants_grad(x, table):
-        return _Brick4Encode.apply(x, table, meta, _wants_grad(x))
+    check_cuda_args(x, table, meta, 2 * LANES, "brick4_encode")
+    if wants_grad(x, table):
+        return _Brick4Encode.apply(x, table, meta, wants_grad(x))
     return _fwd_cuda(x, pack_table4(table), meta)
 
 
@@ -384,11 +303,13 @@ def brick4_nablas(g_up: torch.Tensor, x: torch.Tensor, table: torch.Tensor,
         return brick4_nablas_xla(g_up, x, table, meta)
     if x.device.type != "cuda":
         raise ValueError(f"brick4_nablas: unsupported device {x.device}")
-    _check_cuda_args(x, table, meta, "brick4_nablas", g_up)
+    check_cuda_args(x, table, meta, 2 * LANES, "brick4_nablas",
+                    g_up)
     if g_up.shape != (x.shape[0], N_FEAT4 * meta.n_levels) or \
             g_up.dtype != torch.float32:
-        raise ValueError(f"brick4_nablas: g_up must be [N, {4 * meta.n_levels}]"
-                         f" float32, got {tuple(g_up.shape)} {g_up.dtype}")
-    if _wants_grad(g_up, x, table):
+        raise ValueError(f"brick4_nablas: g_up must be "
+                         f"[N, {4 * meta.n_levels}] float32, got "
+                         f"{tuple(g_up.shape)} {g_up.dtype}")
+    if wants_grad(g_up, x, table):
         return _Brick4Nablas.apply(g_up, x, table, meta)
     return _dydx_cuda(g_up, x, pack_table4(table), meta)

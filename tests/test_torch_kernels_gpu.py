@@ -6,12 +6,14 @@ whose Python has no JAX, run without the suite's conftest:
     python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest
 
 Whether a card is present is decided inside the `cuda` fixture, never at
-import time. Tolerances: B1 sums 8 weighted corners in another order
-(1e-5 relative to the output scale), and its want_g words are a copy
-(exact); B3 sums over corners, features and levels and scales by res-2
-(1e-4); B2's and B4's table gradients are sums by atomics, in an order that
-changes from run to run (1e-5 relative to the largest entry), their dL/dx
-and dL/dg_up scale by res-2 (1e-4); B5 is a copy (exact).
+import time. Tolerances: B1 and B6 sum 8 weighted corners in another order
+(1e-5 relative to the output scale), and their want_g outputs are copies
+(exact); B3 and B8 sum over corners, features and levels and scale by
+res-2 (1e-4); the table gradients of B2, B4, B7 and B9 are sums by
+atomics, in an order that changes from run to run (1e-5 relative to the
+largest entry), their dL/dx and dL/dg_up scale by res-2 (1e-4); B5 is a
+copy (exact). The F=2 kernels run on two metas: Dense and Hash levels, and
+eight levels (the most they take).
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ import torch
 
 from nr3d_lib_tpu_torch.ops import _build
 from nr3d_lib_tpu_torch.ops import gather1d as G
+from nr3d_lib_tpu_torch.ops import lotd_brick as B
 from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
 
 pytestmark = pytest.mark.gpu
@@ -194,11 +197,14 @@ def test_train_step_goes_through_the_kernels(cuda):
             assert p.grad is not None and torch.isfinite(p.grad).all()
 
 
-def _small_model():
+def _small_model(n_feats: int = 4):
     from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel
 
-    enc = {"lotd_cfg": {"lod_res": [16, 64], "lod_n_feats": 4,
-                        "lod_types": ["Dense", "Hash"]}, "backend": "brick"}
+    lotd = {"lod_res": [16, 64], "lod_n_feats": 4,
+            "lod_types": ["Dense", "Hash"]} if n_feats == 4 else \
+        {"lod_res": [16, 32, 64, 128], "lod_n_feats": 2,
+         "lod_types": ["Dense", "Dense", "Hash", "Hash"]}
+    enc = {"lotd_cfg": lotd, "backend": "brick"}
     return LoTDNeuSModel(
         field_cfg={"surface_cfg": {"encoding_cfg": enc,
                                    "decoder_cfg": {"D": 1, "W": 64}},
@@ -230,3 +236,182 @@ def test_render_goes_through_the_kernels(cuda):
                                      "gather1d": 1}
     for v in rendered.values():
         assert torch.isfinite(v).all()
+
+
+# ------------------------------------------------------------ F=2 (B6-B9)
+F2_METAS = {"dense_hash": ([16, 32, 64, 128], ["Dense", "Dense", "Hash",
+                                               "Hash"], 4096),
+            "eight_levels": ([8, 12, 16, 24, 32, 48, 64, 96],
+                             ["Dense"] * 3 + ["Hash"] * 5, 256)}
+F2_CASES = [(m, n) for m in sorted(F2_METAS) for n in (1, 255, 100_000)]
+
+
+def _f2_inputs(dev, meta_name: str, n: int, seed: int):
+    lod_res, types, rows = F2_METAS[meta_name]
+    meta = B.make_brick_meta(lod_res, types, rows)
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, (max(n, 66), 3)).astype(np.float32)
+    r = lod_res[1]
+    x[:64] = ((rng.integers(0, r - 2, (64, 3)) + 0.5) / (r - 2)).astype(
+        np.float32)
+    x[64:66] = [[0, 0, 0], [1, 1, 1]]
+    table = rng.uniform(-0.1, 0.1, (meta.total_rows, 128)).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L = meta.n_levels
+    g = torch.randn(n, 2 * L, device=dev, generator=gen)
+    gg = torch.randn(n, 3, device=dev, generator=gen)
+    return (meta, torch.from_numpy(x[:n]).to(dev),
+            torch.from_numpy(table).to(dev), g, gg)
+
+
+@pytest.mark.parametrize("meta_name,n", F2_CASES)
+@pytest.mark.parametrize("want_g", [False, True])
+def test_brick_fwd_kernel_matches_plain(cuda, meta_name, n, want_g):
+    meta, x, table, _, _ = _f2_inputs(cuda, meta_name, n, 10)
+    key = "brick_fwd_g" if want_g else "brick_fwd"
+    before = _build.LAUNCHES[key]
+    out = B._fwd_cuda(x, table, meta, want_g=want_g)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before + 1
+    y = out[0] if want_g else out
+    _close(y, B.brick_encode_xla(x, table, meta), 1e-5)
+    if want_g:
+        assert torch.equal(out[1], B.brick_corner_values_xla(x, table, meta))
+    with torch.no_grad():                   # the wrapper's CUDA route
+        _close(B.brick_encode(x, table, meta), y, 0.0)
+
+
+@pytest.mark.parametrize("meta_name,n", F2_CASES)
+@pytest.mark.parametrize("form", ["no_dx", "dx_corners", "dx_table"])
+def test_brick_bwd_kernel_matches_plain(cuda, meta_name, n, form):
+    meta, x, table, g, _ = _f2_inputs(cuda, meta_name, n, 11)
+    kw = {}
+    if form == "dx_corners":
+        kw["corners"] = B._fwd_cuda(x, table, meta, want_g=True)[1]
+    elif form == "dx_table":
+        kw["table"] = table
+    before = _build.LAUNCHES["brick_bwd"]
+    dx, dtab = B._bwd_cuda(x, g, meta, need_dx=form != "no_dx", **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["brick_bwd"] == before + 1
+    dx_p, dtab_p = B.brick_encode_bwd_xla(x, table, g, meta, form != "no_dx")
+    _close(dtab, dtab_p, 1e-5)
+    if form == "no_dx":
+        assert dx is None
+    else:
+        _close(dx, dx_p, 1e-4)
+
+
+@pytest.mark.parametrize("meta_name,n", F2_CASES)
+def test_brick_dydx_kernel_matches_plain(cuda, meta_name, n):
+    meta, x, table, g, _ = _f2_inputs(cuda, meta_name, n, 12)
+    before = _build.LAUNCHES["brick_dydx"]
+    with torch.no_grad():
+        dx = B.brick_nablas(g, x, table, meta)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["brick_dydx"] == before + 1
+    _close(dx, B.brick_nablas_xla(g, x, table, meta), 1e-4)
+
+
+@pytest.mark.parametrize("meta_name,n", F2_CASES)
+def test_brick_bwd2_kernel_matches_plain(cuda, meta_name, n):
+    meta, x, table, g, gg = _f2_inputs(cuda, meta_name, n, 13)
+    before = _build.LAUNCHES["brick_bwd2"]
+    dg, dx, dtab = B._bwd2_cuda(g, x, table, gg, meta)
+    _, no_dx, dtab2 = B._bwd2_cuda(g, x, table, gg, meta, need_dx=False)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["brick_bwd2"] == before + 2 and no_dx is None
+    dg_p, dx_p, dtab_p = B.brick_nablas_bwd_xla(g, x, table, gg, meta)
+    _close(dg, dg_p, 1e-4)
+    _close(dx, dx_p, 1e-4)
+    _close(dtab, dtab_p, 1e-5)
+    _close(dtab2, dtab_p, 1e-5)
+
+
+def test_brick_cuda_gradients_match_cpu_route(cuda):
+    """The CUDA route's autograd (B6/B7, B8/B9) against the CPU route's
+    (plain versions, torch autograd) on the same inputs; and the frozen-x
+    encode's table gradient."""
+    meta, x, table, g, gg = _f2_inputs(cuda, "dense_hash", 4096, 14)
+    gu = torch.randn_like(g)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        xs, ts, gs = (t.detach().to(dev).requires_grad_(True)
+                      for t in (x, table, gu))
+        loss = (B.brick_encode(xs, ts, meta) * g.to(dev)).sum() + \
+            (B.brick_nablas(gs, xs, ts, meta) * gg.to(dev)).sum() + \
+            (B.brick_encode_frozen_x(xs, ts, meta) * g.to(dev)).sum()
+        grads.append([t.cpu() for t in torch.autograd.grad(loss,
+                                                           (xs, ts, gs))])
+    for a, b, rel in zip(*grads, (1e-4, 1e-5, 1e-4)):
+        _close(a, b, rel)
+
+
+def _step_launches(model, o, d, gen, it):
+    from nr3d_lib_tpu_torch.models.loss.regularization import eikonal_loss
+
+    _build.LAUNCHES.clear()
+    model.training_before_per_step(it, gen)
+    rendered, vb = model.ray_query(model.ray_test(o, d), generator=gen)
+    loss = torch.mean((rendered["rgb_volume"] - d.abs()) ** 2) + \
+        0.1 * eikonal_loss(vb["nablas_packed"], vb["ridx"] < o.shape[0])
+    loss.backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    return dict(_build.LAUNCHES)
+
+
+def test_f2_step_and_render_go_through_the_kernels(cuda):
+    model = _small_model(n_feats=2)
+    o, d = _small_rays(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with torch.no_grad():
+        model.populate()
+        _build.LAUNCHES.clear()
+        rendered, _ = model.ray_query(model.ray_test(o, d))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"brick_fwd": 6, "brick_dydx": 1,
+                                     "gather1d": 1}
+    for it in (15, 16):                      # 16: the occupancy update
+        assert _step_launches(model, o, d, gen, it) == {
+            "brick_fwd": 6 + (it == 16), "brick_bwd": 1, "brick_dydx": 1,
+            "brick_bwd2": 1, "gather1d": 1}, it
+    _build.LAUNCHES.clear()
+    x = (o[:, None] * 0.25 + d[:, None] * 0.5).reshape(-1, 3)
+    xr = x.clone().requires_grad_(True)
+    torch.autograd.grad(model.forward_sdf(xr)["sdf"].sum(), xr)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"brick_fwd_g": 1, "brick_bwd": 1}
+
+
+@pytest.mark.parametrize("mode", ["march_occ", "march_occ_compressed"])
+def test_nerf_render_goes_through_the_kernels(cuda, mode):
+    from nr3d_lib_tpu_torch.models.model_base import LoTDNeRFModel
+
+    model = LoTDNeRFModel(
+        field_cfg={"encoding_cfg": {"lotd_cfg": {
+            "lod_res": [16, 32, 64, 128], "lod_n_feats": 2,
+            "lod_types": ["Dense", "Dense", "Hash", "Hash"]},
+            "backend": "brick"},
+            "density_decoder_cfg": {"D": 1, "W": 64},
+            "radiance_cfg": {"D": 2, "W": 64}},
+        accel_cfg={"resolution": 32, "max_steps_per_ray": 48,
+                   "step_size": 2.0 / 48},
+        ray_query_cfg={"query_mode": mode})
+    o, d = _small_rays(cuda)
+    with torch.no_grad():
+        model.populate()
+        _build.LAUNCHES.clear()
+        rendered, _ = model.ray_query(model.ray_test(o, d))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"brick_fwd": 1, "gather1d": 1}
+    for v in rendered.values():
+        assert torch.isfinite(v).all()
+    # a train step of the density path: frozen x, so B7 without dL/dx
+    _build.LAUNCHES.clear()
+    rendered, _ = model.ray_query(model.ray_test(o, d))
+    rendered["rgb_volume"].square().mean().backward()
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"brick_fwd": 1, "brick_bwd": 1,
+                                     "gather1d": 1}
+    assert model.field.encoding.flattened_params.grad.abs().max() > 0

@@ -1,6 +1,8 @@
-"""Port parity: the serving render of the F=4 brick-LoTD NeuS model
+"""Port parity: the serving render of the brick-LoTD NeuS model
 (`LoTDNeuSModel`, query mode march_occ_multi_upsample_compressed) against
-the JAX package on the CPU, at a small size.
+the JAX package on the CPU, at a small size, for both brick layouts: F=2
+(three levels, f32 table) and F=4 (two levels, bf16-packed). Every test is
+a case of each (the `models` fixture is parametrized over F).
 
 Weights cross by the state bridge: the JAX model's nnx state, as numpy,
 goes through `bridge.from_jax_state` into the port. The table scale and
@@ -32,18 +34,24 @@ from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel as TorchModel
 torch.set_num_threads(1)
 
 N_RAYS = 128
-ENC = {"lotd_cfg": {"lod_res": [16, 64], "lod_n_feats": 4,
-                    "lod_types": ["Dense", "Hash"], "hashmap_size": 2 ** 16},
-       "backend": "brick", "hashmap_rows": 64}
-CFG = dict(
-    field_cfg={"surface_cfg": {"encoding_cfg": ENC,
-                               "decoder_cfg": {"D": 1, "W": 16}},
-               "radiance_cfg": {"D": 2, "W": 16}},
-    accel_cfg={"resolution": 16, "max_steps_per_ray": 32,
-               "step_size": 2.0 / 32},
-    ray_query_cfg={"query_mode": "march_occ_multi_upsample_compressed",
-                   "compression_factor": 0.25, "march_budget_factor": 0.5,
-                   "n_importance": 8})
+LOTD = {2: {"lod_res": [16, 32, 64], "lod_n_feats": 2,
+            "lod_types": ["Dense", "Dense", "Hash"]},
+        4: {"lod_res": [16, 64], "lod_n_feats": 4,
+            "lod_types": ["Dense", "Hash"]}}
+
+
+def _cfg(n_feats: int) -> dict:
+    enc = {"lotd_cfg": {**LOTD[n_feats], "hashmap_size": 2 ** 16},
+           "backend": "brick", "hashmap_rows": 64}
+    return dict(
+        field_cfg={"surface_cfg": {"encoding_cfg": enc,
+                                   "decoder_cfg": {"D": 1, "W": 16}},
+                   "radiance_cfg": {"D": 2, "W": 16}},
+        accel_cfg={"resolution": 16, "max_steps_per_ray": 32,
+                   "step_size": 2.0 / 32},
+        ray_query_cfg={"query_mode": "march_occ_multi_upsample_compressed",
+                       "compression_factor": 0.25,
+                       "march_budget_factor": 0.5, "n_importance": 8})
 
 
 def _flat_state(model) -> dict:
@@ -67,9 +75,10 @@ def _rays(n: int, seed: int):
     return o.astype(np.float32), d.astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def models():
-    jm = JaxModel(**CFG)
+@pytest.fixture(scope="module", params=[2, 4], ids=["F2", "F4"])
+def models(request):
+    cfg = _cfg(request.param)
+    jm = JaxModel(**cfg)
     rng = np.random.default_rng(0)
     flat = _flat_state(jm)
     key = "field/implicit_surface/encoding/flattened_params"
@@ -81,8 +90,9 @@ def models():
     for k, v in nnx.to_flat_state(state):
         v[...] = jnp.asarray(flat["/".join(str(p) for p in k)])
     nnx.update(jm, state)
-    tm = TorchModel(**CFG, device="cpu")
+    tm = TorchModel(**cfg, device="cpu")
     tm.load_state_dict(from_jax_state(flat))
+    assert tm.field.implicit_surface.encoding.n_feats == request.param
     return jm, tm, flat
 
 
@@ -209,10 +219,11 @@ def test_whole_render_share_of_rays(models):
 
 def test_populate_matches_jax(models):
     jm, tm, flat = models
-    jm2 = JaxModel(**CFG)
+    cfg = _cfg(tm.field.implicit_surface.encoding.n_feats)
+    jm2 = JaxModel(**cfg)
     nnx.update(jm2, nnx.state(jm))
     jm2.populate()
-    tm2 = TorchModel(**CFG, device="cpu")
+    tm2 = TorchModel(**cfg, device="cpu")
     tm2.load_state_dict(tm.state_dict())
     tm2.populate()
     np.testing.assert_allclose(tm2.accel.occ.val_grid.numpy(),
@@ -222,12 +233,13 @@ def test_populate_matches_jax(models):
 
 def test_entry_points_default_to_cuda_and_reject_unported_modes(models):
     _, tm, _ = models
+    cfg = _cfg(tm.field.implicit_surface.encoding.n_feats)
     if torch.cuda.is_available():
-        assert TorchModel(**CFG).device.type == "cuda"
+        assert TorchModel(**cfg).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            TorchModel(**CFG)
-    tm2 = TorchModel(**{**CFG, "ray_query_cfg": {"query_mode": "sphere_trace"}},
+            TorchModel(**cfg)
+    tm2 = TorchModel(**{**cfg, "ray_query_cfg": {"query_mode": "sphere_trace"}},
                      device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         tm2.ray_query({})

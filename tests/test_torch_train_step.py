@@ -1,8 +1,11 @@
-"""Port parity: the production train step of the F=4 brick-LoTD NeuS
-(experiments/bench_render.py `main_train(kind="neus_compressed_w4")`:
-perturbed compressed query, MSE(rgb, |d|) + 0.1·eikonal over the valid
-packed nablas, Adam(5e-3)) against the JAX package on the CPU, at a small
-size (128 rays, decoder and radiance width 16, a 16³ grid, 64 hash rows).
+"""Port parity: the production train step of the brick-LoTD NeuS
+(experiments/bench_render.py `main_train(kind="neus_compressed_w4")` and
+`main_train(kind="neus_compressed", use_brick=True)`: perturbed compressed
+query, MSE(rgb, |d|) + 0.1·eikonal over the valid packed nablas,
+Adam(5e-3)) against the JAX package on the CPU, at a small size (128 rays,
+decoder and radiance width 16, a 16³ grid, 64 hash rows). The tests of the
+model are cases of both brick layouts, F=2 (three levels) and F=4 (two
+levels, bf16-packed).
 
 `jax.random` cannot be reproduced in torch. The JAX package's uniforms are
 drawn with its own key split order (march, then one per upsample round)
@@ -39,19 +42,25 @@ torch.set_num_threads(1)
 N_RAYS = 128
 N_STEPS = 32
 N_IMP = 8
-ENC = {"lotd_cfg": {"lod_res": [16, 64], "lod_n_feats": 4,
-                    "lod_types": ["Dense", "Hash"], "hashmap_size": 2 ** 16},
-       "backend": "brick", "hashmap_rows": 64}
-CFG = dict(
-    field_cfg={"surface_cfg": {"encoding_cfg": ENC,
-                               "decoder_cfg": {"D": 1, "W": 16}},
-               "radiance_cfg": {"D": 2, "W": 16}},
-    accel_cfg={"resolution": 16, "max_steps_per_ray": N_STEPS,
-               "step_size": 2.0 / N_STEPS},
-    ray_query_cfg={"query_mode": "march_occ_multi_upsample_compressed",
-                   "compression_factor": 0.25, "march_budget_factor": 0.5,
-                   "n_importance": N_IMP})
+LOTD = {2: {"lod_res": [16, 32, 64], "lod_n_feats": 2,
+            "lod_types": ["Dense", "Dense", "Hash"]},
+        4: {"lod_res": [16, 64], "lod_n_feats": 4,
+            "lod_types": ["Dense", "Hash"]}}
 CDF_EPS = 1e-8
+
+
+def _cfg(n_feats: int) -> dict:
+    enc = {"lotd_cfg": {**LOTD[n_feats], "hashmap_size": 2 ** 16},
+           "backend": "brick", "hashmap_rows": 64}
+    return dict(
+        field_cfg={"surface_cfg": {"encoding_cfg": enc,
+                                   "decoder_cfg": {"D": 1, "W": 16}},
+                   "radiance_cfg": {"D": 2, "W": 16}},
+        accel_cfg={"resolution": 16, "max_steps_per_ray": N_STEPS,
+                   "step_size": 2.0 / N_STEPS},
+        ray_query_cfg={"query_mode": "march_occ_multi_upsample_compressed",
+                       "compression_factor": 0.25,
+                       "march_budget_factor": 0.5, "n_importance": N_IMP})
 
 
 def _flat_state(model) -> dict:
@@ -92,9 +101,10 @@ def _replay(us):
     return draw
 
 
-@pytest.fixture(scope="module")
-def models():
-    jm = JaxModel(**CFG)
+def _seeded(n_feats: int):
+    """The JAX model with seeded weights: table ±0.1, ln_s = ln(64)/10 and
+    half the occupancy grid set; and its state as {path: numpy}."""
+    jm = JaxModel(**_cfg(n_feats))
     rng = np.random.default_rng(0)
     flat = _flat_state(jm)
     key = "field/implicit_surface/encoding/flattened_params"
@@ -106,11 +116,16 @@ def models():
     for k, v in nnx.to_flat_state(state):
         v[...] = jnp.asarray(flat["/".join(str(p) for p in k)])
     nnx.update(jm, state)
-    return jm, flat
+    return jm, flat, n_feats
 
 
-def _torch_model(flat):
-    tm = TorchModel(**CFG, device="cpu")
+@pytest.fixture(scope="module", params=[2, 4], ids=["F2", "F4"])
+def models(request):
+    return _seeded(request.param)
+
+
+def _torch_model(flat, n_feats):
+    tm = TorchModel(**_cfg(n_feats), device="cpu")
     tm.load_state_dict(from_jax_state(flat))
     return tm
 
@@ -255,8 +270,8 @@ def test_occ_sample_update_cells():
 
 
 def test_training_hooks(models):
-    _, flat = models
-    tm = _torch_model(flat)
+    _, flat, n_feats = models
+    tm = _torch_model(flat, n_feats)
     assert tm.lifecycle_update_every == 16
     before = tm.accel.occ.val_grid.clone()
     g = torch.Generator().manual_seed(0)
@@ -266,8 +281,9 @@ def test_training_hooks(models):
     assert int(tm.accel.occ.it) == 1
     assert not torch.equal(tm.accel.occ.val_grid, before)
     tm.training_after_per_step(16)
+    cfg = _cfg(n_feats)
     with pytest.raises(NotImplementedError, match="use_ema=False"):
-        TorchModel(**{**CFG, "accel_cfg": {**CFG["accel_cfg"],
+        TorchModel(**{**cfg, "accel_cfg": {**cfg["accel_cfg"],
                                            "use_ema": False}}, device="cpu")
 
 
@@ -298,8 +314,8 @@ def test_adam_matches_optax():
 
 
 def test_bridge_inverse_round_trip(models):
-    _, flat = models
-    tm = _torch_model(flat)
+    _, flat, n_feats = models
+    tm = _torch_model(flat, n_feats)
     back = to_jax_paths(tm.state_dict())
     assert set(back) == set(flat)
     for k, v in flat.items():
@@ -326,8 +342,8 @@ def test_final_query_grads_from_same_samples(models):
     from nr3d_lib_tpu_torch.graphics import nerf as tn
     from nr3d_lib_tpu_torch.graphics import neus as tneus
 
-    jm, flat = models
-    tm = _torch_model(flat)
+    jm, flat, n_feats = models
+    tm = _torch_model(flat, n_feats)
     o, d = _rays(N_RAYS, 3)
     rng = np.random.default_rng(4)
     t = np.sort(rng.uniform(0.5, 3.0, (N_RAYS, 10)), -1).astype(np.float32)
@@ -373,8 +389,8 @@ def test_final_query_grads_from_same_samples(models):
 
 
 def test_whole_train_step_matches_jax(models):
-    jm, flat = models
-    tm = _torch_model(flat)
+    jm, flat, n_feats = models
+    tm = _torch_model(flat, n_feats)
     o, d = _rays(N_RAYS, 5)
     key = jax.random.key(11)
     graphdef, params, rest = nnx.split(jm, nnx.Param, ...)
@@ -391,18 +407,11 @@ def test_whole_train_step_matches_jax(models):
     assert max(errs.values()) <= 1e-2, errs
 
 
-def test_port_step_loss_falls():
+def test_port_step_loss_falls(models):
     """Eight Adam steps of the port on the CPU from the seeded weights and
     perturbed samples: the loss falls (the trend the card's run checks)."""
-    jm = JaxModel(**CFG)
-    rng = np.random.default_rng(0)
-    flat = _flat_state(jm)
-    key = "field/implicit_surface/encoding/flattened_params"
-    flat[key] = rng.uniform(-0.1, 0.1, flat[key].shape).astype(np.float32)
-    flat["field/var_ctrl/ln_s"] = np.asarray(np.log(64.0) / 10.0, np.float32)
-    flat["accel/occ/val_grid"] = \
-        (rng.uniform(size=(16, 16, 16)) < 0.5).astype(np.float32)
-    tm = _torch_model(flat)
+    _, flat, n_feats = models
+    tm = _torch_model(flat, n_feats)
     opt = torch.optim.Adam(tm.parameters(), lr=5e-3)
     o, d = (torch.from_numpy(a) for a in _rays(N_RAYS, 6))
     g = torch.Generator().manual_seed(0)
