@@ -5,9 +5,9 @@
 
 1. Prints the card (name, power limit), torch and CUDA versions.
 2. Builds every CUDA kernel of the port from `nr3d_lib_tpu_torch/csrc/`
-   (brick4.cu, brick.cu, gather1d.cu) with nvcc for sm_90a, one nvcc per
-   source, all started together, and prints the build time and the ptxas
-   register / shared-memory lines.
+   (brick4.cu, brick.cu, gather1d.cu, permuto_cell4.cu) with nvcc for
+   sm_90a, one nvcc per source, all started together, and prints the
+   build time and the ptxas register / shared-memory lines.
 3. One phase per kernel at the shapes of the paths below. Each compares
    the kernel with its plain PyTorch version on the card (tolerance
    printed), times kernel, plain version and, where one exists, a
@@ -19,6 +19,9 @@
    B6 (brick_fwd) at the NeRF render's 196,608 points × 6 levels and at
    the NeuS render's 589,824 × 4; B6 want_g, B7 (brick_bwd, with and
    without dL/dx), B8 (brick_dydx) and B9 (brick_bwd2) at 147,456 × 4.
+   F=4 cell permuto (path C), at the dynamic NeuS's final query of
+   393,216 (x,t) points × 4 levels: B14 (permuto4_fwd), B15 (permuto4_bwd,
+   with and without dL/dx) and B16 (permuto4_dydx).
 4. The paths, each through the entry points a user calls, with seeded
    weights, a seeded 15% occupancy and seeded rays. Launch counters are
    zeroed just before each path and read just after; every count must be
@@ -41,6 +44,15 @@
      want_g, B7 with dL/dx); one train step against the CPU port; 2
      warm-up and 20 timed steps (6 B6 + 1 per update, 1 each of B7, B8,
      B9, B5 per step).
+   - Path C, the dynamic (x,t) NeuS (`DynamicPermutoNeuSModel`,
+     examples/configs/dynamic_permuto_w4.yaml at full width; 14,080 table
+     rows), rays with seeded timestamps in [-1, 1]: 10 renders of 4096
+     rays (4 B14 and 1 B16 per render: 64 coarse samples, two upsample
+     rounds of 16, the final query of 96 per ray); one train step against
+     the CPU port; 2 warm-up and 20 timed steps (4 B14 + 1 per occupancy
+     update of 8 time keys × 8192 cells, 1 each of B15 without dL/dx and
+     B16 per step; the nablas' backward is plain PyTorch, as the JAX
+     package computes it in XLA).
    Each path prints ms per call (median, quartiles), Krays/s, peak memory
    and a device-time profile by kernel.
 5. A `{"kernels": [...]}` JSON line, then the card's name and power limit,
@@ -95,6 +107,15 @@ PROD_CFG = _neus_cfg({"lod_res": [16, 64], "lod_n_feats": 4,
 NEUS_F2_CFG = _neus_cfg({"lod_res": [16, 32, 64, 128], "lod_n_feats": 2,
                          "lod_types": ["Dense", "Dense", "Hash", "Hash"],
                          "hashmap_size": 2 ** 16})
+# path C: examples/configs/dynamic_permuto_w4.yaml (+ _base_.yaml: 4096 rays)
+DYN_CFG = dict(
+    field_cfg={"surface_cfg": {
+        "permuto_cfg": {"res_list": [4.0, 11.0, 32.0, 90.0],
+                        "backend": "cell", "n_feats": 4,
+                        "hashmap_rows": 4096},
+        "decoder_cfg": {"D": 1, "W": 64}},
+        "radiance_cfg": {"D": 2, "W": 64}},
+    n_time_keys=8)
 # path A: experiments/bench_render.py:21-55, use_brick=True,
 # mode march_occ_compressed (F=2)
 NERF_CFG = dict(
@@ -179,8 +200,12 @@ def _profile(run, wall_ms: float, what: str) -> None:
           f"{total:.3f} ms in {sum(r[1] for r in rows):.0f} device events "
           f"(kernels, memsets, copies); busy {total / wall_ms * 100:.1f}% "
           f"of the {wall_ms:.3f} ms wall time")
-    ours = sum(r[0] for r in rows if r[2].startswith(("brick", "gather1d")))
-    print(f"[profile] the port's kernels (brick4_*, brick_*, gather1d): "
+    # a kernel's key is its signature, "void name<...>(...)" for a
+    # template instance
+    ours = sum(r[0] for r in rows if r[2].removeprefix("void ").startswith(
+        ("brick", "gather1d", "permuto4")))
+    print(f"[profile] the port's kernels (brick4_*, brick_*, gather1d, "
+          f"permuto4_*): "
           f"{ours:.4f} ms, {ours / max(total, 1e-9) * 100:.1f}% of the "
           f"device time")
     for ms, count, key in rows[:12]:
@@ -213,6 +238,25 @@ def _ray_points(o, d, n_per_ray: int, seed: int):
     return (x.reshape(-1, 3) * 0.5 + 0.5).clamp(0.0, 1.0).contiguous()
 
 
+def _dyn_points(o, d, ts, n_per_ray: int, seed: int):
+    """(x,t) lattice inputs in [0,1]^4: `_ray_points` with each ray's
+    timestamp, mapped as the dynamic field maps it (t·0.5 + 0.5)."""
+    import torch
+
+    x = _ray_points(o, d, n_per_ray, seed)
+    t = torch.repeat_interleave(ts, n_per_ray)[:, None] * 0.5 + 0.5
+    return torch.cat([x, t], -1).contiguous()
+
+
+def _tested(model, o, d, extra=None):
+    """The model's ray test, plus per-ray inputs (the dynamic model's
+    `ts`) cut to the rays and moved to their device."""
+    rt = model.ray_test(o, d)
+    for k, v in (extra or {}).items():
+        rt[k] = v[:o.shape[0]].to(o.device)
+    return rt
+
+
 def _seed_weights(model, enc, seed: int) -> None:
     """Seeded weights that give a non-trivial render: table values in
     ±0.1 (the init is ±1e-4), and ln_s = ln(64)/10 for a NeuS."""
@@ -220,22 +264,26 @@ def _seed_weights(model, enc, seed: int) -> None:
 
     rng = np.random.default_rng(seed)
     with torch.no_grad():
-        enc.flattened_params.copy_(torch.from_numpy(rng.uniform(
-            -0.1, 0.1, enc.n_params).astype(np.float32)))
+        p = enc.flattened_params
+        p.copy_(torch.from_numpy(rng.uniform(
+            -0.1, 0.1, tuple(p.shape)).astype(np.float32)))
         if hasattr(model.field, "var_ctrl"):
             model.field.var_ctrl.ln_s.fill_(float(np.log(64.0) / 10.0))
 
 
-def _step_loss(model, o, d, **query):
+def _step_loss(model, o, d, extra=None, **query):
     """experiments/bench_render.py:197-221: MSE(rgb, |d|) + 0.1·eikonal
-    over the valid packed nablas."""
+    over the valid packed nablas (the compressed query), or over every
+    sample's nablas (the dynamic query, which keeps all samples)."""
     import torch
     from nr3d_lib_tpu_torch.models.loss.regularization import eikonal_loss
 
-    rendered, vb = model.ray_query(model.ray_test(o, d), **query)
+    rendered, vb = model.ray_query(_tested(model, o, d, extra), **query)
     loss = torch.mean((rendered["rgb_volume"] - torch.abs(d)) ** 2)
-    return loss + 0.1 * eikonal_loss(vb["nablas_packed"],
-                                     vb["ridx"] < o.shape[0])
+    if "nablas_packed" in vb:
+        return loss + 0.1 * eikonal_loss(vb["nablas_packed"],
+                                         vb["ridx"] < o.shape[0])
+    return loss + 0.1 * eikonal_loss(vb["nablas"])
 
 
 def _kernel_row(kernels, *, name, key, path, source, replaces, err, ms,
@@ -291,7 +339,8 @@ def _autograd_nablas(model, x01, prefix: str) -> dict:
     return launches
 
 
-def _step_vs_cpu(model, cpu, o, d, cpu_render_s: float, label: str) -> None:
+def _step_vs_cpu(model, cpu, o, d, cpu_render_s: float, label: str,
+                 extra=None) -> None:
     """One step's loss and gradients on the card against the CPU port from
     the same weights and uniforms: the card's draws are recorded and
     replayed on the CPU. The ray count is cut when the CPU step, estimated
@@ -320,10 +369,10 @@ def _step_vs_cpu(model, cpu, o, d, cpu_render_s: float, label: str) -> None:
 
     model.zero_grad(set_to_none=True)
     cpu.zero_grad(set_to_none=True)
-    loss_g = _step_loss(model, o[:n], d[:n], draw=record)
+    loss_g = _step_loss(model, o[:n], d[:n], extra, draw=record)
     loss_g.backward()
     t0 = time.perf_counter()
-    loss_c = _step_loss(cpu, o[:n].cpu(), d[:n].cpu(), draw=replay)
+    loss_c = _step_loss(cpu, o[:n].cpu(), d[:n].cpu(), extra, draw=replay)
     loss_c.backward()
     cpu_step_s = time.perf_counter() - t0
     loss_g, loss_c = float(loss_g.detach()), float(loss_c.detach())
@@ -345,9 +394,11 @@ def _step_vs_cpu(model, cpu, o, d, cpu_render_s: float, label: str) -> None:
     model.zero_grad(set_to_none=True)
 
 
-def _train(model, o, d, smi: str, prefix: str, label: str) -> dict:
+def _train(model, o, d, smi: str, label: str, per_step: dict,
+           per_update: dict, extra=None) -> dict:
     """The production train step: warm-up, then N_STEPS timed steps that
-    cross an occupancy update. Returns the timed steps' launches."""
+    cross an occupancy update; each step must launch exactly `per_step`,
+    plus `per_update` at an update. Returns the timed steps' launches."""
     import torch
     from nr3d_lib_tpu_torch.ops import _build
 
@@ -360,7 +411,7 @@ def _train(model, o, d, smi: str, prefix: str, label: str) -> dict:
         it = next(its)
         model.training_before_per_step(it, gen)
         opt.zero_grad(set_to_none=True)
-        loss = _step_loss(model, o, d, generator=gen)
+        loss = _step_loss(model, o, d, extra, generator=gen)
         loss.backward()
         opt.step()
         model.training_after_per_step(it, gen)
@@ -392,11 +443,10 @@ def _train(model, o, d, smi: str, prefix: str, label: str) -> dict:
     print(f"[{label} train] launches in the {N_STEPS} timed steps: "
           f"{launches}")
     n_upd = sum(it % model.lifecycle_update_every == 0 for it in timed)
-    expect = {f"{prefix}_fwd": 6 * N_STEPS + n_upd, f"{prefix}_bwd": N_STEPS,
-              f"{prefix}_dydx": N_STEPS, f"{prefix}_bwd2": N_STEPS,
-              "gather1d": N_STEPS}
-    print(f"[{label} train] expected: {expect} (6 encodes per step + 1 at "
-          f"each of the {n_upd} occupancy updates)")
+    expect = {k: v * N_STEPS + per_update.get(k, 0) * n_upd
+              for k, v in per_step.items()}
+    print(f"[{label} train] expected: {expect} ({per_step} per step + "
+          f"{per_update} at each of the {n_upd} occupancy updates)")
     _require(launches == expect, "the train step's launches are not exact")
     _require(all(np.isfinite(vals)), "a loss is not finite")
     last5 = float(np.mean(vals[-5:]))
@@ -408,7 +458,7 @@ def _train(model, o, d, smi: str, prefix: str, label: str) -> dict:
 
 
 def _serve(model, cpu_model, o, d, per_render: dict, label: str, smi: str,
-           n_renders: int = N_RENDERS):
+           n_renders: int = N_RENDERS, extra=None):
     """Timed renders under no_grad with exact launches per render, all
     outputs finite, a device profile, and the same rays rendered by the
     CPU port: ≥ 99% of rays must agree within 1e-4 in rgb and depth.
@@ -419,7 +469,7 @@ def _serve(model, cpu_model, o, d, per_render: dict, label: str, smi: str,
     n_rays = o.shape[0]
 
     def render():
-        return model.ray_query(model.ray_test(o, d))
+        return model.ray_query(_tested(model, o, d, extra))
 
     with torch.no_grad():
         render()                                            # warm-up
@@ -460,7 +510,8 @@ def _serve(model, cpu_model, o, d, per_render: dict, label: str, smi: str,
 
         cpu_model.ray_query_cfg = dict(model.ray_query_cfg)
         t0 = time.perf_counter()
-        r_cpu, _ = cpu_model.ray_query(cpu_model.ray_test(o.cpu(), d.cpu()))
+        r_cpu, _ = cpu_model.ray_query(_tested(cpu_model, o.cpu(), d.cpu(),
+                                              extra))
         cpu_s = time.perf_counter() - t0
     ok = torch.ones(n_rays, dtype=torch.bool)
     errs = []
@@ -844,6 +895,118 @@ def _f2_kernel_phases(nerf, neus, o8, d8, o, d, kernels) -> "torch.Tensor":
     return x3
 
 
+def _permuto4_kernel_phases(model, o, d, ts, kernels) -> None:
+    """Path C: B14, B15 (with and without dL/dx) and B16 at the dynamic
+    NeuS's final query: 4096 rays × 96 samples = 393,216 (x,t) points, 4
+    levels, a packed table of 14,080 rows."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import permuto_cell4 as P4
+
+    src = "nr3d_lib_tpu_torch/csrc/permuto_cell4.cu"
+    rep = "nr3d_lib_tpu/ops/permuto_cell4.py"
+    dev = o.device
+    bank = model.field.implicit_surface.bank
+    meta = bank.meta
+    with torch.no_grad():
+        table = bank.flattened_params.detach()
+        packed = P4.pack_table4(table)
+        table_bytes = packed.numel() * 4               # 7.2 MB packed
+        dtab_bytes = table.numel() * 4                 # the zeroed f32 output
+        x = _dyn_points(o, d, ts, 96, seed=16)
+        n, L, dim = x.shape[0], meta.n_levels, meta.n_dims
+        gen = torch.Generator(device=dev).manual_seed(17)
+        g = torch.randn(n, 4 * L, device=dev, generator=gen)
+        # each (point, level) at d = 4: the simplex search ~240 operations
+        # (elevation 19, rounding 45, rank 75, fix-up 20, weights 19, slots
+        # 50, hash/index 12), then the blend 5 vertices × (4 unpacks + 4
+        # FMAs) = 40
+        simplex_ops = 240
+
+        # ------------------------------------------------ B14 permuto4_fwd
+        y_p = P4.permuto_cell4_encode_xla(x, table, meta)
+        err = _check(f"B14 permuto4_fwd, L={L}", n, [(
+            "y", _err(P4.permuto_cell4_encode(x, table, meta), y_p),
+            1e-5 + 1e-5 * float(y_p.abs().max()),
+            "5 weighted vertices summed in another order")])
+        ms = _time_ms(lambda: P4._fwd_cuda(x, packed, meta))
+        plain_ms = _time_ms(lambda: P4.permuto_cell4_encode_xla(x, table,
+                                                                meta), iters=5)
+        bound = _bound(n * (4 * dim + 16 * L) + table_bytes,
+                       n * L * (simplex_ops + 40))
+        print(f"[B14 permuto4_fwd] kernel {ms:.4f} ms | plain {plain_ms:.4f} "
+              f"ms | bound {bound[0]:.4f} ms ({bound[1]}) | library: none")
+        _kernel_row(kernels, name="permuto4_fwd (B14)", key="permuto4_fwd",
+                    path="dyn render", source=src, replaces=f"{rep}:142",
+                    err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+
+        # ----------------- B15 permuto4_bwd: dL/dtable by float4 atomics
+        dx_p, dtab_p = P4.permuto_cell4_encode_bwd_xla(x, table, g, meta, True)
+        _, dtab_k = P4._bwd_cuda(x, g, meta, need_dx=False)
+        dx_k, dtab_k2 = P4._bwd_cuda(x, g, meta, need_dx=True, packed=packed)
+        err = _check("B15 permuto4_bwd", n, [
+            ("dL/dtable", max(_err(dtab_k, dtab_p), _err(dtab_k2, dtab_p)),
+             1e-6 + 1e-5 * float(dtab_p.abs().max()),
+             "thousands of terms per dense slot summed by atomics in an "
+             "order that changes from run to run"),
+            ("dL/dx", _err(dx_k, dx_p), 1e-4 + 1e-4 * float(dx_p.abs().max()),
+             "sums through the elevation Jacobian, scaled by the lattice "
+             "scale")])
+        ms = _time_ms(lambda: P4._bwd_cuda(x, g, meta, need_dx=False))
+        ms_dx = _time_ms(lambda: P4._bwd_cuda(x, g, meta, need_dx=True,
+                                              packed=packed))
+        plain_ms = _time_ms(lambda: P4.permuto_cell4_encode_bwd_xla(
+            x, table, g, meta, False), iters=5)
+        plain_dx = _time_ms(lambda: P4.permuto_cell4_encode_bwd_xla(
+            x, table, g, meta, True), iters=5)
+        # the simplex search + 5 vertices × 4 products (the atomics' adds
+        # are the L2's); with dL/dx + 5 × (4 unpacks + 7 for g·val) + the
+        # elevation vjp (~30)
+        bound = _bound(n * (4 * dim + 16 * L) + dtab_bytes,
+                       n * L * (simplex_ops + 20))
+        bound_dx = _bound(n * (4 * dim + 16 * L + 4 * dim) + table_bytes +
+                          dtab_bytes, n * L * (simplex_ops + 20 + 55 + 30))
+        print(f"[B15 permuto4_bwd] need_dx false (the step's form): kernel "
+              f"{ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); need_dx true: kernel "
+              f"{ms_dx:.4f} ms | plain {plain_dx:.4f} ms | bound "
+              f"{bound_dx[0]:.4f} ms ({bound_dx[1]}) | library: none")
+        _kernel_row(kernels, name="permuto4_bwd (B15)", key="permuto4_bwd",
+                    path="dyn train step", source=src, replaces=f"{rep}:222",
+                    err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                    ms_need_dx=ms_dx, plain_ms_need_dx=plain_dx,
+                    bound_ms_need_dx=bound_dx[0])
+
+        # ----------------------------------------------- B16 permuto4_dydx
+        n_p = P4.permuto_cell4_nablas_xla(g, x, table, meta)
+        err = _check("B16 permuto4_dydx", n, [(
+            "nablas", _err(P4.permuto_cell4_nablas(g, x, table, meta), n_p),
+            1e-4 + 1e-4 * float(n_p.abs().max()),
+            f"sums over 5 vertices × 4 feats × {L} levels through the "
+            f"elevation Jacobian, in another order")])
+        ms = _time_ms(lambda: P4._dydx_cuda(g, x, packed, meta))
+        plain_ms = _time_ms(lambda: P4.permuto_cell4_nablas_xla(g, x, table,
+                                                                meta), iters=5)
+        bound = _bound(n * (4 * dim + 16 * L + 4 * dim) + table_bytes,
+                       n * L * (simplex_ops + 55 + 30))
+        # its backward on the CUDA path is plain PyTorch (the JAX package's
+        # is XLA): the vjp of the plain nablas, gathers and index_add_
+        gg = torch.randn(n, dim, device=dev, generator=gen)
+        bwd_ms = _time_ms(lambda: P4.permuto_cell4_nablas_bwd_xla(
+            g, x, table, gg, meta), iters=5)
+        print(f"[B16 permuto4_dydx] kernel {ms:.4f} ms | plain {plain_ms:.4f}"
+              f" ms | bound {bound[0]:.4f} ms ({bound[1]}) | library: none | "
+              f"its backward (plain PyTorch, no kernel) {bwd_ms:.4f} ms")
+        _kernel_row(kernels, name="permuto4_dydx (B16)", key="permuto4_dydx",
+                    path="dyn render", source=src, replaces=f"{rep}:544",
+                    err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                    backward_plain_ms=bwd_ms)
+        # its ~700 small kernels fill the launch queue, so the events above
+        # may time the host; the profile gives the device's own time
+        _profile(lambda: P4.permuto_cell4_nablas_bwd_xla(g, x, table, gg,
+                                                         meta),
+                 bwd_ms, "plain nablas backward at 393,216 points")
+
+
 def _seed_occupancy(model) -> None:
     """A seeded 15% occupancy grid (experiments/bench_render.py seeds the
     same share, so the compressed paths have real sparsity)."""
@@ -877,6 +1040,8 @@ def main() -> int:
 
     from nr3d_lib_tpu_torch.models.model_base import (LoTDNeRFModel,
                                                       LoTDNeuSModel)
+    from nr3d_lib_tpu_torch.models.model_families import \
+        DynamicPermutoNeuSModel
     from nr3d_lib_tpu_torch.ops import _build
 
     dev = torch.device("cuda")
@@ -900,7 +1065,7 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     # ----------------------------------------------------------- models
-    def seeded(cls, cfg, enc_of, seed):
+    def seeded(cls, cfg, enc_of, seed, occupancy=True):
         m = cls(**cfg, seed=0)
         _seed_weights(m, enc_of(m), seed)
         t0 = time.perf_counter()
@@ -910,7 +1075,8 @@ def main() -> int:
               f"({enc_of(m).meta.total_rows} table rows, F="
               f"{enc_of(m).n_feats}): {(time.perf_counter() - t0) * 1e3:.1f}"
               f" ms")
-        _seed_occupancy(m)
+        if occupancy:
+            _seed_occupancy(m)
         return m
 
     def neus_enc(m):
@@ -919,14 +1085,21 @@ def main() -> int:
     model = seeded(LoTDNeuSModel, PROD_CFG, neus_enc, 1)
     neus2 = seeded(LoTDNeuSModel, NEUS_F2_CFG, neus_enc, 3)
     nerf = seeded(LoTDNeRFModel, NERF_CFG, lambda m: m.field.encoding, 2)
+    # the dynamic query samples without marching: its per-time-key grids
+    # keep what populate's EMA update put there
+    dyn = seeded(DynamicPermutoNeuSModel, DYN_CFG,
+                 lambda m: m.field.implicit_surface.bank, 4, occupancy=False)
     o, d = (torch.from_numpy(a).to(dev) for a in _rays(N_RAYS, seed=0))
     o8, d8 = (torch.from_numpy(a).to(dev)
               for a in _rays(N_RAYS_NERF, seed=0))
+    ts_extra = {"ts": torch.from_numpy(np.random.default_rng(6).uniform(
+        -1.0, 1.0, N_RAYS).astype(np.float32)).to(dev)}
     kernels, paths = [], {}
 
     # --------------------------------------------------- kernel phases
     x3 = _f4_kernel_phases(model, o, d, kernels)
     x3b = _f2_kernel_phases(nerf, neus2, o8, d8, o, d, kernels)
+    _permuto4_kernel_phases(dyn, o, d, ts_extra["ts"], kernels)
 
     # ----------------------------------- slices 1 and 2: the F=4 NeuS
     cpu = _cpu_twin(model, LoTDNeuSModel, PROD_CFG)
@@ -935,8 +1108,10 @@ def main() -> int:
     paths["f4 render"] = (launches, N_RENDERS)
     paths["f4 autograd nablas"] = (_autograd_nablas(model, x3, "brick4"), 1)
     _step_vs_cpu(model, cpu, o, d, cpu_s, "f4")
-    paths["f4 train step"] = (_train(model, o, d, smi, "brick4", "f4"),
-                              N_STEPS)
+    paths["f4 train step"] = (_train(
+        model, o, d, smi, "f4", {"brick4_fwd": 6, "brick4_bwd": 1,
+                                 "brick4_dydx": 1, "brick4_bwd2": 1,
+                                 "gather1d": 1}, {"brick4_fwd": 1}), N_STEPS)
 
     # ------------------------------------ path A: the F=2 NeRF serving
     nerf_cpu = _cpu_twin(nerf, LoTDNeRFModel, NERF_CFG)
@@ -957,8 +1132,22 @@ def main() -> int:
     paths["f2 render"] = (launches, N_RENDERS)
     paths["f2 autograd nablas"] = (_autograd_nablas(neus2, x3b, "brick"), 1)
     _step_vs_cpu(neus2, cpu2, o, d, cpu_s, "f2")
-    paths["f2 train step"] = (_train(neus2, o, d, smi, "brick", "f2"),
-                              N_STEPS)
+    paths["f2 train step"] = (_train(
+        neus2, o, d, smi, "f2", {"brick_fwd": 6, "brick_bwd": 1,
+                                 "brick_dydx": 1, "brick_bwd2": 1,
+                                 "gather1d": 1}, {"brick_fwd": 1}), N_STEPS)
+
+    # ------------------------- path C: the dynamic (x,t) permuto NeuS
+    dyn_cpu = _cpu_twin(dyn, DynamicPermutoNeuSModel, DYN_CFG)
+    launches, cpu_s = _serve(dyn, dyn_cpu, o, d, {
+        "permuto4_fwd": 4, "permuto4_dydx": 1}, "dyn render", smi,
+        extra=ts_extra)
+    paths["dyn render"] = (launches, N_RENDERS)
+    _step_vs_cpu(dyn, dyn_cpu, o, d, cpu_s, "dyn", ts_extra)
+    paths["dyn train step"] = (_train(
+        dyn, o, d, smi, "dyn", {"permuto4_fwd": 4, "permuto4_bwd": 1,
+                                "permuto4_dydx": 1}, {"permuto4_fwd": 1},
+        ts_extra), N_STEPS)
 
     for kd in kernels:
         key = kd.pop("key")

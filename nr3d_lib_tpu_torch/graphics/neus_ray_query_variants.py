@@ -1,10 +1,10 @@
-"""Compressed NeuS ray query (port of
-nr3d_lib_tpu/graphics/neus_ray_query_variants.py
-`neus_ray_query_march_occ_multi_upsample_compressed`).
-
-March + upsample, then compact each ray to its surviving samples before
-the RGB/nablas query, which then touches ~compression_factor × fewer
-samples.
+"""NeuS ray-query variants (port of nr3d_lib_tpu/graphics/
+neus_ray_query_variants.py): the compressed query
+(`neus_ray_query_march_occ_multi_upsample_compressed`: march + upsample,
+then compact each ray to its surviving samples before the RGB/nablas
+query, which then touches ~compression_factor × fewer samples) and the
+time-conditioned query (`neus_ray_query_dynamic`: linear coarse samples +
+upsample, every query carrying the ray's timestamp).
 """
 
 from __future__ import annotations
@@ -18,9 +18,11 @@ from nr3d_lib_tpu_torch.graphics import pack_ops as po
 from nr3d_lib_tpu_torch.graphics.nerf import ray_alpha_to_vw
 from nr3d_lib_tpu_torch.graphics.neus import neus_ray_sdf_to_alpha
 from nr3d_lib_tpu_torch.graphics.neus_ray_query import _upsample_rounds
-from nr3d_lib_tpu_torch.graphics.raysample import Draw
+from nr3d_lib_tpu_torch.graphics.raysample import (Draw,
+                                                   batch_sample_step_linear)
 
-__all__ = ["neus_ray_query_march_occ_multi_upsample_compressed"]
+__all__ = ["neus_ray_query_march_occ_multi_upsample_compressed",
+           "neus_ray_query_dynamic"]
 
 _BIG_SDF = 1e4
 
@@ -116,3 +118,58 @@ def neus_ray_query_march_occ_multi_upsample_compressed(
           "t": t_b, "alpha": alpha_b, "vw": vw, "valid": valid_b,
           "ray_mask": ray_mask, "n_compact": torch.sum(valid_b)}
     return rendered, vb
+
+
+def neus_ray_query_dynamic(model, space, ray_tested: Dict, ts: torch.Tensor,
+                           *, n_coarse: int = 64,
+                           upsample_inv_s_factors: Sequence[float] = (1.0,
+                                                                      4.0),
+                           n_importance: int = 16,
+                           upsample_inv_s: float = 64.0,
+                           with_rgb: bool = True, draw: Optional[Draw] = None
+                           ) -> Tuple[Dict, Dict]:
+    """Time-conditioned NeuS query: ts [R] per ray; every SDF and radiance
+    query carries the ray's timestamp. ``draw`` perturbs the coarse
+    samples ([R, n_coarse] in [0,1)) and then each upsample round, the
+    order in which the JAX version splits its key; None renders at the
+    bin midpoints and fixed quantiles. Only the final query and inv_s
+    carry gradients: the sampling runs under no_grad."""
+    rays_o, rays_d = ray_tested["rays_o"], ray_tested["rays_d"]
+    near, far, ray_mask = ray_tested["near"], ray_tested["far"], \
+        ray_tested["mask"]
+    o_n, d_n = space.normalize_rays(rays_o, rays_d)
+    r = rays_o.shape[0]
+    u = None if draw is None else draw((r, n_coarse), 0.0, 1.0)
+    t, _ = batch_sample_step_linear(near, far, n_coarse, u)
+    valid = torch.ones_like(t, dtype=torch.bool)
+
+    def sdf_fn_flat(x):
+        ts_rep = torch.repeat_interleave(ts, x.shape[0] // r)
+        return model.implicit_surface.forward_sdf(x, ts_rep)["sdf"]
+
+    t, valid = _upsample_rounds(sdf_fn_flat, o_n, d_n, t, valid, far,
+                                upsample_inv_s, upsample_inv_s_factors,
+                                n_importance, draw)
+    s = t.shape[1]
+    x = (o_n[:, None, :] + d_n[:, None, :] * t[..., None]).reshape(r * s, 3)
+    ts_rep = torch.repeat_interleave(ts, s)
+    v = rays_d[:, None, :].expand(r, s, 3).reshape(r * s, 3)
+    out = model(x, v, ts_rep, with_rgb=with_rgb)
+    sdf = torch.where(valid, out["sdf"].reshape(r, s),
+                      torch.full_like(t, _BIG_SDF))
+    alpha = neus_ray_sdf_to_alpha(sdf, model.forward_inv_s(),
+                                  append_cdf_1=True)
+    alpha = torch.where(valid & ray_mask[:, None], alpha,
+                        torch.zeros_like(alpha))
+    vw = ray_alpha_to_vw(alpha)
+    acc = torch.sum(vw, -1)
+    zero_r = torch.zeros_like(acc)
+    depth = torch.sum(vw * t, -1) / torch.clamp(acc, min=1e-10)
+    rendered = {"mask_volume": torch.where(ray_mask, acc, zero_r),
+                "depth_volume": torch.where(ray_mask, depth, zero_r)}
+    if with_rgb:
+        rgb = torch.sum(vw[..., None] * out["rgb"].reshape(r, s, 3), -2)
+        rendered["rgb_volume"] = torch.where(ray_mask[:, None], rgb,
+                                             torch.zeros_like(rgb))
+    return rendered, {"t": t, "alpha": alpha, "vw": vw,
+                      "nablas": out["nablas"].reshape(r, s, 3)}

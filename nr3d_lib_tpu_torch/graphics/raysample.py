@@ -1,5 +1,5 @@
-"""Inverse-CDF importance sampling (port of
-nr3d_lib_tpu/graphics/raysample.py `batch_sample_cdf`,
+"""Step and inverse-CDF samplers (port of nr3d_lib_tpu/graphics/
+raysample.py `batch_sample_step_linear`, `batch_sample_cdf`,
 `batch_sample_pdf`), and the seam through which the perturbed samplers get
 their uniforms.
 
@@ -18,8 +18,8 @@ import torch
 
 from nr3d_lib_tpu_torch.graphics import _scan
 
-__all__ = ["Draw", "uniform_draw", "batch_sample_cdf", "batch_sample_pdf",
-           "CDF_EPS"]
+__all__ = ["Draw", "uniform_draw", "batch_sample_step_linear",
+           "batch_sample_cdf", "batch_sample_pdf", "CDF_EPS"]
 
 Draw = Callable[[Tuple[int, ...], float, float], torch.Tensor]
 CDF_EPS = 1e-8        # the perturbed CDF sampler draws u in [eps, 1 − eps)
@@ -31,6 +31,19 @@ def uniform_draw(generator: torch.Generator) -> Draw:
         u = torch.rand(shape, generator=generator, device=generator.device)
         return lo + (hi - lo) * u
     return draw
+
+
+def batch_sample_step_linear(near: torch.Tensor, far: torch.Tensor,
+                             n_samples: int, u: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Uniform-in-depth samples → (t [R,S], dt [R,S]): the bin midpoints,
+    or with `u` [R,S] in [0,1) a stratified jitter inside each bin."""
+    s = torch.linspace(0.0, 1.0, n_samples + 1, dtype=near.dtype,
+                       device=near.device)
+    edges = near[..., None] + (far - near)[..., None] * s
+    lo, hi = edges[..., :-1], edges[..., 1:]
+    t = 0.5 * (lo + hi) if u is None else lo + (hi - lo) * u
+    return t, hi - lo
 
 
 def batch_sample_cdf(bins: torch.Tensor, cdfs: torch.Tensor, n_samples: int,

@@ -1,5 +1,5 @@
 """AABB space: coordinate normalization + ray test (port of
-nr3d_lib_tpu/models/spatial/aabb.py `AABBSpace`)."""
+nr3d_lib_tpu/models/spatial/aabb.py `AABBSpace`, `AABBDynamicSpace`)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ from torch import nn
 
 from nr3d_lib_tpu_torch.graphics.raytest import ray_box_intersection
 
-__all__ = ["AABBSpace"]
+__all__ = ["AABBSpace", "AABBDynamicSpace"]
 
 
 class AABBSpace(nn.Module):
@@ -52,3 +52,23 @@ class AABBSpace(nn.Module):
         return {"near": t_near, "far": t_far, "mask": hit,
                 "num_rays": rays_o.shape[0], "rays_o": rays_o,
                 "rays_d": rays_d}
+
+
+class AABBDynamicSpace(AABBSpace):
+    """AABB space + time normalization over the keyframe span. State: the
+    buffers ``aabb`` and ``ts_keyframes``."""
+
+    def __init__(self, aabb=None, ts_keyframes=None, *, device=None, **kw):
+        super().__init__(aabb, device=device, **kw)
+        self.register_buffer("ts_keyframes", torch.as_tensor(
+            [0.0, 1.0] if ts_keyframes is None else ts_keyframes,
+            dtype=torch.float32).to(device))
+
+    def normalize_ts(self, ts: torch.Tensor) -> torch.Tensor:
+        """Time → [-1, 1] over the keyframe span."""
+        t0, t1 = self.ts_keyframes[0], self.ts_keyframes[-1]
+        return (ts - t0) / torch.clamp(t1 - t0, min=1e-8) * 2.0 - 1.0
+
+    def unnormalize_ts(self, ts: torch.Tensor) -> torch.Tensor:
+        t0, t1 = self.ts_keyframes[0], self.ts_keyframes[-1]
+        return (ts + 1.0) * 0.5 * (t1 - t0) + t0

@@ -33,7 +33,7 @@ __all__ = ["LAUNCHES", "KERNEL_SOURCES", "build_all", "load", "check",
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNEL_SOURCES = ("brick4", "brick", "gather1d")
+KERNEL_SOURCES = ("brick4", "brick", "gather1d", "permuto_cell4")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

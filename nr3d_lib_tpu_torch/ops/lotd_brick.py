@@ -260,12 +260,18 @@ def brick_nablas_xla(g_up: torch.Tensor, x: torch.Tensor,
 
 def _vjp(fn, inputs, need, cot):
     """The vjp of fn at detached copies of `inputs`, for those flagged in
-    `need` (None for the others)."""
+    `need` (None for the others; zeros for a flagged input that fn does
+    not differentiate)."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(n) for t, n in zip(inputs, need)]
-        grads = iter(torch.autograd.grad(
-            fn(*ins), [t for t, n in zip(ins, need) if n], cot))
-        return tuple(next(grads) if n else None for n in need)
+        wrt = [t for t, n in zip(ins, need) if n]
+        grads = iter(torch.autograd.grad(fn(*ins), wrt, cot,
+                                         allow_unused=True))
+        out = []
+        for t, n in zip(ins, need):
+            g = next(grads) if n else None
+            out.append(torch.zeros_like(t) if n and g is None else g)
+        return tuple(out)
 
 
 def brick_encode_bwd_xla(x: torch.Tensor, table: torch.Tensor,

@@ -13,7 +13,11 @@ res-2 (1e-4); the table gradients of B2, B4, B7 and B9 are sums by
 atomics, in an order that changes from run to run (1e-5 relative to the
 largest entry), their dL/dx and dL/dg_up scale by res-2 (1e-4); B5 is a
 copy (exact). The F=2 kernels run on two metas: Dense and Hash levels, and
-eight levels (the most they take).
+eight levels (the most they take). The F=4 cell permuto kernels (B14–B16)
+run on the dynamic NeuS's 4D meta and a small 3D one: B14 sums d+1
+weighted vertices in another order (1e-5); B15's table gradient is a sum
+by atomics (1e-5 relative to the largest entry), its dL/dx and B16 sum
+through the elevation Jacobian and the lattice scale (1e-4).
 """
 
 import numpy as np
@@ -24,6 +28,7 @@ from nr3d_lib_tpu_torch.ops import _build
 from nr3d_lib_tpu_torch.ops import gather1d as G
 from nr3d_lib_tpu_torch.ops import lotd_brick as B
 from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
+from nr3d_lib_tpu_torch.ops import permuto_cell4 as P4
 
 pytestmark = pytest.mark.gpu
 
@@ -415,3 +420,140 @@ def test_nerf_render_goes_through_the_kernels(cuda, mode):
     assert dict(_build.LAUNCHES) == {"brick_fwd": 1, "brick_bwd": 1,
                                      "gather1d": 1}
     assert model.field.encoding.flattened_params.grad.abs().max() > 0
+
+
+# ---------------------------------------------- F=4 cell permuto (B14-B16)
+P4_METAS = {"yaml4d": (4, [4.0, 11.0, 32.0, 90.0], 4096),
+            "small3d": (3, [2.0, 8.0, 24.0], 64)}
+P4_CASES = [(m, n) for m in sorted(P4_METAS) for n in (1, 255, 100_000)]
+
+
+def _p4_inputs(dev, meta_name: str, n: int, seed: int):
+    d, res, rows = P4_METAS[meta_name]
+    meta = P4.make_permuto_cell4_meta(d, res, rows)
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, (max(n, 300), d)).astype(np.float32)
+    x[:100] = np.round(x[:100] * 8.0) / 8.0           # lattice ties
+    x[100:120] = 0.5
+    x[120:200] = x[120:200, :1]
+    x[200], x[201] = 0.0, 1.0
+    x = x[rng.permutation(len(x))][:n]
+    table = rng.uniform(-0.1, 0.1, (meta.total_rows, 256)).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(n, 4 * meta.n_levels, device=dev, generator=gen)
+    return (meta, torch.from_numpy(x).to(dev), torch.from_numpy(table).to(dev),
+            g)
+
+
+@pytest.mark.parametrize("meta_name,n", P4_CASES)
+def test_permuto4_fwd_kernel_matches_plain(cuda, meta_name, n):
+    meta, x, table, _ = _p4_inputs(cuda, meta_name, n, 20)
+    before = _build.LAUNCHES["permuto4_fwd"]
+    with torch.no_grad():
+        y = P4.permuto_cell4_encode(x, table, meta)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["permuto4_fwd"] == before + 1
+    _close(y, P4.permuto_cell4_encode_xla(x, table, meta), 1e-5)
+
+
+@pytest.mark.parametrize("meta_name,n", P4_CASES)
+@pytest.mark.parametrize("need_dx", [False, True])
+def test_permuto4_bwd_kernel_matches_plain(cuda, meta_name, n, need_dx):
+    meta, x, table, g = _p4_inputs(cuda, meta_name, n, 21)
+    before = _build.LAUNCHES["permuto4_bwd"]
+    dx, dtab = P4._bwd_cuda(x, g, meta, need_dx=need_dx,
+                            packed=P4.pack_table4(table))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["permuto4_bwd"] == before + 1
+    dx_p, dtab_p = P4.permuto_cell4_encode_bwd_xla(x, table, g, meta,
+                                                   need_dx)
+    _close(dtab, dtab_p, 1e-5)
+    if need_dx:
+        _close(dx, dx_p, 1e-4)
+    else:
+        assert dx is None
+
+
+@pytest.mark.parametrize("meta_name,n", P4_CASES)
+def test_permuto4_dydx_kernel_matches_plain(cuda, meta_name, n):
+    meta, x, table, g = _p4_inputs(cuda, meta_name, n, 22)
+    before = _build.LAUNCHES["permuto4_dydx"]
+    with torch.no_grad():
+        dx = P4.permuto_cell4_nablas(g, x, table, meta)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["permuto4_dydx"] == before + 1
+    _close(dx, P4.permuto_cell4_nablas_xla(g, x, table, meta), 1e-4)
+
+
+@pytest.mark.parametrize("meta_name", sorted(P4_METAS))
+def test_permuto4_autograd_matches_cpu_route(cuda, meta_name):
+    """The CUDA route's autograd (B14/B15 with dL/dx, B16 with the plain
+    vjp as its backward) against the CPU route's on the same inputs."""
+    meta, x, table, gu = _p4_inputs(cuda, meta_name, 4096, 23)
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    g = torch.randn(gu.shape, device=cuda, generator=gen)
+    gg = torch.randn(x.shape, device=cuda, generator=gen)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        _build.LAUNCHES.clear()
+        xs, ts, gs = (t.detach().to(dev).requires_grad_(True)
+                      for t in (x, table, gu))
+        loss = (P4.permuto_cell4_encode(xs, ts, meta) * g.to(dev)).sum() + \
+            (P4.permuto_cell4_nablas(gs, xs, ts, meta) * gg.to(dev)).sum()
+        grads.append([t.cpu() for t in torch.autograd.grad(loss,
+                                                           (xs, ts, gs))])
+        launches = dict(_build.LAUNCHES)
+        assert launches == ({"permuto4_fwd": 1, "permuto4_bwd": 1,
+                             "permuto4_dydx": 1} if dev == cuda else {})
+    for a, b, rel in zip(*grads, (1e-4, 1e-5, 1e-4)):
+        _close(a, b, rel)
+
+
+def _dynamic_model():
+    from nr3d_lib_tpu_torch.models.model_families import \
+        DynamicPermutoNeuSModel
+
+    return DynamicPermutoNeuSModel(
+        field_cfg={"surface_cfg": {
+            "permuto_cfg": {"res_list": [4.0, 11.0, 32.0, 90.0],
+                            "backend": "cell", "n_feats": 4,
+                            "hashmap_rows": 4096},
+            "decoder_cfg": {"D": 1, "W": 64}},
+            "radiance_cfg": {"D": 2, "W": 64}},
+        n_time_keys=8, ray_query_cfg={"n_coarse": 32, "n_importance": 8})
+
+
+def test_dynamic_step_and_render_go_through_the_kernels(cuda):
+    from nr3d_lib_tpu_torch.models.loss.regularization import eikonal_loss
+
+    model = _dynamic_model()
+    o, d = _small_rays(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ts = torch.rand(o.shape[0], device=cuda, generator=gen) * 2.0 - 1.0
+    model.populate(gen)
+    rt = model.ray_test(o, d)
+    rt["ts"] = ts
+    with torch.no_grad():
+        _build.LAUNCHES.clear()
+        rendered, _ = model.ray_query(rt)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"permuto4_fwd": 4, "permuto4_dydx": 1}
+    for v in rendered.values():
+        assert torch.isfinite(v).all()
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    for it in (15, 16):                      # 16: the occupancy update
+        _build.LAUNCHES.clear()
+        model.training_before_per_step(it, gen)
+        opt.zero_grad()
+        rendered, vb = model.ray_query(rt, generator=gen)
+        loss = torch.mean((rendered["rgb_volume"] - d.abs()) ** 2) + \
+            0.1 * eikonal_loss(vb["nablas"])
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {
+            "permuto4_fwd": 4 + (it == 16), "permuto4_bwd": 1,
+            "permuto4_dydx": 1}, (it, dict(_build.LAUNCHES))
+        assert torch.isfinite(loss)
+        for p in model.parameters():
+            assert p.grad is not None and torch.isfinite(p.grad).all()
