@@ -5,9 +5,10 @@
 
 1. Prints the card (name, power limit), torch and CUDA versions.
 2. Builds every CUDA kernel of the port from `nr3d_lib_tpu_torch/csrc/`
-   (brick4.cu, brick.cu, gather1d.cu, permuto_cell4.cu) with nvcc for
-   sm_90a, one nvcc per source, all started together, and prints the
-   build time and the ptxas register / shared-memory lines.
+   (brick4.cu, brick.cu, gather1d.cu, permuto_cell4.cu, permuto_cell.cu;
+   the last two share permuto_simplex.cuh) with nvcc for sm_90a, one nvcc
+   per source, all started together, and prints the build time and the
+   ptxas register / shared-memory lines.
 3. One phase per kernel at the shapes of the paths below. Each compares
    the kernel with its plain PyTorch version on the card (tolerance
    printed), times kernel, plain version and, where one exists, a
@@ -21,7 +22,11 @@
    without dL/dx), B8 (brick_dydx) and B9 (brick_bwd2) at 147,456 × 4.
    F=4 cell permuto (path C), at the dynamic NeuS's final query of
    393,216 (x,t) points × 4 levels: B14 (permuto4_fwd), B15 (permuto4_bwd,
-   with and without dL/dx) and B16 (permuto4_dydx).
+   with and without dL/dx) and B16 (permuto4_dydx). F=2 cell permuto
+   (path D and the field phase), each at two shapes — path D's final
+   query, 393,216 (x,t) points × 5 hashed levels, and the 3D bench
+   lattice, 393,216 points × 8 levels (one dense): B10 (permuto_fwd), B11
+   and B12 (permuto_bwd without and with dL/dx) and B13 (permuto_dydx).
 4. The paths, each through the entry points a user calls, with seeded
    weights, a seeded 15% occupancy and seeded rays. Launch counters are
    zeroed just before each path and read just after; every count must be
@@ -53,6 +58,19 @@
      update of 8 time keys × 8192 cells, 1 each of B15 without dL/dx and
      B16 per step; the nablas' backward is plain PyTorch, as the JAX
      package computes it in XLA).
+   - Field phase, the static 3D permuto fields (`PermutoSDF`,
+     `PermutoNeRF`, F=2 cell backend at bench.py's lattice: 30,657 rows)
+     on 393,216 points along the rays: `forward_sdf_nablas` (1 B10 + 1
+     B13); the autograd nablas through `forward_sdf` (1 B10 + 1 B12),
+     held against the split nablas; one `PermutoNeRF` density forward and
+     backward (1 B10 + 1 B11). Each is held against the CPU port.
+   - Path D, the dynamic (x,t) NeuS on the F=2 cell permuto
+     (`DynamicPermutoNeuSModel` with `permuto_cfg: {backend: cell}`, so
+     the field's defaults: res_list [8, 16, 32, 64, 128], 4096 rows, five
+     hashed levels, 20,480 rows), as path C otherwise: 10 renders (4 B10
+     and 1 B13 per render); one train step against the CPU port; 2
+     warm-up and 20 timed steps (4 B10 + 1 per occupancy update, 1 B11
+     and 1 B13 per step).
    Each path prints ms per call (median, quartiles), Krays/s, peak memory
    and a device-time profile by kernel.
 5. A `{"kernels": [...]}` JSON line, then the card's name and power limit,
@@ -116,6 +134,17 @@ DYN_CFG = dict(
         "decoder_cfg": {"D": 1, "W": 64}},
         "radiance_cfg": {"D": 2, "W": 64}},
     n_time_keys=8)
+# path D: the same model with `permuto_cfg: {backend: cell}`, so the
+# field's own defaults (models/fields_dynamic.py:38-46): F=2, res_list
+# [8, 16, 32, 64, 128], 4096 rows
+PATHD_CFG = dict(
+    field_cfg={"surface_cfg": {"permuto_cfg": {"backend": "cell"},
+                               "decoder_cfg": {"D": 1, "W": 64}},
+               "radiance_cfg": {"D": 2, "W": 64}},
+    n_time_keys=8)
+# the field phase: bench.py:452-453's 3D cell lattice, F=2
+FIELD_PERMUTO = {"res_list": [16.0 * 2 ** (0.5 * i) for i in range(8)],
+                 "backend": "cell", "hashmap_rows": 4096}
 # path A: experiments/bench_render.py:21-55, use_brick=True,
 # mode march_occ_compressed (F=2)
 NERF_CFG = dict(
@@ -203,9 +232,9 @@ def _profile(run, wall_ms: float, what: str) -> None:
     # a kernel's key is its signature, "void name<...>(...)" for a
     # template instance
     ours = sum(r[0] for r in rows if r[2].removeprefix("void ").startswith(
-        ("brick", "gather1d", "permuto4")))
+        ("brick", "gather1d", "permuto")))
     print(f"[profile] the port's kernels (brick4_*, brick_*, gather1d, "
-          f"permuto4_*): "
+          f"permuto4_*, permuto_*): "
           f"{ours:.4f} ms, {ours / max(total, 1e-9) * 100:.1f}% of the "
           f"device time")
     for ms, count, key in rows[:12]:
@@ -1007,6 +1036,241 @@ def _permuto4_kernel_phases(model, o, d, ts, kernels) -> None:
                  bwd_ms, "plain nablas backward at 393,216 points")
 
 
+def _simplex_ops(d: int) -> int:
+    """Float and integer operations of one (point, level)'s simplex search
+    in `csrc/permuto_simplex.cuh`: elevation 4d+3, rounding 9(d+1), rank
+    3(d+1)², sum fix-up 4(d+1), weights 4(d+1)−1, vertex slots 2(d+1)²,
+    hash or box index 3d (240 at d = 4, 171 at d = 3)."""
+    dp1 = d + 1
+    return (4 * d + 3) + 9 * dp1 + 3 * dp1 ** 2 + 4 * dp1 + \
+        (4 * dp1 - 1) + 2 * dp1 ** 2 + 3 * d
+
+
+def _permuto_kernel_phases(pathd, field, o, d, ts, kernels) -> None:
+    """Path D and the field phase: B10, B11, B12 and B13 at two shapes —
+    path D's final query (4096 rays × 96 samples = 393,216 (x,t) points,
+    5 hashed levels, 20,480 rows) and the 3D bench lattice (393,216
+    points along the rays, 8 levels with a dense level 0, 30,657 rows).
+    One row per kernel; the path D shape's numbers are the row's own, the
+    3D lattice's carry the suffix `_3d`."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import permuto_cell as PC
+
+    src = "nr3d_lib_tpu_torch/csrc/permuto_cell.cu"
+    rep = "nr3d_lib_tpu/ops/permuto_cell.py"
+    dev = o.device
+    rows = {k: {} for k in ("fwd", "bwd", "dydx")}
+    errs = {k: [] for k in rows}
+    shapes = (("path D", "", pathd.field.implicit_surface.bank,
+               _dyn_points(o, d, ts, 96, seed=26)),
+              ("3D lattice", "_3d", field.bank,
+               _ray_points(o, d, 96, seed=27)))
+    with torch.no_grad():
+        for what, sfx, bank, x in shapes:
+            meta = bank.meta
+            table = bank.flattened_params.detach()
+            n, L, dim = x.shape[0], meta.n_levels, meta.n_dims
+            table_bytes = table.numel() * 4        # read, or the zeroed dtab
+            gen = torch.Generator(device=dev).manual_seed(28)
+            g = torch.randn(n, 2 * L, device=dev, generator=gen)
+            sops = _simplex_ops(dim)
+            label = f"{what}, N={n}, d={dim}, L={L}, {meta.total_rows} rows"
+
+            # ------------------------------------------- B10 permuto_fwd
+            y_p = PC.permuto_cell_encode_xla(x, table, meta)
+            err = _check(f"B10 permuto_fwd, {label}", n, [(
+                "y", _err(PC.permuto_cell_encode(x, table, meta), y_p),
+                1e-5 + 1e-5 * float(y_p.abs().max()),
+                f"{dim + 1} weighted vertices summed in another order")])
+            ms = _time_ms(lambda: PC._fwd_cuda(x, table, meta))
+            plain_ms = _time_ms(lambda: PC.permuto_cell_encode_xla(
+                x, table, meta), iters=5)
+            # the simplex search + d+1 vertices × 2 features × (mul + add)
+            bound = _bound(n * (4 * dim + 8 * L) + table_bytes,
+                           n * L * (sops + 4 * (dim + 1)))
+            print(f"[B10 permuto_fwd, {what}] kernel {ms:.4f} ms | plain "
+                  f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms "
+                  f"({bound[1]}) | library: none")
+            errs["fwd"].append(err)
+            rows["fwd"].update({f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms,
+                                f"bound{sfx}": bound})
+
+            # ------- B11 / B12 permuto_bwd: dL/dtable by float2 atomics
+            dx_p, dtab_p = PC.permuto_cell_encode_bwd_xla(x, table, g, meta,
+                                                          True)
+            _, dtab_k = PC._bwd_cuda(x, g, meta, need_dx=False)
+            dx_k, dtab_k2 = PC._bwd_cuda(x, g, meta, need_dx=True,
+                                         table=table)
+            err = _check(f"B11/B12 permuto_bwd, {label}", n, [
+                ("dL/dtable", max(_err(dtab_k, dtab_p),
+                                  _err(dtab_k2, dtab_p)),
+                 1e-6 + 1e-5 * float(dtab_p.abs().max()),
+                 "up to thousands of terms per slot summed by atomics in "
+                 "an order that changes from run to run"),
+                ("dL/dx", _err(dx_k, dx_p),
+                 1e-4 + 1e-4 * float(dx_p.abs().max()),
+                 "sums through the elevation Jacobian, scaled by the "
+                 "lattice scale")])
+            ms = _time_ms(lambda: PC._bwd_cuda(x, g, meta, need_dx=False))
+            ms_dx = _time_ms(lambda: PC._bwd_cuda(x, g, meta, need_dx=True,
+                                                  table=table))
+            plain_ms = _time_ms(lambda: PC.permuto_cell_encode_bwd_xla(
+                x, table, g, meta, False), iters=5)
+            plain_dx = _time_ms(lambda: PC.permuto_cell_encode_bwd_xla(
+                x, table, g, meta, True), iters=5)
+            # the simplex search + d+1 vertices × 2 products (the atomics'
+            # adds are the L2's); with dL/dx + (d+1) × 3 for g·val + the
+            # elevation vjp ~6(d+1)
+            bound = _bound(n * (4 * dim + 8 * L) + table_bytes,
+                           n * L * (sops + 2 * (dim + 1)))
+            bound_dx = _bound(n * (4 * dim + 8 * L + 4 * dim) +
+                              2 * table_bytes,
+                              n * L * (sops + 11 * (dim + 1)))
+            print(f"[B11/B12 permuto_bwd, {what}] need_dx false (B11, the "
+                  f"step's form): kernel {ms:.4f} ms | plain {plain_ms:.4f}"
+                  f" ms | bound {bound[0]:.4f} ms ({bound[1]}); need_dx "
+                  f"true (B12): kernel {ms_dx:.4f} ms | plain "
+                  f"{plain_dx:.4f} ms | bound {bound_dx[0]:.4f} ms "
+                  f"({bound_dx[1]}) | library: none")
+            errs["bwd"].append(err)
+            rows["bwd"].update({
+                f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms,
+                f"bound{sfx}": bound, f"ms_need_dx{sfx}": ms_dx,
+                f"plain_ms_need_dx{sfx}": plain_dx,
+                f"bound_ms_need_dx{sfx}": bound_dx[0]})
+
+            # ------------------------------------------ B13 permuto_dydx
+            n_p = PC.permuto_cell_nablas_xla(g, x, table, meta)
+            err = _check(f"B13 permuto_dydx, {label}", n, [(
+                "nablas", _err(PC.permuto_cell_nablas(g, x, table, meta),
+                               n_p),
+                1e-4 + 1e-4 * float(n_p.abs().max()),
+                f"sums over {dim + 1} vertices × 2 feats × {L} levels "
+                f"through the elevation Jacobian, in another order")])
+            ms = _time_ms(lambda: PC._dydx_cuda(g, x, table, meta))
+            plain_ms = _time_ms(lambda: PC.permuto_cell_nablas_xla(
+                g, x, table, meta), iters=5)
+            bound = _bound(n * (4 * dim + 8 * L + 4 * dim) + table_bytes,
+                           n * L * (sops + 11 * (dim + 1)))
+            # its backward on the CUDA path is plain PyTorch (the JAX
+            # package's is XLA): the vjp of the plain nablas
+            gg = torch.randn(n, dim, device=dev, generator=gen)
+            bwd_ms = _time_ms(lambda: PC.permuto_cell_nablas_bwd_xla(
+                g, x, table, gg, meta), iters=5)
+            print(f"[B13 permuto_dydx, {what}] kernel {ms:.4f} ms | plain "
+                  f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms "
+                  f"({bound[1]}) | library: none | its backward (plain "
+                  f"PyTorch, no kernel) {bwd_ms:.4f} ms")
+            errs["dydx"].append(err)
+            rows["dydx"].update({f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms,
+                                 f"bound{sfx}": bound,
+                                 f"backward_plain_ms{sfx}": bwd_ms})
+            if not sfx:
+                # many small kernels fill the launch queue, so the events
+                # above may time the host; the profile gives the device's
+                _profile(lambda: PC.permuto_cell_nablas_bwd_xla(
+                    g, x, table, gg, meta), bwd_ms,
+                    f"plain F=2 nablas backward at {what}'s {n:,} points")
+    for key, name, path, line, extra in (
+            ("fwd", "permuto_fwd (B10)", "pathd render", 393, {}),
+            ("bwd", "permuto_bwd (B11, B12)", "pathd train step", 533,
+             {"replaces_need_dx": f"{rep}:698",
+              "path_need_dx": "field autograd nablas"}),
+            ("dydx", "permuto_dydx (B13)", "pathd render", 1175, {})):
+        r = rows[key]
+        b3 = r.pop("bound_3d")
+        extra.update({k: v for k, v in r.items()
+                      if k not in ("ms", "plain_ms", "bound")})
+        _kernel_row(kernels, name=name, key=f"permuto_{key}", path=path,
+                    source=src, replaces=f"{rep}:{line}",
+                    err=max(errs[key]), ms=r["ms"], plain_ms=r["plain_ms"],
+                    bound=r["bound"], bound_ms_3d=b3[0], **extra)
+
+
+def _field_phase(sdf, nerf, sdf_cpu, nerf_cpu, o, d, paths, smi) -> None:
+    """The static 3D permuto fields through their entry points on 393,216
+    points along the rays, each path with exact launches, each held
+    against the CPU port on the same points and weights."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import _build
+
+    x = _ray_points(o, d, 96, seed=29) * 2.0 - 1.0      # the fields' [-1,1]
+    xc = x.cpu()
+    n = x.shape[0]
+    print(f"[field] PermutoSDF / PermutoNeRF, F=2 cell, "
+          f"{sdf.bank.meta.total_rows} table rows, {n} points, on {smi}")
+
+    # ---------------------------------- the split nablas: B10 + B13
+    with torch.no_grad():
+        _build.LAUNCHES.clear()
+        out = sdf.forward_sdf_nablas(x)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        ms = _time_ms(lambda: sdf.forward_sdf_nablas(x), iters=10)
+        ref = sdf_cpu.forward_sdf_nablas(xc)
+    parts = []
+    for k in ("sdf", "h", "nablas"):
+        _require(bool(torch.isfinite(out[k]).all()), f"field {k} not finite")
+        parts.append((k, _err(out[k].cpu(), ref[k]),
+                      1e-5 + 1e-4 * float(ref[k].abs().max()),
+                      "the decoder's matmuls and the lattice sums in "
+                      "another order"))
+    _check("field sdf nablas vs cpu", n, parts)
+    print(f"[field sdf nablas] forward_sdf_nablas {ms:.4f} ms per call of "
+          f"{n} points; launches {launches}")
+    _require(launches == {"permuto_fwd": 1, "permuto_dydx": 1},
+             "the split nablas did not run B10 and B13 once")
+    paths["field sdf nablas"] = (launches, 1)
+
+    # --------------------- the autograd nablas: B10 + B12 (x needs grad)
+    _build.LAUNCHES.clear()
+    xr = x.clone().requires_grad_(True)
+    (nab, ) = torch.autograd.grad(sdf.forward_sdf(xr)["sdf"].sum(), xr)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    err = _err(nab, out["nablas"])
+    tol = 1e-5 + 1e-4 * float(out["nablas"].abs().max())
+    print(f"[field autograd nablas] {n} points: launches {launches}; "
+          f"max|autograd - split| {err:.3e} (tolerance {tol:.3e}: B12's "
+          f"dL/dx and B13 sum the same terms in another order)")
+    _require(launches == {"permuto_fwd": 1, "permuto_bwd": 1},
+             "the autograd nablas did not run B10 and B12 once")
+    _require(err <= tol, "autograd and split nablas disagree")
+    paths["field autograd nablas"] = (launches, 1)
+
+    # ------------------- the NeRF density forward + backward: B10 + B11
+    def nerf_loss(m, xx):
+        out = m.forward_density(xx)
+        return torch.mean(out["sigma"]) + torch.mean(out["h"] ** 2)
+
+    nerf.zero_grad(set_to_none=True)
+    _build.LAUNCHES.clear()
+    nerf_loss(nerf, x).backward()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    nerf_cpu.zero_grad(set_to_none=True)
+    nerf_loss(nerf_cpu, xc).backward()
+    # the density's parameters: the table and the decoder (the radiance
+    # head gets no gradient)
+    pairs = [(k, p.grad, q.grad) for (k, p), q in zip(
+        nerf.named_parameters(), nerf_cpu.parameters())]
+    _require(all((a is None) == (b is None) for _, a, b in pairs),
+             "card and CPU NeRF gradients cover other parameters")
+    errs = {k: float(torch.linalg.norm(a.cpu() - b) /
+                     max(float(torch.linalg.norm(b)), 1e-12))
+            for k, a, b in pairs if b is not None}
+    _require("bank.flattened_params" in errs, "the table got no gradient")
+    print(f"[field nerf step] {n} points: launches {launches}; gradients "
+          f"vs the CPU port, relative L2 per tensor (tolerance 1e-3: the "
+          f"table's atomics over the dense level sum thousands of terms in "
+          f"another order): " + ", ".join(f"{k} {e:.2e}"
+                                         for k, e in errs.items()))
+    _require(launches == {"permuto_fwd": 1, "permuto_bwd": 1},
+             "the NeRF step did not run B10 and B11 once")
+    _require(max(errs.values()) <= 1e-3, "NeRF gradients disagree")
+    paths["field nerf step"] = (launches, 1)
+
+
 def _seed_occupancy(model) -> None:
     """A seeded 15% occupancy grid (experiments/bench_render.py seeds the
     same share, so the compressed paths have real sparsity)."""
@@ -1038,11 +1302,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from nr3d_lib_tpu_torch.models.fields.nerf import PermutoNeRF
+    from nr3d_lib_tpu_torch.models.fields.sdf import PermutoSDF
     from nr3d_lib_tpu_torch.models.model_base import (LoTDNeRFModel,
                                                       LoTDNeuSModel)
     from nr3d_lib_tpu_torch.models.model_families import \
         DynamicPermutoNeuSModel
     from nr3d_lib_tpu_torch.ops import _build
+
+    t_start = time.perf_counter()
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1149,6 +1417,35 @@ def main() -> int:
                                 "permuto4_dydx": 1}, {"permuto4_fwd": 1},
         ts_extra), N_STEPS)
 
+    # --------------- the F=2 cell permuto: kernel phases, fields, path D
+    pathd = seeded(DynamicPermutoNeuSModel, PATHD_CFG,
+                   lambda m: m.field.implicit_surface.bank, 7,
+                   occupancy=False)
+    fields = []
+    for cls, seed in ((PermutoSDF, 10), (PermutoNeRF, 11)):
+        f = cls(permuto_cfg=FIELD_PERMUTO, seed=0, device=dev)
+        p = f.bank.flattened_params
+        with torch.no_grad():
+            p.copy_(torch.from_numpy(np.random.default_rng(seed).uniform(
+                -0.1, 0.1, tuple(p.shape)).astype(np.float32)))
+        cpu_f = cls(permuto_cfg=FIELD_PERMUTO, seed=0, device="cpu")
+        cpu_f.load_state_dict({k: v.cpu() for k, v in f.state_dict().items()})
+        fields.append((f, cpu_f))
+    (sdf3, sdf3_cpu), (nerf3, nerf3_cpu) = fields
+    _permuto_kernel_phases(pathd, sdf3, o, d, ts_extra["ts"], kernels)
+    _field_phase(sdf3, nerf3, sdf3_cpu, nerf3_cpu, o, d, paths, smi)
+
+    pathd_cpu = _cpu_twin(pathd, DynamicPermutoNeuSModel, PATHD_CFG)
+    launches, cpu_s = _serve(pathd, pathd_cpu, o, d, {
+        "permuto_fwd": 4, "permuto_dydx": 1}, "pathd render", smi,
+        extra=ts_extra)
+    paths["pathd render"] = (launches, N_RENDERS)
+    _step_vs_cpu(pathd, pathd_cpu, o, d, cpu_s, "pathd", ts_extra)
+    paths["pathd train step"] = (_train(
+        pathd, o, d, smi, "pathd", {"permuto_fwd": 4, "permuto_bwd": 1,
+                                    "permuto_dydx": 1}, {"permuto_fwd": 1},
+        ts_extra), N_STEPS)
+
     for kd in kernels:
         key = kd.pop("key")
         got, calls = paths[kd["path"]]
@@ -1157,6 +1454,8 @@ def main() -> int:
         kd["launches_per_call_by_path"] = {
             p: g[key] / c for p, (g, c) in paths.items() if key in g}
         _require(kd["launches"] > 0, f"{kd['name']}: no launch on its path")
+    print(f"[time] {len(kernels)} kernel rows, {len(paths)} paths, "
+          f"{time.perf_counter() - t_start:.1f} s after the imports")
     print(json.dumps({"kernels": kernels}))
     print(f"[device] {smi}")
     print(json.dumps({"ok": True, "device": {

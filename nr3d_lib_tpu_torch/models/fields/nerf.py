@@ -1,5 +1,5 @@
 """NeRF field nets (port of nr3d_lib_tpu/models/fields/nerf.py `trunc_exp`,
-`RadianceNet`, `LoTDNeRF`)."""
+`RadianceNet`, `LoTDNeRF`, `PermutoNeRF`)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from torch import nn
 from nr3d_lib_tpu_torch.models.blocks import MLP
 from nr3d_lib_tpu_torch.models.embedders import get_embedder
 
-__all__ = ["trunc_exp", "RadianceNet", "LoTDNeRF"]
+__all__ = ["trunc_exp", "RadianceNet", "LoTDNeRF", "PermutoNeRF"]
 
 
 class _TruncExp(torch.autograd.Function):
@@ -107,6 +107,54 @@ class LoTDNeRF(nn.Module):
     def forward_density(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """x in [-1,1] → {sigma, h}."""
         h = self.decoder(self.encoding(x, frozen_x=self._frozen_x))
+        return {"sigma": trunc_exp(h[..., 0]), "h": h[..., 1:]}
+
+    def forward(self, x: torch.Tensor, v: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        out = self.forward_density(x)
+        out["rgb"] = self.radiance(x, v, None, out["h"])
+        return out
+
+
+class PermutoNeRF(nn.Module):
+    """Permutohedral-encoded NeRF: a 3D cell-permuto table → small density
+    decoder → radiance head, the permuto counterpart of `LoTDNeRF`. Only
+    the cell backend is ported (`PermutoParams` raises for the classic
+    lattice)."""
+
+    def __init__(self, *, permuto_cfg: Optional[dict] = None,
+                 density_decoder_cfg: Optional[dict] = None,
+                 radiance_cfg: Optional[dict] = None,
+                 n_geo_feat: int = 15, seed: int = 0, device=None):
+        super().__init__()
+        from nr3d_lib_tpu_torch.models.grid_encodings.permuto import \
+            PermutoParams
+
+        cfg = dict(permuto_cfg or {})
+        # the classic lattice's log2_hashmap_size waits with that backend
+        cfg.setdefault("res_list", [8.0, 16.0, 32.0, 64.0, 128.0])
+        cfg.setdefault("n_feats", 2)
+        self.bank = PermutoParams(
+            3, cfg["res_list"], n_feats=cfg["n_feats"],
+            backend=cfg.get("backend", "xla"),
+            hashmap_rows=cfg.get("hashmap_rows", 4096), seed=seed,
+            device=device)
+        self.meta = self.bank.meta
+        dec_cfg = dict(density_decoder_cfg or {})
+        dec_cfg.setdefault("D", 1)
+        dec_cfg.setdefault("W", 64)
+        self.decoder = MLP(self.bank.out_features, 1 + n_geo_feat,
+                           **dec_cfg, seed=seed + 1, device=device)
+        self.radiance = RadianceNet(n_extra_feat=n_geo_feat,
+                                    **(radiance_cfg or {}), seed=seed + 2,
+                                    device=device)
+        self.n_geo_feat = n_geo_feat
+
+    def forward_density(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """x in [-1,1] → {sigma, h}; the lattice sees x·0.5 + 0.5. The
+        encode's backward computes dL/dx only when x needs it (B11
+        otherwise, on CUDA)."""
+        h = self.decoder(self.bank.encode(x * 0.5 + 0.5))
         return {"sigma": trunc_exp(h[..., 0]), "h": h[..., 1:]}
 
     def forward(self, x: torch.Tensor, v: Optional[torch.Tensor] = None

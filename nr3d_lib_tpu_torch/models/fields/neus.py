@@ -1,5 +1,6 @@
 """NeuS field: SDF net + radiance net + inv_s (port of
-nr3d_lib_tpu/models/fields/neus.py `LearnedVar` and `LoTDNeuS`)."""
+nr3d_lib_tpu/models/fields/neus.py `LearnedVar`, `LoTDNeuS` and
+`PermutoNeuS`)."""
 
 from __future__ import annotations
 
@@ -10,9 +11,9 @@ import torch
 from torch import nn
 
 from nr3d_lib_tpu_torch.models.fields.nerf import RadianceNet
-from nr3d_lib_tpu_torch.models.fields.sdf import LoTDSDF
+from nr3d_lib_tpu_torch.models.fields.sdf import LoTDSDF, PermutoSDF
 
-__all__ = ["LearnedVar", "get_neus_var_ctrl", "LoTDNeuS"]
+__all__ = ["LearnedVar", "get_neus_var_ctrl", "LoTDNeuS", "PermutoNeuS"]
 
 
 class LearnedVar(nn.Module):
@@ -38,18 +39,17 @@ def get_neus_var_ctrl(type: str = "learned", device=None, **kwargs):
     raise NotImplementedError(f"var ctrl {type!r} is not ported yet")
 
 
-class LoTDNeuS(nn.Module):
-    """LoTD-encoded NeuS: joint (sdf, nablas, rgb) forward."""
+class _NeuSBase(nn.Module):
+    """A NeuS field of `implicit_surface`, a `RadianceNet` over [x, v, n,
+    h] and an inv_s controller: joint (sdf, nablas, rgb) forward."""
 
-    def __init__(self, *, surface_cfg: Optional[dict] = None,
-                 radiance_cfg: Optional[dict] = None,
-                 var_ctrl_cfg: Optional[dict] = None, seed: int = 0,
-                 device=None):
+    def __init__(self, implicit_surface: nn.Module,
+                 radiance_cfg: Optional[dict], var_ctrl_cfg: Optional[dict],
+                 seed: int, device):
         super().__init__()
-        self.implicit_surface = LoTDSDF(**(surface_cfg or {}), seed=seed,
-                                        device=device)
+        self.implicit_surface = implicit_surface
         self.radiance = RadianceNet(
-            n_extra_feat=self.implicit_surface.n_geo_feat,
+            n_extra_feat=implicit_surface.n_geo_feat,
             use_nablas=True, use_pos=True,
             **(radiance_cfg or {}), seed=seed + 1, device=device)
         self.var_ctrl = get_neus_var_ctrl(
@@ -74,3 +74,28 @@ class LoTDNeuS(nn.Module):
         if with_rgb:
             out["rgb"] = self.radiance(x, v, out.get("nablas"), out["h"])
         return out
+
+
+class LoTDNeuS(_NeuSBase):
+    """LoTD-encoded NeuS."""
+
+    def __init__(self, *, surface_cfg: Optional[dict] = None,
+                 radiance_cfg: Optional[dict] = None,
+                 var_ctrl_cfg: Optional[dict] = None, seed: int = 0,
+                 device=None):
+        super().__init__(LoTDSDF(**(surface_cfg or {}), seed=seed,
+                                 device=device),
+                         radiance_cfg, var_ctrl_cfg, seed, device)
+
+
+class PermutoNeuS(_NeuSBase):
+    """Permuto-encoded NeuS (the PermutoSDF paper's configuration): a
+    `PermutoSDF` surface."""
+
+    def __init__(self, *, surface_cfg: Optional[dict] = None,
+                 radiance_cfg: Optional[dict] = None,
+                 var_ctrl_cfg: Optional[dict] = None, seed: int = 0,
+                 device=None):
+        super().__init__(PermutoSDF(**(surface_cfg or {}), seed=seed,
+                                    device=device),
+                         radiance_cfg, var_ctrl_cfg, seed, device)

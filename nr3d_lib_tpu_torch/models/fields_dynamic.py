@@ -75,8 +75,9 @@ class DynamicPermutoConcatSDF(nn.Module):
                            ) -> Dict[str, torch.Tensor]:
         """(sdf, h, nablas=∂sdf/∂x), split as in the JAX cell path: the
         decoder term by `torch.func.vjp`, the (x,t) encoding term by the
-        bank's nablas (B16), of which the spatial nablas are the first 3
-        of the 4 lattice-input gradients, times 0.5 for x → x·0.5+0.5."""
+        bank's nablas (B13 for F=2, B16 for F=4), of which the spatial
+        nablas are the first 3 of the 4 lattice-input gradients, times 0.5
+        for x → x·0.5+0.5."""
         inp = self._inp(x, ts)
         h_enc = self.bank.encode(inp)
         (sdf, h), dec_vjp = vjp(self._dec, x, h_enc)

@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface and loaded through `ctypes` (no PyTorch
 headers, so a build takes seconds). Libraries land in `_build/` under the
-package at first use, named by a hash of their source, so an edited source
-is rebuilt and an unchanged one is reused.
+package at first use, named by a hash of their source and of the shared
+headers (`csrc/*.cuh`), so an edited source or header is rebuilt and an
+unchanged one is reused.
 
 Every C entry returns `cudaGetLastError()` after its launch; `check` turns
 a non-zero code into an exception. Nothing here falls back to a plain
@@ -33,7 +34,8 @@ __all__ = ["LAUNCHES", "KERNEL_SOURCES", "build_all", "load", "check",
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNEL_SOURCES = ("brick4", "brick", "gather1d", "permuto_cell4")
+KERNEL_SOURCES = ("brick4", "brick", "gather1d", "permuto_cell4",
+                  "permuto_cell")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -62,8 +64,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, named by a hash of its source, every shared
+    header (`csrc/*.cuh`) and the flags."""
+    h = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -9,8 +9,10 @@ layout of `ops/permuto_cell.py` with two bf16 features in each lane:
   * packed (kernel space): f32 [rows, 128], `pack_table4` of
     `ops/lotd_brick4.py`.
 Values are quantized to bf16 by the packed path; the plain version
-(`permuto_cell4_encode_xla`) quantizes the same way, so both compute one
-function. The table gradient is straight-through, as in JAX.
+(`permuto_cell4_encode_xla`, the F-feature plain encode of
+`ops/permuto_cell.py` on the quantized table) quantizes the same way, so
+both compute one function. The table gradient is straight-through, as in
+JAX.
 
 Routes: `permuto_cell4_encode`, `permuto_cell4_encode_frozen_x` and
 `permuto_cell4_nablas` take the plain PyTorch version (and torch autograd)
@@ -35,8 +37,8 @@ from nr3d_lib_tpu_torch.ops import _build
 from nr3d_lib_tpu_torch.ops.lotd_brick import _vjp, aligned, ptr, wants_grad
 from nr3d_lib_tpu_torch.ops.lotd_brick4 import _quantize4, pack_table4
 from nr3d_lib_tpu_torch.ops.permuto_cell import (
-    LANES, PermutoCellMeta, _level_rows_lanes_bary, f32_scalars,
-    hyperplane_scales, make_permuto_cell_meta)
+    LANES, PermutoCellMeta, _Meta, c_meta, check_cuda_args, encode_plain,
+    make_permuto_cell_meta, nablas_plain)
 
 __all__ = ["make_permuto_cell4_meta", "permuto_cell4_encode",
            "permuto_cell4_encode_frozen_x", "permuto_cell4_nablas",
@@ -44,8 +46,6 @@ __all__ = ["make_permuto_cell4_meta", "permuto_cell4_encode",
            "permuto_cell4_nablas_xla", "permuto_cell4_nablas_bwd_xla"]
 
 N_FEAT4 = 4
-MAX_DIMS = 5          # the kernels' meta holds up to 5 input dimensions
-MAX_LEVELS = 16       # and up to 16 levels
 
 
 def make_permuto_cell4_meta(n_dims: int, res_list, hashmap_rows: int = 4096,
@@ -55,75 +55,21 @@ def make_permuto_cell4_meta(n_dims: int, res_list, hashmap_rows: int = 4096,
 
 
 # ---------------------------------------------------------- plain versions
-def _level_vertices(x: torch.Tensor, level, meta: PermutoCellMeta):
-    """(quad index [N, d+1] into the unpacked table viewed as [rows·64, 4],
-    bary [N, d+1], rank [N, d+1]) of one level."""
-    row, lane, bary, rank = _level_rows_lanes_bary(x, level, meta)
-    return row[:, None] * (2 * LANES // N_FEAT4) + lane // 2, bary, rank
-
-
-def _gather_quads(tq: torch.Tensor, quad: torch.Tensor) -> torch.Tensor:
-    """[rows, 256] table, quad [N, K] → vertex features [N, K, 4]: an
-    `index_select` of single elements from the flat table, whose backward
-    is `index_add_`. (A select of 16-byte rows from [rows·64, 4] runs
-    PyTorch's vectorized row gather, which took 1.2 ms for 2 M rows on
-    the H100.)"""
-    idx = quad[..., None] * N_FEAT4 + torch.arange(N_FEAT4,
-                                                   device=quad.device)
-    return tq.reshape(-1).index_select(0, idx.reshape(-1)).reshape(idx.shape)
-
-
 def permuto_cell4_encode_xla(x: torch.Tensor, table: torch.Tensor,
                              meta: PermutoCellMeta) -> torch.Tensor:
     """Plain PyTorch version of B14 (CPU route; the card's reference).
     x [N, d] in the lattice's [0,1] space; table UNPACKED [rows, 256].
     Returns [N, 4L], column l·4 + f; bf16-quantized values; differentiable
     in x and table."""
-    tq = _quantize4(table)
-    outs = []
-    for level in meta.levels:
-        quad, bary, _ = _level_vertices(x, level, meta)
-        vals = _gather_quads(tq, quad)                         # [N, d+1, 4]
-        outs.append(torch.sum(bary[..., None].to(vals.dtype) * vals, 1))
-    return torch.cat(outs, -1)
-
-
-def _elevation_vjp(delev: torch.Tensor, level, d: int) -> torch.Tensor:
-    """dL/delevated [N, d+1] → dL/dx [N, d] through the elevation Jacobian
-    M_ia = [a ≥ i] − i·[a = i−1], the hyperplane factors sf_a and the
-    level's scale_a: dL/dcf_a = Σ_{i≤a} delev_i − (a+1)·delev_{a+1}. The
-    running sum is written out: a CUDA `cumsum` over an innermost axis of
-    d ≤ 5 took 2.3 ms at 393,216 rows on the H100."""
-    sf, scale = f32_scalars(hyperplane_scales(d)), f32_scalars(level.scale)
-    run, cols = delev[:, 0], []
-    for a in range(d):
-        if a:
-            run = run + delev[:, a]
-        cols.append((run - (a + 1) * delev[:, a + 1]) * sf[a] * scale[a])
-    return torch.stack(cols, -1)
+    return encode_plain(x, _quantize4(table), meta, N_FEAT4)
 
 
 def permuto_cell4_nablas_xla(g_up: torch.Tensor, x: torch.Tensor,
                              table: torch.Tensor, meta: PermutoCellMeta
                              ) -> torch.Tensor:
-    """Plain PyTorch version of B16: J_enc(x)ᵀ·g_up [N, d], written out.
-    With gf_k = g_up[l]·val_k, dL/dvdiff_i = gf[d−rank_i] −
-    gf[(d+1−rank_i) mod (d+1)], divided by d+1 for dL/delevated, then
-    `_elevation_vjp`. Differentiable in g_up and table (gathers, whose
-    backward is `index_add_`); x enters only through the simplex choice,
-    so it gets no gradient (the true one is zero)."""
-    tq = _quantize4(table)
-    d = meta.n_dims
-    dp1 = d + 1
-    dx = None
-    for l, level in enumerate(meta.levels):
-        quad, _, rank = _level_vertices(x.detach(), level, meta)
-        vals = _gather_quads(tq, quad)                         # [N, d+1, 4]
-        gf = torch.sum(vals * g_up[:, None, 4 * l:4 * l + 4], -1)
-        dv = gf.gather(1, d - rank) - gf.gather(1, (dp1 - rank) % dp1)
-        term = _elevation_vjp(dv / dp1, level, d)
-        dx = term if dx is None else dx + term
-    return dx
+    """Plain PyTorch version of B16: J_enc(x)ᵀ·g_up [N, d] of the
+    bf16-quantized table (`nablas_plain` of `ops/permuto_cell.py`)."""
+    return nablas_plain(g_up, x, _quantize4(table), meta, N_FEAT4)
 
 
 def permuto_cell4_encode_bwd_xla(x: torch.Tensor, table: torch.Tensor,
@@ -146,42 +92,6 @@ def permuto_cell4_nablas_bwd_xla(g_up: torch.Tensor, x: torch.Tensor,
 
 
 # ------------------------------------------------------------ CUDA route
-class _Level(ctypes.Structure):
-    _fields_ = [("scale", ctypes.c_float * MAX_DIMS),
-                ("box_lo", ctypes.c_int * MAX_DIMS),
-                ("box_dims", ctypes.c_int * MAX_DIMS),
-                ("n_rows", ctypes.c_int), ("row_offset", ctypes.c_int),
-                ("is_dense", ctypes.c_int)]
-
-
-class _Meta(ctypes.Structure):
-    _fields_ = [("n_dims", ctypes.c_int), ("n_levels", ctypes.c_int),
-                ("cells_per_row", ctypes.c_int),
-                ("sf", ctypes.c_float * MAX_DIMS),
-                ("lv", _Level * MAX_LEVELS)]
-
-
-def c_meta(meta: PermutoCellMeta) -> _Meta:
-    """A PermutoCellMeta as the kernels' by-value meta argument."""
-    if meta.n_levels > MAX_LEVELS or meta.n_dims > MAX_DIMS:
-        raise ValueError(f"the permuto kernels take at most {MAX_LEVELS} "
-                         f"levels of at most {MAX_DIMS} dimensions, got "
-                         f"{meta.n_levels} of {meta.n_dims}")
-    m = _Meta()
-    m.n_dims, m.n_levels = meta.n_dims, meta.n_levels
-    m.cells_per_row = meta.cells_per_row
-    m.sf[:meta.n_dims] = [float(v) for v in hyperplane_scales(meta.n_dims)]
-    for i, lv in enumerate(meta.levels):
-        m.lv[i].scale[:meta.n_dims] = list(lv.scale)
-        if lv.box_dims is not None:
-            m.lv[i].box_lo[:meta.n_dims] = list(lv.box_lo)
-            m.lv[i].box_dims[:meta.n_dims] = list(lv.box_dims)
-        m.lv[i].n_rows = lv.n_rows
-        m.lv[i].row_offset = lv.row_offset
-        m.lv[i].is_dense = int(lv.box_dims is not None)
-    return m
-
-
 def _lib():
     vp, n = _build.VP, ctypes.c_longlong
     return _build.load("permuto_cell4", {
@@ -277,28 +187,6 @@ class _Permuto4Nablas(torch.autograd.Function):
 
 
 # ----------------------------------------------------------- the wrappers
-def _check_cuda_args(x: torch.Tensor, table: torch.Tensor,
-                     meta: PermutoCellMeta, what: str,
-                     g_up: Optional[torch.Tensor] = None) -> None:
-    """Shapes, types and devices the kernels take; raises otherwise."""
-    if x.dim() != 2 or x.shape[1] != meta.n_dims or \
-            x.dtype != torch.float32:
-        raise ValueError(f"{what}: x must be [N,{meta.n_dims}] float32, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    if table.shape != (meta.total_rows, 2 * LANES) or \
-            table.dtype != torch.float32:
-        raise ValueError(f"{what}: table must be [{meta.total_rows}, 256] "
-                         f"float32, got {tuple(table.shape)} {table.dtype}")
-    if g_up is not None and (g_up.shape != (x.shape[0], N_FEAT4 *
-                                            meta.n_levels) or
-                             g_up.dtype != torch.float32):
-        raise ValueError(f"{what}: g_up must be [N, {4 * meta.n_levels}] "
-                         f"float32, got {tuple(g_up.shape)} {g_up.dtype}")
-    for t in (table,) if g_up is None else (table, g_up):
-        if t.device != x.device:
-            raise ValueError(f"{what}: all inputs must be on {x.device}")
-
-
 def permuto_cell4_encode(x: torch.Tensor, table: torch.Tensor,
                          meta: PermutoCellMeta) -> torch.Tensor:
     """F=4 packed cell permuto encode (B14): [N, d] × unpacked [rows, 256]
@@ -310,7 +198,7 @@ def permuto_cell4_encode(x: torch.Tensor, table: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"permuto_cell4_encode: unsupported device "
                          f"{x.device}")
-    _check_cuda_args(x, table, meta, "permuto_cell4_encode")
+    check_cuda_args(x, table, meta, N_FEAT4, "permuto_cell4_encode")
     if wants_grad(x, table):
         return _Permuto4Encode.apply(x, table, meta)
     return _fwd_cuda(x, pack_table4(table), meta)
@@ -334,7 +222,8 @@ def permuto_cell4_nablas(g_up: torch.Tensor, x: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"permuto_cell4_nablas: unsupported device "
                          f"{x.device}")
-    _check_cuda_args(x, table, meta, "permuto_cell4_nablas", g_up)
+    check_cuda_args(x, table, meta, N_FEAT4, "permuto_cell4_nablas",
+                    g_up)
     if wants_grad(g_up, x, table):
         return _Permuto4Nablas.apply(g_up, x, table, meta)
     return _dydx_cuda(g_up, x, pack_table4(table), meta)

@@ -1,9 +1,13 @@
 """Port parity: the dynamic (x,t) permutohedral NeuS
 (`DynamicPermutoNeuSModel`, examples/configs/dynamic_permuto_w4.yaml's
-model family) against the JAX package on the CPU, at a small size: the F=4
-cell permuto with 2 levels (res 4 dense, res 11 hashed into 2048 rows),
-decoder and radiance width 16, 4 time keys over an 8³ grid each, 64 rays,
-16 coarse samples and two upsample rounds of 8.
+model family) against the JAX package on the CPU, at a small size: the
+cell permuto with 2 levels (res 4 dense, res 11 hashed into 2048 rows), in
+both layouts — F=4 bf16-packed (the yaml's) and F=2 (the field's default)
+—, decoder and radiance width 16, 4 time keys over an 8³ grid each, 64
+rays, 16 coarse samples and two upsample rounds of 8. The tests that go
+through the encoding (the bridge, the occupancy query, the render, the
+train step) take the `models` fixture, parametrized over F; the others
+take `models4`, the F=4 model alone.
 
 Weights cross by the state bridge (`bridge.from_jax_state`); the table
 scale and ln_s = ln(64)/10 are raised from the defaults so the render is
@@ -15,10 +19,11 @@ occupancy update's cells and points the same way.
 Tolerances: samplers, time maps and the EMA update are elementwise (2e-6
 relative). The render makes discrete choices (the inverse-CDF bracket of
 the upsampling), so it is compared ray by ray: all rays within 1e-5 or at
-least 99% within 1e-4 (measured: all rays within 1e-5 on this
-configuration). One train step compares the loss to 1e-4 relative and
-each parameter's gradient to 1e-2 relative L2, by JAX path (float32 sums
-in another order through the decoder's vjp and the table's scatter).
+least 99% within 1e-4 (measured: all rays within 1e-6 for both layouts).
+One train step compares the loss to 1e-5 relative and each parameter's
+gradient to 1e-4 relative L2, by JAX path (float32 sums in another order
+through the decoder's vjp and the table's scatter; measured: 1.5e-7 and
+3.5e-6 at F=4).
 """
 
 import jax
@@ -44,14 +49,20 @@ N_IMP = 8
 N_KEYS = 4
 RES = 8
 CDF_EPS = 1e-8
-CFG = dict(
-    field_cfg={"surface_cfg": {
-        "permuto_cfg": {"res_list": [4.0, 11.0], "backend": "cell",
-                        "n_feats": 4, "hashmap_rows": 2048},
-        "decoder_cfg": {"D": 1, "W": 16}},
-        "radiance_cfg": {"D": 2, "W": 16}},
-    accel_cfg={"resolution": RES}, n_time_keys=N_KEYS,
-    ray_query_cfg={"n_coarse": N_COARSE, "n_importance": N_IMP})
+
+
+def _cfg(n_feats: int) -> dict:
+    return dict(
+        field_cfg={"surface_cfg": {
+            "permuto_cfg": {"res_list": [4.0, 11.0], "backend": "cell",
+                            "n_feats": n_feats, "hashmap_rows": 2048},
+            "decoder_cfg": {"D": 1, "W": 16}},
+            "radiance_cfg": {"D": 2, "W": 16}},
+        accel_cfg={"resolution": RES}, n_time_keys=N_KEYS,
+        ray_query_cfg={"n_coarse": N_COARSE, "n_importance": N_IMP})
+
+
+CFG = _cfg(4)
 
 
 def _flat_state(model) -> dict:
@@ -69,13 +80,12 @@ def _rays(n: int, seed: int):
     return o.astype(np.float32), d.astype(np.float32), ts.astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def models():
+def _seeded(n_feats: int):
     """The JAX model with seeded weights (table ±0.1, ln_s = ln(64)/10)
     and its state as {path: numpy}. The suite runs JAX with x64 on, which
     makes the accel's default `linspace` keyframes float64: they are set
     to their float32 values on both sides (the production dtype)."""
-    jm = JaxModel(**CFG)
+    jm = JaxModel(**_cfg(n_feats))
     rng = np.random.default_rng(0)
     flat = {k: v.astype(np.float32) if v.dtype == np.float64 else v
             for k, v in _flat_state(jm).items()}
@@ -89,8 +99,24 @@ def models():
     return jm, flat
 
 
+@pytest.fixture(scope="module", params=[2, 4], ids=["F2", "F4"])
+def models(request):
+    """(JAX model, its state) of each layout."""
+    return _seeded(request.param)
+
+
+@pytest.fixture(scope="module")
+def models4():
+    """(JAX model, its state) of the F=4 layout."""
+    return _seeded(4)
+
+
+def _n_feats(flat) -> int:
+    return flat["field/implicit_surface/bank/flattened_params"].shape[1] // 64
+
+
 def _torch_model(flat):
-    tm = TorchModel(**CFG, device="cpu")
+    tm = TorchModel(**_cfg(_n_feats(flat)), device="cpu")
     tm.load_state_dict(from_jax_state(flat))
     return tm
 
@@ -147,8 +173,10 @@ def test_bridge_maps_the_dynamic_paths(models):
     assert set(back) == set(flat)
     for k, v in flat.items():
         np.testing.assert_array_equal(back[k], v)
-    assert tm.field.implicit_surface.bank.flattened_params.shape == \
-        (2048 + 1792, 256)
+    f = _n_feats(flat)
+    bank = tm.field.implicit_surface.bank
+    assert bank.n_feats == f and bank.out_features == 2 * f
+    assert bank.flattened_params.shape == (2048 + 1792, 64 * f)
 
 
 # ------------------------------------------------- space, accel, samplers
@@ -167,8 +195,8 @@ def test_space_time_maps_match_jax():
     assert TSpace(device="cpu").ts_keyframes.tolist() == [0.0, 1.0]
 
 
-def test_time_to_key_matches_jax(models):
-    jm, flat = models
+def test_time_to_key_matches_jax(models4):
+    jm, flat = models4
     tm = _torch_model(flat)
     ts = np.concatenate([np.linspace(-1.2, 1.2, 41),
                          np.asarray(flat["accel/ts_keyframes"])]
@@ -256,7 +284,7 @@ def test_occupancy_query_matches_jax(models):
     (the time-keyed SDF), from JAX's draws."""
     jm, flat = models
     tm = _torch_model(flat)
-    jm2 = JaxModel(**CFG)
+    jm2 = JaxModel(**_cfg(_n_feats(flat)))
     nnx.update(jm2, nnx.state(jm))
     key = jax.random.key(6)
     jm2.populate(key)
@@ -268,8 +296,8 @@ def test_occupancy_query_matches_jax(models):
                                rtol=1e-5, atol=1e-6)
 
 
-def test_training_hooks(models):
-    _, flat = models
+def test_training_hooks(models4):
+    _, flat = models4
     tm = _torch_model(flat)
     assert tm.lifecycle_update_every == 16
     before = tm.accel.occ.val_grid.clone()
@@ -310,13 +338,13 @@ def test_render_matches_jax_ray_by_ray(models):
     for k in ("rgb_volume", "depth_volume", "mask_volume"):
         e = np.abs(rt[k].numpy() - np.asarray(rj[k])).reshape(N_RAYS, -1)
         err = np.maximum(err, e.max(-1))
-    assert (err <= 1e-5).all() or (err <= 1e-4).mean() >= 0.99, err.max()
+    assert (err <= 1e-5).all(), err.max()
     np.testing.assert_allclose(vbt["t"].numpy(), np.asarray(vbj["t"]),
                                rtol=0, atol=1e-5)
 
 
-def test_time_conditions_the_render(models):
-    _, flat = models
+def test_time_conditions_the_render(models4):
+    _, flat = models4
     tm = _torch_model(flat)
     o, d, ts = _rays(N_RAYS, 8)
     with torch.no_grad():
@@ -363,21 +391,21 @@ def test_train_step_matches_jax(models):
                      draw=_replay(_jax_uniforms(key, N_RAYS)))
     tl.backward()
     assert np.isfinite(float(tl))
-    assert abs(float(tl) - jl) <= 1e-4 * abs(jl), (float(tl), jl)
+    assert abs(float(tl) - jl) <= 1e-5 * abs(jl), (float(tl), jl)
     got = to_jax_paths({k: p.grad for k, p in tm.named_parameters()})
     assert set(got) == set(jg)
     errs = {k: float(np.linalg.norm(got[k] - jg[k]) /
                      max(np.linalg.norm(jg[k]), 1e-12)) for k in got}
-    assert max(errs.values()) <= 1e-2, errs
+    assert max(errs.values()) <= 1e-4, errs
     assert float(np.abs(got["field/implicit_surface/bank/flattened_params"])
                  .max()) > 0
 
 
-def test_port_step_loss_falls(models):
+def test_port_step_loss_falls(models4):
     """Eight Adam steps of the port on the CPU from the seeded weights
     with perturbed samples: the loss falls (the trend the card's run
     checks)."""
-    _, flat = models
+    _, flat = models4
     tm = _torch_model(flat)
     opt = torch.optim.Adam(tm.parameters(), lr=5e-3)
     o, d, ts = _rays(N_RAYS, 10)
@@ -399,15 +427,33 @@ def test_unported_configurations_raise():
     from nr3d_lib_tpu_torch.models.grid_encodings.permuto import \
         PermutoParams
 
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(NotImplementedError, match="A10c"):
         PermutoParams(4, [4.0], backend="xla", device="cpu")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        PermutoParams(4, [4.0], backend="cell", n_feats=2, device="cpu")
     bank = PermutoParams(4, [4.0], backend="cell", n_feats=4, device="cpu")
     y = bank.encode(torch.rand(5, 4), ho=True)
     assert y.shape == (5, 4)
     with pytest.raises(NotImplementedError, match="nablas"):
         bank.encode(torch.rand(5, 4, device="meta"), ho=True)
+
+
+def test_f2_cell_bank_builds():
+    """The F=2 cell bank (the cell backend's default): an f32 [rows, 128]
+    table, 2L outputs, the any-order plain encode on the CPU."""
+    from nr3d_lib_tpu_torch.models.grid_encodings.permuto import \
+        PermutoParams
+
+    bank = PermutoParams(4, [4.0, 11.0], backend="cell", hashmap_rows=2048,
+                         device="cpu")
+    assert bank.n_feats == 2 and bank.out_features == 4
+    assert bank.flattened_params.shape == (bank.meta.total_rows, 128)
+    assert float(bank.flattened_params.detach().abs().max()) <= 1e-4
+    inp = torch.rand(5, 3, 4)
+    y = bank.encode(inp)
+    assert y.shape == (5, 3, 4)
+    torch.testing.assert_close(bank.encode(inp, ho=True), y)
+    assert bank.nablas(torch.ones(5, 3, 4), inp).shape == (5, 3, 4)
+    with pytest.raises(ValueError, match="2 or 4"):
+        PermutoParams(4, [4.0], backend="cell", n_feats=3, device="cpu")
 
 
 def test_entry_points_default_to_cuda():

@@ -17,7 +17,10 @@ eight levels (the most they take). The F=4 cell permuto kernels (B14–B16)
 run on the dynamic NeuS's 4D meta and a small 3D one: B14 sums d+1
 weighted vertices in another order (1e-5); B15's table gradient is a sum
 by atomics (1e-5 relative to the largest entry), its dL/dx and B16 sum
-through the elevation Jacobian and the lattice scale (1e-4).
+through the elevation Jacobian and the lattice scale (1e-4). The F=2 cell
+permuto kernels (B10–B13) run on the dynamic NeuS field's default 4D meta
+(five hashed levels) and the 3D bench lattice (a dense level of 1985
+rows, seven hashed), with the same tolerances as their F=4 counterparts.
 """
 
 import numpy as np
@@ -28,6 +31,7 @@ from nr3d_lib_tpu_torch.ops import _build
 from nr3d_lib_tpu_torch.ops import gather1d as G
 from nr3d_lib_tpu_torch.ops import lotd_brick as B
 from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
+from nr3d_lib_tpu_torch.ops import permuto_cell as PC
 from nr3d_lib_tpu_torch.ops import permuto_cell4 as P4
 
 pytestmark = pytest.mark.gpu
@@ -554,6 +558,147 @@ def test_dynamic_step_and_render_go_through_the_kernels(cuda):
         assert dict(_build.LAUNCHES) == {
             "permuto4_fwd": 4 + (it == 16), "permuto4_bwd": 1,
             "permuto4_dydx": 1}, (it, dict(_build.LAUNCHES))
+        assert torch.isfinite(loss)
+        for p in model.parameters():
+            assert p.grad is not None and torch.isfinite(p.grad).all()
+
+
+# ---------------------------------------------- F=2 cell permuto (B10-B13)
+PC_METAS = {"pathd4d": (4, [8.0, 16.0, 32.0, 64.0, 128.0], 4096),
+            "bench3d": (3, [16.0 * 2 ** (0.5 * i) for i in range(8)], 4096)}
+PC_CASES = [(m, n) for m in sorted(PC_METAS) for n in (1, 255, 100_000)]
+
+
+def _pc_inputs(dev, meta_name: str, n: int, seed: int):
+    d, res, rows = PC_METAS[meta_name]
+    meta = PC.make_permuto_cell_meta(d, res, rows)
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0.0, 1.0, (max(n, 300), d)).astype(np.float32)
+    x[:100] = np.round(x[:100] * 8.0) / 8.0           # lattice ties
+    x[100:120] = 0.5
+    x[120:200] = x[120:200, :1]
+    x[200], x[201] = 0.0, 1.0
+    x = x[rng.permutation(len(x))][:n]
+    table = rng.uniform(-0.1, 0.1, (meta.total_rows, 128)).astype(np.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(n, 2 * meta.n_levels, device=dev, generator=gen)
+    return (meta, torch.from_numpy(x).to(dev), torch.from_numpy(table).to(dev),
+            g)
+
+
+@pytest.mark.parametrize("meta_name,n", PC_CASES)
+def test_permuto_fwd_kernel_matches_plain(cuda, meta_name, n):
+    meta, x, table, _ = _pc_inputs(cuda, meta_name, n, 30)
+    before = _build.LAUNCHES["permuto_fwd"]
+    with torch.no_grad():
+        y = PC.permuto_cell_encode(x, table, meta)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["permuto_fwd"] == before + 1
+    _close(y, PC.permuto_cell_encode_xla(x, table, meta), 1e-5)
+
+
+@pytest.mark.parametrize("meta_name,n", PC_CASES)
+@pytest.mark.parametrize("need_dx", [False, True])
+def test_permuto_bwd_kernel_matches_plain(cuda, meta_name, n, need_dx):
+    meta, x, table, g = _pc_inputs(cuda, meta_name, n, 31)
+    before = _build.LAUNCHES["permuto_bwd"]
+    dx, dtab = PC._bwd_cuda(x, g, meta, need_dx=need_dx, table=table)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["permuto_bwd"] == before + 1
+    dx_p, dtab_p = PC.permuto_cell_encode_bwd_xla(x, table, g, meta, need_dx)
+    _close(dtab, dtab_p, 1e-5)
+    if need_dx:
+        _close(dx, dx_p, 1e-4)
+    else:
+        assert dx is None
+
+
+@pytest.mark.parametrize("meta_name,n", PC_CASES)
+def test_permuto_dydx_kernel_matches_plain(cuda, meta_name, n):
+    meta, x, table, g = _pc_inputs(cuda, meta_name, n, 32)
+    before = _build.LAUNCHES["permuto_dydx"]
+    with torch.no_grad():
+        dx = PC.permuto_cell_nablas(g, x, table, meta)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["permuto_dydx"] == before + 1
+    _close(dx, PC.permuto_cell_nablas_xla(g, x, table, meta), 1e-4)
+
+
+@pytest.mark.parametrize("meta_name", sorted(PC_METAS))
+@pytest.mark.parametrize("x_grad", [False, True])
+def test_permuto_autograd_matches_cpu_route(cuda, meta_name, x_grad):
+    """The CUDA route's autograd (B10, B11 or B12 by whether x needs its
+    gradient, B13 with the plain vjp as its backward) against the CPU
+    route's on the same inputs."""
+    meta, x, table, gu = _pc_inputs(cuda, meta_name, 4096, 33)
+    gen = torch.Generator(device=cuda).manual_seed(34)
+    g = torch.randn(gu.shape, device=cuda, generator=gen)
+    gg = torch.randn(x.shape, device=cuda, generator=gen)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        _build.LAUNCHES.clear()
+        xs, ts, gs = (t.detach().to(dev).requires_grad_(True)
+                      for t in (x, table, gu))
+        xe = xs if x_grad else xs.detach()
+        loss = (PC.permuto_cell_encode(xe, ts, meta) * g.to(dev)).sum() + \
+            (PC.permuto_cell_nablas(gs, xs, ts, meta) * gg.to(dev)).sum()
+        grads.append([None if t is None else t.cpu()
+                      for t in torch.autograd.grad(loss, (xs, ts, gs),
+                                                   allow_unused=True)])
+        launches = dict(_build.LAUNCHES)
+        assert launches == ({"permuto_fwd": 1, "permuto_bwd": 1,
+                             "permuto_dydx": 1} if dev == cuda else {})
+    for a, b, rel in zip(*grads, (1e-4, 1e-5, 1e-4)):
+        if b is None:
+            assert a is None or not a.abs().any()
+        else:
+            _close(a, b, rel)
+
+
+def _path_d_model():
+    from nr3d_lib_tpu_torch.models.model_families import \
+        DynamicPermutoNeuSModel
+
+    return DynamicPermutoNeuSModel(
+        field_cfg={"surface_cfg": {"permuto_cfg": {"backend": "cell"},
+                                   "decoder_cfg": {"D": 1, "W": 64}},
+                   "radiance_cfg": {"D": 2, "W": 64}},
+        n_time_keys=8, ray_query_cfg={"n_coarse": 32, "n_importance": 8})
+
+
+def test_path_d_step_and_render_go_through_the_kernels(cuda):
+    from nr3d_lib_tpu_torch.models.loss.regularization import eikonal_loss
+
+    model = _path_d_model()
+    bank = model.field.implicit_surface.bank
+    assert (bank.n_feats, bank.meta.total_rows) == (2, 20480)
+    o, d = _small_rays(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    ts = torch.rand(o.shape[0], device=cuda, generator=gen) * 2.0 - 1.0
+    model.populate(gen)
+    rt = model.ray_test(o, d)
+    rt["ts"] = ts
+    with torch.no_grad():
+        _build.LAUNCHES.clear()
+        rendered, _ = model.ray_query(rt)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"permuto_fwd": 4, "permuto_dydx": 1}
+    for v in rendered.values():
+        assert torch.isfinite(v).all()
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    for it in (15, 16):                      # 16: the occupancy update
+        _build.LAUNCHES.clear()
+        model.training_before_per_step(it, gen)
+        opt.zero_grad()
+        rendered, vb = model.ray_query(rt, generator=gen)
+        loss = torch.mean((rendered["rgb_volume"] - d.abs()) ** 2) + \
+            0.1 * eikonal_loss(vb["nablas"])
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {
+            "permuto_fwd": 4 + (it == 16), "permuto_bwd": 1,
+            "permuto_dydx": 1}, (it, dict(_build.LAUNCHES))
         assert torch.isfinite(loss)
         for p in model.parameters():
             assert p.grad is not None and torch.isfinite(p.grad).all()
