@@ -5,8 +5,9 @@
 
 1. Prints the card (name, power limit), torch and CUDA versions.
 2. Builds every CUDA kernel of the port from `nr3d_lib_tpu_torch/csrc/`
-   (brick4.cu, brick.cu, gather1d.cu, permuto_cell4.cu, permuto_cell.cu;
-   the last two share permuto_simplex.cuh) with nvcc for sm_90a, one nvcc
+   (brick4.cu, brick.cu, gather1d.cu, permuto_cell4.cu, permuto_cell.cu,
+   gaussian_blend.cu; permuto_cell4.cu and permuto_cell.cu share
+   permuto_simplex.cuh) with nvcc for sm_90a, one nvcc
    per source, all started together, and prints the build time and the
    ptxas register / shared-memory lines.
 3. One phase per kernel at the shapes of the paths below. Each compares
@@ -27,6 +28,9 @@
    query, 393,216 (x,t) points × 5 hashed levels, and the 3D bench
    lattice, 393,216 points × 8 levels (one dense): B10 (permuto_fwd), B11
    and B12 (permuto_bwd without and with dL/dx) and B13 (permuto_dydx).
+   Gaussian splatting (path E), at the bench scene's 1024 tiles of 16² ×
+   256 slots: B17 (gs_blend) and B18 (gs_blend_bwd, upstream gradients
+   from numpy).
 4. The paths, each through the entry points a user calls, with seeded
    weights, a seeded 15% occupancy and seeded rays. Launch counters are
    zeroed just before each path and read just after; every count must be
@@ -71,8 +75,16 @@
      and 1 B13 per render); one train step against the CPU port; 2
      warm-up and 20 timed steps (4 B10 + 1 per occupancy update, 1 B11
      and 1 B13 per step).
-   Each path prints ms per call (median, quartiles), Krays/s, peak memory
-   and a device-time profile by kernel.
+   - Path E, 3D Gaussian splatting (`rasterize_gaussians_tiled` with
+     blend_backend "pallas", bench.py:397-427 and
+     experiments/bench_render.py `main_train_gaussian`): 500,000 seeded
+     gaussians at 512², tile 16, 16 tiles per gaussian, capacity 256. 10
+     renders (1 B17 each), held against the CPU port pixel by pixel (≥ 99%
+     of pixels within 1e-4 on rgb, alpha and depth); one train step (MSE
+     to a seeded target, quats normalized in the loss) against the CPU
+     port; 2 warm-up and 20 timed steps of Adam(1e-3) (1 B17 + 1 B18 each).
+   Each path prints ms per call (median, quartiles), Krays/s (path E: fps
+   and Mpix/s), peak memory and a device-time profile by kernel.
 5. A `{"kernels": [...]}` JSON line, then the card's name and power limit,
    then the last line `{"ok": true, "device": {...}}`.
 
@@ -100,6 +112,9 @@ N_RENDERS = 10
 N_WARMUP_STEPS = 2
 N_STEPS = 20              # timed; it = 3..22 crosses the update at it = 16
 CPU_STEP_BUDGET_S = 60.0  # the GPU-vs-CPU step check cuts its rays to fit
+GS_N = 500_000            # path E: bench.py S5's gaussians
+GS_HW = (512, 512)
+GS_CFG = dict(tile=16, tiles_per_gaussian=16, tile_capacity=256)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside tensor cores
 
@@ -232,12 +247,12 @@ def _profile(run, wall_ms: float, what: str) -> None:
     # a kernel's key is its signature, "void name<...>(...)" for a
     # template instance
     ours = sum(r[0] for r in rows if r[2].removeprefix("void ").startswith(
-        ("brick", "gather1d", "permuto")))
+        ("brick", "gather1d", "permuto", "gs_blend")))
     print(f"[profile] the port's kernels (brick4_*, brick_*, gather1d, "
-          f"permuto4_*, permuto_*): "
+          f"permuto4_*, permuto_*, gs_blend*): "
           f"{ours:.4f} ms, {ours / max(total, 1e-9) * 100:.1f}% of the "
           f"device time")
-    for ms, count, key in rows[:12]:
+    for ms, count, key in rows[:20]:
         print(f"[profile]   {ms:8.4f} ms {ms / max(total, 1e-9) * 100:5.1f}% "
               f"x{count:<4.0f} {key[:90]}")
 
@@ -1271,6 +1286,279 @@ def _field_phase(sdf, nerf, sdf_cpu, nerf_cpu, o, d, paths, smi) -> None:
     paths["field nerf step"] = (launches, 1)
 
 
+def _gs_params(n: int, seed: int) -> dict:
+    """bench.py:404-411's scene from numpy: means U[-1,1], scales
+    U[0.002,0.02], unit quats, opacities U[0.3,0.9], colours U[0,1]."""
+    r = np.random.default_rng(seed)
+    q = r.normal(size=(n, 4))
+    p = {"means": r.uniform(-1.0, 1.0, (n, 3)),
+         "scales": r.uniform(0.002, 0.02, (n, 3)),
+         "quats": q / np.linalg.norm(q, axis=-1, keepdims=True),
+         "opac": r.uniform(0.3, 0.9, (n, 1)),
+         "cols": r.uniform(0.0, 1.0, (n, 3))}
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+def _gs_camera(dev):
+    """bench.py:412-413: w2c = I with [2, 3] = 3, f = 500 at 512²."""
+    import torch
+
+    w2c = torch.eye(4, device=dev)
+    w2c[2, 3] = 3.0
+    intr = torch.tensor([[500.0, 0, 256], [0, 500.0, 256], [0, 0, 1]],
+                        device=dev)
+    return w2c, intr
+
+
+def _gs_render(p: dict, cam, normalize: bool = False) -> dict:
+    """The serving render (bench.py:415-419), or with the quats normalized
+    inside the call as the train step's loss has them
+    (bench_render.py:358-365)."""
+    import torch
+    from nr3d_lib_tpu_torch.graphics import gaussian_splatting as GS
+
+    q = p["quats"]
+    if normalize:
+        q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return GS.rasterize_gaussians_tiled(
+        p["means"], p["scales"], q, p["opac"], p["cols"], *cam, GS_HW,
+        blend_backend="pallas", **GS_CFG)
+
+
+def _gs_kernel_phases(p: dict, cam, kernels) -> None:
+    """B17 and B18 at the bench scene's own per-tile attrs (the stages of
+    `rasterize_gaussians_tiled` up to the blend), with upstream gradients
+    from numpy."""
+    import torch
+    from nr3d_lib_tpu_torch.graphics import gaussian_splatting as GS
+
+    src = "nr3d_lib_tpu_torch/csrc/gaussian_blend.cu"
+    rep = "nr3d_lib_tpu/graphics/gaussian_splatting.py"
+    tile = GS_CFG["tile"]
+    with torch.no_grad():
+        attrs, origin, _, _ = GS._tile_attrs(
+            p["means"], p["scales"], p["quats"], p["opac"], p["cols"], *cam,
+            GS_HW, **GS_CFG)
+    n_t, _, k = attrs.shape
+    n_px = tile * tile
+    n_live = int((attrs[:, 10] > 0).sum())
+    n_sat = int(((attrs[:, 5] >= 0.999) & (attrs[:, 10] > 0)).sum())
+    pairs = n_px * n_live                  # the work this scene's data needs
+    rng = np.random.default_rng(31)
+    g = tuple(torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
+        attrs.device) for s in ((n_t, n_px, 3), (n_t, n_px), (n_t, n_px)))
+    bg, floor = (0.0, 0.0, 0.0), 1.0 / 255.0
+    label = (f"{n_t} tiles of {tile}² x {k} slots, {n_live} live "
+             f"({n_sat} with opacity ≥ 0.999), {pairs:,} (pixel, slot) pairs")
+
+    # ------------------------------------------------------ B17 gs_blend
+    out_k = GS._fwd_cuda(attrs, origin, bg, tile, floor)
+    out_p = GS.gs_blend_plain(attrs, origin, bg, tile, floor)
+    err = _check(f"B17 gs_blend, {label}", n_t, [
+        (what, _err(a, b), 1e-5 * float(b.abs().max()) + 1e-7,
+         "sums over the slots in another order; the plain cumprod is a "
+         "parallel scan on the card")
+        for what, a, b in zip(("rgb", "acc", "depth"), out_k, out_p)])
+    ms = _time_ms(lambda: GS._fwd_cuda(attrs, origin, bg, tile, floor))
+    plain_ms = _time_ms(lambda: GS.gs_blend_plain(attrs, origin, bg, tile,
+                                                  floor), iters=5)
+    # each pair: dx, dy 2; md 9; the exponent's scale 1, expf 1; × op 1;
+    # clip 2; live/floor test and select 3; vw 1; acc, rgb, depth 4 FMAs
+    # (8); the transmittance 3 → 31; bytes: attrs and origins read,
+    # rgb/acc/depth written
+    io = n_t * (11 * k * 4 + 8) + n_t * n_px * 5 * 4
+    bound = _bound(io, pairs * 31)
+    print(f"[B17 gs_blend] kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+          f"bound {bound[0]:.4f} ms ({bound[1]}) | library: none")
+    _kernel_row(kernels, name="gs_blend (B17)", key="gs_blend",
+                path="gs render", source=src, replaces=f"{rep}:197",
+                err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                pairs=pairs)
+
+    # ------------------------------------------------- B18 gs_blend_bwd
+    d_k = GS._bwd_cuda(attrs, origin, *g, bg, tile, floor)
+    d_p = GS.gs_blend_bwd_plain(attrs, origin, *g, bg, tile, floor)
+    names = ("mu_x", "mu_y", "c00", "c01", "c11", "opacity", "r", "g", "b",
+             "depth", "live")
+    err = _check(f"B18 gs_blend_bwd, {label}", n_t, [
+        (f"d{names[r]}", _err(d_k[:, r], d_p[:, r]),
+         1e-4 * float(d_p[:, r].abs().max()) + 1e-9,
+         "pixel sums and suffix sums over the slots in another order, "
+         "divided by 1 - alpha") for r in range(11)])
+    ms = _time_ms(lambda: GS._bwd_cuda(attrs, origin, *g, bg, tile, floor))
+    plain_ms = _time_ms(lambda: GS.gs_blend_bwd_plain(
+        attrs, origin, *g, bg, tile, floor), iters=5)
+    # each pair: the forward's alpha and transmittance (~18), dvw 10, the
+    # suffix sum and dL/dalpha 5, the chain to md 3, ten gradients ~24,
+    # their sums over the pixels 10 → 70; bytes: attrs, origins and the
+    # upstream gradients read, the slot gradients written
+    io = n_t * (11 * k * 4 + 8) + n_t * n_px * 5 * 4 + n_t * 11 * k * 4
+    bound = _bound(io, pairs * 70)
+    print(f"[B18 gs_blend_bwd] kernel {ms:.4f} ms | plain {plain_ms:.4f} ms "
+          f"| bound {bound[0]:.4f} ms ({bound[1]}) | library: none")
+    _kernel_row(kernels, name="gs_blend_bwd (B18)", key="gs_blend_bwd",
+                path="gs train step", source=src, replaces=f"{rep}:247",
+                err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                pairs=pairs)
+
+
+def _gs_serve(p: dict, p_cpu: dict, cam, smi: str, paths: dict) -> float:
+    """Path E serving: N_RENDERS timed renders (1 B17 each), the CPU port's
+    render of the same scene pixel by pixel. Returns the CPU render's
+    seconds."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import _build
+
+    with torch.no_grad():
+        _gs_render(p, cam)                                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        times = []
+        for _ in range(N_RENDERS):
+            t0 = time.perf_counter()
+            out = _gs_render(p, cam)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_build.LAUNCHES)
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        med = statistics.median(times)
+        q1, _, q3 = statistics.quantiles(times, n=4)
+        n_px = GS_HW[0] * GS_HW[1]
+        dropped = int(out["n_dropped_pairs"])
+        print(f"[gs render] {GS_N} gaussians at {GS_HW[0]}x{GS_HW[1]} x "
+              f"{N_RENDERS} renders on {smi}: median {med:.3f} ms/frame "
+              f"(quartiles {q1:.3f}/{q3:.3f}, min {min(times):.3f}, max "
+              f"{max(times):.3f}) -> {1e3 / med:.2f} fps, "
+              f"{n_px / med / 1e3:.2f} Mpix/s | peak memory {peak_mib:.1f} "
+              f"MiB | n_dropped_pairs {dropped}")
+        print(f"[gs render] launches in the {N_RENDERS} timed renders: "
+              f"{launches}")
+        _require(launches == {"gs_blend": N_RENDERS},
+                 f"gs render: launches {launches}, expected "
+                 f"{{'gs_blend': {N_RENDERS}}}")
+        for k in ("rgb", "alpha", "depth"):
+            _require(bool(torch.isfinite(out[k]).all()), f"gs {k} not finite")
+        mean_a = float(out["alpha"].mean())
+        print(f"[gs render] all outputs finite; mean alpha {mean_a:.4f}")
+        _require(mean_a > 0.1, "the gaussian render is trivially empty")
+        _profile(lambda: _gs_render(p, cam), med, "gs render")
+
+        t0 = time.perf_counter()
+        ref = _gs_render(p_cpu, tuple(c.cpu() for c in cam))
+        cpu_s = time.perf_counter() - t0
+    e = torch.stack([(out[k].cpu() - ref[k]).abs().reshape(n_px, -1).amax(-1)
+                     for k in ("rgb", "alpha", "depth")]).amax(0)
+    share = float((e <= 1e-4).float().mean())
+    d_cpu = int(ref["n_dropped_pairs"])
+    print(f"[gs render] GPU vs CPU port ({cpu_s:.1f} s on the CPU): "
+          f"{share * 100:.2f}% of pixels agree within 1e-4 on rgb, alpha and "
+          f"depth ({float((e <= 1e-3).float().mean()) * 100:.2f}% within "
+          f"1e-3; max {float(e.max()):.3e}); n_dropped_pairs card {dropped} "
+          f"cpu {d_cpu} ({'equal' if dropped == d_cpu else 'NOT equal'})")
+    _require(share >= 0.99, "gs render: GPU and CPU renders disagree")
+    paths["gs render"] = (launches, N_RENDERS)
+    return cpu_s
+
+
+def _gs_loss(p: dict, cam, gt):
+    """bench_render.py:358-366: MSE of the render to the target."""
+    import torch
+
+    return torch.mean((_gs_render(p, cam, normalize=True)["rgb"] - gt) ** 2)
+
+
+def _gs_step_vs_cpu(params: dict, cam, gt, cpu_render_s: float) -> None:
+    """One step's loss and gradients on the card against the CPU port from
+    the same parameters. The gaussian count is cut for this check alone
+    when the CPU step, estimated as 3x the CPU render, would exceed
+    CPU_STEP_BUDGET_S."""
+    import torch
+    from nr3d_lib_tpu_torch import bridge
+
+    n = GS_N
+    while n > 10_000 and 3.0 * cpu_render_s * n / GS_N > CPU_STEP_BUDGET_S:
+        n //= 2
+    if n < GS_N:
+        print(f"[gs step vs cpu] cut to {n} of {GS_N} gaussians: the CPU "
+              f"render of {GS_N} took {cpu_render_s:.1f} s")
+    sub = {k: v[:n] for k, v in params.items()}
+    res = []
+    for dev in (gt.device, torch.device("cpu")):
+        p = bridge.gaussians_from_jax(sub, device=dev)
+        t0 = time.perf_counter()
+        loss = _gs_loss(p, tuple(c.to(dev) for c in cam), gt.to(dev))
+        loss.backward()
+        res.append((float(loss.detach()), {k: t.grad.cpu() for k, t in
+                                           p.items()},
+                    time.perf_counter() - t0))
+    (loss_g, gg, _), (loss_c, gc, cpu_step_s) = res
+    rel_loss = abs(loss_g - loss_c) / abs(loss_c)
+    errs = {k: float(torch.linalg.norm(gg[k] - gc[k]) /
+                     max(float(torch.linalg.norm(gc[k])), 1e-12)) for k in gc}
+    print(f"[gs step vs cpu] {n} gaussians, CPU step {cpu_step_s:.1f} s: "
+          f"loss card {loss_g:.7f} cpu {loss_c:.7f}, relative {rel_loss:.2e} "
+          f"(tolerance 1e-4); gradients, relative L2 per tensor (tolerance "
+          f"1e-4: both sides sort the same int64 keys stably, so only the "
+          f"order of the pixel and scatter sums differs): " +
+          ", ".join(f"{k} {e:.2e}" for k, e in errs.items()))
+    _require(rel_loss <= 1e-4, "gs: card and CPU step losses disagree")
+    _require(max(errs.values()) <= 1e-4, "gs: card and CPU gradients disagree")
+
+
+def _gs_train(params: dict, cam, gt, smi: str, paths: dict) -> None:
+    """bench_render.py `main_train_gaussian`: Adam(1e-3) over the five
+    parameter tensors; 2 warm-up and N_STEPS timed steps of exactly 1 B17
+    and 1 B18 each."""
+    import torch
+    from nr3d_lib_tpu_torch import bridge
+    from nr3d_lib_tpu_torch.ops import _build
+
+    p = bridge.gaussians_from_jax(params, device=gt.device)
+    opt = torch.optim.Adam(p.values(), lr=1e-3)
+    losses = []
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = _gs_loss(p, cam, gt)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+
+    for _ in range(N_WARMUP_STEPS):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    times = []
+    for _ in range(N_STEPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_build.LAUNCHES)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    med = statistics.median(times)
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    vals = [float(v) for v in losses]
+    print(f"[gs train] {GS_N} gaussians at {GS_HW[0]}x{GS_HW[1]} x {N_STEPS} "
+          f"steps on {smi}: median {med:.3f} ms/step (quartiles "
+          f"{q1:.3f}/{q3:.3f}, min {min(times):.3f}, max {max(times):.3f}) | "
+          f"peak memory {peak_mib:.1f} MiB")
+    print(f"[gs train] loss per step: {' '.join(f'{v:.6f}' for v in vals)}")
+    print(f"[gs train] launches in the {N_STEPS} timed steps: {launches}")
+    expect = {"gs_blend": N_STEPS, "gs_blend_bwd": N_STEPS}
+    _require(launches == expect, f"gs train: launches {launches}, expected "
+             f"{expect}")
+    _require(all(np.isfinite(vals)), "a gs loss is not finite")
+    last5 = float(np.mean(vals[-5:]))
+    print(f"[gs train] mean loss of the last 5 steps {last5:.6f} vs the "
+          f"first step's {vals[0]:.6f}")
+    _require(last5 < vals[0], "the gs loss did not fall")
+    _profile(step, med, "gs train step")
+    paths["gs train step"] = (launches, N_STEPS)
+
+
 def _seed_occupancy(model) -> None:
     """A seeded 15% occupancy grid (experiments/bench_render.py seeds the
     same share, so the compressed paths have real sparsity)."""
@@ -1302,6 +1590,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from nr3d_lib_tpu_torch import bridge
     from nr3d_lib_tpu_torch.models.fields.nerf import PermutoNeRF
     from nr3d_lib_tpu_torch.models.fields.sdf import PermutoSDF
     from nr3d_lib_tpu_torch.models.model_base import (LoTDNeRFModel,
@@ -1445,6 +1734,18 @@ def main() -> int:
         pathd, o, d, smi, "pathd", {"permuto_fwd": 4, "permuto_bwd": 1,
                                     "permuto_dydx": 1}, {"permuto_fwd": 1},
         ts_extra), N_STEPS)
+
+    # ------------------------- path E: 3D Gaussian splatting (B17, B18)
+    gs_params = _gs_params(GS_N, seed=21)
+    gs_cam = _gs_camera(dev)
+    gs_gt = torch.from_numpy(np.random.default_rng(3).uniform(
+        size=GS_HW + (3,)).astype(np.float32)).to(dev)
+    gs_p = bridge.gaussians_from_jax(gs_params, device=dev)
+    _gs_kernel_phases(gs_p, gs_cam, kernels)
+    cpu_s = _gs_serve(gs_p, bridge.gaussians_from_jax(gs_params, "cpu"),
+                      gs_cam, smi, paths)
+    _gs_step_vs_cpu(gs_params, gs_cam, gs_gt, cpu_s)
+    _gs_train(gs_params, gs_cam, gs_gt, smi, paths)
 
     for kd in kernels:
         key = kd.pop("key")

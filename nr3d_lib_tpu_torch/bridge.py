@@ -12,16 +12,26 @@ path maps to the dotted `state_dict` key of the same name:
     transpose;
   * `field/var_ctrl/ln_s`, `space/aabb`, `accel/occ/val_grid` and
     `accel/occ/it`.
+
+Gaussian splatting keeps its parameters in a plain dictionary
+(experiments/bench_render.py `main_train_gaussian`: `means`, `scales`,
+`quats`, `opac`, `cols`); `gaussians_from_jax` makes them trainable
+tensors, and `to_jax_paths` takes them back.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
-__all__ = ["from_jax_state", "to_jax_paths"]
+from nr3d_lib_tpu_torch.device import resolve_device
+
+__all__ = ["from_jax_state", "to_jax_paths", "gaussians_from_jax",
+           "GAUSSIAN_KEYS"]
+
+GAUSSIAN_KEYS = ("means", "scales", "quats", "opac", "cols")
 
 
 def from_jax_state(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -43,3 +53,28 @@ def to_jax_paths(named: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     be compared with the JAX package's by path."""
     return {key.replace(".", "/"): t.detach().cpu().numpy()
             for key, t in named.items()}
+
+
+def gaussians_from_jax(params: Mapping[str, np.ndarray],
+                       device: Optional[Union[str, torch.device]] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """{means, scales, quats, opac, cols: numpy array} → float32 leaf
+    tensors on `device` (the card unless "cpu" is asked for) that need
+    their gradients, in `GAUSSIAN_KEYS` order. An unknown key raises
+    KeyError, a float64 array ValueError."""
+    dev = resolve_device(device)
+    unknown = set(params) - set(GAUSSIAN_KEYS)
+    if unknown:
+        raise KeyError(f"not a gaussian parameter: {sorted(unknown)}; "
+                       f"expected {GAUSSIAN_KEYS}")
+    out = {}
+    for key in GAUSSIAN_KEYS:
+        if key not in params:
+            continue
+        arr = np.asarray(params[key])
+        if arr.dtype == np.float64:
+            raise ValueError(f"{key}: float64 parameters; the rasterizer "
+                             f"is float32")
+        out[key] = torch.tensor(arr, dtype=torch.float32,
+                                device=dev).requires_grad_(True)
+    return out

@@ -21,6 +21,11 @@ through the elevation Jacobian and the lattice scale (1e-4). The F=2 cell
 permuto kernels (B10–B13) run on the dynamic NeuS field's default 4D meta
 (five hashed levels) and the 3D bench lattice (a dense level of 1985
 rows, seven hashed), with the same tolerances as their F=4 counterparts.
+The gaussian blend (B17, B18) runs at T ∈ {1, 7, 1024} tiles, K ∈ {1, 32,
+256} slots and tile ∈ {8, 16}: B17 within 1e-5 of each output's largest
+entry (sums over the slots in another order), B18 within 1e-4 of each
+row's largest gradient (pixel sums and suffix sums in another order,
+divided by 1 − α ≥ 0.001).
 """
 
 import numpy as np
@@ -702,3 +707,167 @@ def test_path_d_step_and_render_go_through_the_kernels(cuda):
         assert torch.isfinite(loss)
         for p in model.parameters():
             assert p.grad is not None and torch.isfinite(p.grad).all()
+
+
+# ------------------------------------------- B17 / B18: the gaussian blend
+def _gs_blend_inputs(dev, n_t: int, k: int, tile: int, seed: int = 0):
+    """Per-tile attrs [T, 11, K] (centres in and around the tile, σ 1–6 px,
+    depths increasing along the slots, a quarter of the slots dead, every
+    9th opacity 1.2 so raw α ≥ 0.999 at its centre), origins on a grid and
+    upstream gradients, all from numpy."""
+    r = np.random.default_rng(seed)
+    origin = np.stack([(np.arange(n_t) % 32) * tile,
+                       (np.arange(n_t) // 32) * tile], -1).astype(np.float32)
+    a = np.zeros((n_t, 11, k), np.float32)
+    a[:, 0:2] = origin[:, :, None] + r.uniform(-0.3 * tile, 1.3 * tile,
+                                               (n_t, 2, k))
+    sig = r.uniform(1.0, 6.0, (n_t, 2, k))
+    rho = r.uniform(-0.6, 0.6, (n_t, k))
+    det = sig[:, 0] ** 2 * sig[:, 1] ** 2 * (1 - rho ** 2)
+    a[:, 2] = sig[:, 1] ** 2 / det
+    a[:, 3] = -rho * sig[:, 0] * sig[:, 1] / det
+    a[:, 4] = sig[:, 0] ** 2 / det
+    a[:, 5] = r.uniform(0.3, 0.95, (n_t, k))
+    a[:, 5, 1::9] = 1.2
+    a[:, 6:9] = r.uniform(0, 1, (n_t, 3, k))
+    a[:, 9] = np.sort(r.uniform(1.0, 5.0, (n_t, k)), -1)
+    a[:, 10] = 1.0
+    a[:, :, k - k // 4:] = 0.0
+    p = tile * tile
+    g = (r.normal(size=(n_t, p, 3)), r.normal(size=(n_t, p)),
+         0.1 * r.normal(size=(n_t, p)))
+    to = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)  # noqa
+    return to(a), to(origin), tuple(to(x) for x in g)
+
+
+GS_BG, GS_FLOOR = (0.3, 0.2, 0.7), 1.0 / 255.0
+GS_CASES = [(t, k, tile) for t in (1, 7, 1024) for k in (1, 32, 256)
+            for tile in (8, 16)]
+
+
+@pytest.mark.parametrize("n_t,k,tile", GS_CASES)
+def test_gs_blend_kernel_matches_plain(cuda, n_t, k, tile):
+    """B17 against `gs_blend_plain` on the card: 1e-5 of each output's
+    largest entry (sums over K slots in another order; the plain version's
+    cumprod is a parallel scan on the card)."""
+    from nr3d_lib_tpu_torch.graphics import gaussian_splatting as GS
+
+    a, origin, _ = _gs_blend_inputs(cuda, n_t, k, tile, seed=k + tile)
+    before = _build.LAUNCHES["gs_blend"]
+    with torch.no_grad():
+        out = GS.gs_blend(a, origin, GS_BG, tile, GS_FLOOR)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gs_blend"] == before + 1
+    ref = GS.gs_blend_plain(a, origin, GS_BG, tile, GS_FLOOR)
+    for got, want in zip(out, ref):
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()) + 1e-7)
+
+
+@pytest.mark.parametrize("n_t,k,tile", GS_CASES)
+def test_gs_blend_bwd_kernel_matches_plain(cuda, n_t, k, tile):
+    """B18 against `gs_blend_bwd_plain` on the card: 1e-4 of each row's
+    largest gradient (sums over the tile's pixels and suffix sums over the
+    slots in another order, divided by 1 − α ≥ 0.001)."""
+    from nr3d_lib_tpu_torch.graphics import gaussian_splatting as GS
+
+    a, origin, g = _gs_blend_inputs(cuda, n_t, k, tile, seed=k + tile + 1)
+    before = _build.LAUNCHES["gs_blend_bwd"]
+    got = GS._bwd_cuda(a, origin, *g, GS_BG, tile, GS_FLOOR)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["gs_blend_bwd"] == before + 1
+    want = GS.gs_blend_bwd_plain(a, origin, *g, GS_BG, tile, GS_FLOOR)
+    for r in range(11):
+        torch.testing.assert_close(
+            got[:, r], want[:, r], rtol=0,
+            atol=1e-4 * float(want[:, r].abs().max()) + 1e-9)
+
+
+def test_gs_blend_autograd_matches_cpu_route(cuda):
+    from nr3d_lib_tpu_torch.graphics import gaussian_splatting as GS
+
+    a, origin, g = _gs_blend_inputs(cuda, 7, 64, 16, seed=3)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        at = a.detach().to(dev).requires_grad_(True)
+        out = GS.gs_blend(at, origin.to(dev), GS_BG, 16)
+        torch.autograd.backward(out, tuple(x.to(dev) for x in g))
+        grads.append(at.grad.cpu())
+    for r in range(11):
+        torch.testing.assert_close(
+            grads[0][:, r], grads[1][:, r], rtol=0,
+            atol=1e-4 * float(grads[1][:, r].abs().max()) + 1e-9)
+
+
+def test_gs_blend_empty_and_bad_arguments(cuda):
+    from nr3d_lib_tpu_torch.graphics import gaussian_splatting as GS
+
+    a, origin, g = _gs_blend_inputs(cuda, 0, 32, 16)
+    before = dict(_build.LAUNCHES)
+    rgb, acc, dep = GS.gs_blend(a, origin, GS_BG, 16)
+    d = GS._bwd_cuda(a, origin, *g, GS_BG, 16, GS_FLOOR)
+    assert rgb.shape == (0, 256, 3) and acc.shape == dep.shape == (0, 256)
+    assert d.shape == (0, 11, 32)
+    assert dict(_build.LAUNCHES) == before            # nothing launched
+    a, origin, _ = _gs_blend_inputs(cuda, 2, 32, 16)
+    with pytest.raises(ValueError, match="tile 33"):
+        GS.gs_blend(a, torch.zeros(2, 2, device=cuda), GS_BG, 33)
+    with pytest.raises(ValueError, match="attrs"):
+        GS.gs_blend(a[:, :10], origin, GS_BG, 16)
+    with pytest.raises(ValueError, match="origin"):
+        GS.gs_blend(a, origin.cpu(), GS_BG, 16)
+
+
+def test_gaussian_render_and_step_go_through_the_kernels(cuda):
+    """A small scene: one render (1 B17) and one train step (1 B17 + 1
+    B18) on the "pallas" route, against the CPU route."""
+    from nr3d_lib_tpu_torch import bridge
+    from nr3d_lib_tpu_torch.graphics import gaussian_splatting as GS
+
+    r = np.random.default_rng(0)
+    n = 2000
+    q = r.normal(size=(n, 4))
+    params = {"means": r.uniform(-1, 1, (n, 3)),
+              "scales": r.uniform(0.01, 0.05, (n, 3)),
+              "quats": q / np.linalg.norm(q, axis=-1, keepdims=True),
+              "opac": r.uniform(0.3, 0.9, (n, 1)),
+              "cols": r.uniform(0, 1, (n, 3))}
+    params = {k: v.astype(np.float32) for k, v in params.items()}
+    w2c = torch.eye(4)
+    w2c[2, 3] = 3.0
+    intr = torch.tensor([[100.0, 0, 48], [0, 100.0, 40], [0, 0, 1]])
+    hw = (80, 96)
+    gt = torch.from_numpy(r.uniform(size=hw + (3,)).astype(np.float32))
+    outs, grads = [], []
+    for dev in (cuda, torch.device("cpu")):
+        p = bridge.gaussians_from_jax(params, device=dev)
+
+        def render():
+            return GS.rasterize_gaussians_tiled(
+                p["means"], p["scales"],
+                p["quats"] / torch.linalg.norm(p["quats"], dim=-1,
+                                               keepdim=True),
+                p["opac"], p["cols"], w2c.to(dev), intr.to(dev), hw,
+                tile_capacity=64, blend_backend="pallas")
+
+        _build.LAUNCHES.clear()
+        with torch.no_grad():
+            out = render()
+        assert dict(_build.LAUNCHES) == ({"gs_blend": 1} if dev == cuda
+                                         else {})
+        outs.append({k: v.cpu() for k, v in out.items()})
+        _build.LAUNCHES.clear()
+        loss = torch.mean((render()["rgb"] - gt.to(dev)) ** 2)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == ({"gs_blend": 1, "gs_blend_bwd": 1}
+                                         if dev == cuda else {})
+        grads.append({k: t.grad.cpu() for k, t in p.items()})
+    assert int(outs[0]["n_dropped_pairs"]) == int(outs[1]["n_dropped_pairs"])
+    for k in ("rgb", "alpha", "depth"):
+        torch.testing.assert_close(outs[0][k], outs[1][k], rtol=0, atol=1e-4)
+    for k, g in grads[1].items():
+        assert float(g.abs().max()) > 0, k
+        torch.testing.assert_close(grads[0][k], g, rtol=0,
+                                   atol=1e-3 * float(g.abs().max()))
