@@ -26,11 +26,14 @@
    with and without dL/dx) and B16 (permuto4_dydx). F=2 cell permuto
    (path D and the field phase), each at two shapes — path D's final
    query, 393,216 (x,t) points × 5 hashed levels, and the 3D bench
-   lattice, 393,216 points × 8 levels (one dense): B10 (permuto_fwd), B11
-   and B12 (permuto_bwd without and with dL/dx) and B13 (permuto_dydx).
-   Gaussian splatting (path E), at the bench scene's 1024 tiles of 16² ×
-   256 slots: B17 (gs_blend) and B18 (gs_blend_bwd, upstream gradients
-   from numpy).
+   lattice, 393,216 points × 8 levels (one dense): B10 (permuto_fwd, also
+   timed on the same points in a random order, whose rows must be the
+   ray order's rows bit for bit), B11 and B12 (permuto_bwd without and
+   with dL/dx) and B13 (permuto_dydx). Gaussian splatting (path E), at the
+   bench scene's 1024 tiles of 16² × 256 slots: B17 (gs_blend) and B18
+   (gs_blend_bwd, upstream gradients from numpy; its row also counts the
+   (pixel, slot) pairs above the α floor and the (warp, slot) pairs in
+   which any pixel is, the work its warp vote leaves).
 4. The paths, each through the entry points a user calls, with seeded
    weights, a seeded 15% occupancy and seeded rays. Launch counters are
    zeroed just before each path and read just after; every count must be
@@ -1098,17 +1101,29 @@ def _permuto_kernel_phases(pathd, field, o, d, ts, kernels) -> None:
                 1e-5 + 1e-5 * float(y_p.abs().max()),
                 f"{dim + 1} weighted vertices summed in another order")])
             ms = _time_ms(lambda: PC._fwd_cuda(x, table, meta))
+            # the paths feed points ray by ray; the same points in a random
+            # order show what the kernel owes to that order
+            perm = torch.randperm(n, device=dev, generator=torch.Generator(
+                device=dev).manual_seed(29))
+            x_perm = x[perm].contiguous()
+            _require(torch.equal(PC._fwd_cuda(x_perm, table, meta),
+                                 PC._fwd_cuda(x, table, meta)[perm]),
+                     f"B10 at {what}: a point's encoding depends on its "
+                     f"place in the batch")
+            ms_perm = _time_ms(lambda: PC._fwd_cuda(x_perm, table, meta))
             plain_ms = _time_ms(lambda: PC.permuto_cell_encode_xla(
                 x, table, meta), iters=5)
             # the simplex search + d+1 vertices × 2 features × (mul + add)
             bound = _bound(n * (4 * dim + 8 * L) + table_bytes,
                            n * L * (sops + 4 * (dim + 1)))
-            print(f"[B10 permuto_fwd, {what}] kernel {ms:.4f} ms | plain "
-                  f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms "
-                  f"({bound[1]}) | library: none")
+            print(f"[B10 permuto_fwd, {what}] kernel {ms:.4f} ms (the same "
+                  f"points permuted: {ms_perm:.4f} ms, bitwise the same "
+                  f"rows) | plain {plain_ms:.4f} ms | bound {bound[0]:.4f} "
+                  f"ms ({bound[1]}) | library: none")
             errs["fwd"].append(err)
             rows["fwd"].update({f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms,
-                                f"bound{sfx}": bound})
+                                f"bound{sfx}": bound,
+                                f"ms_permuted{sfx}": ms_perm})
 
             # ------- B11 / B12 permuto_bwd: dL/dtable by float2 atomics
             dx_p, dtab_p = PC.permuto_cell_encode_bwd_xla(x, table, g, meta,
@@ -1348,6 +1363,15 @@ def _gs_kernel_phases(p: dict, cam, kernels) -> None:
     g = tuple(torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(
         attrs.device) for s in ((n_t, n_px, 3), (n_t, n_px), (n_t, n_px)))
     bg, floor = (0.0, 0.0, 0.0), 1.0 / 255.0
+    # B18's data-dependent work: the (pixel, slot) pairs above the α floor,
+    # and the (warp, slot) pairs in which any pixel is (the warps that do
+    # a slot's gradients; the others skip it)
+    with torch.no_grad():
+        above = GS._alpha_parts(attrs, origin, tile, floor)[5]  # [T, P, K]
+        n_above = int(above.sum())
+        warp_pairs = n_t * (n_px // 32) * k
+        warp_hits = int(above.view(n_t, n_px // 32, 32, k).any(2).sum())
+        del above
     label = (f"{n_t} tiles of {tile}² x {k} slots, {n_live} live "
              f"({n_sat} with opacity ≥ 0.999), {pairs:,} (pixel, slot) pairs")
 
@@ -1395,11 +1419,14 @@ def _gs_kernel_phases(p: dict, cam, kernels) -> None:
     io = n_t * (11 * k * 4 + 8) + n_t * n_px * 5 * 4 + n_t * 11 * k * 4
     bound = _bound(io, pairs * 70)
     print(f"[B18 gs_blend_bwd] kernel {ms:.4f} ms | plain {plain_ms:.4f} ms "
-          f"| bound {bound[0]:.4f} ms ({bound[1]}) | library: none")
+          f"| bound {bound[0]:.4f} ms ({bound[1]}) | library: none | "
+          f"{n_above:,} pairs above the α floor; {warp_hits:,} of "
+          f"{warp_pairs:,} (warp, slot) pairs taken")
     _kernel_row(kernels, name="gs_blend_bwd (B18)", key="gs_blend_bwd",
                 path="gs train step", source=src, replaces=f"{rep}:247",
                 err=err, ms=ms, plain_ms=plain_ms, bound=bound,
-                pairs=pairs)
+                pairs=pairs, pairs_above_floor=n_above,
+                warp_slot_pairs=warp_pairs, warp_slot_hits=warp_hits)
 
 
 def _gs_serve(p: dict, p_cpu: dict, cam, smi: str, paths: dict) -> float:

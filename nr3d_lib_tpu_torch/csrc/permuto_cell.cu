@@ -14,15 +14,21 @@
 // integer operations at d = 3-4), then d+1 dependent random 8-byte loads
 // from one 512 B cell row chosen by a hash. The f32 table (20,480 rows x
 // 512 B = 10.5 MB for the dynamic NeuS, 30,657 rows = 15.7 MB for the 3D
-// fields) stays resident in the 50 MB L2, so the loads are L2 latency
-// bound, well above the DRAM bound of the points' own bytes.
-// Design: one thread per (point, level) for the forward and the backward,
-// one thread per point looping over levels for the nablas (its [N,d]
-// output sums over levels, so a thread owns a point and needs no
-// atomics). All levels go in one launch. The TPU kernels' level groups,
-// A/B row buffers, lane-pattern extraction, MXU reduce/weight matrices and
-// point chunking exist only for the TPU and are not carried over; no
-// shared memory.
+// fields) stays resident in the 50 MB L2, so the loads hit L2, well above
+// the DRAM bound of the points' own bytes. On an H100 (700 W) the
+// forward's simplex search alone, its loads removed, takes 0.057 of its
+// 0.066 ms at the dynamic NeuS's 393,216 points x 5 levels: the search's
+// instructions, not the loads, bound it.
+// Design: the forward gives each warp 32 consecutive points at one level
+// (a block takes the run at all levels). The paths feed points ray by
+// ray, so at the coarse levels a warp's neighbours share a cell row and
+// its loads merge into few sectors; each warp reads its level's meta
+// uniformly. The backward is one thread per (point, level), the nablas
+// one thread per point looping over levels (its [N,d] output sums over
+// levels, so a thread owns a point and needs no atomics). All levels go
+// in one launch. The TPU kernels' level groups, A/B row buffers,
+// lane-pattern extraction, MXU reduce/weight matrices and point chunking
+// exist only for the TPU and are not carried over.
 //
 // Vertex k's two features sit at lanes lane_k, lane_k + 1 of its row
 // (lane_k even), so one aligned float2 load reads both and one float2
@@ -38,30 +44,44 @@
 
 #include "permuto_simplex.cuh"
 
-// B10: one thread per (point, level) -> y [n, L] float2.
+// B10's run of consecutive points: one warp's width at each level
+constexpr int PC_FWD_POINTS = 32;
+
+// B10: a block takes a run of PC_FWD_POINTS consecutive points at all L
+// levels (blockDim = 32 L), warp l the run at level l -> y [n, L] float2.
+// x is staged in shared memory once, y through shared memory so that the
+// block's [points, L] store is one coalesced run.
 template <int D>
 __global__ void permuto_fwd_kernel(const float* __restrict__ x,
                                    const float2* __restrict__ table,
                                    const __grid_constant__ PCMeta meta,
                                    float2* __restrict__ y, long long n) {
+  __shared__ float xs[PC_FWD_POINTS * D];
+  __shared__ float2 ys[PC_FWD_POINTS * PC_MAX_LEVELS];
   const int L = meta.n_levels;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n * L) return;
-  const long long p = i / L;
-  const int l = (int)(i - p * L);
-  float xp[D];
+  const long long p0 = (long long)blockIdx.x * PC_FWD_POINTS;
+  const int np = (int)min((long long)PC_FWD_POINTS, n - p0);
+  for (int k = threadIdx.x; k < np * D; k += blockDim.x)
+    xs[k] = x[p0 * D + k];
+  __syncthreads();
+  const int l = threadIdx.x >> 5, i = threadIdx.x & 31;
+  if (i < np) {
+    float xp[D];
 #pragma unroll
-  for (int a = 0; a < D; ++a) xp[a] = x[p * D + a];
-  Simplex<D> s;
-  find_simplex<D>(xp, meta, meta.lv[l], s);
-  float a0 = 0.f, a1 = 0.f;
+    for (int a = 0; a < D; ++a) xp[a] = xs[i * D + a];
+    Simplex<D> s;
+    find_simplex<D>(xp, meta, meta.lv[l], s);
+    float a0 = 0.f, a1 = 0.f;
 #pragma unroll
-  for (int k = 0; k <= D; ++k) {
-    const float2 v = __ldg(table + s.vtx[k]);
-    a0 += s.bary[k] * v.x;
-    a1 += s.bary[k] * v.y;
+    for (int k = 0; k <= D; ++k) {
+      const float2 v = __ldg(table + s.vtx[k]);
+      a0 += s.bary[k] * v.x;
+      a1 += s.bary[k] * v.y;
+    }
+    ys[i * L + l] = make_float2(a0, a1);
   }
-  y[i] = make_float2(a0, a1);
+  __syncthreads();
+  for (int k = threadIdx.x; k < np * L; k += blockDim.x) y[p0 * L + k] = ys[k];
 }
 
 // 8-byte atomic add into global memory (one instruction on sm_90).
@@ -155,11 +175,10 @@ extern "C" {
 // x [n,d] f32, table [rows,128] f32, y [n,2L] f32.
 int permuto_fwd(const void* x, const void* table, PCMeta meta, void* y,
                 long long n, void* stream) {
-  const long long total = n * meta.n_levels;
-  if (total > 0) {
-    const int threads = 256;
+  if (n > 0 && meta.n_levels > 0) {
+    const int threads = 32 * meta.n_levels;
 #define PC_FWD(D)                                                        \
-  permuto_fwd_kernel<D><<<pc_blocks_for(total, threads), threads, 0,     \
+  permuto_fwd_kernel<D><<<pc_blocks_for(n, PC_FWD_POINTS), threads, 0,   \
                           (cudaStream_t)stream>>>(                       \
       (const float*)x, (const float2*)table, meta, (float2*)y, n)
     PC_DISPATCH(meta.n_dims, PC_FWD)

@@ -445,7 +445,7 @@ def _fwd_cuda(attrs: Tensor, origin: Tensor, bg: Sequence[float],
 
 
 # slots per back-to-front chunk of B18 (csrc/gaussian_blend.cu CHUNK_B)
-_BWD_CHUNK = 32
+_BWD_CHUNK = 16
 
 
 def _bwd_cuda(attrs: Tensor, origin: Tensor, g_rgb: Tensor, g_acc: Tensor,

@@ -353,6 +353,61 @@ def test_plain_blend_bwd_matches_pallas_interpret(k):
     assert not np.any(_np(got[:, :, 3 * k // 4:]))      # dead slots
 
 
+def _liveness_tile(k, sat_slot):
+    """One 16² tile whose slots differ in where they are live: slot 0
+    below the α floor at every pixel (opacity 0.003 < 1/255), slot 1 live
+    on only the first 32 pixels (pixel rows 0–1: σ 0.4 px at y = 1), slot
+    `sat_slot` opacity 1.0 and σ 1000 px (raw α ≥ 0.999 at every pixel),
+    the rest ordinary gaussians and a dead tail."""
+    a, origin, g = _blend_inputs(1, k, 16, seed=40 + sat_slot)
+    origin[:] = 0.0
+    a[0, :, 0] = [8.0, 8.0, 1 / 9.0, 0.0, 1 / 9.0, 0.003, 0.2, 0.5, 0.9,
+                  a[0, 9, 0], 1.0]
+    a[0, :, 1] = [8.0, 1.0, 6.25, 0.0, 6.25, 0.9, 0.8, 0.1, 0.3, a[0, 9, 1],
+                  1.0]
+    a[0, :, sat_slot] = [8.0, 8.0, 1e-6, 0.0, 1e-6, 1.0, 0.4, 0.6, 0.2,
+                         a[0, 9, sat_slot], 1.0]
+    return a, origin, g
+
+
+@pytest.mark.parametrize("sat_slot", [2, 20])
+def test_plain_blend_bwd_slot_liveness_matches_pallas_interpret(sat_slot):
+    """The invariant B18's warp vote rests on: a slot that is live on no
+    pixel of a warp adds exactly 0 there. A slot below the floor
+    everywhere gets exactly 0 in every row; a saturated live slot gets 0
+    in rows 0–5 (dL/dα is masked) but not in r, g, b, depth; a slot live
+    on one warp's pixels only gets gradients from those pixels alone."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    k = 32
+    a, origin, g = _liveness_tile(k, sat_slot)
+    live = PG._alpha_parts(*_pt((a, origin)), 16, FLOOR)[5][0]  # [P, K]
+    assert not live[:, 0].any()
+    assert live[:32, 1].any() and not live[32:, 1].any()
+    assert live[:, sat_slot].all()
+    with pltpu.force_tpu_interpret_mode():
+        want, _ = JG._blend_bwd(BG, 16, FLOOR, True,
+                                (_pad16(a), jnp.asarray(origin)), _jt(g))
+    want = _np(want)[:, :11]
+    got = PG.gs_blend_bwd_plain(*_pt((a, origin)), *_pt(g), BG, 16, FLOOR)
+    for r in range(10):
+        _rel_close(got[:, r], want[:, r], 5e-5, msg=f"row {r}")
+    # slot 1 from the first warp's pixels alone: the other pixels' upstream
+    # gradients do not reach it
+    g_warp0 = tuple(x.copy() for x in g)
+    for x in g_warp0:
+        x[:, 32:] = 0.0
+    got0 = PG.gs_blend_bwd_plain(*_pt((a, origin)), *_pt(g_warp0), BG, 16,
+                                 FLOOR)
+    for res in (_np(got), want):
+        assert not np.any(res[0, :, 0])                 # below the floor
+        assert not np.any(res[0, :6, sat_slot])         # dL/dα masked
+        assert np.all(res[0, 6:10, sat_slot] != 0.0)    # r, g, b, depth
+        assert not np.any(res[0, 10])                   # the live row
+        assert np.all(res[0, :10, 1] != 0.0)
+    np.testing.assert_array_equal(_np(got0)[0, :, 1], _np(got)[0, :, 1])
+
+
 def test_plain_blend_bwd_matches_autograd():
     a, origin, g = _blend_inputs(5, 48, 8, seed=7)
     at = torch.from_numpy(a).requires_grad_(True)

@@ -1,9 +1,10 @@
 """The port's two porting rules, checked from its sources.
 
-1. No module of `nr3d_lib_tpu_torch/`, and not `chip_smoke.py`, imports
-   JAX, Flax, Optax or the JAX package `nr3d_lib_tpu`: the port runs where
-   none of them is installed. Every file is parsed with `ast`, so imports
-   inside functions count too, and nothing is executed.
+1. No module of `nr3d_lib_tpu_torch/`, and neither `chip_smoke.py` nor
+   `chip_ab.py`, imports JAX, Flax, Optax or the JAX package
+   `nr3d_lib_tpu`: the port runs where none of them is installed. Every
+   file is parsed with `ast`, so imports inside functions count too, and
+   nothing is executed.
 2. An entry point's `device=None` means the card: `resolve_device(None)`
    raises when there is none, and never falls back to the CPU.
 """
@@ -19,7 +20,7 @@ from nr3d_lib_tpu_torch.device import resolve_device
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "nr3d_lib_tpu"}
 SOURCES = sorted((REPO / "nr3d_lib_tpu_torch").rglob("*.py")) + \
-    [REPO / "chip_smoke.py"]
+    [REPO / "chip_smoke.py", REPO / "chip_ab.py"]
 
 
 def _imported_roots(path: Path):
@@ -40,7 +41,7 @@ def _imported_roots(path: Path):
 def test_sources_are_found():
     names = {p.name for p in SOURCES}
     assert {"lotd_brick.py", "lotd_brick4.py", "model_base.py",
-            "nerf_ray_query.py", "chip_smoke.py"} <= names
+            "nerf_ray_query.py", "chip_smoke.py", "chip_ab.py"} <= names
     assert len(SOURCES) > 30
 
 

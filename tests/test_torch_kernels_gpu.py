@@ -25,7 +25,11 @@ The gaussian blend (B17, B18) runs at T ∈ {1, 7, 1024} tiles, K ∈ {1, 32,
 256} slots and tile ∈ {8, 16}: B17 within 1e-5 of each output's largest
 entry (sums over the slots in another order), B18 within 1e-4 of each
 row's largest gradient (pixel sums and suffix sums in another order,
-divided by 1 − α ≥ 0.001).
+divided by 1 − α ≥ 0.001); B18 also on tiles where whole warps take no
+slot and slots lie below the α floor or saturate everywhere (the rows
+its warp vote skips must be exact zeros), and at the bench scene's
+attrs. B10 also runs on points along rays and on the same points
+permuted (the permuted rows must be the same bits), d = 2–5.
 """
 
 import numpy as np
@@ -871,3 +875,169 @@ def test_gaussian_render_and_step_go_through_the_kernels(cuda):
         assert float(g.abs().max()) > 0, k
         torch.testing.assert_close(grads[0][k], g, rtol=0,
                                    atol=1e-3 * float(g.abs().max()))
+
+
+# ------------------ B18: the warp vote (which warps a slot's pixels touch)
+def _gs_liveness_tile(dev, tile: int, k: int, kind: str, seed: int):
+    """One or two tiles whose slots differ in where they are live, against
+    which B18's skip of the warps that take no slot is held.
+
+    "mixed": slot 0 below the α floor at every pixel (opacity 0.003), slot
+    1 live on the first 2·tile pixels only (σ 0.4 px at y = 1), slot 2
+    saturated (opacity 1.0, σ 1000 px: raw α ≥ 0.999 at every pixel),
+    then ordinary slots. "dead_warps": every slot's centre in the tile's
+    top rows with σ ≤ 1 px, so the lower warps take no slot at all.
+    "saturated": every third slot saturated."""
+    a, origin, g = _gs_blend_inputs(dev, 2, k, tile, seed=seed)
+    a = a.cpu().numpy()
+    origin = origin.cpu().numpy()
+    r = np.random.default_rng(seed)
+    if kind == "mixed":
+        for t in range(2):
+            ox, oy = origin[t]
+            a[t, :, 0] = [ox + tile / 2, oy + tile / 2, 1 / 9.0, 0.0,
+                          1 / 9.0, 0.003, 0.2, 0.5, 0.9, a[t, 9, 0], 1.0]
+            a[t, :, 1] = [ox + tile / 2, oy + 1.0, 6.25, 0.0, 6.25, 0.9, 0.8,
+                          0.1, 0.3, a[t, 9, 1], 1.0]
+            a[t, :, 2] = [ox + tile / 2, oy + tile / 2, 1e-6, 0.0, 1e-6, 1.0,
+                          0.4, 0.6, 0.2, a[t, 9, 2], 1.0]
+    elif kind == "dead_warps":
+        live = a[:, 10] > 0
+        a[:, 1] = origin[:, 1:2] + r.uniform(0.0, 1.5, (2, k))
+        sig = r.uniform(0.3, 0.6, (2, k))
+        a[:, 2] = a[:, 4] = 1.0 / sig ** 2
+        a[:, 3] = 0.0
+        a[:, :, ~live[0]] = 0.0
+    else:
+        a[:, 2:5, 0::3] = [[1e-6], [0.0], [1e-6]]
+        a[:, 5, 0::3] = 1.0
+    to = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)  # noqa
+    return to(a), to(origin), g
+
+
+@pytest.mark.parametrize("kind", ["mixed", "dead_warps", "saturated"])
+@pytest.mark.parametrize("tile,k", [(16, 32), (16, 100), (8, 40),
+                                    (32, 48)])
+def test_gs_blend_bwd_warp_vote_matches_plain(cuda, kind, tile, k):
+    """B18 against `gs_blend_bwd_plain` at 1e-4 of each row's largest, on
+    tiles where whole warps take no slot, a slot is below the floor
+    everywhere, or saturated everywhere; the rows the skip leaves out must
+    be exact zeros."""
+    from nr3d_lib_tpu_torch.graphics import gaussian_splatting as GS
+
+    a, origin, g = _gs_liveness_tile(cuda, tile, k, kind, seed=tile + k)
+    live = GS._alpha_parts(a, origin, tile, GS_FLOOR)[5]          # [T,P,K]
+    if kind == "dead_warps":
+        assert not live[:, 4 * tile:].any()       # the lower warps take none
+    if kind == "mixed":
+        assert not live[:, :, 0].any() and live[:, :, 2].all()
+        assert live[:, :2 * tile, 1].any() and not live[:, 2 * tile:, 1].any()
+    got = GS._bwd_cuda(a, origin, *g, GS_BG, tile, GS_FLOOR)
+    torch.cuda.synchronize()
+    want = GS.gs_blend_bwd_plain(a, origin, *g, GS_BG, tile, GS_FLOOR)
+    for r in range(11):
+        torch.testing.assert_close(
+            got[:, r], want[:, r], rtol=0,
+            atol=1e-4 * float(want[:, r].abs().max()) + 1e-9)
+    never = ~live.any(1)                                          # [T, K]
+    assert not got.permute(0, 2, 1)[never].any()     # no pixel: exact zeros
+    if kind == "mixed":
+        assert not got[:, :6, 2].any()               # saturated: dL/dα is 0
+        assert got[:, 6:10, 2].all()
+
+
+def test_gs_blend_bwd_bench_scene_matches_plain(cuda):
+    """B18 at the bench scene's own per-tile attrs (bench.py S5: 500,000
+    gaussians, 512², tile 16, capacity 256), upstream gradients from
+    numpy, against its plain version at 1e-4 of each row's largest."""
+    from nr3d_lib_tpu_torch import bridge
+    from nr3d_lib_tpu_torch.graphics import gaussian_splatting as GS
+
+    r = np.random.default_rng(21)
+    n = 500_000
+    q = r.normal(size=(n, 4))
+    params = {"means": r.uniform(-1.0, 1.0, (n, 3)),
+              "scales": r.uniform(0.002, 0.02, (n, 3)),
+              "quats": q / np.linalg.norm(q, axis=-1, keepdims=True),
+              "opac": r.uniform(0.3, 0.9, (n, 1)),
+              "cols": r.uniform(0.0, 1.0, (n, 3))}
+    p = bridge.gaussians_from_jax(
+        {k: v.astype(np.float32) for k, v in params.items()}, device=cuda)
+    w2c = torch.eye(4, device=cuda)
+    w2c[2, 3] = 3.0
+    intr = torch.tensor([[500.0, 0, 256], [0, 500.0, 256], [0, 0, 1]],
+                        device=cuda)
+    with torch.no_grad():
+        attrs, origin, _, _ = GS._tile_attrs(
+            p["means"], p["scales"], p["quats"], p["opac"], p["cols"], w2c,
+            intr, (512, 512), tile=16, tiles_per_gaussian=16,
+            tile_capacity=256)
+    n_t = attrs.shape[0]
+    g = tuple(torch.from_numpy(r.normal(size=s).astype(np.float32)).to(cuda)
+              for s in ((n_t, 256, 3), (n_t, 256), (n_t, 256)))
+    got = GS._bwd_cuda(attrs, origin, *g, (0.0, 0.0, 0.0), 16, GS_FLOOR)
+    torch.cuda.synchronize()
+    want = GS.gs_blend_bwd_plain(attrs, origin, *g, (0.0, 0.0, 0.0), 16,
+                                 GS_FLOOR)
+    for r_ in range(11):
+        torch.testing.assert_close(
+            got[:, r_], want[:, r_], rtol=0,
+            atol=1e-4 * float(want[:, r_].abs().max()) + 1e-9)
+
+
+# ---------------------- B10: level-major warps over runs of points
+def _pc_ray_points(dev, d: int, n_rays: int, per_ray: int, seed: int):
+    """Points in [0,1]^d along seeded rays, sorted along each ray as a
+    render's sample slab (the first three coordinates; any further ones
+    constant along a ray, as the dynamic field's time)."""
+    r = np.random.default_rng(seed)
+    o = r.uniform(0.0, 1.0, (n_rays, 1, d))
+    v = r.normal(size=(n_rays, 1, d))
+    v[..., 3:] = 0.0
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    t = np.sort(r.uniform(0.0, 0.8, (n_rays, per_ray, 1)), 1)
+    x = np.clip(o + v * t, 0.0, 1.0).reshape(-1, d).astype(np.float32)
+    return torch.from_numpy(x).to(dev)
+
+
+PC_ALL_D = {2: [4.0, 12.0, 40.0], 3: [16.0 * 2 ** (0.5 * i) for i in
+                                      range(8)],
+            4: [8.0, 16.0, 32.0, 64.0, 128.0], 5: [2.0, 6.0, 18.0]}
+
+
+@pytest.mark.parametrize("d", sorted(PC_ALL_D))
+@pytest.mark.parametrize("n", [1, 7, 31, 33, 1000, 96 * 1001])
+def test_permuto_fwd_ray_and_permuted_order(cuda, d, n):
+    """B10 on points along rays (the order the paths feed) and on the same
+    points permuted: each within 1e-5 of the plain version, and the
+    permuted rows bitwise the ray order's rows permuted (a point's
+    encoding does not depend on its neighbours in the run). n covers a
+    single point, n < 32, a ragged last run and many runs; d = 2–5, and
+    d = 3 holds the 3D lattice's dense level."""
+    meta = PC.make_permuto_cell_meta(d, PC_ALL_D[d], 4096)
+    if d == 3:
+        assert any(lv.box_dims is not None for lv in meta.levels)
+    x = _pc_ray_points(cuda, d, -(-n // 96), 96, seed=d)[:n].contiguous()
+    rng = np.random.default_rng(d + 50)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (meta.total_rows, 128)).astype(np.float32)).to(cuda)
+    perm = torch.from_numpy(rng.permutation(n)).to(cuda)
+    x_perm = x[perm].contiguous()
+    before = _build.LAUNCHES["permuto_fwd"]
+    with torch.no_grad():
+        y = PC.permuto_cell_encode(x, table, meta)
+        y_perm = PC.permuto_cell_encode(x_perm, table, meta)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["permuto_fwd"] == before + 2
+    assert y.shape == (n, 2 * meta.n_levels)
+    _close(y, PC.permuto_cell_encode_xla(x, table, meta), 1e-5)
+    _close(y_perm, PC.permuto_cell_encode_xla(x_perm, table, meta), 1e-5)
+    assert torch.equal(y_perm, y[perm])
+
+
+def test_permuto_fwd_empty(cuda):
+    meta = PC.make_permuto_cell_meta(4, PC_ALL_D[4], 4096)
+    table = torch.zeros(meta.total_rows, 128, device=cuda)
+    y = PC.permuto_cell_encode(torch.zeros(0, 4, device=cuda), table, meta)
+    torch.cuda.synchronize()
+    assert y.shape == (0, 10)
