@@ -1,39 +1,54 @@
 #!/usr/bin/env python3
-"""Time the parent commit's B18 and B10 kernels against this tree's, in
-turns, on one card, and compare their outputs.
+"""Time the parent commit's cell permuto kernels (B10–B16) against this
+tree's, in turns, on one card, and compare their outputs.
 
     git archive <parent> nr3d_lib_tpu_torch/csrc | tar -x -C _archive/parent
     python3 chip_ab.py _archive/parent/nr3d_lib_tpu_torch/csrc
 
 (`_archive/` is listed in `.gitignore`; run the second line where the
-card is.) Builds, with the port's nvcc flags, into `_archive/ab_build/`:
-the parent's `gaussian_blend.cu` and `permuto_cell.cu` (each with its own
-`permuto_simplex.cuh`), this tree's, and three probes made from this
-tree's sources by text substitution — B18 without its warp sums
-(`gb_nosums`: wrong gradients, the sums' cost), B18 with a butterfly
-reduce-scatter in place of its ten warp sums (`gb_butterfly`) and B10
-without its table loads (`pc_noloads`: wrong outputs, the loads' cost).
-Prints each library's ptxas registers, then:
+card is.) Builds, with the port's nvcc flags, into `_archive/ab_build/`,
+one nvcc per library, all started together: the parent's
+`permuto_cell4.cu` and `permuto_cell.cu` (each with the parent's
+`permuto_simplex.cuh`), this tree's, four probes made from this tree's
+`permuto_cell4.cu` by text substitution, and a probe kernel around one
+`find_simplex` of each header, whose SASS (`cuobjdump -sass`) gives the
+search's instruction count. The probes: B14 without its table loads
+(`pc4_noloads`: wrong outputs, the loads' cost); B15 without its atomics
+(`pc4_noatomics`: each group's sum goes to a register sink that is never
+stored, so wrong gradients, the atomics' and the aggregation's cost);
+B15 with one atomic per lane (`pc4_lane_atomics`: the aggregation off);
+B15 with a butterfly sum for a warp whose lanes all add to one slot
+(`pc4_fastpath`). Prints each library's ptxas registers, then, at path
+C's 393,216 (x,t) points (`chip_smoke._dyn_points`, the dynamic NeuS's
+4D meta, 14,080 rows) in ray order and randomly permuted:
 
-- B18 at the bench scene's per-tile attrs (`chip_smoke._gs_params`,
-  500,000 gaussians, 512², tile 16, capacity 256) with upstream gradients
-  from numpy: the pairs above the α floor, the (warp, slot) pairs that
-  take a slot, each build's largest row-relative difference to
-  `gs_blend_bwd_plain` and whether it equals the parent's bitwise, and
-  device times in turns (parent, new, probes, probes reversed, new,
-  parent) by `chip_smoke._time_ms`;
-- B10 at path D's 393,216 (x,t) points and at the 3D lattice's 393,216
-  points (`chip_smoke._dyn_points`, `_ray_points`), each in ray order and
-  randomly permuted: bitwise equality with the parent and times in turns
-  (parent, new, probe, probe, new, parent).
+- B14: bitwise equality with the parent, times in turns (parent, new,
+  probe, probe, new, parent);
+- B15 without and with dL/dx: dL/dtable and dL/dx against the plain
+  version (tolerances of `chip_smoke.py`), dL/dx bitwise equal between
+  the two orders, dL/dtable's distance to a float64 sum of the same
+  contributions (the plain version's, and five runs each of the
+  parent's, the new and the one-atomic-a-lane kernels'), the atomics
+  issued with and without aggregation
+  (`ops/permuto_cell.atomic_groups`), times in turns (parent, new,
+  probes, probes reversed, new, parent);
+- B16: bitwise equality with the parent, times in turns;
 
-The last line of its output is one JSON object with every number.
+and, at path D's 393,216 (x,t) points (five hashed levels) and the 3D
+lattice's 393,216 points (eight levels, one dense), the F=2 kernels whose
+only change is the shared header: B10 and B13 bitwise against the
+parent, B11 and B12 within their tolerances of the plain version, times
+in turns (parent, new, new, parent).
+
+The last line of its output is one JSON object with every number. It
+exits 1 if a comparison failed (the JSON's "failed" names it).
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -45,40 +60,78 @@ REPO = Path(__file__).resolve().parent
 BUILD = REPO / "_archive" / "ab_build"
 NEW = REPO / "nr3d_lib_tpu_torch" / "csrc"
 
-WARP_SUM = "          const float w = warp_sum(on ? v[r] : 0.0f);"
-SUMS = """#pragma unroll
-        for (int r = 0; r < N_GRAD; ++r) {
-          const float w = warp_sum(on ? v[r] : 0.0f);
-          if (lane == 0) red[(warp * N_GRAD + r) * CHUNK_B + j] = w;
-        }"""
-# value r at index r (r < 5) or r + 3 of 16; after four halving exchanges
-# and a last one, lane l holds the warp's sum of index l >> 1
-BUTTERFLY = """        float u[16];
+LOAD4 = "      unpack4(__ldg(table + s.vtx[k]), f);"
+NO_LOAD4 = """      f[0] = (float)s.vtx[k];
+      f[1] = f[2] = f[3] = 1.f;"""
+# the body of warp_add4, from its first line to its last
+AGG_FIRST = "  const unsigned peers = __match_any_sync(active, key);"
+AGG_LAST = "  if (below == 0u) atomic_add4(dst + key, v);"
+NO_ATOMICS = "  if (v.x == 1.0e38f && v.y == -1.0e38f) atomic_add4(dst + key, v);"
+LANE_ATOMICS = "  atomic_add4(dst + key, v);"
+# a fast path for a warp whose 32 lanes all add to one slot: a butterfly
+# sum (5 rounds of shuffles) in place of the tree over the group's ranks
+FAST_PATH = AGG_FIRST + """
+  if (peers == 0xffffffffu) {
 #pragma unroll
-        for (int q = 0; q < 16; ++q) u[q] = 0.0f;
+    for (int o = 16; o > 0; o >>= 1)
+      v = make_float4(v.x + __shfl_xor_sync(peers, v.x, o),
+                      v.y + __shfl_xor_sync(peers, v.y, o),
+                      v.z + __shfl_xor_sync(peers, v.z, o),
+                      v.w + __shfl_xor_sync(peers, v.w, o));
+    if ((threadIdx.x & 31u) == 0u) atomic_add4(dst + key, v);
+    return;
+  }"""
+SIMPLEX_PROBE = """#include "permuto_simplex.cuh"
+
+// one find_simplex<D> a thread, at the level of blockIdx.y
+template <int D>
+__global__ void simplex_probe(const float* __restrict__ x,
+                              const __grid_constant__ PCMeta meta,
+                              int* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float xp[D];
 #pragma unroll
-        for (int r = 0; r < N_GRAD; ++r)
-          u[r < 5 ? r : r + 3] = on ? v[r] : 0.0f;
+  for (int a = 0; a < D; ++a) xp[a] = x[i * D + a];
+  Simplex<D> s;
+  find_simplex<D>(xp, meta, meta.lv[blockIdx.y], s);
+  int acc = 0;
 #pragma unroll
-        for (int half = 8, off = 16; off >= 2; half >>= 1, off >>= 1) {
-          const bool up = (lane & off) != 0;
-#pragma unroll
-          for (int q = 0; q < half; ++q) {
-            if (off == 16 && q >= 5) continue;
-            const float send = up ? u[q] : u[q + half];
-            const float keep = up ? u[q + half] : u[q];
-            u[q] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-          }
-        }
-        u[0] += __shfl_xor_sync(0xffffffffu, u[0], 1);
-        {
-          const int q = lane >> 1;
-          const int r = q < 5 ? q : (q >= 8 && q < 13 ? q - 3 : -1);
-          if ((lane & 1) == 0 && r >= 0)
-            red[(warp * N_GRAD + r) * CHUNK_B + j] = u[0];
-        }"""
-LOAD = "      const float2 v = __ldg(table + s.vtx[k]);"
-NO_LOAD = "      const float2 v = make_float2((float)s.vtx[k], 1.f);"
+  for (int k = 0; k <= D; ++k)
+    acc += (int)s.vtx[k] ^ __float_as_int(s.bary[k]);
+  out[i] = acc;
+}
+
+extern "C" void simplex_probe_launch(const float* x, PCMeta meta, int* out) {
+  simplex_probe<3><<<1, 32>>>(x, meta, out, 0);
+  simplex_probe<4><<<1, 32>>>(x, meta, out, 0);
+}
+"""
+
+
+class _ParentLevel(ctypes.Structure):
+    """The parent's `PCLevel` (before the per-level modulus)."""
+    _fields_ = [("scale", ctypes.c_float * 5), ("box_lo", ctypes.c_int * 5),
+                ("box_dims", ctypes.c_int * 5), ("n_rows", ctypes.c_int),
+                ("row_offset", ctypes.c_int), ("is_dense", ctypes.c_int)]
+
+
+class _ParentMeta(ctypes.Structure):
+    _fields_ = [("n_dims", ctypes.c_int), ("n_levels", ctypes.c_int),
+                ("cells_per_row", ctypes.c_int),
+                ("sf", ctypes.c_float * 5), ("lv", _ParentLevel * 16)]
+
+
+def _parent_meta(meta) -> _ParentMeta:
+    from nr3d_lib_tpu_torch.ops import permuto_cell as PC
+
+    new, old = PC.c_meta(meta), _ParentMeta()
+    for f, _ in _ParentMeta._fields_[:4]:
+        setattr(old, f, getattr(new, f))
+    for i in range(16):
+        for f, _ in _ParentLevel._fields_:
+            setattr(old.lv[i], f, getattr(new.lv[i], f))
+    return old
 
 
 def _substituted(src: Path, old: str, new: str, name: str) -> Path:
@@ -91,51 +144,98 @@ def _substituted(src: Path, old: str, new: str, name: str) -> Path:
     return out
 
 
-def _build(parent: Path) -> dict:
-    """name -> (loaded library, chunk of B18's checkpoint scratch)."""
-    from nr3d_lib_tpu_torch.ops import _build as B
-    from nr3d_lib_tpu_torch.ops import permuto_cell as PC
+def _agg_body(src: Path) -> str:
+    text = src.read_text()
+    a, b = text.index(AGG_FIRST), text.index(AGG_LAST) + len(AGG_LAST)
+    return text[a:b]
 
-    BUILD.mkdir(parents=True, exist_ok=True)
-    gb, pc = NEW / "gaussian_blend.cu", NEW / "permuto_cell.cu"
-    sources = {
-        "gb_parent": (parent / "gaussian_blend.cu", 32),
-        "gb_new": (gb, 16),
-        "gb_nosums": (_substituted(
-            gb, WARP_SUM, "          const float w = on ? v[r] : 0.0f;",
-            "gb_nosums"), 16),
-        "gb_butterfly": (_substituted(gb, SUMS, BUTTERFLY, "gb_butterfly"),
-                         16),
-        "pc_parent": (parent / "permuto_cell.cu", None),
-        "pc_new": (pc, None),
-        "pc_noloads": (_substituted(pc, LOAD, NO_LOAD, "pc_noloads"), None),
-    }
+
+def _nvcc_all(sources: dict) -> None:
+    """One nvcc per library, all started together; prints ptxas'
+    registers."""
+    from nr3d_lib_tpu_torch.ops import _build as B
+
     procs = {}
-    for name, (src, _) in sources.items():
-        cmd = [B._nvcc(), *B.NVCC_FLAGS, "-I", str(src.parent), "-I",
-               str(NEW), "-o", str(BUILD / f"lib{name}.so"), str(src)]
+    for name, (src, inc) in sources.items():
+        cmd = [B._nvcc(), *B.NVCC_FLAGS, "-I", str(inc), "-o",
+               str(BUILD / f"lib{name}.so"), str(src)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
-    vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-        ctypes.c_longlong
-    libs = {}
     for name, proc in procs.items():
         text, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{text}")
+        entry = ""
         for line in text.splitlines():
-            if "Compiling entry" in line or "registers" in line:
-                print(f"[ptxas {name}] {line.strip()}")
-        lib = ctypes.CDLL(str(BUILD / f"lib{name}.so"))
-        if name.startswith("gb"):
-            lib.gs_blend_bwd.argtypes = [vp] * 7 + [ci, ci, ci, cf, cf, cf,
-                                                    cf, vp]
-            lib.gs_blend_bwd.restype = ci
-        else:
-            lib.permuto_fwd.argtypes = [vp, vp, PC._Meta, vp, cl, vp]
-            lib.permuto_fwd.restype = ci
-        libs[name] = (lib, sources[name][1])
-    return libs
+            if "Compiling entry" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "registers" in line:
+                print(f"[ptxas {name}] {entry[:60]}: {line.strip()}")
+
+
+def _sass_counts(lib: Path) -> dict:
+    """Instructions (NOPs aside) of each function in the library's SASS."""
+    from nr3d_lib_tpu_torch.ops import _build as B
+
+    cuobjdump = Path(B._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line) and \
+                "NOP" not in line:
+            counts[name] += 1
+    return counts
+
+
+def _build() -> dict:
+    parent = Path(sys.argv[1]).resolve()
+    BUILD.mkdir(parents=True, exist_ok=True)
+    pc4, pc = NEW / "permuto_cell4.cu", NEW / "permuto_cell.cu"
+    body = _agg_body(pc4)
+    for name in ("simplex_parent", "simplex_new"):
+        (BUILD / f"{name}.cu").write_text(SIMPLEX_PROBE)
+    sources = {
+        "pc4_parent": (parent / "permuto_cell4.cu", parent),
+        "pc4_new": (pc4, NEW),
+        "pc4_noloads": (_substituted(pc4, LOAD4, NO_LOAD4, "pc4_noloads"),
+                        NEW),
+        "pc4_noatomics": (_substituted(pc4, body, NO_ATOMICS,
+                                       "pc4_noatomics"), NEW),
+        "pc4_lane_atomics": (_substituted(pc4, body, LANE_ATOMICS,
+                                          "pc4_lane_atomics"), NEW),
+        "pc4_fastpath": (_substituted(pc4, AGG_FIRST, FAST_PATH,
+                                      "pc4_fastpath"), NEW),
+        "pc_parent": (parent / "permuto_cell.cu", parent),
+        "pc_new": (pc, NEW),
+        "simplex_parent": (BUILD / "simplex_parent.cu", parent),
+        "simplex_new": (BUILD / "simplex_new.cu", NEW),
+    }
+    _nvcc_all(sources)
+    return {name: BUILD / f"lib{name}.so" for name in sources}
+
+
+def _load(path: Path, parent: bool) -> ctypes.CDLL:
+    from nr3d_lib_tpu_torch.ops import permuto_cell as PC
+
+    vp, n = ctypes.c_void_p, ctypes.c_longlong
+    meta = _ParentMeta if parent else PC._Meta
+    lib = ctypes.CDLL(str(path))
+    for prefix in ("permuto4", "permuto"):
+        if hasattr(lib, f"{prefix}_fwd"):
+            for fn, types in ((f"{prefix}_fwd", [vp, vp, meta, vp, n, vp]),
+                              (f"{prefix}_bwd",
+                               [vp, vp, vp, meta, vp, vp, n, vp]),
+                              (f"{prefix}_dydx",
+                               [vp, vp, vp, meta, vp, n, vp])):
+                getattr(lib, fn).argtypes = types
+                getattr(lib, fn).restype = ctypes.c_int
+            break
+    return lib
 
 
 def _turns(fns: dict, order) -> dict:
@@ -147,102 +247,241 @@ def _turns(fns: dict, order) -> dict:
     return ms
 
 
-def _b18(libs: dict, dev) -> dict:
+def _rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+class _Kernels:
+    """The F-feature cell kernels of one library, called as the wrappers
+    call them."""
+
+    def __init__(self, lib, parent: bool, f4: bool, dev):
+        self.lib, self.parent, self.dev = lib, parent, dev
+        self.pre, self.nf = ("permuto4", 4) if f4 else ("permuto", 2)
+
+    def meta(self, meta):
+        from nr3d_lib_tpu_torch.ops import permuto_cell as PC
+
+        return _parent_meta(meta) if self.parent else PC.c_meta(meta)
+
+    def fwd(self, x, table, meta):
+        import torch
+        from nr3d_lib_tpu_torch.ops import _build as B
+
+        y = torch.empty(x.shape[0], self.nf * meta.n_levels, device=self.dev)
+        B.check(getattr(self.lib, f"{self.pre}_fwd")(
+            x.data_ptr(), table.data_ptr(), self.meta(meta), y.data_ptr(),
+            x.shape[0], B.stream_ptr(self.dev)), "fwd")
+        return y
+
+    def bwd(self, x, g, table, meta, need_dx):
+        import torch
+        from nr3d_lib_tpu_torch.ops import _build as B
+
+        dtab = torch.empty(meta.total_rows, 64 * self.nf, device=self.dev)
+        dx = torch.empty_like(x) if need_dx else None
+        B.check(getattr(self.lib, f"{self.pre}_bwd")(
+            x.data_ptr(), g.data_ptr(), table.data_ptr() if need_dx else None,
+            self.meta(meta), dtab.data_ptr(),
+            dx.data_ptr() if need_dx else None, x.shape[0],
+            B.stream_ptr(self.dev)), "bwd")
+        return dx, dtab
+
+    def dydx(self, g, x, table, meta):
+        import torch
+        from nr3d_lib_tpu_torch.ops import _build as B
+
+        dx = torch.empty_like(x)
+        B.check(getattr(self.lib, f"{self.pre}_dydx")(
+            g.data_ptr(), x.data_ptr(), table.data_ptr(), self.meta(meta),
+            dx.data_ptr(), x.shape[0], B.stream_ptr(self.dev)), "dydx")
+        return dx
+
+
+def _inputs(dev, meta, x, width: int, seed: int):
+    import torch
+
+    table = torch.from_numpy(np.random.default_rng(seed).uniform(
+        -0.1, 0.1, (meta.total_rows, width)).astype(np.float32)).to(dev)
+    gen = torch.Generator(dev).manual_seed(seed + 1)
+    n_out = (width // 64) * meta.n_levels
+    g = torch.randn(x.shape[0], n_out, device=dev, generator=gen)
+    gd = torch.randn(x.shape[0], meta.n_dims, device=dev, generator=gen)
+    perm = torch.randperm(x.shape[0], device=dev,
+                          generator=torch.Generator(dev).manual_seed(5))
+    return table, g, gd, perm
+
+
+def _f4(libs: dict, dev) -> dict:
     import torch
     import chip_smoke as CS
-    from nr3d_lib_tpu_torch import bridge
-    from nr3d_lib_tpu_torch.graphics import gaussian_splatting as GS
-    from nr3d_lib_tpu_torch.ops import _build as B
-
-    p = bridge.gaussians_from_jax(CS._gs_params(CS.GS_N, seed=21),
-                                  device=dev)
-    with torch.no_grad():
-        attrs, origin, _, _ = GS._tile_attrs(
-            p["means"], p["scales"], p["quats"], p["opac"], p["cols"],
-            *CS._gs_camera(dev), CS.GS_HW, **CS.GS_CFG)
-    tile = CS.GS_CFG["tile"]
-    n_t, _, k = attrs.shape
-    n_px = tile * tile
-    rng = np.random.default_rng(31)
-    g = tuple(torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
-              for s in ((n_t, n_px, 3), (n_t, n_px), (n_t, n_px)))
-    bg, floor = (0.0, 0.0, 0.0), 1.0 / 255.0
-    above = GS._alpha_parts(attrs, origin, tile, floor)[5]     # [T, P, K]
-    res = {"pairs_above_floor": int(above.sum()),
-           "warp_slot_pairs": n_t * (n_px // 32) * k,
-           "warp_slot_hits": int(above.view(n_t, n_px // 32, 32, k)
-                                 .any(2).sum())}
-    del above
-
-    def run(name):
-        lib, chunk = libs[name]
-        threads = -(-n_px // 32) * 32
-        ckpt = torch.empty(n_t * -(-k // chunk) * threads, device=dev)
-        d = torch.empty_like(attrs)
-        B.check(lib.gs_blend_bwd(
-            attrs.data_ptr(), origin.data_ptr(), g[0].data_ptr(),
-            g[1].data_ptr(), g[2].data_ptr(), d.data_ptr(), ckpt.data_ptr(),
-            n_t, k, tile, *bg, floor, B.stream_ptr(dev)), name)
-        return d
-
-    want = GS.gs_blend_bwd_plain(attrs, origin, *g, bg, tile, floor)
-    parent = run("gb_parent")
-    for name in ("gb_new", "gb_butterfly"):
-        d = run(name)
-        res[f"{name}_rel_vs_plain"] = max(
-            float((d[:, r] - want[:, r]).abs().max() /
-                  want[:, r].abs().max()) for r in range(10))
-        res[f"{name}_bitwise_vs_parent"] = bool(torch.equal(d, parent))
-        res[f"{name}_max_abs_vs_parent"] = float((d - parent).abs().max())
-    names = ("gb_parent", "gb_new", "gb_butterfly", "gb_nosums")
-    res["ms"] = _turns({n: (lambda n=n: run(n)) for n in names},
-                       names + names[::-1])
-    return res
-
-
-def _b10(libs: dict, dev) -> dict:
-    import torch
-    import chip_smoke as CS
-    from nr3d_lib_tpu_torch.models.fields.sdf import PermutoSDF
-    from nr3d_lib_tpu_torch.models.model_families import \
-        DynamicPermutoNeuSModel
-    from nr3d_lib_tpu_torch.ops import _build as B
     from nr3d_lib_tpu_torch.ops import permuto_cell as PC
+    from nr3d_lib_tpu_torch.ops import permuto_cell4 as P4
 
-    pathd = DynamicPermutoNeuSModel(**CS.PATHD_CFG, seed=0)
-    sdf = PermutoSDF(permuto_cfg=CS.FIELD_PERMUTO, seed=0, device=dev)
+    meta = PC.make_permuto_cell_meta(4, [4.0, 11.0, 32.0, 90.0], 4096)
     o, d = (torch.from_numpy(a).to(dev) for a in CS._rays(CS.N_RAYS, seed=0))
     ts = torch.from_numpy(np.random.default_rng(6).uniform(
         -1.0, 1.0, CS.N_RAYS).astype(np.float32)).to(dev)
-    res = {}
-    for what, meta, x in (
-            ("pathd", pathd.field.implicit_surface.bank.meta,
-             CS._dyn_points(o, d, ts, 96, seed=26)),
-            ("3d", sdf.bank.meta, CS._ray_points(o, d, 96, seed=27))):
-        table = torch.from_numpy(np.random.default_rng(7).uniform(
-            -0.1, 0.1, (meta.total_rows, 128)).astype(np.float32)).to(dev)
-        perm = torch.randperm(x.shape[0], device=dev,
-                              generator=torch.Generator(dev).manual_seed(5))
-        for order, xx in (("ray", x), ("permuted", x[perm].contiguous())):
-            def run(name, xx=xx):
-                y = torch.empty(xx.shape[0], meta.out_features, device=dev)
-                B.check(libs[name][0].permuto_fwd(
-                    xx.data_ptr(), table.data_ptr(), PC.c_meta(meta),
-                    y.data_ptr(), xx.shape[0], B.stream_ptr(dev)), name)
-                return y
-
-            res[f"{what}_{order}_bitwise_vs_parent"] = bool(torch.equal(
-                run("pc_new"), run("pc_parent")))
-            names = ("pc_parent", "pc_new", "pc_noloads")
-            res[f"{what}_{order}_ms"] = _turns(
-                {n: (lambda n=n: run(n)) for n in names}, names + names[::-1])
+    x = CS._dyn_points(o, d, ts, 96, seed=16)
+    table, g, _, perm = _inputs(dev, meta, x, 256, 7)
+    packed = P4.pack_table4(table)
+    k = {n: _Kernels(libs[n], n.endswith("parent"), True, dev)
+         for n in libs}
+    n = x.shape[0]
+    res = {"n": n, "rows": meta.total_rows,
+           "atomics_naive": n * meta.n_levels * (meta.n_dims + 1)}
+    with torch.no_grad():
+        dx_p, dtab_p = P4.permuto_cell4_encode_bwd_xla(x, table, g, meta, True)
+        # dL/dtable in float64 from the same float32 weights: how far each
+        # float32 sum (the plain version's and the kernels' atomics) lies
+        # from the exact one
+        ref = torch.zeros(meta.total_rows * 64, 4, dtype=torch.float64,
+                          device=dev)
+        for l, lv in enumerate(meta.levels):
+            vtx, bary, _ = PC._level_vertices(x, lv, meta)
+            ref.index_add_(0, vtx.reshape(-1), (
+                bary[..., None].double() *
+                g[:, None, 4 * l:4 * l + 4].double()).reshape(-1, 4))
+        ref = ref.view(meta.total_rows, 256)
+        res["b15_ray_dtab_vs_f64"] = {"plain": float(
+            (dtab_p.double() - ref).abs().max())}
+        for m in ("pc4_parent", "pc4_new", "pc4_lane_atomics"):
+            res["b15_ray_dtab_vs_f64"][m] = [float(
+                (k[m].bwd(x, g, packed, meta, False)[1].double() - ref)
+                .abs().max()) for _ in range(5)]
+        del ref
+        orders = (("ray", x, g), ("permuted", x[perm].contiguous(),
+                                  g[perm].contiguous()))
+        for order, xx, gg in orders:
+            groups = PC.atomic_groups(xx, meta)
+            res[f"{order}_atomic_groups"] = sum(groups)
+            res[f"{order}_atomic_groups_by_level"] = groups
+            # (warp, vertex) pairs whose 32 lanes all add to one slot
+            res[f"{order}_whole_warp_groups_by_level"] = [
+                int((v.view(-1, 32, v.shape[1]) == v.view(-1, 32, v.shape[1])
+                     [:, :1]).all(1).sum())
+                for v in (PC._level_vertices(xx, lv, meta)[0]
+                          for lv in meta.levels)]
+            # B14
+            y_new = k["pc4_new"].fwd(xx, packed, meta)
+            res[f"b14_{order}_bitwise_vs_parent"] = bool(torch.equal(
+                y_new, k["pc4_parent"].fwd(xx, packed, meta)))
+            names = ("pc4_parent", "pc4_new", "pc4_noloads")
+            res[f"b14_{order}_ms"] = _turns(
+                {m: (lambda m=m: k[m].fwd(xx, packed, meta)) for m in names},
+                names + names[::-1])
+            # B15
+            want_dx = dx_p if order == "ray" else dx_p[perm]
+            want_tab = dtab_p
+            for need_dx in (False, True):
+                tag = f"b15{'_dx' if need_dx else ''}_{order}"
+                dxk, dtab = k["pc4_new"].bwd(xx, gg, packed, meta, need_dx)
+                res[f"{tag}_dtab_err"] = float((dtab - want_tab).abs().max())
+                res[f"{tag}_dtab_tol"] = 1e-6 + 1e-5 * float(
+                    want_tab.abs().max())
+                if need_dx:
+                    res[f"{tag}_dx_err"] = float((dxk - want_dx).abs().max())
+                    res[f"{tag}_dx_tol"] = 1e-4 + 1e-4 * float(
+                        want_dx.abs().max())
+                    res[f"b15_dx_{order}"] = dxk
+                for probe in ("lane_atomics", "fastpath"):
+                    _, dt = k[f"pc4_{probe}"].bwd(xx, gg, packed, meta,
+                                                  need_dx)
+                    res[f"{tag}_{probe}_dtab_err"] = float(
+                        (dt - want_tab).abs().max())
+                names = ("pc4_parent", "pc4_new", "pc4_noatomics",
+                         "pc4_lane_atomics", "pc4_fastpath")
+                res[f"{tag}_ms"] = _turns(
+                    {m: (lambda m=m: k[m].bwd(xx, gg, packed, meta, need_dx))
+                     for m in names}, names + names[::-1])
+            # B16
+            res[f"b16_{order}_bitwise_vs_parent"] = bool(torch.equal(
+                k["pc4_new"].dydx(gg, xx, packed, meta),
+                k["pc4_parent"].dydx(gg, xx, packed, meta)))
+            names = ("pc4_parent", "pc4_new")
+            res[f"b16_{order}_ms"] = _turns(
+                {m: (lambda m=m: k[m].dydx(gg, xx, packed, meta))
+                 for m in names}, names + names[::-1])
+        dx_ray, dx_perm = res.pop("b15_dx_ray"), res.pop("b15_dx_permuted")
+        res["b15_dx_bitwise_between_orders"] = bool(torch.equal(
+            dx_perm, dx_ray[perm]))
     return res
+
+
+def _f2(libs: dict, dev) -> dict:
+    import torch
+    import chip_smoke as CS
+    from nr3d_lib_tpu_torch.ops import permuto_cell as PC
+
+    o, d = (torch.from_numpy(a).to(dev) for a in CS._rays(CS.N_RAYS, seed=0))
+    ts = torch.from_numpy(np.random.default_rng(6).uniform(
+        -1.0, 1.0, CS.N_RAYS).astype(np.float32)).to(dev)
+    k = {n: _Kernels(libs[n], n.endswith("parent"), False, dev)
+         for n in libs}
+    res = {}
+    names = ("pc_parent", "pc_new")
+    order = names + names[::-1]
+    for what, meta, x in (
+            ("pathd", PC.make_permuto_cell_meta(
+                4, [8.0, 16.0, 32.0, 64.0, 128.0], 4096),
+             CS._dyn_points(o, d, ts, 96, seed=26)),
+            ("3d", PC.make_permuto_cell_meta(
+                3, [16.0 * 2 ** (0.5 * i) for i in range(8)], 4096),
+             CS._ray_points(o, d, 96, seed=27))):
+        table, g, _, perm = _inputs(dev, meta, x, 128, 7)
+        with torch.no_grad():
+            for o_name, xx in (("ray", x), ("permuted", x[perm].contiguous())):
+                res[f"b10_{what}_{o_name}_bitwise_vs_parent"] = bool(
+                    torch.equal(k["pc_new"].fwd(xx, table, meta),
+                                k["pc_parent"].fwd(xx, table, meta)))
+                res[f"b10_{what}_{o_name}_ms"] = _turns(
+                    {m: (lambda m=m, xx=xx: k[m].fwd(xx, table, meta))
+                     for m in names}, order)
+            dx_p, dtab_p = PC.permuto_cell_encode_bwd_xla(x, table, g, meta,
+                                                          True)
+            for need_dx, tag in ((False, "b11"), (True, "b12")):
+                dxk, dtab = k["pc_new"].bwd(x, g, table, meta, need_dx)
+                res[f"{tag}_{what}_dtab_err"] = float(
+                    (dtab - dtab_p).abs().max())
+                res[f"{tag}_{what}_dtab_tol"] = 1e-6 + 1e-5 * float(
+                    dtab_p.abs().max())
+                if need_dx:
+                    res[f"{tag}_{what}_dx_err"] = float(
+                        (dxk - dx_p).abs().max())
+                    res[f"{tag}_{what}_dx_tol"] = 1e-4 + 1e-4 * float(
+                        dx_p.abs().max())
+                res[f"{tag}_{what}_ms"] = _turns(
+                    {m: (lambda m=m, nd=need_dx: k[m].bwd(x, g, table, meta,
+                                                          nd))
+                     for m in names}, order)
+            res[f"b13_{what}_bitwise_vs_parent"] = bool(torch.equal(
+                k["pc_new"].dydx(g, x, table, meta),
+                k["pc_parent"].dydx(g, x, table, meta)))
+            res[f"b13_{what}_ms"] = _turns(
+                {m: (lambda m=m: k[m].dydx(g, x, table, meta))
+                 for m in names}, order)
+    return res
+
+
+def _check(res: dict) -> list:
+    """What the run must show; the names of what failed."""
+    bad = []
+    if res["f4"]["b15_dx_bitwise_between_orders"] is not True:
+        bad.append("b15_dx_bitwise_between_orders")
+    for part in ("f4", "f2"):
+        for key, v in res[part].items():
+            tol = res[part].get(key[:-4] + "_tol")
+            if key.endswith("_err") and tol is not None and v > tol:
+                bad.append(f"{part}.{key}")
+            if key.endswith("bitwise_vs_parent") and v is not True:
+                bad.append(f"{part}.{key}")
+    return bad
 
 
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2 or not Path(sys.argv[1], "gaussian_blend.cu") \
+    if len(sys.argv) != 2 or not Path(sys.argv[1], "permuto_cell4.cu") \
             .is_file():
         print(__doc__, file=sys.stderr)
         return 2
@@ -256,14 +495,25 @@ def main() -> int:
     smi = CS._smi()
     print(f"[device] {smi}")
     t0 = time.perf_counter()
-    libs = _build(Path(sys.argv[1]).resolve())
-    print(f"[build] {len(libs)} libraries: {time.perf_counter() - t0:.1f} s")
-    res = {"device": smi, "b18": _b18(libs, dev)}
-    print(f"[B18] {json.dumps(res['b18'])}")
-    res["b10"] = _b10(libs, dev)
-    print(f"[B10] {json.dumps(res['b10'])}")
+    paths = _build()
+    print(f"[build] {len(paths)} libraries: {time.perf_counter() - t0:.1f} s")
+    res = {"device": smi, "sass": {}}
+    for name in ("simplex_parent", "simplex_new", "pc4_parent", "pc4_new"):
+        counts = _sass_counts(paths[name])
+        res["sass"][name] = {f: c for f, c in counts.items()
+                             if "simplex_probe" in f or "permuto4" in f}
+    print(f"[sass] {json.dumps(res['sass'])}")
+    libs = {n: _load(p, n.endswith("parent")) for n, p in paths.items()
+            if not n.startswith("simplex")}
+    res["f4"] = _f4({n: l for n, l in libs.items() if n.startswith("pc4")},
+                    dev)
+    print(f"[F=4] {json.dumps(res['f4'])}")
+    res["f2"] = _f2({n: l for n, l in libs.items()
+                     if n in ("pc_parent", "pc_new")}, dev)
+    print(f"[F=2] {json.dumps(res['f2'])}")
+    res["failed"] = _check(res)
     print(json.dumps(res))
-    return 0
+    return 1 if res["failed"] else 0
 
 
 if __name__ == "__main__":

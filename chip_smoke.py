@@ -22,8 +22,12 @@
    the NeuS render's 589,824 × 4; B6 want_g, B7 (brick_bwd, with and
    without dL/dx), B8 (brick_dydx) and B9 (brick_bwd2) at 147,456 × 4.
    F=4 cell permuto (path C), at the dynamic NeuS's final query of
-   393,216 (x,t) points × 4 levels: B14 (permuto4_fwd), B15 (permuto4_bwd,
-   with and without dL/dx) and B16 (permuto4_dydx). F=2 cell permuto
+   393,216 (x,t) points × 4 levels: B14 (permuto4_fwd, also timed on the
+   same points in a random order, whose rows must be the ray order's
+   rows bit for bit), B15 (permuto4_bwd, with and without dL/dx; its
+   dL/dx must be the same bits in the random order; its row counts the
+   float4 atomics before and after the warps' aggregation) and B16
+   (permuto4_dydx). F=2 cell permuto
    (path D and the field phase), each at two shapes — path D's final
    query, 393,216 (x,t) points × 5 hashed levels, and the 3D bench
    lattice, 393,216 points × 8 levels (one dense): B10 (permuto_fwd, also
@@ -947,6 +951,7 @@ def _permuto4_kernel_phases(model, o, d, ts, kernels) -> None:
     NeuS's final query: 4096 rays × 96 samples = 393,216 (x,t) points, 4
     levels, a packed table of 14,080 rows."""
     import torch
+    from nr3d_lib_tpu_torch.ops import permuto_cell as PC
     from nr3d_lib_tpu_torch.ops import permuto_cell4 as P4
 
     src = "nr3d_lib_tpu_torch/csrc/permuto_cell4.cu"
@@ -963,11 +968,9 @@ def _permuto4_kernel_phases(model, o, d, ts, kernels) -> None:
         n, L, dim = x.shape[0], meta.n_levels, meta.n_dims
         gen = torch.Generator(device=dev).manual_seed(17)
         g = torch.randn(n, 4 * L, device=dev, generator=gen)
-        # each (point, level) at d = 4: the simplex search ~240 operations
-        # (elevation 19, rounding 45, rank 75, fix-up 20, weights 19, slots
-        # 50, hash/index 12), then the blend 5 vertices × (4 unpacks + 4
-        # FMAs) = 40
-        simplex_ops = 240
+        # each (point, level): the simplex search (`_simplex_ops`, 240 at
+        # d = 4), then the blend 5 vertices × (4 unpacks + 4 FMAs) = 40
+        simplex_ops = _simplex_ops(dim)
 
         # ------------------------------------------------ B14 permuto4_fwd
         y_p = P4.permuto_cell4_encode_xla(x, table, meta)
@@ -976,15 +979,27 @@ def _permuto4_kernel_phases(model, o, d, ts, kernels) -> None:
             1e-5 + 1e-5 * float(y_p.abs().max()),
             "5 weighted vertices summed in another order")])
         ms = _time_ms(lambda: P4._fwd_cuda(x, packed, meta))
+        # the path feeds points ray by ray; the same points in a random
+        # order show what the kernel owes to that order
+        perm = torch.randperm(n, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(18))
+        x_perm, g_perm = x[perm].contiguous(), g[perm].contiguous()
+        _require(torch.equal(P4._fwd_cuda(x_perm, packed, meta),
+                             P4._fwd_cuda(x, packed, meta)[perm]),
+                 "B14: a point's encoding depends on its place in the batch")
+        ms_perm = _time_ms(lambda: P4._fwd_cuda(x_perm, packed, meta))
         plain_ms = _time_ms(lambda: P4.permuto_cell4_encode_xla(x, table,
                                                                 meta), iters=5)
         bound = _bound(n * (4 * dim + 16 * L) + table_bytes,
                        n * L * (simplex_ops + 40))
-        print(f"[B14 permuto4_fwd] kernel {ms:.4f} ms | plain {plain_ms:.4f} "
-              f"ms | bound {bound[0]:.4f} ms ({bound[1]}) | library: none")
+        print(f"[B14 permuto4_fwd] kernel {ms:.4f} ms (the same points "
+              f"permuted: {ms_perm:.4f} ms, bitwise the same rows) | plain "
+              f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}) | "
+              f"library: none")
         _kernel_row(kernels, name="permuto4_fwd (B14)", key="permuto4_fwd",
                     path="dyn render", source=src, replaces=f"{rep}:142",
-                    err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+                    err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                    ms_permuted=ms_perm)
 
         # ----------------- B15 permuto4_bwd: dL/dtable by float4 atomics
         dx_p, dtab_p = P4.permuto_cell4_encode_bwd_xla(x, table, g, meta, True)
@@ -998,9 +1013,22 @@ def _permuto4_kernel_phases(model, o, d, ts, kernels) -> None:
             ("dL/dx", _err(dx_k, dx_p), 1e-4 + 1e-4 * float(dx_p.abs().max()),
              "sums through the elevation Jacobian, scaled by the lattice "
              "scale")])
+        # dL/dx sums each point's levels in one block: the same bits in
+        # any order of the points
+        dx_perm, _ = P4._bwd_cuda(x_perm, g_perm, meta, need_dx=True,
+                                  packed=packed)
+        _require(torch.equal(dx_perm, dx_k[perm]),
+                 "B15: a point's dL/dx depends on its place in the batch")
         ms = _time_ms(lambda: P4._bwd_cuda(x, g, meta, need_dx=False))
         ms_dx = _time_ms(lambda: P4._bwd_cuda(x, g, meta, need_dx=True,
                                               packed=packed))
+        ms_perm = _time_ms(lambda: P4._bwd_cuda(x_perm, g_perm, meta,
+                                                need_dx=False))
+        # float4 atomics: one a (point, level, vertex), and what the warps'
+        # aggregation leaves at this order (a warp = 32 consecutive points
+        # at one level)
+        naive = n * L * (dim + 1)
+        groups = sum(PC.atomic_groups(x, meta))
         plain_ms = _time_ms(lambda: P4.permuto_cell4_encode_bwd_xla(
             x, table, g, meta, False), iters=5)
         plain_dx = _time_ms(lambda: P4.permuto_cell4_encode_bwd_xla(
@@ -1013,15 +1041,18 @@ def _permuto4_kernel_phases(model, o, d, ts, kernels) -> None:
         bound_dx = _bound(n * (4 * dim + 16 * L + 4 * dim) + table_bytes +
                           dtab_bytes, n * L * (simplex_ops + 20 + 55 + 30))
         print(f"[B15 permuto4_bwd] need_dx false (the step's form): kernel "
-              f"{ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
-              f"{bound[0]:.4f} ms ({bound[1]}); need_dx true: kernel "
-              f"{ms_dx:.4f} ms | plain {plain_dx:.4f} ms | bound "
-              f"{bound_dx[0]:.4f} ms ({bound_dx[1]}) | library: none")
+              f"{ms:.4f} ms (permuted {ms_perm:.4f} ms) | plain "
+              f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}); "
+              f"need_dx true: kernel {ms_dx:.4f} ms | plain {plain_dx:.4f} "
+              f"ms | bound {bound_dx[0]:.4f} ms ({bound_dx[1]}) | library: "
+              f"none | float4 atomics {groups:,} of {naive:,} after the "
+              f"warps' aggregation")
         _kernel_row(kernels, name="permuto4_bwd (B15)", key="permuto4_bwd",
                     path="dyn train step", source=src, replaces=f"{rep}:222",
                     err=err, ms=ms, plain_ms=plain_ms, bound=bound,
                     ms_need_dx=ms_dx, plain_ms_need_dx=plain_dx,
-                    bound_ms_need_dx=bound_dx[0])
+                    bound_ms_need_dx=bound_dx[0], ms_permuted=ms_perm,
+                    atomics_naive=naive, atomic_groups=groups)
 
         # ----------------------------------------------- B16 permuto4_dydx
         n_p = P4.permuto_cell4_nablas_xla(g, x, table, meta)

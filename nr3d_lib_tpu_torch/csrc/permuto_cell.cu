@@ -15,10 +15,11 @@
 // from one 512 B cell row chosen by a hash. The f32 table (20,480 rows x
 // 512 B = 10.5 MB for the dynamic NeuS, 30,657 rows = 15.7 MB for the 3D
 // fields) stays resident in the 50 MB L2, so the loads hit L2, well above
-// the DRAM bound of the points' own bytes. On an H100 (700 W) the
-// forward's simplex search alone, its loads removed, takes 0.057 of its
-// 0.066 ms at the dynamic NeuS's 393,216 points x 5 levels: the search's
-// instructions, not the loads, bound it.
+// the DRAM bound of the points' own bytes. The simplex search's
+// instructions, not the loads, bound the forward: on an H100 (700 W) its
+// loads removed, it took 0.057 of its 0.066 ms at the dynamic NeuS's
+// 393,216 points x 5 levels, and the search's exact shortcuts
+// (permuto_simplex.cuh) took it to 0.035 ms.
 // Design: the forward gives each warp 32 consecutive points at one level
 // (a block takes the run at all levels). The paths feed points ray by
 // ray, so at the coarse levels a warp's neighbours share a cell row and

@@ -18,12 +18,49 @@
 //
 // Bit-exactness notes. The simplex search must choose the plain version's
 // simplex and row: every float operation of the elevation and the rounding
-// uses __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn, so nvcc cannot contract
+// uses __fmul_rn/__fadd_rn/__fsub_rn, so nvcc cannot contract
 // `tail - i*cf` into an FMA; the sums run from the last coordinate, as the
 // plain version's; sf comes from the host as float32; a rounding tie goes
 // down; rank ties break by index; the remainder sum is an exact multiple
 // of d+1, so its rounding is an integer division; negative coordinates
 // hash as int -> uint32 (well defined).
+//
+// What bounds the search, and its exact shortcuts. The search is the
+// larger part of every kernel that includes this header: on an H100 at
+// 700 W (chip_ab.py, 393,216 points), B14 takes 0.0312 ms and 0.0281
+// without its table loads (B10 took 0.0564 of its 0.0659 ms before these
+// shortcuts). So its instructions are cut here wherever a cheaper form
+// gives the same bits; a kernel around one search<4> (both the dense
+// and the hashed branch) went from 757 SASS instructions to 438, and
+// B14 from 0.0620 to 0.0312 ms with B10's warps:
+//  * the ten IEEE divisions by d+1 (`__fdiv_rn`, a reciprocal, Newton
+//    steps and a range check with a slow path) become `div_dp1`. By 4 it
+//    is a product by 0.25, exact. By 3 or 5: q = x*r with r = fl(1/b),
+//    e = fma(-q, b, x) (exact: the remainder of a correctly rounded
+//    quotient is representable), and fma(e, r, q) is then the correctly
+//    rounded quotient, unless e is 0 (x = -0 would come out +0) or not a
+//    number (x infinite: q is already the quotient). This equals x / b
+//    bitwise on every one of the 2^32 floats (not-a-number patterns
+//    aside, which stay not-a-number): checked on the card by
+//    `pc_check_div` (tests/test_torch_kernels_gpu.py). By 6 (d = 5) the
+//    same steps are off for |x| < 2^-125, so d = 5 keeps `__fdiv_rn`;
+//  * the hash's modulus by a runtime row count becomes Granlund and
+//    Montgomery's multiply-high (`pc_mod`): with l = ceil(log2 m) and the
+//    host's magic m' = floor(2^32 (2^l - m) / m) + 1 < 2^32, t =
+//    umulhi(h, m') and q = (t + ((h - t) >> 1)) >> (l - 1) is floor(h /
+//    m) for every 32-bit h (their Theorem 4.2: 2^(32+l) < (2^32 + m') m
+//    <= 2^(32+l) + 2^l), so h - q m is h % m exactly;
+//  * cells_per_row is 2^(5-d), a constant of D (the host refuses any
+//    other), so the row and the cell are a shift and a mask, and every
+//    index is 32-bit (the host refuses tables of 2^25 rows or more);
+//  * ranks are counted once per pair of coordinates, and the vertex slots
+//    built incrementally from the inverse of the rank permutation (slot_k
+//    = slot_{k-1} | 1 << inv[d+1-k]), not by (d+1)^2 compares each.
+// Integers are exact, and no float operation changed kind or order, so
+// for finite points every kernel that includes this header gives the
+// same bits as before these shortcuts. (A point with a non-finite
+// coordinate gets not-a-number weights as before; its vertex slots may
+// differ, and stay inside its cell's row.)
 
 #pragma once
 
@@ -40,12 +77,18 @@ struct PCLevel {
   int n_rows;
   int row_offset;  // into the concatenated table
   int is_dense;
+  // a hashed level's modulus n_rows * cells_per_row and its constants
+  // for pc_mod (magic m', shifts min(l, 1) and max(l - 1, 0))
+  uint32_t hash_mod;
+  uint32_t mod_magic;
+  int mod_sh1;
+  int mod_sh2;
 };
 
 struct PCMeta {
   int n_dims;
   int n_levels;
-  int cells_per_row;
+  int cells_per_row;  // 2^(5 - n_dims), a constant of D; the host checks it
   float sf[PC_MAX_DIMS];  // hyperplane factors, float32 from the host
   PCLevel lv[PC_MAX_LEVELS];
 };
@@ -56,10 +99,34 @@ __device__ __constant__ uint32_t kPrimes[PC_MAX_DIMS] = {
 
 template <int D>
 struct Simplex {
-  long long vtx[D + 1];  // vertex k's slot in the table as [rows*64, F]
+  int vtx[D + 1];  // vertex k's slot in the table as [rows*64, F]
   float bary[D + 1];
   int rank[D + 1];
 };
+
+// x / (d+1), bitwise the IEEE quotient (see the header note)
+template <int DP1>
+__device__ __forceinline__ float div_dp1(float x) {
+  if constexpr (DP1 == 4) {
+    return __fmul_rn(x, 0.25f);
+  } else if constexpr (DP1 == 3 || DP1 == 5) {
+    constexpr float b = (float)DP1;
+    // fl(1/3) = 0x3EAAAAAB, fl(1/5) = 0x3E4CCCCD
+    constexpr float r = DP1 == 3 ? 0x1.555556p-2f : 0x1.99999Ap-3f;
+    const float q = __fmul_rn(x, r);
+    const float e = fmaf(-q, b, x);
+    return !(fabsf(e) > 0.f) ? q : fmaf(e, r, q);
+  } else {
+    return __fdiv_rn(x, (float)DP1);
+  }
+}
+
+// h % L.hash_mod by the host's multiply-high constants (see the header)
+__device__ __forceinline__ uint32_t pc_mod(uint32_t h, const PCLevel& L) {
+  const uint32_t t = __umulhi(h, L.mod_magic);
+  const uint32_t q = (t + ((h - t) >> L.mod_sh1)) >> L.mod_sh2;
+  return h - q * L.hash_mod;
+}
 
 template <int D>
 __device__ __forceinline__ void find_simplex(const float* xp,
@@ -90,7 +157,7 @@ __device__ __forceinline__ void find_simplex(const float* xp,
   int sum = 0;
 #pragma unroll
   for (int i = 0; i <= D; ++i) {
-    const float v = __fdiv_rn(elev[i], fdp1);
+    const float v = div_dp1<DP1>(elev[i]);
     const float up = __fmul_rn(ceilf(v), fdp1);
     const float down = __fmul_rn(floorf(v), fdp1);
     const float r =
@@ -100,14 +167,24 @@ __device__ __forceinline__ void find_simplex(const float* xp,
     sum += rem0[i];
   }
   const int sum_ = sum / DP1;  // an exact multiple of d+1
-  // rank[i] = #{j: diff_i < diff_j} + #{j < i: diff_i == diff_j}
+  // rank[i] = #{j: diff_i < diff_j} + #{j < i: diff_i == diff_j}: of a
+  // pair j < i exactly one counts the other
+  int rank[DP1];
+#pragma unroll
+  for (int i = 0; i <= D; ++i) rank[i] = sum_;
+#pragma unroll
+  for (int i = 1; i <= D; ++i)
+#pragma unroll
+    for (int j = 0; j < i; ++j) {
+      const bool below = diff[i] <= diff[j];
+      rank[i] += below;
+      rank[j] += !below;
+    }
+  // the sum fix-up, and the inverse permutation packed 3 bits a rank
+  uint32_t inv = 0;
 #pragma unroll
   for (int i = 0; i <= D; ++i) {
-    int r = 0;
-#pragma unroll
-    for (int j = 0; j <= D; ++j)
-      r += (diff[i] < diff[j]) || (j < i && diff[i] == diff[j]);
-    r += sum_;
+    int r = rank[i];
     if (r < 0) {
       r += DP1;
       rem0[i] += DP1;
@@ -116,6 +193,7 @@ __device__ __forceinline__ void find_simplex(const float* xp,
       rem0[i] -= DP1;
     }
     s.rank[i] = r;
+    inv |= (uint32_t)i << ((3 * r) & 31);
   }
   // barycentric weights from the sorted differential
   float vd_by_rank[DP1];
@@ -123,7 +201,7 @@ __device__ __forceinline__ void find_simplex(const float* xp,
   for (int r = 0; r <= D; ++r) vd_by_rank[r] = 0.f;
 #pragma unroll
   for (int i = 0; i <= D; ++i) {
-    const float vd = __fdiv_rn(__fsub_rn(elev[i], (float)rem0[i]), fdp1);
+    const float vd = div_dp1<DP1>(__fsub_rn(elev[i], (float)rem0[i]));
 #pragma unroll
     for (int r = 0; r <= D; ++r)
       if (s.rank[i] == r) vd_by_rank[r] = vd;
@@ -132,33 +210,37 @@ __device__ __forceinline__ void find_simplex(const float* xp,
 #pragma unroll
   for (int k = 1; k <= D; ++k)
     s.bary[k] = __fsub_rn(vd_by_rank[D - k], vd_by_rank[DP1 - k]);
-  // the cell's row: a bijective box index (dense) or a hash of rem0
-  const int c = m.cells_per_row;
-  long long idx;
+  // the cell's index in its level: a bijective box index (dense) or a
+  // hash of rem0
+  uint32_t idx;
   if (L.is_dense) {
-    idx = 0;
+    int b = 0;
 #pragma unroll
     for (int i = 0; i < D; ++i) {
       int k = rem0[i] / DP1 - L.box_lo[i];  // exact: rem0 is a multiple
       k = min(max(k, 0), L.box_dims[i] - 1);
-      idx = idx * L.box_dims[i] + k;
+      b = b * L.box_dims[i] + k;
     }
+    idx = (uint32_t)b;
   } else {
     uint32_t h = (uint32_t)rem0[0] * kPrimes[0];
 #pragma unroll
     for (int i = 1; i < D; ++i) h ^= (uint32_t)rem0[i] * kPrimes[i];
-    idx = (long long)(h % ((uint32_t)L.n_rows * (uint32_t)c));
+    idx = pc_mod(h, L);
   }
-  const long long row = idx / c + L.row_offset;
-  const int lane_base = (int)(idx % c) * (2 << DP1);  // F=2 lanes per cell
-  // vertex k at slot sum_i [rank_i >= d+1-k] 2^i; its F=2 lane is
-  // lane_base + 2*slot
+  // row = idx / cells + row_offset, cell = idx % cells; the cell's 2^(d+1)
+  // slots follow each other in the row. Vertex k sits at slot sum_i
+  // [rank_i >= d+1-k] 2^i: slot_0 = 0, and slot_k adds the coordinate of
+  // rank d+1-k
+  constexpr int LC = 5 - D;  // log2 of cells per row, 128 / 2^(d+2)
+  const int base = (((int)(idx >> LC) + L.row_offset) << 6) +
+                   ((int)(idx & ((1u << LC) - 1u)) << DP1);
+  uint32_t slot = 0;
+  s.vtx[0] = base;
 #pragma unroll
-  for (int k = 0; k <= D; ++k) {
-    int slot = 0;
-#pragma unroll
-    for (int i = 0; i <= D; ++i) slot |= (s.rank[i] >= DP1 - k) << i;
-    s.vtx[k] = row * 64 + (lane_base + 2 * slot) / 2;
+  for (int k = 1; k <= D; ++k) {
+    slot |= 1u << ((inv >> (3 * (DP1 - k))) & 7u);
+    s.vtx[k] = base + (int)(slot & ((1u << DP1) - 1u));
   }
 }
 
@@ -187,7 +269,7 @@ __device__ __forceinline__ void elevation_vjp(const Simplex<D>& s,
       if (k == t1) g1 = gf[k];
       if (k == t2) g2 = gf[k];
     }
-    delev[i] = (g1 - g2) / (float)DP1;
+    delev[i] = div_dp1<DP1>(g1 - g2);
   }
   float run = 0.f;
 #pragma unroll

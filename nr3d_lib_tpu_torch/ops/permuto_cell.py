@@ -61,7 +61,8 @@ from nr3d_lib_tpu_torch.ops.lotd_brick import (HASH_PRIMES, _vjp, aligned,
                                                ptr, wants_grad)
 
 __all__ = ["PermutoCellLevel", "PermutoCellMeta", "make_permuto_cell_meta",
-           "hyperplane_scales", "f32_scalars", "c_meta", "LANES", "N_FEAT",
+           "hyperplane_scales", "f32_scalars", "c_meta", "fastmod_constants",
+           "atomic_groups", "LANES", "N_FEAT",
            "permuto_cell_encode", "permuto_cell_encode_frozen_x",
            "permuto_cell_nablas", "permuto_cell_encode_xla",
            "permuto_cell_encode_bwd_xla", "permuto_cell_nablas_xla",
@@ -286,6 +287,21 @@ def _level_vertices(x: torch.Tensor, level: PermutoCellLevel,
     return row[:, None] * (LANES // N_FEAT) + lane // N_FEAT, bary, rank
 
 
+def atomic_groups(x: torch.Tensor, meta: PermutoCellMeta,
+                  warp: int = 32) -> List[int]:
+    """Per level, the table-gradient atomics that the cell backward kernels
+    issue at the points x [N, d] in their order, where a warp takes `warp`
+    consecutive points at one level and its lanes that add to one slot sum
+    first (one atomic per distinct (warp, slot) pair; one lane alone issues
+    N·(d+1)). Vertex k's slot has k bits set, so lanes meet only at the
+    same k."""
+    n_slots = meta.total_rows * (LANES // N_FEAT)
+    with torch.no_grad():
+        wid = torch.arange(x.shape[0], device=x.device) // warp
+        return [int(torch.unique(wid[:, None] * n_slots + _level_vertices(
+            x, level, meta)[0]).numel()) for level in meta.levels]
+
+
 def _gather_vertices(table: torch.Tensor, vtx: torch.Tensor,
                      n_feat: int) -> torch.Tensor:
     """table [rows, 64·F], vtx [N, K] → vertex features [N, K, F]: an
@@ -389,7 +405,9 @@ class _Level(ctypes.Structure):
                 ("box_lo", ctypes.c_int * MAX_DIMS),
                 ("box_dims", ctypes.c_int * MAX_DIMS),
                 ("n_rows", ctypes.c_int), ("row_offset", ctypes.c_int),
-                ("is_dense", ctypes.c_int)]
+                ("is_dense", ctypes.c_int),
+                ("hash_mod", ctypes.c_uint32), ("mod_magic", ctypes.c_uint32),
+                ("mod_sh1", ctypes.c_int), ("mod_sh2", ctypes.c_int)]
 
 
 class _Meta(ctypes.Structure):
@@ -400,12 +418,34 @@ class _Meta(ctypes.Structure):
                 ("lv", _Level * MAX_LEVELS)]
 
 
+def fastmod_constants(m: int) -> Tuple[int, int, int]:
+    """(magic, sh1, sh2) with which the kernels' `pc_mod` computes h % m
+    for every 32-bit h (Granlund and Montgomery's unsigned division by a
+    multiply-high): l = ⌈log2 m⌉, magic = ⌊2^32 (2^l − m) / m⌋ + 1 < 2^32,
+    t = ⌊h·magic / 2^32⌋, ⌊h / m⌋ = (t + ((h − t) >> sh1)) >> sh2 with
+    sh1 = min(l, 1), sh2 = max(l − 1, 0)."""
+    if not 1 <= m < 1 << 32:
+        raise ValueError(f"a modulus must be in [1, 2^32), got {m}")
+    l = (m - 1).bit_length()
+    return ((1 << 32) * ((1 << l) - m)) // m + 1, min(l, 1), max(l - 1, 0)
+
+
 def c_meta(meta: PermutoCellMeta) -> _Meta:
-    """A PermutoCellMeta as the kernels' by-value meta argument."""
+    """A PermutoCellMeta as the kernels' by-value meta argument. Refuses
+    what the kernels cannot take: more levels or dimensions than the meta
+    holds, a cells_per_row other than 2^(5−d) (a constant of the kernels'
+    dimension) and a table whose vertex slots (rows · 64) overflow int32."""
     if meta.n_levels > MAX_LEVELS or meta.n_dims > MAX_DIMS:
         raise ValueError(f"the permuto kernels take at most {MAX_LEVELS} "
                          f"levels of at most {MAX_DIMS} dimensions, got "
                          f"{meta.n_levels} of {meta.n_dims}")
+    if meta.cells_per_row != 1 << (5 - meta.n_dims):
+        raise ValueError(f"the permuto kernels take 2^(5-d) = "
+                         f"{1 << (5 - meta.n_dims)} cells per row at d = "
+                         f"{meta.n_dims}, got {meta.cells_per_row}")
+    if meta.total_rows * (LANES // N_FEAT) >= 1 << 31:
+        raise ValueError(f"the permuto kernels index vertex slots in int32: "
+                         f"{meta.total_rows} rows × 64 slots is too many")
     m = _Meta()
     m.n_dims, m.n_levels = meta.n_dims, meta.n_levels
     m.cells_per_row = meta.cells_per_row
@@ -418,6 +458,10 @@ def c_meta(meta: PermutoCellMeta) -> _Meta:
         m.lv[i].n_rows = lv.n_rows
         m.lv[i].row_offset = lv.row_offset
         m.lv[i].is_dense = int(lv.box_dims is not None)
+        mod = lv.n_rows * meta.cells_per_row
+        m.lv[i].hash_mod = mod
+        m.lv[i].mod_magic, m.lv[i].mod_sh1, m.lv[i].mod_sh2 = \
+            fastmod_constants(mod)
     return m
 
 

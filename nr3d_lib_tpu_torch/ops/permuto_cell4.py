@@ -18,7 +18,8 @@ Routes: `permuto_cell4_encode`, `permuto_cell4_encode_frozen_x` and
 `permuto_cell4_nablas` take the plain PyTorch version (and torch autograd)
 for a CPU tensor, and the CUDA kernels of `csrc/permuto_cell4.cu` for a
 CUDA tensor. On CUDA, `_Permuto4Encode` runs B14 forward and B15 backward
-(dL/dx only when x needs it); `_Permuto4Nablas` runs B16 forward and, as
+(dL/dx only when x needs it: written once per point, the same bits
+whatever the order of the points); `_Permuto4Nablas` runs B16 forward and, as
 its backward, the plain PyTorch vjp of the plain nablas (gathers and
 `index_add_`): the JAX package computes that second order in XLA, not in a
 Pallas kernel. The barycentric weights are affine in x inside a simplex,
@@ -93,11 +94,13 @@ def permuto_cell4_nablas_bwd_xla(g_up: torch.Tensor, x: torch.Tensor,
 
 # ------------------------------------------------------------ CUDA route
 def _lib():
-    vp, n = _build.VP, ctypes.c_longlong
+    vp, n, i = _build.VP, ctypes.c_longlong, ctypes.c_int
     return _build.load("permuto_cell4", {
         "permuto4_fwd": [vp, vp, _Meta, vp, n, vp],
         "permuto4_bwd": [vp, vp, vp, _Meta, vp, vp, n, vp],
-        "permuto4_dydx": [vp, vp, vp, _Meta, vp, n, vp]})
+        "permuto4_dydx": [vp, vp, vp, _Meta, vp, n, vp],
+        # the simplex search's self-checks over all 2^32 inputs
+        "pc_check_div": [i, vp, vp], "pc_check_mod": [_Meta, i, vp, vp]})
 
 
 def _fwd_cuda(x: torch.Tensor, packed: torch.Tensor,

@@ -28,8 +28,11 @@ row's largest gradient (pixel sums and suffix sums in another order,
 divided by 1 − α ≥ 0.001); B18 also on tiles where whole warps take no
 slot and slots lie below the α floor or saturate everywhere (the rows
 its warp vote skips must be exact zeros), and at the bench scene's
-attrs. B10 also runs on points along rays and on the same points
-permuted (the permuted rows must be the same bits), d = 2–5.
+attrs. B10 and B14 also run on points along rays and on the same
+points permuted (the permuted rows must be the same bits), d = 2–5; so
+does B15, whose dL/dx must then be the same bits, and on warps whose
+points share one cell. The search's shortcuts are checked over all 2^32
+inputs: its division by d+1 bitwise against x / b, its modulus exactly.
 """
 
 import numpy as np
@@ -1041,3 +1044,166 @@ def test_permuto_fwd_empty(cuda):
     y = PC.permuto_cell_encode(torch.zeros(0, 4, device=cuda), table, meta)
     torch.cuda.synchronize()
     assert y.shape == (0, 10)
+
+
+# ------------- B14/B15: level-major warps, warp-aggregated atomics, and
+# the simplex search's exact shortcuts
+def _p4_ray_inputs(dev, d: int, n: int):
+    """Path-like inputs of the F=4 cell kernels at dimension d: points
+    along rays (`_pc_ray_points`), the same points permuted, a table and
+    upstream gradients from seeds."""
+    meta = P4.make_permuto_cell4_meta(d, PC_ALL_D[d], 4096)
+    x = _pc_ray_points(dev, d, -(-n // 96), 96, seed=d + 10)[:n].contiguous()
+    rng = np.random.default_rng(d + 60)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (meta.total_rows, 256)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(n, 4 * meta.n_levels)).astype(
+        np.float32)).to(dev)
+    perm = torch.from_numpy(rng.permutation(n)).to(dev)
+    return meta, x, table, g, perm
+
+
+@pytest.mark.parametrize("d", sorted(PC_ALL_D))
+@pytest.mark.parametrize("n", [1, 7, 31, 33, 1000, 96 * 1001])
+def test_permuto4_fwd_ray_and_permuted_order(cuda, d, n):
+    """B14 on points along rays and on the same points permuted: each
+    within 1e-5 of the plain version, and the permuted rows bitwise the
+    ray order's rows permuted. n covers a single point, n < 32, a ragged
+    last run and many runs; d = 2–5 (d = 3 with a dense level)."""
+    meta, x, table, _, perm = _p4_ray_inputs(cuda, d, n)
+    x_perm = x[perm].contiguous()
+    before = _build.LAUNCHES["permuto4_fwd"]
+    with torch.no_grad():
+        y = P4.permuto_cell4_encode(x, table, meta)
+        y_perm = P4.permuto_cell4_encode(x_perm, table, meta)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["permuto4_fwd"] == before + 2
+    assert y.shape == (n, 4 * meta.n_levels)
+    _close(y, P4.permuto_cell4_encode_xla(x, table, meta), 1e-5)
+    _close(y_perm, P4.permuto_cell4_encode_xla(x_perm, table, meta), 1e-5)
+    assert torch.equal(y_perm, y[perm])
+
+
+@pytest.mark.parametrize("d", sorted(PC_ALL_D))
+@pytest.mark.parametrize("n", [1, 7, 31, 33, 1000, 96 * 1001])
+def test_permuto4_bwd_ray_and_permuted_order(cuda, d, n):
+    """B15 (warp-aggregated atomics) at ray order and permuted, without
+    and with dL/dx, against the plain version; dL/dx is summed over the
+    levels in a block, so it is bitwise the same in both orders."""
+    meta, x, table, g, perm = _p4_ray_inputs(cuda, d, n)
+    packed = P4.pack_table4(table)
+    dxs = []
+    for xx, gg in ((x, g), (x[perm].contiguous(), g[perm].contiguous())):
+        dx_p, dtab_p = P4.permuto_cell4_encode_bwd_xla(xx, table, gg, meta,
+                                                       True)
+        for need_dx in (False, True):
+            before = _build.LAUNCHES["permuto4_bwd"]
+            dx, dtab = P4._bwd_cuda(xx, gg, meta, need_dx=need_dx,
+                                    packed=packed)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["permuto4_bwd"] == before + 1
+            _close(dtab, dtab_p, 1e-5)
+            if need_dx:
+                _close(dx, dx_p, 1e-4)
+                dxs.append(dx)
+            else:
+                assert dx is None
+    assert torch.equal(dxs[1], dxs[0][perm])
+
+
+def test_permuto4_bwd_one_cell_warps(cuda):
+    """Every warp's 32 points in one cell at every level (one group per
+    vertex and warp; level 0 dense): the groups' sums against the plain
+    version, and the count of atomics the aggregation leaves."""
+    meta = P4.make_permuto_cell4_meta(3, PC_ALL_D[3], 4096)
+    assert meta.levels[0].kind == "dense"
+    rng = np.random.default_rng(70)
+    n_warps = 500
+    x = np.repeat(rng.uniform(0.0, 1.0, (n_warps, 3)), 32, 0)
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (meta.total_rows, 256)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(len(x), 4 * meta.n_levels))
+                         .astype(np.float32)).to(cuda)
+    assert PC.atomic_groups(x, meta) == [n_warps * 4] * meta.n_levels
+    dx, dtab = P4._bwd_cuda(x, g, meta, need_dx=True,
+                            packed=P4.pack_table4(table))
+    dx_p, dtab_p = P4.permuto_cell4_encode_bwd_xla(x, table, g, meta, True)
+    _close(dtab, dtab_p, 1e-5)
+    _close(dx, dx_p, 1e-4)
+
+
+def test_permuto4_empty(cuda):
+    meta = P4.make_permuto_cell4_meta(4, PC_ALL_D[4], 4096)
+    table = torch.zeros(meta.total_rows, 256, device=cuda)
+    x = torch.zeros(0, 4, device=cuda)
+    y = P4.permuto_cell4_encode(x, table, meta)
+    g = torch.zeros(0, 4 * meta.n_levels, device=cuda)
+    for need_dx in (False, True):
+        dx, dtab = P4._bwd_cuda(x, g, meta, need_dx=need_dx,
+                                packed=P4.pack_table4(table))
+        torch.cuda.synchronize()
+        assert dtab.shape == (meta.total_rows, 256) and \
+            not dtab.any()
+        assert dx is None if not need_dx else dx.shape == (0, 4)
+    assert y.shape == (0, 4 * meta.n_levels)
+
+
+def _check_out(dev):
+    """{count of inputs that differ, lowest one} of a self-check."""
+    return torch.tensor([0, -1], dtype=torch.int64, device=dev)
+
+
+@pytest.mark.parametrize("b", [3, 4, 5, 6])
+def test_search_division_is_the_ieee_quotient(cuda, b):
+    """The search's division by d+1 (`div_dp1`, a product and two FMAs for
+    3 and 5, a product by 0.25 for 4, `__fdiv_rn` for 6) against x / b,
+    bit for bit, on all 2^32 floats (two not-a-numbers count as equal),
+    for each d+1 of the instantiated d = 2–5."""
+    out = _check_out(cuda)
+    _build.check(P4._lib().pc_check_div(b, out.data_ptr(),
+                                        _build.stream_ptr(cuda)),
+                 "pc_check_div")
+    torch.cuda.synchronize()
+    assert out[0].item() == 0, f"first differing pattern {out[1].item():#x}"
+
+
+FASTMOD_METAS = {"pathc": (4, [4.0, 11.0, 32.0, 90.0], 4096),
+                 "pathd": (4, [8.0, 16.0, 32.0, 64.0, 128.0], 4096),
+                 "bench3d": (3, [16.0 * 2 ** (0.5 * i) for i in range(8)],
+                             4096),
+                 "odd": (2, [3.3, 77.7, 1000.0], 1000)}
+
+
+@pytest.mark.parametrize("meta_name", sorted(FASTMOD_METAS))
+def test_search_modulus_is_exact(cuda, meta_name):
+    """`pc_mod` with each level's constants from `c_meta` against h % m,
+    for all 2^32 hashes h."""
+    meta = PC.make_permuto_cell_meta(*FASTMOD_METAS[meta_name])
+    cm = PC.c_meta(meta)
+    for level in range(meta.n_levels):
+        out = _check_out(cuda)
+        _build.check(P4._lib().pc_check_mod(cm, level, out.data_ptr(),
+                                            _build.stream_ptr(cuda)),
+                     "pc_check_mod")
+        torch.cuda.synchronize()
+        assert out[0].item() == 0, (level, cm.lv[level].hash_mod,
+                                    hex(out[1].item()))
+
+
+def test_search_modulus_is_exact_for_any_modulus(cuda):
+    """The same for moduli the metas do not hold: 1, powers of two,
+    2^32 − 1 and seeded ones in [1, 2^24]."""
+    cm = PC.c_meta(PC.make_permuto_cell_meta(2, [4.0], 4096))
+    rng = np.random.default_rng(80)
+    for m in [1, 2, 3, 7, 1 << 13, (1 << 31) - 1, 1 << 31, (1 << 32) - 1] + \
+            [int(v) for v in rng.integers(1, (1 << 24) + 1, 8)]:
+        lv = cm.lv[0]
+        lv.hash_mod = m
+        lv.mod_magic, lv.mod_sh1, lv.mod_sh2 = PC.fastmod_constants(m)
+        out = _check_out(cuda)
+        _build.check(P4._lib().pc_check_mod(cm, 0, out.data_ptr(),
+                                            _build.stream_ptr(cuda)),
+                     "pc_check_mod")
+        torch.cuda.synchronize()
+        assert out[0].item() == 0, (m, hex(out[1].item()))
