@@ -7,7 +7,8 @@
 2. Builds every CUDA kernel of the port from `nr3d_lib_tpu_torch/csrc/`
    (brick4.cu, brick.cu, gather1d.cu, permuto_cell4.cu, permuto_cell.cu,
    gaussian_blend.cu; permuto_cell4.cu and permuto_cell.cu share
-   permuto_simplex.cuh) with nvcc for sm_90a, one nvcc
+   permuto_simplex.cuh, permuto_cell.cu and brick.cu warp_atomics.cuh)
+   with nvcc for sm_90a, one nvcc
    per source, all started together, and prints the build time and the
    ptxas register / shared-memory lines.
 3. One phase per kernel at the shapes of the paths below. Each compares
@@ -20,7 +21,10 @@
    and B4 (brick4_bwd2) at the train step's 147,456 points. F=2 (slice 3):
    B6 (brick_fwd) at the NeRF render's 196,608 points × 6 levels and at
    the NeuS render's 589,824 × 4; B6 want_g, B7 (brick_bwd, with and
-   without dL/dx), B8 (brick_dydx) and B9 (brick_bwd2) at 147,456 × 4.
+   without dL/dx), B8 (brick_dydx) and B9 (brick_bwd2, also timed on the
+   same points in a random order, where its dL/dg_up and dL/dx must be
+   the same bits; its row counts the float2 atomics before and after the
+   warps' aggregation) at 147,456 × 4.
    F=4 cell permuto (path C), at the dynamic NeuS's final query of
    393,216 (x,t) points × 4 levels: B14 (permuto4_fwd, also timed on the
    same points in a random order, whose rows must be the ray order's
@@ -33,7 +37,9 @@
    lattice, 393,216 points × 8 levels (one dense): B10 (permuto_fwd, also
    timed on the same points in a random order, whose rows must be the
    ray order's rows bit for bit), B11 and B12 (permuto_bwd without and
-   with dL/dx) and B13 (permuto_dydx). Gaussian splatting (path E), at the
+   with dL/dx, as B15: B12's dL/dx the same bits in the random order, the
+   atomics counted) and B13 (permuto_dydx). Gaussian splatting (path E),
+   at the
    bench scene's 1024 tiles of 16² × 256 slots: B17 (gs_blend) and B18
    (gs_blend_bwd, upstream gradients from numpy; its row also counts the
    (pixel, slot) pairs above the α floor and the (warp, slot) pairs in
@@ -50,13 +56,16 @@
      dL/dx) against the split nablas (B3); one train step against the CPU
      port; 2 warm-up and 20 timed train steps that cross an occupancy
      update (6 B1 + 1 per update, 1 each of B2, B3, B4, B5 per step).
+     One more render records the points of each B1 launch (`[B1
+     launches]`: their sum against B1's row weighs its time).
    - Path A, F=2 NeRF serving (`LoTDNeRFModel`, bench_render.py `main`
      with use_brick=True, mode march_occ_compressed; 23,005 table rows):
      10 renders of 8192 rays (1 B6 and 1 B5 per render), then one render
      in the model's default mode march_occ (1 B6 on 786,432 points, 1 B5).
    - Path B, F=2 NeuS (`LoTDNeuSModel`, bench_render.py `main_train` kind
      neus_compressed with use_brick=True; 9,648 table rows): 10 renders of
-     4096 rays (6 B6, 1 B8, 1 B5 per render); the autograd nablas (B6
+     4096 rays (6 B6, 1 B8, 1 B5 per render; `[B6 launches]` as B1's);
+     the autograd nablas (B6
      want_g, B7 with dL/dx); one train step against the CPU port; 2
      warm-up and 20 timed steps (6 B6 + 1 per update, 1 each of B7, B8,
      B9, B5 per step).
@@ -253,13 +262,15 @@ def _profile(run, wall_ms: float, what: str) -> None:
           f"of the {wall_ms:.3f} ms wall time")
     # a kernel's key is its signature, "void name<...>(...)" for a
     # template instance
-    ours = sum(r[0] for r in rows if r[2].removeprefix("void ").startswith(
-        ("brick", "gather1d", "permuto", "gs_blend")))
+    ours = [r for r in rows if r[2].removeprefix("void ").startswith(
+        ("brick", "gather1d", "permuto", "gs_blend"))]
+    ours_ms = sum(r[0] for r in ours)
     print(f"[profile] the port's kernels (brick4_*, brick_*, gather1d, "
           f"permuto4_*, permuto_*, gs_blend*): "
-          f"{ours:.4f} ms, {ours / max(total, 1e-9) * 100:.1f}% of the "
+          f"{ours_ms:.4f} ms, {ours_ms / max(total, 1e-9) * 100:.1f}% of the "
           f"device time")
-    for ms, count, key in rows[:20]:
+    # the top 20, then the port's kernels below them
+    for ms, count, key in rows[:20] + [r for r in ours if r not in rows[:20]]:
         print(f"[profile]   {ms:8.4f} ms {ms / max(total, 1e-9) * 100:5.1f}% "
               f"x{count:<4.0f} {key[:90]}")
 
@@ -581,6 +592,41 @@ def _serve(model, cpu_model, o, d, per_render: dict, label: str, smi: str,
     return launches, cpu_s
 
 
+def _launch_sizes(model, o, d, module, tag: str, kernels, key: str
+                  ) -> None:
+    """Points of each forward-encode launch (`module._fwd_cuda`) in one
+    render of `model`, outside the counted renders, printed on a
+    `[tag launches]` line; their sum against the kernel row's N weighs
+    the row's time by what a render runs."""
+    import torch
+
+    sizes, fwd = [], module._fwd_cuda
+
+    def recording(x, *args, **kw):
+        sizes.append(int(x.shape[0]))
+        return fwd(x, *args, **kw)
+
+    module._fwd_cuda = recording
+    try:
+        with torch.no_grad():
+            model.ray_query(_tested(model, o, d))
+        torch.cuda.synchronize()
+    finally:
+        module._fwd_cuda = fwd
+    row = next(k for k in kernels if k["key"] == key)
+    n_row = row.get("n_points_neus_render", row["n_points"])
+    ms = row.get("ms_neus_render", row["ms"])
+    bound = row.get("bound_ms_neus_render", row["bound_ms"])
+    share = sum(sizes) / n_row
+    print(f"[{tag} launches] one render: {len(sizes)} launches of "
+          f"{', '.join(f'{s:,}' for s in sizes)} points, {sum(sizes):,} in "
+          f"all = {share:.4f} x the row's N={n_row:,}; weight {share:.4f} "
+          f"x ({ms:.4f} - {bound:.4f}) = {share * (ms - bound):.4f} ms over "
+          f"the bound a render")
+    row["n_points_by_launch_render"] = sizes
+    row["weight_ms_render"] = share * (ms - bound)
+
+
 def _f4_kernel_phases(model, o, d, kernels) -> "torch.Tensor":
     """Slices 1 and 2: B1, B3, B5 at the serving render's shapes; B1 want_g,
     B2 and B4 at the train step's. Returns the step's 147,456 points."""
@@ -618,7 +664,8 @@ def _f4_kernel_phases(model, o, d, kernels) -> "torch.Tensor":
               f" | bound {bound[0]:.4f} ms ({bound[1]}) | library: none")
         _kernel_row(kernels, name="brick4_fwd (B1)", key="brick4_fwd",
                     path="f4 render", source=src, replaces=f"{rep}:172",
-                    err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+                    err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                    n_points=n)
 
         # ----------------------------------------------- B3 brick4_dydx
         x3 = _ray_points(o, d, 36, seed=3)               # 147,456 points
@@ -924,9 +971,25 @@ def _f2_kernel_phases(nerf, neus, o8, d8, o, d, kernels) -> "torch.Tensor":
             ("dL/dtable", max(_err(dt_k, dt_p), _err(dt_k2, dt_p)),
              1e-6 + 1e-5 * float(dt_p.abs().max()),
              "atomics, order changes from run to run")])
+        # dL/dg_up and dL/dx are each point's own sums: the same bits in
+        # another order of the points
+        perm = torch.randperm(n, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(16))
+        xp_, gp_, ggp_ = (v[perm].contiguous() for v in (x3, g2, gg))
+        dg_perm, dx_perm, _ = B._bwd2_cuda(gp_, xp_, table, ggp_, meta)
+        _require(torch.equal(dg_perm, dg_k[perm]) and
+                 torch.equal(dx_perm, dx_k[perm]),
+                 "B9: a point's dL/dg_up or dL/dx depends on its place in "
+                 "the batch")
         ms = _time_ms(lambda: B._bwd2_cuda(g2, x3, table, gg, meta,
                                            need_dx=False))
         ms_dx = _time_ms(lambda: B._bwd2_cuda(g2, x3, table, gg, meta))
+        ms_perm = _time_ms(lambda: B._bwd2_cuda(gp_, xp_, table, ggp_, meta,
+                                                need_dx=False))
+        # float2 atomics: one a (point, level, corner), and what the
+        # warps' aggregation leaves at ray order
+        naive = n * L * 8
+        groups = sum(B.brick_atomic_groups(x3, meta))
         plain_ms = _time_ms(lambda: B.brick_nablas_bwd_xla(
             g2, x3, table, gg, meta), iters=5)
         # each (point, level): 18 index/scale ops + 8 corners × (11 for c_k
@@ -935,14 +998,18 @@ def _f2_kernel_phases(nerf, neus, o8, d8, o, d, kernels) -> "torch.Tensor":
         bound = _bound(io, n * L * 170)
         bound_dx = _bound(io + n * 12, n * L * 370)
         print(f"[B9 brick_bwd2] need_dx false (the step's form): kernel "
-              f"{ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}); need_dx "
-              f"true: kernel {ms_dx:.4f} ms | bound {bound_dx[0]:.4f} ms "
+              f"{ms:.4f} ms (permuted {ms_perm:.4f} ms) | bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); need_dx true: kernel "
+              f"{ms_dx:.4f} ms | bound {bound_dx[0]:.4f} ms "
               f"({bound_dx[1]}); plain (all three gradients) {plain_ms:.4f}"
-              f" ms | library: none")
+              f" ms | library: none | float2 atomics {groups:,} of "
+              f"{naive:,} after the warps' aggregation")
         _kernel_row(kernels, name="brick_bwd2 (B9)", key="brick_bwd2",
                     path="f2 train step", source=src, replaces=f"{rep}:1077",
                     err=err, ms=ms, plain_ms=plain_ms, bound=bound,
-                    ms_need_dx=ms_dx, bound_ms_need_dx=bound_dx[0])
+                    ms_need_dx=ms_dx, bound_ms_need_dx=bound_dx[0],
+                    ms_permuted=ms_perm, atomics_naive=naive,
+                    atomic_groups=groups)
     return x3
 
 
@@ -1172,9 +1239,23 @@ def _permuto_kernel_phases(pathd, field, o, d, ts, kernels) -> None:
                  1e-4 + 1e-4 * float(dx_p.abs().max()),
                  "sums through the elevation Jacobian, scaled by the "
                  "lattice scale")])
+            # B12's dL/dx sums each point's levels in its block: the same
+            # bits in another order of the points
+            g_perm = g[perm].contiguous()
+            dx_perm, _ = PC._bwd_cuda(x_perm, g_perm, meta, need_dx=True,
+                                      table=table)
+            _require(torch.equal(dx_perm, dx_k[perm]),
+                     f"B12 at {what}: a point's dL/dx depends on its place "
+                     f"in the batch")
             ms = _time_ms(lambda: PC._bwd_cuda(x, g, meta, need_dx=False))
             ms_dx = _time_ms(lambda: PC._bwd_cuda(x, g, meta, need_dx=True,
                                                   table=table))
+            ms_perm = _time_ms(lambda: PC._bwd_cuda(x_perm, g_perm, meta,
+                                                    need_dx=False))
+            # float2 atomics: one a (point, level, vertex), and what the
+            # warps' aggregation leaves at ray order
+            naive = n * L * (dim + 1)
+            groups = sum(PC.atomic_groups(x, meta))
             plain_ms = _time_ms(lambda: PC.permuto_cell_encode_bwd_xla(
                 x, table, g, meta, False), iters=5)
             plain_dx = _time_ms(lambda: PC.permuto_cell_encode_bwd_xla(
@@ -1188,17 +1269,20 @@ def _permuto_kernel_phases(pathd, field, o, d, ts, kernels) -> None:
                               2 * table_bytes,
                               n * L * (sops + 11 * (dim + 1)))
             print(f"[B11/B12 permuto_bwd, {what}] need_dx false (B11, the "
-                  f"step's form): kernel {ms:.4f} ms | plain {plain_ms:.4f}"
-                  f" ms | bound {bound[0]:.4f} ms ({bound[1]}); need_dx "
-                  f"true (B12): kernel {ms_dx:.4f} ms | plain "
-                  f"{plain_dx:.4f} ms | bound {bound_dx[0]:.4f} ms "
-                  f"({bound_dx[1]}) | library: none")
+                  f"step's form): kernel {ms:.4f} ms (permuted {ms_perm:.4f}"
+                  f" ms) | plain {plain_ms:.4f} ms | bound {bound[0]:.4f} ms"
+                  f" ({bound[1]}); need_dx true (B12): kernel {ms_dx:.4f} "
+                  f"ms | plain {plain_dx:.4f} ms | bound {bound_dx[0]:.4f} "
+                  f"ms ({bound_dx[1]}) | library: none | float2 atomics "
+                  f"{groups:,} of {naive:,} after the warps' aggregation")
             errs["bwd"].append(err)
             rows["bwd"].update({
                 f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms,
                 f"bound{sfx}": bound, f"ms_need_dx{sfx}": ms_dx,
                 f"plain_ms_need_dx{sfx}": plain_dx,
-                f"bound_ms_need_dx{sfx}": bound_dx[0]})
+                f"bound_ms_need_dx{sfx}": bound_dx[0],
+                f"ms_permuted{sfx}": ms_perm,
+                f"atomics_naive{sfx}": naive, f"atomic_groups{sfx}": groups})
 
             # ------------------------------------------ B13 permuto_dydx
             n_p = PC.permuto_cell_nablas_xla(g, x, table, meta)
@@ -1656,6 +1740,7 @@ def main() -> int:
     from nr3d_lib_tpu_torch.models.model_families import \
         DynamicPermutoNeuSModel
     from nr3d_lib_tpu_torch.ops import _build
+    from nr3d_lib_tpu_torch.ops import lotd_brick as B, lotd_brick4 as B4
 
     t_start = time.perf_counter()
 
@@ -1721,6 +1806,7 @@ def main() -> int:
     launches, cpu_s = _serve(model, cpu, o, d, {
         "brick4_fwd": 6, "brick4_dydx": 1, "gather1d": 1}, "f4 render", smi)
     paths["f4 render"] = (launches, N_RENDERS)
+    _launch_sizes(model, o, d, B4, "B1", kernels, "brick4_fwd")
     paths["f4 autograd nablas"] = (_autograd_nablas(model, x3, "brick4"), 1)
     _step_vs_cpu(model, cpu, o, d, cpu_s, "f4")
     paths["f4 train step"] = (_train(
@@ -1745,6 +1831,7 @@ def main() -> int:
     launches, cpu_s = _serve(neus2, cpu2, o, d, {
         "brick_fwd": 6, "brick_dydx": 1, "gather1d": 1}, "f2 render", smi)
     paths["f2 render"] = (launches, N_RENDERS)
+    _launch_sizes(neus2, o, d, B, "B6", kernels, "brick_fwd")
     paths["f2 autograd nablas"] = (_autograd_nablas(neus2, x3b, "brick"), 1)
     _step_vs_cpu(neus2, cpu2, o, d, cpu_s, "f2")
     paths["f2 train step"] = (_train(

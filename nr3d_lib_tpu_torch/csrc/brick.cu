@@ -17,31 +17,48 @@
 // resident in the 50 MB L2, so the loads are bound by L2 latency and
 // transactions, far above the DRAM bound of the points' own bytes (12 B in,
 // 8 B per level out). Design: one thread per (point, level) for the encode
-// and its backward, one thread per point for the nablas and their backward
-// (their [N,3] output sums over levels, so a thread owns a point and the
-// nablas need no atomics); the index math (the JAX `_prologue`) runs in the
-// kernel, so nothing but x, the table and the outputs touches device
-// memory. No shared memory: a row is used once per thread. The TPU
-// kernels' software pipelining, lane-packed [tile,128] vectors, one-hot MXU
-// row gather, matmul reductions, per-level _pad8 accumulators and chunking
-// exist only for the TPU and are not carried over.
+// and its backward, one thread per point for the nablas (their [N,3]
+// output sums over levels, so a thread owns a point and the nablas need
+// no atomics); the index math (the JAX `_prologue`) runs in the kernel, so
+// nothing but x, the table and the outputs touches device memory. The
+// nablas' backward (B9) gives each warp 32 consecutive points at one
+// level, a block the run at all levels, as the cell permuto kernels do
+// (permuto_cell.cu): x, gg and g_up are staged in shared memory, dL/dg_up
+// leaves through it as one coalesced [32, L] run, and dL/dx sums the
+// levels there in level order. The TPU kernels' software pipelining,
+// lane-packed [tile,128] vectors, one-hot MXU row gather, matmul
+// reductions, per-level _pad8 accumulators and chunking exist only for
+// the TPU and are not carried over.
 //
 // The backwards (B7, B9) scatter dL/dtable into the natural [rows, 128]
-// layout with one 8-byte float2 atomicAdd per (point, level, corner). They
-// are bound by L2 atomic throughput, worst on the dense 16^3 (125 rows) and
-// 32^3 (1331 rows) levels, where many points share a row; the sums' order
-// changes from run to run. The C entries zero the gradient outputs on the
+// layout with 8-byte float2 atomicAdds in L2, worst on the dense 16^3 (125
+// rows) and 32^3 (1331 rows) levels, where many points share a row; the
+// sums' order changes from run to run. B7 issues one per (point, level,
+// corner). B9's warps sum, corner by corner, the lanes that add to one
+// slot and issue one atomic for the group (`warp_add2`, warp_atomics.cuh):
+// along rays 72% of the atomics remain at the F=2 NeuS step's points (49%
+// at its dense level 0). Measured there on an H100 at 700 W (chip_ab.py,
+// ray order): B9 took 0.119 ms as one thread per point walking the
+// levels, 0.023 of it without its atomics and 0.070 at level 0 alone;
+// in these warps 0.107 with one atomic per lane, 0.070 with the sums, of
+// which 0.018 without atomics and 0.054 without level 0's. A level-0
+// table privatized in shared memory would save at most that 0.016 ms,
+// so it was not built. The C entries zero the gradient outputs on the
 // stream.
 //
 // Bit-exactness notes. x*(res-2)+0.5 uses __fmul_rn/__fadd_rn: nvcc would
 // contract it into an FMA, which moves points on a cell boundary into the
 // neighbouring cell relative to the plain version. The brick hash multiplies
-// in uint32, as the plain version does in int64 with & 0xFFFFFFFF. This file
-// is self-contained (it shares no header with brick4.cu), so the build's
-// source hash covers all of it.
+// in uint32, as the plain version does in int64 with & 0xFFFFFFFF. B9's
+// dL/dg_up and dL/dx are the bits of its one-thread-per-point form (the
+// per-level sums keep their order; the level sum d += e * (res-2) is the
+// FMA nvcc made of it there). This file shares only warp_atomics.cuh with
+// the other sources; the build's hash covers every header.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "warp_atomics.cuh"
 
 #define BRICK_MAX_LEVELS 8
 
@@ -99,17 +116,6 @@ __device__ __forceinline__ Located locate(const float xp[3],
 // corner k = (b0, b1, b2) bits → vertex offset inside the brick
 __device__ __forceinline__ int corner_off(int k) {
   return ((k >> 2) & 1) * 16 + ((k >> 1) & 1) * 4 + (k & 1);
-}
-
-// 8-byte atomic add into global memory (one instruction on sm_90).
-__device__ __forceinline__ void atomic_add2(float2* dst, float2 v) {
-#if __CUDACC_VER_MAJOR__ > 12 || \
-    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1)
-  atomicAdd(dst, v);
-#else
-  atomicAdd(&dst->x, v.x);
-  atomicAdd(&dst->y, v.y);
-#endif
 }
 
 // B6: one thread per (point, level), i = p * L + l. y [n, L] float2.
@@ -236,14 +242,21 @@ __global__ void brick_dydx_kernel(const float2* __restrict__ g_up,
   dx[p * 3 + 2] = d[2];
 }
 
-// B9, the backward of B8: one thread per point, looping over levels. With
-// D_a = gg_a (res_a - 2), h_k = g_up . val_k and sg_a = 2 bit_a - 1:
+// B9's run of consecutive points: one warp's width at each level
+constexpr int BRICK_POINTS = 32;
+
+// B9, the backward of B8. With D_a = gg_a (res_a - 2), h_k = g_up . val_k
+// and sg_a = 2 bit_a - 1:
 //   c_k           = sum_a D_a dw_k/dfrac_a
 //   dL/dg_up[l,f] = sum_k c_k val_k[f]              (written, no atomics)
-//   dL/dtable     += c_k g_up[l,:] at corner k       (float2 atomicAdd)
+//   dL/dtable     += c_k g_up[l,:] at corner k       (float2 atomics)
 //   dL/dx_b       += (res_b-2) sum_k h_k sg_b sum_{a!=b} D_a sg_a s_c(k)
 // where c is the axis other than a and b (trilinear weights are linear in
-// each frac, so only the mixed second derivatives survive).
+// each frac, so only the mixed second derivatives survive). A block takes
+// a run of BRICK_POINTS consecutive points at all L levels (blockDim =
+// 32 L), warp l the run at level l. g_up's [32, L] slots in shared memory
+// are overwritten by dL/dg_up (each thread reads its own slot first); e,
+// the level's dL/dx before its (res-2), goes to [L, 32, 3] there.
 __global__ void brick_bwd2_kernel(const float2* __restrict__ g_up,
                                   const float* __restrict__ x,
                                   const float2* __restrict__ table,
@@ -252,17 +265,28 @@ __global__ void brick_bwd2_kernel(const float2* __restrict__ g_up,
                                   float2* __restrict__ dgup,
                                   float2* __restrict__ dtab,
                                   float* __restrict__ dx, long long n) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
+  __shared__ float xs[BRICK_POINTS * 3], ggs[BRICK_POINTS * 3];
+  __shared__ float2 gs[BRICK_POINTS * BRICK_MAX_LEVELS];
+  __shared__ float es[BRICK_MAX_LEVELS * BRICK_POINTS * 3];
   const int L = meta.n_levels;
-  const float xp[3] = {x[p * 3], x[p * 3 + 1], x[p * 3 + 2]};
-  const float ggp[3] = {gg[p * 3], gg[p * 3 + 1], gg[p * 3 + 2]};
-  float d[3] = {0.f, 0.f, 0.f};
-  for (int l = 0; l < L; ++l) {
+  const long long p0 = (long long)blockIdx.x * BRICK_POINTS;
+  const int np = (int)min((long long)BRICK_POINTS, n - p0);
+  for (int k = threadIdx.x; k < np * 3; k += blockDim.x) {
+    xs[k] = x[p0 * 3 + k];
+    ggs[k] = gg[p0 * 3 + k];
+  }
+  for (int k = threadIdx.x; k < np * L; k += blockDim.x)
+    gs[k] = g_up[p0 * L + k];
+  __syncthreads();
+  const int l = threadIdx.x >> 5, i = threadIdx.x & 31;
+  const unsigned active = __ballot_sync(0xffffffffu, i < np);
+  if (i < np) {
+    const float xp[3] = {xs[i * 3], xs[i * 3 + 1], xs[i * 3 + 2]};
+    const float ggp[3] = {ggs[i * 3], ggs[i * 3 + 1], ggs[i * 3 + 2]};
     const BrickLevel& lv = meta.lv[l];
     const Located c = locate(xp, lv);
-    const float2 g = g_up[p * L + l];
-    const long long base = (long long)c.row * 64 + c.vert0;
+    const float2 g = gs[i * L + l];
+    const int base = c.row * 64 + c.vert0;
     float s[3][2], D[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -284,7 +308,8 @@ __global__ void brick_bwd2_kernel(const float2* __restrict__ g_up,
                        D[2] * sg2 * s[0][b0] * s[1][b1];
       dg0 += ck * v.x;
       dg1 += ck * v.y;
-      atomic_add2(dtab + base + off, make_float2(ck * g.x, ck * g.y));
+      // a key does not name its corner, so lanes meet corner by corner
+      warp_add2(dtab, base + off, make_float2(ck * g.x, ck * g.y), active);
       if (dx != nullptr) {
         const float h = g.x * v.x + g.y * v.y;
         e[0] += h * sg0 * (D[1] * sg1 * s[2][b2] + D[2] * sg2 * s[1][b1]);
@@ -292,14 +317,24 @@ __global__ void brick_bwd2_kernel(const float2* __restrict__ g_up,
         e[2] += h * sg2 * (D[0] * sg0 * s[1][b1] + D[1] * sg1 * s[0][b0]);
       }
     }
-    dgup[p * L + l] = make_float2(dg0, dg1);
+    gs[i * L + l] = make_float2(dg0, dg1);
+    if (dx != nullptr) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a) d[a] += e[a] * (float)(lv.res[a] - 2);
+      for (int a = 0; a < 3; ++a) es[(l * BRICK_POINTS + i) * 3 + a] = e[a];
+    }
   }
+  __syncthreads();
+  for (int k = threadIdx.x; k < np * L; k += blockDim.x)
+    dgup[p0 * L + k] = gs[k];
   if (dx != nullptr) {
-    dx[p * 3] = d[0];
-    dx[p * 3 + 1] = d[1];
-    dx[p * 3 + 2] = d[2];
+    for (int k = threadIdx.x; k < np * 3; k += blockDim.x) {
+      const int a = k % 3;
+      float d = 0.f;
+      for (int ll = 0; ll < L; ++ll)
+        d = fmaf(es[ll * BRICK_POINTS * 3 + k],
+                 (float)(meta.lv[ll].res[a] - 2), d);
+      dx[p0 * 3 + k] = d;
+    }
   }
 }
 
@@ -365,8 +400,9 @@ int brick_bwd2(const void* g_up, const void* x, const void* table,
   cudaStream_t st = (cudaStream_t)stream;
   cudaMemsetAsync(dtab, 0, (size_t)total_rows(meta) * 128 * sizeof(float),
                   st);
-  if (n > 0) {
-    brick_bwd2_kernel<<<n_blocks(n, 256), 256, 0, st>>>(
+  if (n > 0 && meta.n_levels > 0) {
+    brick_bwd2_kernel<<<n_blocks(n, BRICK_POINTS), 32 * meta.n_levels, 0,
+                        st>>>(
         (const float2*)g_up, (const float*)x, (const float2*)table,
         (const float*)gg, meta, (float2*)dgup, (float2*)dtab, (float*)dx, n);
   }

@@ -19,13 +19,27 @@
 // instructions, not the loads, bound the forward: on an H100 (700 W) its
 // loads removed, it took 0.057 of its 0.066 ms at the dynamic NeuS's
 // 393,216 points x 5 levels, and the search's exact shortcuts
-// (permuto_simplex.cuh) took it to 0.035 ms.
-// Design: the forward gives each warp 32 consecutive points at one level
-// (a block takes the run at all levels). The paths feed points ray by
-// ray, so at the coarse levels a warp's neighbours share a cell row and
-// its loads merge into few sectors; each warp reads its level's meta
-// uniformly. The backward is one thread per (point, level), the nablas
-// one thread per point looping over levels (its [N,d] output sums over
+// (permuto_simplex.cuh) took it to 0.035 ms. The backward scatters d+1
+// float2 gradients a (point, level) into dL/dtable by atomics in L2,
+// worst on a dense level (the 3D fields' level 0, 1985 rows, takes every
+// point's atomics), and they bound it: at the dynamic NeuS's points
+// (chip_ab.py, ray order) it took 0.160 ms as one thread per (point,
+// level), 0.151 in the warps below with one atomic per lane, 0.070 once
+// the warps sum their lanes (4.62 M of 9.83 M atomics left) and 0.037
+// with no atomics at all.
+// Design: the forward and the backward give each warp 32 consecutive
+// points at one level (a block takes the run at all levels), so each warp
+// reads its level's meta uniformly, and x, y and the backward's g pass
+// through shared memory, so that the block's [points, L] rows move as one
+// coalesced run. The paths feed points ray by ray, so at the coarse
+// levels a warp's neighbours share a cell row: the forward's loads merge
+// into few sectors, and the backward's lanes that add to one slot sum in
+// the warp and issue one atomic for the group (`warp_add2`,
+// warp_atomics.cuh; vertex k's slot has k bits set, so lanes meet only at
+// the same k). dL/dx, when asked for, sums each point's levels in shared
+// memory in level order and is written once: no atomics, no memset, and
+// the same bits whatever the order of the points. The nablas are one
+// thread per point looping over levels (its [N,d] output sums over
 // levels, so a thread owns a point and needs no atomics). All levels go
 // in one launch. The TPU kernels' level groups, A/B row buffers,
 // lane-pattern extraction, MXU reduce/weight matrices and point chunking
@@ -33,22 +47,23 @@
 //
 // Vertex k's two features sit at lanes lane_k, lane_k + 1 of its row
 // (lane_k even), so one aligned float2 load reads both and one float2
-// atomicAdd scatters both gradients into dL/dtable [rows, 128]. The
-// backward is bound by L2 atomic throughput, worst on a dense level (the
-// 3D fields' level 0, 1985 rows, takes every point's atomics); the sums'
-// order changes from run to run. At d = 4 the TPU layout pads each level
-// to 8 vertex slots; here a thread simply loops over the d+1 real ones.
+// atomicAdd scatters a group's summed gradients into dL/dtable [rows,
+// 128]; the sums' order changes from run to run. At d = 4 the TPU layout
+// pads each level to 8 vertex slots; here a thread simply loops over the
+// d+1 real ones.
 //
 // The simplex search, the dL/dx algebra (elevation_vjp) and the
 // bit-exactness rules live in permuto_simplex.cuh, shared with the F=4
 // kernels of permuto_cell4.cu.
 
 #include "permuto_simplex.cuh"
+#include "warp_atomics.cuh"
 
-// B10's run of consecutive points: one warp's width at each level
-constexpr int PC_FWD_POINTS = 32;
+// B10 and B11/B12's run of consecutive points: one warp's width at each
+// level
+constexpr int PC_POINTS = 32;
 
-// B10: a block takes a run of PC_FWD_POINTS consecutive points at all L
+// B10: a block takes a run of PC_POINTS consecutive points at all L
 // levels (blockDim = 32 L), warp l the run at level l -> y [n, L] float2.
 // x is staged in shared memory once, y through shared memory so that the
 // block's [points, L] store is one coalesced run.
@@ -57,11 +72,11 @@ __global__ void permuto_fwd_kernel(const float* __restrict__ x,
                                    const float2* __restrict__ table,
                                    const __grid_constant__ PCMeta meta,
                                    float2* __restrict__ y, long long n) {
-  __shared__ float xs[PC_FWD_POINTS * D];
-  __shared__ float2 ys[PC_FWD_POINTS * PC_MAX_LEVELS];
+  __shared__ float xs[PC_POINTS * D];
+  __shared__ float2 ys[PC_POINTS * PC_MAX_LEVELS];
   const int L = meta.n_levels;
-  const long long p0 = (long long)blockIdx.x * PC_FWD_POINTS;
-  const int np = (int)min((long long)PC_FWD_POINTS, n - p0);
+  const long long p0 = (long long)blockIdx.x * PC_POINTS;
+  const int np = (int)min((long long)PC_POINTS, n - p0);
   for (int k = threadIdx.x; k < np * D; k += blockDim.x)
     xs[k] = x[p0 * D + k];
   __syncthreads();
@@ -85,20 +100,11 @@ __global__ void permuto_fwd_kernel(const float* __restrict__ x,
   for (int k = threadIdx.x; k < np * L; k += blockDim.x) y[p0 * L + k] = ys[k];
 }
 
-// 8-byte atomic add into global memory (one instruction on sm_90).
-__device__ __forceinline__ void atomic_add2(float2* dst, float2 v) {
-#if __CUDACC_VER_MAJOR__ > 12 || \
-    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1)
-  atomicAdd(dst, v);
-#else
-  atomicAdd(&dst->x, v.x);
-  atomicAdd(&dst->y, v.y);
-#endif
-}
-
-// B11 / B12: one thread per (point, level). dtab [rows, 64] float2
-// (zeroed by the caller) += bary_k * g at vertex k. With dx (zeroed, may
-// be null; B12): dL/dx += the level's elevation vjp of gf_k = g . val_k.
+// B11 / B12: the blocks of B10. dtab [rows, 64] float2 (zeroed by the
+// caller) += bary_k * g at vertex k. With dx (may be null; B12): dL/dx =
+// the sum over the levels, in level order, of each level's elevation vjp
+// of gf_k = g . val_k. Dynamic shared memory: g's [32, L] float2, x's
+// [32, D] and, with dx, the levels' [L, 32, D] partials.
 template <int D>
 __global__ void permuto_bwd_kernel(const float* __restrict__ x,
                                    const float2* __restrict__ g,
@@ -106,35 +112,54 @@ __global__ void permuto_bwd_kernel(const float* __restrict__ x,
                                    const __grid_constant__ PCMeta meta,
                                    float2* __restrict__ dtab,
                                    float* __restrict__ dx, long long n) {
+  extern __shared__ float2 smem[];
   const int L = meta.n_levels;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n * L) return;
-  const long long p = i / L;
-  const int l = (int)(i - p * L);
-  float xp[D];
+  float2* gs = smem;                                   // [32, L]
+  float* xs = (float*)(smem + PC_POINTS * L);          // [32, D]
+  float* dxs = xs + PC_POINTS * D;                     // [L, 32, D]
+  const long long p0 = (long long)blockIdx.x * PC_POINTS;
+  const int np = (int)min((long long)PC_POINTS, n - p0);
+  for (int k = threadIdx.x; k < np * D; k += blockDim.x)
+    xs[k] = x[p0 * D + k];
+  for (int k = threadIdx.x; k < np * L; k += blockDim.x)
+    gs[k] = g[p0 * L + k];
+  __syncthreads();
+  const int l = threadIdx.x >> 5, i = threadIdx.x & 31;
+  const unsigned active = __ballot_sync(0xffffffffu, i < np);
+  if (i < np) {
+    float xp[D];
 #pragma unroll
-  for (int a = 0; a < D; ++a) xp[a] = x[p * D + a];
-  const PCLevel& lv = meta.lv[l];
-  Simplex<D> s;
-  find_simplex<D>(xp, meta, lv, s);
-  const float2 gv = g[i];
-  float gf[D + 1];
+    for (int a = 0; a < D; ++a) xp[a] = xs[i * D + a];
+    const PCLevel& lv = meta.lv[l];
+    Simplex<D> s;
+    find_simplex<D>(xp, meta, lv, s);
+    const float2 gv = gs[i * L + l];
+    float gf[D + 1];
 #pragma unroll
-  for (int k = 0; k <= D; ++k) {
-    const float w = s.bary[k];
-    atomic_add2(dtab + s.vtx[k], make_float2(w * gv.x, w * gv.y));
+    for (int k = 0; k <= D; ++k) {
+      const float w = s.bary[k];
+      warp_add2(dtab, s.vtx[k], make_float2(w * gv.x, w * gv.y), active);
+      if (dx != nullptr) {
+        const float2 v = __ldg(table + s.vtx[k]);
+        gf[k] = gv.x * v.x + gv.y * v.y;
+      }
+    }
     if (dx != nullptr) {
-      const float2 v = __ldg(table + s.vtx[k]);
-      gf[k] = gv.x * v.x + gv.y * v.y;
+      float d[D];
+#pragma unroll
+      for (int a = 0; a < D; ++a) d[a] = 0.f;
+      elevation_vjp<D>(s, gf, meta, lv, d);
+#pragma unroll
+      for (int a = 0; a < D; ++a) dxs[(l * PC_POINTS + i) * D + a] = d[a];
     }
   }
   if (dx != nullptr) {
-    float d[D];
-#pragma unroll
-    for (int a = 0; a < D; ++a) d[a] = 0.f;
-    elevation_vjp<D>(s, gf, meta, lv, d);
-#pragma unroll
-    for (int a = 0; a < D; ++a) atomicAdd(dx + p * D + a, d[a]);
+    __syncthreads();
+    for (int k = threadIdx.x; k < np * D; k += blockDim.x) {
+      float sum = 0.f;
+      for (int ll = 0; ll < L; ++ll) sum += dxs[ll * PC_POINTS * D + k];
+      dx[p0 * D + k] = sum;
+    }
   }
 }
 
@@ -179,7 +204,7 @@ int permuto_fwd(const void* x, const void* table, PCMeta meta, void* y,
   if (n > 0 && meta.n_levels > 0) {
     const int threads = 32 * meta.n_levels;
 #define PC_FWD(D)                                                        \
-  permuto_fwd_kernel<D><<<pc_blocks_for(n, PC_FWD_POINTS), threads, 0,   \
+  permuto_fwd_kernel<D><<<pc_blocks_for(n, PC_POINTS), threads, 0,       \
                           (cudaStream_t)stream>>>(                       \
       (const float*)x, (const float2*)table, meta, (float2*)y, n)
     PC_DISPATCH(meta.n_dims, PC_FWD)
@@ -189,7 +214,7 @@ int permuto_fwd(const void* x, const void* table, PCMeta meta, void* y,
 }
 
 // x [n,d] f32, g [n,2L] f32, table [rows,128] f32 (needed only with dx),
-// dtab [rows,128] f32 (zeroed here), dx [n,d] f32 or null (zeroed here).
+// dtab [rows,128] f32 (zeroed here), dx [n,d] f32 or null (written whole).
 int permuto_bwd(const void* x, const void* g, const void* table,
                 PCMeta meta, void* dtab, void* dx, long long n,
                 void* stream) {
@@ -197,14 +222,14 @@ int permuto_bwd(const void* x, const void* g, const void* table,
   if (dx != nullptr && table == nullptr) return (int)cudaErrorInvalidValue;
   cudaMemsetAsync(dtab, 0,
                   (size_t)pc_total_rows(meta) * 128 * sizeof(float), st);
-  if (dx != nullptr)
-    cudaMemsetAsync(dx, 0, (size_t)n * meta.n_dims * sizeof(float), st);
-  const long long total = n * meta.n_levels;
-  if (total > 0) {
-    const int threads = 256;
+  if (n > 0 && meta.n_levels > 0) {
+    const int L = meta.n_levels, d = meta.n_dims;
+    const size_t smem = sizeof(float2) * PC_POINTS * L +
+                        sizeof(float) * PC_POINTS * d *
+                            (dx != nullptr ? L + 1 : 1);
 #define PC_BWD(D)                                                          \
-  permuto_bwd_kernel<D>                                                    \
-      <<<pc_blocks_for(total, threads), threads, 0, st>>>(                 \
+  permuto_bwd_kernel<D><<<pc_blocks_for(n, PC_POINTS), 32 * L, smem,       \
+                          st>>>(                                           \
       (const float*)x, (const float2*)g, (const float2*)table, meta,       \
       (float2*)dtab, (float*)dx, n)
     PC_DISPATCH(meta.n_dims, PC_BWD)

@@ -42,7 +42,7 @@ __all__ = ["BrickLevel", "BrickMeta", "make_brick_meta",
            "brick_encode", "brick_encode_frozen_x", "brick_nablas",
            "brick_encode_xla", "brick_corner_values_xla",
            "brick_encode_bwd_xla", "brick_nablas_xla", "brick_nablas_bwd_xla",
-           "HASH_PRIMES", "BRICK_W", "LANES", "MAX_LEVELS"]
+           "brick_atomic_groups", "HASH_PRIMES", "BRICK_W", "LANES", "MAX_LEVELS"]
 
 # nr3d_lib_tpu/ops/lotd.py HASH_PRIMES (copied: the port imports nothing of
 # the JAX package)
@@ -205,6 +205,27 @@ def _level_corners(x: torch.Tensor, t_flat: torch.Tensor, level,
     return t_flat[idx], frac
 
 
+def brick_atomic_groups(x: torch.Tensor, meta: BrickMeta,
+                        warp: int = 32) -> List[int]:
+    """Per level, the table-gradient atomics that B9 (`brick_bwd2`)
+    issues at the points x [N, 3] in their order: a warp takes `warp`
+    consecutive points at one level, and corner by corner its lanes that
+    add to one slot (row·64 + vertex) sum first, so one atomic per
+    distinct (warp, corner, slot); one lane alone issues N·8 a level."""
+    bits = _corner_bits(x.device)
+    corner_v = (bits[:, 0] * BRICK_W + bits[:, 1]) * BRICK_W + bits[:, 2]
+    n_slots = meta.total_rows * 64
+    with torch.no_grad():
+        wid = torch.arange(x.shape[0], device=x.device)[:, None] // warp
+        out = []
+        for level in meta.levels:
+            row, lane0, _ = _level_rows_and_lanes(x, level)
+            slot = row[:, None] * 64 + lane0[:, None] // N_FEAT + corner_v
+            key = (wid * 8 + torch.arange(8, device=x.device)) * n_slots + slot
+            out.append(int(torch.unique(key).numel()))
+        return out
+
+
 def _encode_plain(x: torch.Tensor, t_flat: torch.Tensor, meta: BrickMeta,
                   n_feat: int) -> torch.Tensor:
     """Σ_corners w·value per level → [N, n_feat·L], column l·n_feat + f."""
@@ -316,6 +337,9 @@ def c_meta(meta: BrickMeta, struct: type = _Meta):
     if meta.n_levels > cap:
         raise ValueError(f"the brick kernels take at most {cap} levels, got "
                          f"{meta.n_levels}")
+    if meta.total_rows >= 1 << 25:
+        raise ValueError(f"the brick kernels index slots in int32: at most "
+                         f"2^25 - 1 rows, got {meta.total_rows}")
     m = struct()
     m.n_levels = meta.n_levels
     for i, lv in enumerate(meta.levels):

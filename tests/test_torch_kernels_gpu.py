@@ -31,8 +31,10 @@ its warp vote skips must be exact zeros), and at the bench scene's
 attrs. B10 and B14 also run on points along rays and on the same
 points permuted (the permuted rows must be the same bits), d = 2–5; so
 does B15, whose dL/dx must then be the same bits, and on warps whose
-points share one cell. The search's shortcuts are checked over all 2^32
-inputs: its division by d+1 bitwise against x / b, its modulus exactly.
+points share one cell; so do B11/B12 (F=2, the same design) and B9,
+whose dL/dg_up and dL/dx must be the same bits in two runs and in both
+orders. The search's shortcuts are checked over all 2^32 inputs: its
+division by d+1 bitwise against x / b, its modulus exactly.
 """
 
 import numpy as np
@@ -1207,3 +1209,149 @@ def test_search_modulus_is_exact_for_any_modulus(cuda):
                      "pc_check_mod")
         torch.cuda.synchronize()
         assert out[0].item() == 0, (m, hex(out[1].item()))
+
+
+# ------------- B11/B12 and B9: level-major warps, warp-aggregated float2
+# atomics, dL/dx summed over the levels in the block
+@pytest.mark.parametrize("d", sorted(PC_ALL_D))
+@pytest.mark.parametrize("n", [1, 7, 31, 33, 1000, 96 * 1001])
+def test_permuto_bwd_ray_and_permuted_order(cuda, d, n):
+    """B11 and B12 at ray order and permuted, against the plain version;
+    B12's dL/dx is summed over the levels in a block, so it is bitwise
+    the same in two runs and in both orders. n covers a single point,
+    n < 32, a ragged last run and many runs; d = 2–5 (d = 3 with the 3D
+    lattice's dense level)."""
+    meta = PC.make_permuto_cell_meta(d, PC_ALL_D[d], 4096)
+    if d == 3:
+        assert any(lv.box_dims is not None for lv in meta.levels)
+    x = _pc_ray_points(cuda, d, -(-n // 96), 96, seed=d + 20)[:n].contiguous()
+    rng = np.random.default_rng(d + 70)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (meta.total_rows, 128)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(n, 2 * meta.n_levels)).astype(
+        np.float32)).to(cuda)
+    perm = torch.from_numpy(rng.permutation(n)).to(cuda)
+    dxs = []
+    for xx, gg in ((x, g), (x[perm].contiguous(), g[perm].contiguous())):
+        dx_p, dtab_p = PC.permuto_cell_encode_bwd_xla(xx, table, gg, meta,
+                                                      True)
+        for need_dx in (False, True):
+            before = _build.LAUNCHES["permuto_bwd"]
+            dx, dtab = PC._bwd_cuda(xx, gg, meta, need_dx=need_dx,
+                                    table=table)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["permuto_bwd"] == before + 1
+            _close(dtab, dtab_p, 1e-5)
+            if need_dx:
+                _close(dx, dx_p, 1e-4)
+                again, _ = PC._bwd_cuda(xx, gg, meta, need_dx=True,
+                                        table=table)
+                assert torch.equal(again, dx)
+                dxs.append(dx)
+            else:
+                assert dx is None
+    assert torch.equal(dxs[1], dxs[0][perm])
+
+
+def test_permuto_bwd_one_cell_warps(cuda):
+    """Every warp's 32 points in one cell at every level (one group per
+    vertex and warp; level 0 dense): the groups' sums against the plain
+    version, and the count of atomics the aggregation leaves."""
+    meta = PC.make_permuto_cell_meta(3, PC_ALL_D[3], 4096)
+    rng = np.random.default_rng(71)
+    n_warps = 500
+    x = np.repeat(rng.uniform(0.0, 1.0, (n_warps, 3)), 32, 0)
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (meta.total_rows, 128)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(len(x), 2 * meta.n_levels))
+                         .astype(np.float32)).to(cuda)
+    assert PC.atomic_groups(x, meta) == [n_warps * 4] * meta.n_levels
+    dx, dtab = PC._bwd_cuda(x, g, meta, need_dx=True, table=table)
+    dx_p, dtab_p = PC.permuto_cell_encode_bwd_xla(x, table, g, meta, True)
+    _close(dtab, dtab_p, 1e-5)
+    _close(dx, dx_p, 1e-4)
+
+
+def test_permuto_bwd_empty(cuda):
+    meta = PC.make_permuto_cell_meta(4, PC_ALL_D[4], 4096)
+    x = torch.zeros(0, 4, device=cuda)
+    g = torch.zeros(0, 2 * meta.n_levels, device=cuda)
+    table = torch.zeros(meta.total_rows, 128, device=cuda)
+    for need_dx in (False, True):
+        dx, dtab = PC._bwd_cuda(x, g, meta, need_dx=need_dx, table=table)
+        torch.cuda.synchronize()
+        assert dtab.shape == (meta.total_rows, 128) and not dtab.any()
+        assert dx is None if not need_dx else dx.shape == (0, 4)
+
+
+def _brick_ray_inputs(dev, meta_name: str, n: int, seed: int):
+    """B9's inputs at points along rays (`_pc_ray_points`), from seeds."""
+    lod_res, types, rows = F2_METAS[meta_name]
+    meta = B.make_brick_meta(lod_res, types, rows)
+    x = _pc_ray_points(dev, 3, max(-(-n // 96), 1), 96, seed)[:n].contiguous()
+    rng = np.random.default_rng(seed + 1)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (meta.total_rows, 128)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(n, 2 * meta.n_levels)).astype(
+        np.float32)).to(dev)
+    gg = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    perm = torch.from_numpy(rng.permutation(n)).to(dev)
+    return meta, x, table, g, gg, perm
+
+
+@pytest.mark.parametrize("meta_name", sorted(F2_METAS))
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 1000, 96 * 1001])
+def test_brick_bwd2_ray_and_permuted_order(cuda, meta_name, n):
+    """B9 at ray order and permuted: dL/dg_up and dL/dx are each point's
+    own sums (levels in order), so they are bitwise the same in two runs
+    and in both orders once un-permuted; dL/dtable within its tolerance
+    of the plain version. n = 0, n < 32 and a ragged last run."""
+    meta, x, table, g, gg, perm = _brick_ray_inputs(cuda, meta_name, n, 90)
+    outs = []
+    for xx, g2, ggg in ((x, g, gg), (x[perm].contiguous(),
+                                     g[perm].contiguous(),
+                                     gg[perm].contiguous())):
+        before = _build.LAUNCHES["brick_bwd2"]
+        dg, dx, dtab = B._bwd2_cuda(g2, xx, table, ggg, meta)
+        dg2, dx2, dtab2 = B._bwd2_cuda(g2, xx, table, ggg, meta)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["brick_bwd2"] == before + 2
+        assert dg.shape == (n, 2 * meta.n_levels) and dx.shape == (n, 3)
+        assert torch.equal(dg, dg2) and torch.equal(dx, dx2)
+        if n == 0:
+            assert dtab.shape == (meta.total_rows, 128) and not dtab.any()
+        else:
+            dg_p, dx_p, dtab_p = B.brick_nablas_bwd_xla(g2, xx, table, ggg,
+                                                        meta)
+            _close(dg, dg_p, 1e-4)
+            _close(dx, dx_p, 1e-4)
+            _close(dtab, dtab_p, 1e-5)
+            _close(dtab2, dtab_p, 1e-5)
+        outs.append((dg, dx))
+    inv = torch.argsort(perm)
+    assert torch.equal(outs[1][0][inv], outs[0][0])
+    assert torch.equal(outs[1][1][inv], outs[0][1])
+
+
+def test_brick_bwd2_one_brick_warps(cuda):
+    """Every warp's 32 points at one point of space (one group per corner
+    and warp at every level): the groups' sums against the plain version,
+    and the count of atomics the aggregation leaves."""
+    meta = B.make_brick_meta(*F2_METAS["dense_hash"])
+    rng = np.random.default_rng(91)
+    n_warps = 300
+    x = np.repeat(rng.uniform(0.0, 1.0, (n_warps, 3)), 32, 0)
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (meta.total_rows, 128)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(len(x), 2 * meta.n_levels))
+                         .astype(np.float32)).to(cuda)
+    gg = torch.from_numpy(rng.normal(size=(len(x), 3)).astype(
+        np.float32)).to(cuda)
+    assert B.brick_atomic_groups(x, meta) == [n_warps * 8] * meta.n_levels
+    dg, dx, dtab = B._bwd2_cuda(g, x, table, gg, meta)
+    dg_p, dx_p, dtab_p = B.brick_nablas_bwd_xla(g, x, table, gg, meta)
+    _close(dg, dg_p, 1e-4)
+    _close(dx, dx_p, 1e-4)
+    _close(dtab, dtab_p, 1e-5)
