@@ -21,10 +21,12 @@
    and B4 (brick4_bwd2) at the train step's 147,456 points. F=2 (slice 3):
    B6 (brick_fwd) at the NeRF render's 196,608 points × 6 levels and at
    the NeuS render's 589,824 × 4; B6 want_g, B7 (brick_bwd, with and
-   without dL/dx), B8 (brick_dydx) and B9 (brick_bwd2, also timed on the
-   same points in a random order, where its dL/dg_up and dL/dx must be
-   the same bits; its row counts the float2 atomics before and after the
-   warps' aggregation) at 147,456 × 4.
+   without dL/dx), B8 (brick_dydx) and B9 (brick_bwd2) at 147,456 × 4.
+   B7 and B9 are also timed on the same points in a random order, where
+   their dL/dx (and B9's dL/dg_up) must be the same bits, and their rows
+   count the float2 atomics before and after the warps' aggregation; B7
+   is also timed on the points it receives in one more F=2 train step
+   after path B's timed steps (`[B7 brick_bwd] on the F=2 step's own`).
    F=4 cell permuto (path C), at the dynamic NeuS's final query of
    393,216 (x,t) points × 4 levels: B14 (permuto4_fwd, also timed on the
    same points in a random order, whose rows must be the ray order's
@@ -39,11 +41,13 @@
    ray order's rows bit for bit), B11 and B12 (permuto_bwd without and
    with dL/dx, as B15: B12's dL/dx the same bits in the random order, the
    atomics counted) and B13 (permuto_dydx). Gaussian splatting (path E),
-   at the
-   bench scene's 1024 tiles of 16² × 256 slots: B17 (gs_blend) and B18
-   (gs_blend_bwd, upstream gradients from numpy; its row also counts the
-   (pixel, slot) pairs above the α floor and the (warp, slot) pairs in
-   which any pixel is, the work its warp vote leaves).
+   at the bench scene's 1024 tiles of 16² × 256 slots: B17 (gs_blend;
+   its row counts the (warp, slot) pairs of its 8 x 4 warps that its cull
+   keeps, by the cull's plain mirror, beside those some pixel takes, and
+   gives the issue ceiling at the kept pairs) and B18 (gs_blend_bwd,
+   upstream gradients from numpy; its row also counts the (pixel, slot)
+   pairs above the α floor and the (warp, slot) pairs in which any pixel
+   is, the work its warp vote leaves).
 4. The paths, each through the entry points a user calls, with seeded
    weights, a seeded 15% occupancy and seeded rays. Launch counters are
    zeroed just before each path and read just after; every count must be
@@ -113,6 +117,7 @@ device is present or when the port's package is not beside it.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -196,6 +201,53 @@ def _smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _sass_functions(lib: Path) -> dict:
+    """Each kernel of a built library → its SASS as (address, instruction)
+    pairs, NOPs aside (`cuobjdump -sass` from the toolkit of `nvcc`)."""
+    from nr3d_lib_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", line)
+        if name and m and "NOP" not in m.group(2):
+            out[name].append((int(m.group(1), 16), m.group(2).strip()))
+    return out
+
+
+def _walk_per_pair(code: list):
+    """Instructions a pair of the innermost loop that evaluates alpha (a
+    backward branch around an `MUFU.EX2`): the loop's instructions over
+    the pairs it evaluates (its `MUFU.EX2`s); None if there is no such
+    loop."""
+    best = None
+    for addr, ins in code:
+        m = re.search(r"\bBRA (?:\S+, )?0x([0-9a-f]+)", ins)
+        if not m or int(m.group(1), 16) >= addr:
+            continue
+        body = [i for a, i in code if int(m.group(1), 16) <= a <= addr]
+        pairs = sum("MUFU.EX2" in i for i in body)
+        if pairs and (best is None or len(body) < best[0]):
+            best = (len(body), pairs)
+    return best[0] / best[1] if best else None
+
+
+def _sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -456,6 +508,26 @@ def _step_vs_cpu(model, cpu, o, d, cpu_render_s: float, label: str,
     model.zero_grad(set_to_none=True)
 
 
+def _train_state(model, device):
+    """The train steps' optimizer, Adam(5e-3), and their generator."""
+    import torch
+
+    return (torch.optim.Adam(model.parameters(), lr=5e-3),
+            torch.Generator(device=device).manual_seed(9))
+
+
+def _train_step(model, opt, gen, o, d, it: int, extra=None):
+    """Train step `it` (1, 2, ...): lifecycle, loss, backward, Adam.
+    Returns the loss, detached."""
+    model.training_before_per_step(it, gen)
+    opt.zero_grad(set_to_none=True)
+    loss = _step_loss(model, o, d, extra, generator=gen)
+    loss.backward()
+    opt.step()
+    model.training_after_per_step(it, gen)
+    return loss.detach()
+
+
 def _train(model, o, d, smi: str, label: str, per_step: dict,
            per_update: dict, extra=None) -> dict:
     """The production train step: warm-up, then N_STEPS timed steps that
@@ -464,20 +536,13 @@ def _train(model, o, d, smi: str, label: str, per_step: dict,
     import torch
     from nr3d_lib_tpu_torch.ops import _build
 
-    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
-    gen = torch.Generator(device=o.device).manual_seed(9)
+    opt, gen = _train_state(model, o.device)
     its = iter(range(1, 10 ** 6))
     losses = []
 
     def step():
         it = next(its)
-        model.training_before_per_step(it, gen)
-        opt.zero_grad(set_to_none=True)
-        loss = _step_loss(model, o, d, extra, generator=gen)
-        loss.backward()
-        opt.step()
-        model.training_after_per_step(it, gen)
-        losses.append(loss.detach())
+        losses.append(_train_step(model, opt, gen, o, d, it, extra))
         return it
 
     for _ in range(N_WARMUP_STEPS):
@@ -517,6 +582,56 @@ def _train(model, o, d, smi: str, label: str, per_step: dict,
     _require(last5 < vals[0], "the loss did not fall")
     _profile(step, med, f"{label} train step")
     return launches
+
+
+def _record_b7(model, o, d, it: int) -> dict:
+    """One train step's loss and backward at iteration `it` (no optimizer
+    step) with B7's wrapper wrapped, so the inputs that B7 receives inside
+    the F=2 NeuS step are kept: points, upstream gradients, keywords."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import lotd_brick as B
+
+    rec, orig = {}, B._bwd_cuda
+
+    def keep(x, g, meta, **kw):
+        rec.update(x=x.clone(), g=g.clone(), meta=meta, kw=kw)
+        return orig(x, g, meta, **kw)
+
+    gen = torch.Generator(device=o.device).manual_seed(9)
+    B._bwd_cuda = keep
+    try:
+        model.training_before_per_step(it, gen)
+        _step_loss(model, o, d, generator=gen).backward()
+    finally:
+        B._bwd_cuda = orig
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    _require("x" in rec, "B7 was not called in the F=2 train step")
+    return rec
+
+
+def _b7_step_points(model, o, d, kernels) -> None:
+    """B7 on the points of one more F=2 train step (after the timed ones):
+    its time there, alone, and the float2 atomics those points need; added
+    to B7's row."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import lotd_brick as B
+
+    it = N_WARMUP_STEPS + N_STEPS + 1
+    rec = _record_b7(model, o, d, it=it)
+    x, g, meta, kw = rec["x"], rec["g"], rec["meta"], rec["kw"]
+    n, L = x.shape[0], meta.n_levels
+    with torch.no_grad():
+        ms = _time_ms(lambda: B._bwd_cuda(x, g, meta, **kw))
+        groups = sum(B.brick_atomic_groups(x, meta))
+    print(f"[B7 brick_bwd] on the F=2 step's own {n:,} points x {L} levels "
+          f"(step it = {it}; need_dx {kw.get('need_dx')}): kernel "
+          f"{ms:.4f} ms alone | float2 "
+          f"atomics {groups:,} of {n * L * 8:,} after the warps' aggregation")
+    row = next(k for k in kernels if k["key"] == "brick_bwd")
+    row.update(ms_step_points=ms, n_step_points=n, step_points_it=it,
+               atomic_groups_step_points=groups,
+               atomics_naive_step_points=n * L * 8)
 
 
 def _serve(model, cpu_model, o, d, per_render: dict, label: str, smi: str,
@@ -902,7 +1017,8 @@ def _f2_kernel_phases(nerf, neus, o8, d8, o, d, kernels) -> "torch.Tensor":
                     replaces=f"{rep}:440", err=err, ms=ms, plain_ms=plain_ms,
                     bound=bound)
 
-        # B7: dL/dtable by float2 atomics; dL/dx from the want_g corners
+        # B7: dL/dtable by the warps' aggregated float2 atomics; dL/dx from
+        # the want_g corners, summed over the levels in the block
         dx_p, dtab_p = B.brick_encode_bwd_xla(x3, table, g2, meta, True)
         _, dtab_k = B._bwd_cuda(x3, g2, meta, need_dx=False)
         dx_k, dtab_k2 = B._bwd_cuda(x3, g2, meta, need_dx=True,
@@ -914,28 +1030,45 @@ def _f2_kernel_phases(nerf, neus, o8, d8, o, d, kernels) -> "torch.Tensor":
              "order that changes from run to run"),
             ("dL/dx", _err(dx_k, dx_p), 1e-4 + 1e-4 * float(dx_p.abs().max()),
              "sums over corners, features and levels scaled by res-2")])
+        # dL/dx is each point's own level sum: the same bits in another
+        # order of the points
+        perm = torch.randperm(n, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(17))
+        xp7, gp7 = x3[perm].contiguous(), g2[perm].contiguous()
+        dx_perm, _ = B._bwd_cuda(xp7, gp7, meta, need_dx=True,
+                                 corners=B._fwd_cuda(xp7, table, meta,
+                                                     want_g=True)[1])
+        _require(torch.equal(dx_perm, dx_k[perm]), "B7: a point's dL/dx "
+                 "depends on its place in the batch")
         ms = _time_ms(lambda: B._bwd_cuda(x3, g2, meta, need_dx=False))
         ms_dx = _time_ms(lambda: B._bwd_cuda(x3, g2, meta, need_dx=True,
                                              corners=corners))
+        ms_perm = _time_ms(lambda: B._bwd_cuda(xp7, gp7, meta,
+                                               need_dx=False))
         plain_ms = _time_ms(lambda: B.brick_encode_bwd_xla(
             x3, table, g2, meta, False), iters=5)
         plain_dx = _time_ms(lambda: B.brick_encode_bwd_xla(
             x3, table, g2, meta, True), iters=5)
+        naive = n * L * 8
+        groups = sum(B.brick_atomic_groups(x3, meta))
         # each (point, level): 12 index ops + 8 corners × (2 weight muls +
         # 2 products) = 44; with dL/dx + 8 × (3 for g·val + 9) = 140
         bound = _bound(n * (12 + 8 * L) + tab_bytes, n * L * 44)
         bound_dx = _bound(n * (12 + 8 * L + 64 * L + 12) + tab_bytes,
                           n * L * 140)
         print(f"[B7 brick_bwd] need_dx false (the step's form): kernel "
-              f"{ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
-              f"{bound[0]:.4f} ms ({bound[1]}); need_dx true: kernel "
-              f"{ms_dx:.4f} ms | plain {plain_dx:.4f} ms | bound "
-              f"{bound_dx[0]:.4f} ms ({bound_dx[1]}) | library: none")
+              f"{ms:.4f} ms (permuted {ms_perm:.4f} ms) | plain "
+              f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}); "
+              f"need_dx true: kernel {ms_dx:.4f} ms | plain {plain_dx:.4f} "
+              f"ms | bound {bound_dx[0]:.4f} ms ({bound_dx[1]}) | library: "
+              f"none | float2 atomics {groups:,} of {naive:,} after the "
+              f"warps' aggregation")
         _kernel_row(kernels, name="brick_bwd (B7)", key="brick_bwd",
                     path="f2 train step", source=src, replaces=f"{rep}:787",
                     err=err, ms=ms, plain_ms=plain_ms, bound=bound,
                     ms_need_dx=ms_dx, plain_ms_need_dx=plain_dx,
-                    bound_ms_need_dx=bound_dx[0])
+                    bound_ms_need_dx=bound_dx[0], ms_permuted=ms_perm,
+                    atomics_naive=naive, atomic_groups=groups)
 
         # B8: the nablas
         n_p = B.brick_nablas_xla(g2, x3, table, meta)
@@ -1461,6 +1594,7 @@ def _gs_kernel_phases(p: dict, cam, kernels) -> None:
     from numpy."""
     import torch
     from nr3d_lib_tpu_torch.graphics import gaussian_splatting as GS
+    from nr3d_lib_tpu_torch.ops import _build
 
     src = "nr3d_lib_tpu_torch/csrc/gaussian_blend.cu"
     rep = "nr3d_lib_tpu/graphics/gaussian_splatting.py"
@@ -1486,7 +1620,15 @@ def _gs_kernel_phases(p: dict, cam, kernels) -> None:
         n_above = int(above.sum())
         warp_pairs = n_t * (n_px // 32) * k
         warp_hits = int(above.view(n_t, n_px // 32, 32, k).any(2).sum())
+        # B17's warps (8 x 4 boxes): the (warp, slot) pairs some pixel
+        # takes, the live ones, and those its cull keeps (its plain mirror)
+        wp = GS._warp_pixels(tile).to(attrs.device)
+        b17_hits = int(above[:, wp.view(-1)].view(n_t, *wp.shape, k)
+                       .any(2).sum())
         del above
+        b17_live = n_live * wp.shape[0]
+        b17_kept = int(GS.gs_blend_cull_plain(attrs, origin, tile,
+                                              floor).sum())
     label = (f"{n_t} tiles of {tile}² x {k} slots, {n_live} live "
              f"({n_sat} with opacity ≥ 0.999), {pairs:,} (pixel, slot) pairs")
 
@@ -1507,12 +1649,35 @@ def _gs_kernel_phases(p: dict, cam, kernels) -> None:
     # rgb/acc/depth written
     io = n_t * (11 * k * 4 + 8) + n_t * n_px * 5 * 4
     bound = _bound(io, pairs * 31)
+    # the issue ceiling at the kept pairs: the warp instructions a kept
+    # (warp, slot) pair issues, counted in the SASS of the library this
+    # run built (B17's walk loop: its instructions over its MUFU.EX2s), at
+    # 4 a clock on each of the card's SMs at its top SM clock
+    mhz = _sm_clock_mhz()
+    n_sm = torch.cuda.get_device_properties(attrs.device) \
+        .multi_processor_count
+    per_pair = _walk_per_pair(next(
+        code for fn, code in _sass_functions(
+            _build._lib_path("gaussian_blend")).items()
+        if "gs_blend_kernel" in fn))
+    issue_ms = None if per_pair is None else \
+        b17_kept * per_pair / (4 * n_sm * mhz * 1e6) * 1e3
+    ceiling = ("not measured (no alpha loop found in the SASS)"
+               if issue_ms is None else
+               f"{issue_ms:.4f} ms ({per_pair:g} instructions a pair in "
+               f"this build's SASS, {n_sm} SMs at {mhz:.0f} MHz)")
     print(f"[B17 gs_blend] kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-          f"bound {bound[0]:.4f} ms ({bound[1]}) | library: none")
+          f"bound {bound[0]:.4f} ms ({bound[1]}); issue ceiling at the "
+          f"kept pairs {ceiling} | library: none | (warp, slot) pairs: "
+          f"{b17_kept:,} kept by the cull, {b17_hits:,} taken, {b17_live:,} "
+          f"live, {warp_pairs:,} in all")
     _kernel_row(kernels, name="gs_blend (B17)", key="gs_blend",
                 path="gs render", source=src, replaces=f"{rep}:197",
                 err=err, ms=ms, plain_ms=plain_ms, bound=bound,
-                pairs=pairs)
+                pairs=pairs, warp_slot_pairs=warp_pairs,
+                warp_slot_live=b17_live, warp_slot_hits=b17_hits,
+                warp_slot_kept=b17_kept, issue_ms_kept=issue_ms,
+                instructions_per_kept_pair=per_pair)
 
     # ------------------------------------------------- B18 gs_blend_bwd
     d_k = GS._bwd_cuda(attrs, origin, *g, bg, tile, floor)
@@ -1838,6 +2003,7 @@ def main() -> int:
         neus2, o, d, smi, "f2", {"brick_fwd": 6, "brick_bwd": 1,
                                  "brick_dydx": 1, "brick_bwd2": 1,
                                  "gather1d": 1}, {"brick_fwd": 1}), N_STEPS)
+    _b7_step_points(neus2, o, d, kernels)
 
     # ------------------------- path C: the dynamic (x,t) permuto NeuS
     dyn_cpu = _cpu_twin(dyn, DynamicPermutoNeuSModel, DYN_CFG)

@@ -16,35 +16,35 @@
 // rows = 4.9 MB for the NeuS, 23,005 rows = 11.8 MB for the NeRF) stay
 // resident in the 50 MB L2, so the loads are bound by L2 latency and
 // transactions, far above the DRAM bound of the points' own bytes (12 B in,
-// 8 B per level out). Design: one thread per (point, level) for the encode
-// and its backward, one thread per point for the nablas (their [N,3]
-// output sums over levels, so a thread owns a point and the nablas need
-// no atomics); the index math (the JAX `_prologue`) runs in the kernel, so
-// nothing but x, the table and the outputs touches device memory. The
-// nablas' backward (B9) gives each warp 32 consecutive points at one
-// level, a block the run at all levels, as the cell permuto kernels do
-// (permuto_cell.cu): x, gg and g_up are staged in shared memory, dL/dg_up
+// 8 B per level out). Design: one thread per (point, level) for the
+// encode, one thread per point for the nablas (their [N,3] output sums
+// over levels, so a thread owns a point and the nablas need no atomics);
+// the index math (the JAX `_prologue`) runs in the kernel, so nothing but
+// x, the table and the outputs touches device memory. The two backwards
+// (B7, B9) give each warp 32 consecutive points at one level, a block the
+// run at all levels, as the cell permuto kernels do (permuto_cell.cu): x
+// and the upstream gradients are staged in shared memory, B9's dL/dg_up
 // leaves through it as one coalesced [32, L] run, and dL/dx sums the
 // levels there in level order. The TPU kernels' software pipelining,
 // lane-packed [tile,128] vectors, one-hot MXU row gather, matmul
 // reductions, per-level _pad8 accumulators and chunking exist only for
 // the TPU and are not carried over.
 //
-// The backwards (B7, B9) scatter dL/dtable into the natural [rows, 128]
-// layout with 8-byte float2 atomicAdds in L2, worst on the dense 16^3 (125
-// rows) and 32^3 (1331 rows) levels, where many points share a row; the
-// sums' order changes from run to run. B7 issues one per (point, level,
-// corner). B9's warps sum, corner by corner, the lanes that add to one
-// slot and issue one atomic for the group (`warp_add2`, warp_atomics.cuh):
-// along rays 72% of the atomics remain at the F=2 NeuS step's points (49%
-// at its dense level 0). Measured there on an H100 at 700 W (chip_ab.py,
-// ray order): B9 took 0.119 ms as one thread per point walking the
-// levels, 0.023 of it without its atomics and 0.070 at level 0 alone;
-// in these warps 0.107 with one atomic per lane, 0.070 with the sums, of
-// which 0.018 without atomics and 0.054 without level 0's. A level-0
-// table privatized in shared memory would save at most that 0.016 ms,
-// so it was not built. The C entries zero the gradient outputs on the
-// stream.
+// The backwards scatter dL/dtable into the natural [rows, 128] layout
+// with 8-byte float2 atomicAdds in L2, worst on the dense 16^3 (125 rows)
+// and 32^3 (1331 rows) levels, where many points share a row; the sums'
+// order changes from run to run. Their warps sum, corner by corner, the
+// lanes that add to one slot and issue one atomic for the group
+// (`warp_add2`, warp_atomics.cuh): B7 and B9 scatter the same keys at the
+// same points, and along rays 72% of the atomics remain at the F=2 NeuS
+// step's points (49% at its dense level 0). Measured there on an H100 at
+// 700 W (chip_ab.py, ray order): B9 took 0.119 ms as one thread per
+// point walking the levels, 0.023 of it without its atomics and 0.070 at
+// level 0 alone; in these warps 0.107 with one atomic per lane, 0.070
+// with the sums, of which 0.018 without atomics and 0.054 without level
+// 0's. A level-0 table privatized in shared memory would save at most
+// that 0.016 ms, so it was not built. The C entries zero dL/dtable on the
+// stream; dL/dx is written once, not accumulated.
 //
 // Bit-exactness notes. x*(res-2)+0.5 uses __fmul_rn/__fadd_rn: nvcc would
 // contract it into an FMA, which moves points on a cell boundary into the
@@ -52,8 +52,9 @@
 // in uint32, as the plain version does in int64 with & 0xFFFFFFFF. B9's
 // dL/dg_up and dL/dx are the bits of its one-thread-per-point form (the
 // per-level sums keep their order; the level sum d += e * (res-2) is the
-// FMA nvcc made of it there). This file shares only warp_atomics.cuh with
-// the other sources; the build's hash covers every header.
+// FMA nvcc made of it there); B7's dL/dx takes the same level sum. This
+// file shares only warp_atomics.cuh with the other sources; the build's
+// hash covers every header.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -149,12 +150,22 @@ __global__ void brick_fwd_kernel(const float* __restrict__ x,
   y[i] = make_float2(a0, a1);
 }
 
-// B7: one thread per (point, level). dtab [rows, 64] float2 (zeroed by the
-// entry) += w_k * g for each corner k. With dx (zeroed, may be null):
-// dL/dx += (res-2) * sum_k (g . val_k) * dw_k/dfrac, the corner values
-// taken from `corners` when the forward saved them, else from the table.
-// The index math is B6's, so a point on a cell boundary scatters into the
-// row the forward read.
+// B9's and B7's run of consecutive points: one warp's width at each level
+constexpr int BRICK_POINTS = 32;
+
+// B7, the encode's backward. dtab [rows, 64] float2 (zeroed by the entry)
+// += w_k g at corner k. With dx (may be null): dL/dx_a = sum_l (res_a-2)
+// t_a, t_a = sum_k (g . val_k) dw_k/dfrac_a, the corner values taken from
+// `corners` (the want_g forward's [n, L, 8] float2: a lane's 64 contiguous
+// bytes, four float4 loads) when it saved them, else from the table. A
+// block takes a run of BRICK_POINTS consecutive points at all L levels
+// (blockDim = 32 L), warp l the run at level l, as B9: x and g's [32, L]
+// slots are staged in shared memory, dL/dtable leaves through `warp_add2`
+// corner by corner (the keys are B9's), and each (level, point) parks t in
+// [L, 32, 3] there, so one thread a coordinate sums the levels in level
+// order and the block writes dL/dx once: no memset, no dx atomics, the
+// same bits in any order of the points. The index math is B6's, so a
+// point on a cell boundary scatters into the row the forward read.
 __global__ void brick_bwd_kernel(const float* __restrict__ x,
                                  const float2* __restrict__ g,
                                  const float2* __restrict__ corners,
@@ -162,42 +173,74 @@ __global__ void brick_bwd_kernel(const float* __restrict__ x,
                                  const __grid_constant__ BrickMeta meta,
                                  float2* __restrict__ dtab,
                                  float* __restrict__ dx, long long n) {
+  __shared__ float xs[BRICK_POINTS * 3];
+  __shared__ float2 gs[BRICK_POINTS * BRICK_MAX_LEVELS];
+  __shared__ float ts[BRICK_MAX_LEVELS * BRICK_POINTS * 3];
   const int L = meta.n_levels;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n * L) return;
-  const long long p = i / L;
-  const int l = (int)(i - p * L);
-  const float xp[3] = {x[p * 3], x[p * 3 + 1], x[p * 3 + 2]};
-  const BrickLevel& lv = meta.lv[l];
-  const Located c = locate(xp, lv);
-  const float2 gv = g[i];
-  const long long base = (long long)c.row * 64 + c.vert0;
-  float s[3][2];
+  const long long p0 = (long long)blockIdx.x * BRICK_POINTS;
+  const int np = (int)min((long long)BRICK_POINTS, n - p0);
+  for (int k = threadIdx.x; k < np * 3; k += blockDim.x) xs[k] = x[p0 * 3 + k];
+  for (int k = threadIdx.x; k < np * L; k += blockDim.x) gs[k] = g[p0 * L + k];
+  __syncthreads();
+  const int l = threadIdx.x >> 5, i = threadIdx.x & 31;
+  const unsigned active = __ballot_sync(0xffffffffu, i < np);
+  if (i < np) {
+    const float xp[3] = {xs[i * 3], xs[i * 3 + 1], xs[i * 3 + 2]};
+    const BrickLevel& lv = meta.lv[l];
+    const Located c = locate(xp, lv);
+    const float2 gv = gs[i * L + l];
+    const int base = c.row * 64 + c.vert0;
+    float s[3][2];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    s[a][0] = 1.f - c.frac[a];
-    s[a][1] = c.frac[a];
-  }
-  float t[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
-    const int off = corner_off(k);
-    const float w = s[0][b0] * s[1][b1] * s[2][b2];
-    atomic_add2(dtab + base + off, make_float2(w * gv.x, w * gv.y));
+    for (int a = 0; a < 3; ++a) {
+      s[a][0] = 1.f - c.frac[a];
+      s[a][1] = c.frac[a];
+    }
+    float2 v[8];
     if (dx != nullptr) {
-      const float2 v =
-          corners != nullptr ? corners[i * 8 + k] : __ldg(table + base + off);
-      const float h = gv.x * v.x + gv.y * v.y;
-      t[0] += (b0 ? h : -h) * s[1][b1] * s[2][b2];
-      t[1] += (b1 ? h : -h) * s[0][b0] * s[2][b2];
-      t[2] += (b2 ? h : -h) * s[0][b0] * s[1][b1];
+      if (corners != nullptr) {
+        const float4* cp =
+            reinterpret_cast<const float4*>(corners) + ((p0 + i) * L + l) * 4;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 w = __ldg(cp + q);
+          v[2 * q] = make_float2(w.x, w.y);
+          v[2 * q + 1] = make_float2(w.z, w.w);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = __ldg(table + base + corner_off(k));
+      }
+    }
+    float t[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
+      const float w = s[0][b0] * s[1][b1] * s[2][b2];
+      // a key does not name its corner, so lanes meet corner by corner
+      warp_add2(dtab, base + corner_off(k), make_float2(w * gv.x, w * gv.y),
+                active);
+      if (dx != nullptr) {
+        const float h = gv.x * v[k].x + gv.y * v[k].y;
+        t[0] += (b0 ? h : -h) * s[1][b1] * s[2][b2];
+        t[1] += (b1 ? h : -h) * s[0][b0] * s[2][b2];
+        t[2] += (b2 ? h : -h) * s[0][b0] * s[1][b1];
+      }
+    }
+    if (dx != nullptr) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) ts[(l * BRICK_POINTS + i) * 3 + a] = t[a];
     }
   }
-  if (dx != nullptr) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-      atomicAdd(dx + p * 3 + a, t[a] * (float)(lv.res[a] - 2));
+  if (dx == nullptr) return;  // uniform over the block
+  __syncthreads();
+  for (int k = threadIdx.x; k < np * 3; k += blockDim.x) {
+    const int a = k % 3;
+    float d = 0.f;
+    for (int ll = 0; ll < L; ++ll)
+      d = fmaf(ts[ll * BRICK_POINTS * 3 + k], (float)(meta.lv[ll].res[a] - 2),
+               d);
+    dx[p0 * 3 + k] = d;
   }
 }
 
@@ -241,9 +284,6 @@ __global__ void brick_dydx_kernel(const float2* __restrict__ g_up,
   dx[p * 3 + 1] = d[1];
   dx[p * 3 + 2] = d[2];
 }
-
-// B9's run of consecutive points: one warp's width at each level
-constexpr int BRICK_POINTS = 32;
 
 // B9, the backward of B8. With D_a = gg_a (res_a - 2), h_k = g_up . val_k
 // and sg_a = 2 bit_a - 1:
@@ -362,19 +402,19 @@ int brick_fwd(const void* x, const void* table, BrickMeta meta, void* y,
   return (int)cudaGetLastError();
 }
 
-// x [n,3] f32, g [n,2L] f32, corners [n,L,8,2] f32 or null, table
-// [rows,128] f32 or null, dtab [rows,128] f32 (zeroed here), dx [n,3] f32
-// or null (zeroed here). dx needs the corners or the table.
+// x [n,3] f32, g [n,2L] f32, corners [n,L,8,2] f32 (16-byte aligned) or
+// null, table [rows,128] f32 or null, dtab [rows,128] f32 (zeroed here),
+// dx [n,3] f32 or null (written, not accumulated). dx needs the corners or
+// the table.
 int brick_bwd(const void* x, const void* g, const void* corners,
               const void* table, BrickMeta meta, void* dtab, void* dx,
               long long n, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaMemsetAsync(dtab, 0, (size_t)total_rows(meta) * 128 * sizeof(float),
                   st);
-  if (dx != nullptr) cudaMemsetAsync(dx, 0, (size_t)n * 3 * sizeof(float), st);
-  const long long total = n * meta.n_levels;
-  if (total > 0) {
-    brick_bwd_kernel<<<n_blocks(total, 256), 256, 0, st>>>(
+  if (n > 0 && meta.n_levels > 0) {
+    brick_bwd_kernel<<<n_blocks(n, BRICK_POINTS), 32 * meta.n_levels, 0,
+                       st>>>(
         (const float*)x, (const float2*)g, (const float2*)corners,
         (const float2*)table, meta, (float2*)dtab, (float*)dx, n);
   }

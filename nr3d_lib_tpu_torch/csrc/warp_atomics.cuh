@@ -1,9 +1,10 @@
 // Float2 atomic adds into global memory, and their warp aggregation,
 // shared by the F=2 backward kernels that scatter a table gradient: the
-// cell permuto backward (B11/B12, permuto_cell.cu) and the brick nablas'
-// backward (B9, brick.cu). It is the float2 twin of permuto_cell4.cu's
-// `warp_add4` (B15), which keeps its own copy: one template for both
-// widths gave B15 another register allocation, and it ran slower.
+// cell permuto backward (B11/B12, permuto_cell.cu) and the brick
+// encode's and nablas' backwards (B7, B9, brick.cu). It is the float2 twin
+// of permuto_cell4.cu's `warp_add4` (B15), which keeps its own copy: one
+// template for both widths gave B15 another register allocation, and it
+// ran slower.
 //
 // Those kernels give each warp 32 consecutive points at one level. The
 // paths feed points ray by ray, so at the coarse levels several lanes of

@@ -349,6 +349,64 @@ def gs_blend_plain(attrs: Tensor, origin: Tensor, bg: Sequence[float],
     return rgb, acc, dep
 
 
+def _warp_pixels(tile: int) -> Tensor:
+    """B17's map of threads to pixels (`pixel_of` in
+    csrc/gaussian_blend.cu): [warps, 32] pixel indices of each warp's
+    lanes, -1 past the tile. Where 8 divides the tile a warp covers an
+    8 x 4 box, otherwise a run of 32 pixels in row-major order."""
+    tid = torch.arange(-(-tile * tile // 32) * 32)
+    if tile % 8 == 0:
+        w, lane, per_row = tid // 32, tid % 32, tile // 8
+        tid = ((w // per_row) * 4 + lane // 8) * tile + (w % per_row) * 8 \
+            + lane % 8
+    return torch.where(tid < tile * tile, tid, -1).view(-1, 32)
+
+
+def gs_blend_cull_plain(attrs: Tensor, origin: Tensor, tile: int,
+                        alpha_floor: float) -> Tensor:
+    """B17's per-warp cull written out in float32, for the tests (no
+    route uses it): [T, W, K] bool, False where warp w of tile t skips
+    slot k, which it may only do where no pixel of the warp takes the
+    slot. Dead slots are skipped; a live slot is skipped when, with lam
+    the conic's smaller eigenvalue (> 0), d the distance from its centre
+    to the warp's box of pixel centres and r to the box's farthest pixel,
+    lam·d² − (1e-5·(|c00| + |c11| + 2|c01|)·r² + 1e-4) ≥ 2·ln(op/floor).
+    A slot with a non-finite colour or depth is never skipped, nor a live
+    one with a non-finite centre, conic or opacity, or lam ≤ 0."""
+    dt, dev = attrs.dtype, attrs.device
+    pix = _warp_pixels(tile).to(dev)                             # [W, 32]
+    on = pix >= 0
+    cx = (pix % tile).to(dt) + 0.5
+    cy = (pix // tile).to(dt) + 0.5
+    px = cx[None] + origin[:, 0, None, None]                     # [T, W, 32]
+    py = cy[None] + origin[:, 1, None, None]
+    inf = torch.tensor(float("inf"), dtype=dt, device=dev)
+    x0 = torch.where(on, px, inf).amin(-1)[..., None]            # [T, W, 1]
+    x1 = torch.where(on, px, -inf).amax(-1)[..., None]
+    y0 = torch.where(on, py, inf).amin(-1)[..., None]
+    y1 = torch.where(on, py, -inf).amax(-1)[..., None]
+
+    def row(i):
+        return attrs[:, None, i, :]                              # [T, 1, K]
+
+    mx, my, c00, c01, c11, op = (row(i) for i in range(_A_OP + 1))
+    h = 0.5 * (c00 - c11)
+    lam = 0.5 * (c00 + c11) - torch.sqrt(h * h + c01 * c01)
+    thr = torch.where(op > 0, 2.0 * torch.log(op / alpha_floor), -inf)
+    size = c00.abs() + c11.abs() + 2.0 * c01.abs()
+    ex = torch.clamp(torch.maximum(x0 - mx, mx - x1), min=0.0)
+    ey = torch.clamp(torch.maximum(y0 - my, my - y1), min=0.0)
+    fx = torch.maximum((x0 - mx).abs(), (x1 - mx).abs())
+    fy = torch.maximum((y0 - my).abs(), (y1 - my).abs())
+    margin = 1e-5 * size * (fx * fx + fy * fy) + 1e-4
+    cut = lam * (ex * ex + ey * ey) - margin >= thr             # [T, W, K]
+    testable = (torch.isfinite(attrs[:, :_A_OP + 1]).all(1)[:, None]
+                & (lam > 0) & (alpha_floor > 0))
+    live = row(_A_LIVE) > 0
+    finite = torch.isfinite(attrs[:, _A_CR:_A_DEP + 1]).all(1)[:, None]
+    return ~(finite & (~live | (testable & cut)))
+
+
 def gs_blend_bwd_plain(attrs: Tensor, origin: Tensor, g_rgb: Tensor,
                        g_acc: Tensor, g_dep: Tensor, bg: Sequence[float],
                        tile: int, alpha_floor: float) -> Tensor:

@@ -207,11 +207,12 @@ def _level_corners(x: torch.Tensor, t_flat: torch.Tensor, level,
 
 def brick_atomic_groups(x: torch.Tensor, meta: BrickMeta,
                         warp: int = 32) -> List[int]:
-    """Per level, the table-gradient atomics that B9 (`brick_bwd2`)
-    issues at the points x [N, 3] in their order: a warp takes `warp`
-    consecutive points at one level, and corner by corner its lanes that
-    add to one slot (row·64 + vertex) sum first, so one atomic per
-    distinct (warp, corner, slot); one lane alone issues N·8 a level."""
+    """Per level, the table-gradient atomics that B7 (`brick_bwd`) and B9
+    (`brick_bwd2`) each issue at the points x [N, 3] in their order: a
+    warp takes `warp` consecutive points at one level, and corner by
+    corner its lanes that add to one slot (row·64 + vertex) sum first, so
+    one atomic per distinct (warp, corner, slot); one lane alone issues
+    N·8 a level."""
     bits = _corner_bits(x.device)
     corner_v = (bits[:, 0] * BRICK_W + bits[:, 1]) * BRICK_W + bits[:, 2]
     n_slots = meta.total_rows * 64
@@ -414,12 +415,14 @@ def _bwd_cuda(x: torch.Tensor, g: torch.Tensor, meta: BrickMeta, *,
               table: Optional[torch.Tensor] = None):
     """B7 → (dL/dx [N,3] or None, dL/dtable [rows,128]). dL/dx reads the
     corner values from `corners` (the want_g forward's) or else from the
-    table."""
+    table; it is each point's own level sum, the same bits in any order of
+    the points."""
     if need_dx and corners is None and table is None:
         raise ValueError("brick_bwd: dL/dx needs the forward's corners or "
                          "the table")
     x, g = aligned(x), aligned(g)
     table = None if table is None else aligned(table)
+    corners = None if corners is None else aligned(corners)
     dtab = torch.empty((meta.total_rows, LANES), device=x.device,
                        dtype=torch.float32)
     dx = torch.empty_like(x) if need_dx else None

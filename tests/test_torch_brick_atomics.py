@@ -1,9 +1,10 @@
-"""The count of the table-gradient atomics that the F=2 brick nablas'
-backward (B9, `csrc/brick.cu` `brick_bwd2`) issues once its warps sum,
-corner by corner, the lanes that add to one slot
-(`ops/lotd_brick.brick_atomic_groups`). The kernel itself runs only on a
-card (`tests/test_torch_kernels_gpu.py`); this holds the host-side count
-that `chip_ab.py` reports beside its times."""
+"""The count of the table-gradient atomics that the F=2 brick encode's
+backward (B7, `csrc/brick.cu` `brick_bwd`) and the nablas' backward (B9,
+`brick_bwd2`) each issue once their warps sum, corner by corner, the
+lanes that add to one slot (`ops/lotd_brick.brick_atomic_groups`). The
+kernels themselves run only on a card (`tests/test_torch_kernels_gpu.py`);
+this holds the host-side count that `chip_ab.py` and `chip_smoke.py`
+report beside their times."""
 
 import numpy as np
 import pytest
@@ -82,6 +83,45 @@ def test_brick_atomic_groups_ray_order_needs_no_more(name, seed):
     ray, shuffled = (B.brick_atomic_groups(xx, meta) for xx in (x, x[perm]))
     assert all(a <= b for a, b in zip(ray, shuffled))
     assert ray[0] < shuffled[0]
+
+
+def _b7_launch(x: torch.Tensor, meta):
+    """B7's launch simulated thread by thread: block b takes the points
+    [32b, 32b + 32) at all L levels (blockDim = 32 L), thread 32 l + i
+    the point 32b + i at level l; a warp is 32 consecutive threads of a
+    block, and corner by corner it issues one atomic for each distinct
+    slot among its lanes that hold a point. Per level, the atomics."""
+    offs = [((k >> 2) & 1) * 16 + ((k >> 1) & 1) * 4 + (k & 1)
+            for k in range(8)]
+    L, n = meta.n_levels, len(x)
+    base = []
+    for lv in meta.levels:
+        row, lane0, _ = B._level_rows_and_lanes(x, lv)
+        base.append((row * 64 + lane0 // 2).tolist())
+    out = [0] * L
+    for b in range(-(-n // 32)):
+        for w in range(L):                       # the block's warps
+            lanes = [(tau >> 5, tau & 31) for tau in range(32 * w,
+                                                           32 * w + 32)]
+            for k in range(8):
+                keys = {(l, base[l][32 * b + i] + offs[k]) for l, i in lanes
+                        if 32 * b + i < n}
+                for l, _ in keys:
+                    out[l] += 1
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(METAS))
+@pytest.mark.parametrize("n", [1, 31, 33, 1000])
+def test_b7_issues_what_brick_atomic_groups_counts(name, n):
+    """B7's level-major warps issue, at ray order and permuted, the count
+    that `brick_atomic_groups` gives for B9 at the same points."""
+    meta = B.make_brick_meta(*METAS[name])
+    x = _ray_points(n, 8)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(9))
+    for xx in (x, x[perm]):
+        assert _b7_launch(xx, meta) == B.brick_atomic_groups(xx, meta) == \
+            _brute_force(xx, meta, 32)
 
 
 def test_c_meta_refuses_slots_past_int32():

@@ -47,6 +47,7 @@ from nr3d_lib_tpu_torch.ops import lotd_brick as B
 from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
 from nr3d_lib_tpu_torch.ops import permuto_cell as PC
 from nr3d_lib_tpu_torch.ops import permuto_cell4 as P4
+from torch_gs_tiles import near_floor_tiles
 
 pytestmark = pytest.mark.gpu
 
@@ -1355,3 +1356,143 @@ def test_brick_bwd2_one_brick_warps(cuda):
     _close(dg, dg_p, 1e-4)
     _close(dx, dx_p, 1e-4)
     _close(dtab, dtab_p, 1e-5)
+
+
+# ------------------ B7: level-major warps over runs of points (as B9)
+def _brick_bwd_ray_inputs(dev, n_levels: int, n: int, seed: int):
+    """B7's inputs at points along rays, on the first `n_levels` levels of
+    the eight-level meta (dense, then hashed), from seeds."""
+    lod_res, types, rows = F2_METAS["eight_levels"]
+    meta = B.make_brick_meta(lod_res[:n_levels], types[:n_levels], rows)
+    x = _pc_ray_points(dev, 3, max(-(-n // 96), 1), 96, seed)[:n].contiguous()
+    rng = np.random.default_rng(seed + 1)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (meta.total_rows, 128)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(n, 2 * n_levels)).astype(
+        np.float32)).to(dev)
+    perm = torch.from_numpy(rng.permutation(n)).to(dev)
+    return meta, x, table, g, perm
+
+
+@pytest.mark.parametrize("n_levels", range(1, 9))
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 1000, 96 * 1001])
+@pytest.mark.parametrize("form", ["no_dx", "dx_corners", "dx_table"])
+def test_brick_bwd_ray_and_permuted_order(cuda, n_levels, n, form):
+    """B7 at ray order and permuted, L = 1-8: dL/dx is each point's own
+    level sum, so it is bitwise the same in two runs and in both orders
+    once un-permuted; dL/dtable and dL/dx within their tolerances of the
+    plain version. n = 0, n < 32 and a ragged last run; dL/dx from the
+    want_g corners or from the table."""
+    meta, x, table, g, perm = _brick_bwd_ray_inputs(cuda, n_levels, n,
+                                                    93 + n_levels)
+    need_dx = form != "no_dx"
+    dxs = []
+    for xx, gg in ((x, g), (x[perm].contiguous(), g[perm].contiguous())):
+        kw = {}
+        if form == "dx_corners":
+            kw["corners"] = B._fwd_cuda(xx, table, meta, want_g=True)[1]
+        elif form == "dx_table":
+            kw["table"] = table
+        before = _build.LAUNCHES["brick_bwd"]
+        dx, dtab = B._bwd_cuda(xx, gg, meta, need_dx=need_dx, **kw)
+        dx2, dtab2 = B._bwd_cuda(xx, gg, meta, need_dx=need_dx, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["brick_bwd"] == before + 2
+        assert dtab.shape == (meta.total_rows, 128)
+        if n == 0:
+            assert not dtab.any()
+        else:
+            dx_p, dtab_p = B.brick_encode_bwd_xla(xx, table, gg, meta,
+                                                  need_dx)
+            _close(dtab, dtab_p, 1e-5)
+            _close(dtab2, dtab_p, 1e-5)
+            if need_dx:
+                _close(dx, dx_p, 1e-4)
+        if need_dx:
+            assert dx.shape == (n, 3) and torch.equal(dx, dx2)
+        else:
+            assert dx is None and dx2 is None
+        dxs.append(dx)
+    if need_dx:
+        assert torch.equal(dxs[1][torch.argsort(perm)], dxs[0])
+
+
+def test_brick_bwd_one_brick_warps(cuda):
+    """Every warp's 32 points at one point of space (one group per corner
+    and warp at every level): the groups' sums against the plain
+    version."""
+    meta = B.make_brick_meta(*F2_METAS["dense_hash"])
+    rng = np.random.default_rng(94)
+    n_warps = 300
+    x = np.repeat(rng.uniform(0.0, 1.0, (n_warps, 3)), 32, 0)
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (meta.total_rows, 128)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(len(x), 2 * meta.n_levels))
+                         .astype(np.float32)).to(cuda)
+    assert B.brick_atomic_groups(x, meta) == [n_warps * 8] * meta.n_levels
+    corners = B._fwd_cuda(x, table, meta, want_g=True)[1]
+    dx, dtab = B._bwd_cuda(x, g, meta, need_dx=True, corners=corners)
+    dx_p, dtab_p = B.brick_encode_bwd_xla(x, table, g, meta, True)
+    _close(dx, dx_p, 1e-4)
+    _close(dtab, dtab_p, 1e-5)
+
+
+# -------------------------- B17: the per-warp cull of the slots
+def _gs_cull_case(dev, kind: str, n_t: int, k: int, tile: int, seed: int):
+    if kind == "near_floor":
+        return near_floor_tiles(dev, n_t, k, tile, seed)[:2]
+    a, origin, _ = _gs_blend_inputs(dev, n_t, k, tile, seed=seed)
+    if kind == "all_dead":
+        a[:, 10] = 0.0
+    else:                  # "degenerate": conics with λ_min ≤ 0 among them
+        c00, c11 = a[:, 2], a[:, 4]
+        a[:, 3, 0::3] = 1.5 * torch.sqrt(c00 * c11)[:, 0::3]   # indefinite
+        a[:, 3, 1::3] = torch.sqrt(c00 * c11)[:, 1::3]         # singular
+        a[:, 2, 2::5] = -a[:, 2, 2::5]                         # negative
+    return a, origin
+
+
+@pytest.mark.parametrize("kind", ["near_floor", "degenerate", "all_dead"])
+@pytest.mark.parametrize("k", [1, 32, 256])
+@pytest.mark.parametrize("tile", [8, 16])
+def test_gs_blend_cull_matches_plain(cuda, kind, k, tile):
+    """B17 with its cull against `gs_blend_plain` at 1e-5 of each output's
+    largest entry: slots within ulps of the α floor on either side, conics
+    with λ_min ≤ 0 (never skipped), tiles of dead slots only (rgb the
+    background exactly)."""
+    from nr3d_lib_tpu_torch.graphics import gaussian_splatting as GS
+
+    a, origin = _gs_cull_case(cuda, kind, 7, k, tile, seed=95 + k + tile)
+    with torch.no_grad():
+        out = GS.gs_blend(a, origin, GS_BG, tile, GS_FLOOR)
+    torch.cuda.synchronize()
+    ref = GS.gs_blend_plain(a, origin, GS_BG, tile, GS_FLOOR)
+    for got, want in zip(out, ref):
+        assert bool(torch.isfinite(got).all() == torch.isfinite(want).all())
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()) + 1e-7)
+    if kind == "all_dead":
+        assert not out[1].any()
+        assert torch.equal(out[0], torch.tensor(GS_BG, device=cuda).expand(
+            out[0].shape))
+
+
+@pytest.mark.parametrize("tile", [5, 12, 32])
+def test_gs_blend_cull_other_tiles_match_plain(cuda, tile):
+    """The cull on tiles where 8 does not divide the tile (a warp takes a
+    row-major run of pixels, the last one partly past the tile) and on a
+    32² tile (32 warps of 8 x 4 boxes), near the floor."""
+    from nr3d_lib_tpu_torch.graphics import gaussian_splatting as GS
+
+    a, origin, target = near_floor_tiles(cuda, 3, 64, tile, seed=tile)
+    live = GS._alpha_parts(a, origin, tile, GS_FLOOR)[5]
+    at = torch.gather(live, 1, target[:, None, :])[:, 0]
+    assert at.any() and not at.all()            # both sides of the floor
+    with torch.no_grad():
+        out = GS.gs_blend(a, origin, GS_BG, tile, GS_FLOOR)
+    torch.cuda.synchronize()
+    for got, want in zip(out, GS.gs_blend_plain(a, origin, GS_BG, tile,
+                                                GS_FLOOR)):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()) + 1e-7)
