@@ -18,7 +18,10 @@
    the bound. F=4 (slices 1 and 2): B1 (brick4_fwd) at 589,824 points, B3
    (brick4_dydx) at 147,456, B5 (gather1d) at 393,216 lookups into a
    [4096, 64] table; B1 want_g, B2 (brick4_bwd, with and without dL/dx)
-   and B4 (brick4_bwd2) at the train step's 147,456 points. F=2 (slice 3):
+   and B4 (brick4_bwd2) at the train step's 147,456 points, also timed on
+   the same points in a random order, where B2's dL/dx and B4's dL/dg_up
+   and dL/dx must be the same bits, their rows counting the float4
+   atomics before and after the warps' aggregation. F=2 (slice 3):
    B6 (brick_fwd) at the NeRF render's 196,608 points × 6 levels and at
    the NeuS render's 589,824 × 4; B6 want_g, B7 (brick_bwd, with and
    without dL/dx), B8 (brick_dydx) and B9 (brick_bwd2) at 147,456 × 4.
@@ -26,7 +29,8 @@
    their dL/dx (and B9's dL/dg_up) must be the same bits, and their rows
    count the float2 atomics before and after the warps' aggregation; B7
    is also timed on the points it receives in one more F=2 train step
-   after path B's timed steps (`[B7 brick_bwd] on the F=2 step's own`).
+   after path B's timed steps (`[brick_bwd (B7)] on the train step's
+   own`), and so are B2 and B4 after the F=4 NeuS's timed steps.
    F=4 cell permuto (path C), at the dynamic NeuS's final query of
    393,216 (x,t) points × 4 levels: B14 (permuto4_fwd, also timed on the
    same points in a random order, whose rows must be the ray order's
@@ -584,54 +588,68 @@ def _train(model, o, d, smi: str, label: str, per_step: dict,
     return launches
 
 
-def _record_b7(model, o, d, it: int) -> dict:
+def _record_step(model, o, d, it: int, module, names) -> dict:
     """One train step's loss and backward at iteration `it` (no optimizer
-    step) with B7's wrapper wrapped, so the inputs that B7 receives inside
-    the F=2 NeuS step are kept: points, upstream gradients, keywords."""
+    step) with the wrappers `names` of `module` wrapped, so the inputs
+    that each receives inside the step are kept: {name: its arguments by
+    parameter name, tensors cloned}."""
+    import inspect
     import torch
-    from nr3d_lib_tpu_torch.ops import lotd_brick as B
 
-    rec, orig = {}, B._bwd_cuda
+    rec, orig = {}, {n: getattr(module, n) for n in names}
 
-    def keep(x, g, meta, **kw):
-        rec.update(x=x.clone(), g=g.clone(), meta=meta, kw=kw)
-        return orig(x, g, meta, **kw)
+    def keeper(name):
+        sig = inspect.signature(orig[name])
+
+        def keep(*args, **kw):
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            rec[name] = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                         for k, v in bound.arguments.items()}
+            return orig[name](*args, **kw)
+        return keep
 
     gen = torch.Generator(device=o.device).manual_seed(9)
-    B._bwd_cuda = keep
+    for name in names:
+        setattr(module, name, keeper(name))
     try:
         model.training_before_per_step(it, gen)
         _step_loss(model, o, d, generator=gen).backward()
     finally:
-        B._bwd_cuda = orig
+        for name in names:
+            setattr(module, name, orig[name])
     model.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
-    _require("x" in rec, "B7 was not called in the F=2 train step")
+    _require(set(rec) == set(names), f"{sorted(set(names) - set(rec))} of "
+             f"{module.__name__} not called in the train step")
     return rec
 
 
-def _b7_step_points(model, o, d, kernels) -> None:
-    """B7 on the points of one more F=2 train step (after the timed ones):
-    its time there, alone, and the float2 atomics those points need; added
-    to B7's row."""
+def _step_points(model, o, d, kernels, module, rows: dict) -> None:
+    """The backward kernels `rows` ({wrapper of `module`: its kernel row's
+    key}) on the inputs they receive in one more train step (after the
+    timed ones): each one's time there, alone, and the atomics those
+    points need; added to its row."""
     import torch
     from nr3d_lib_tpu_torch.ops import lotd_brick as B
 
     it = N_WARMUP_STEPS + N_STEPS + 1
-    rec = _record_b7(model, o, d, it=it)
-    x, g, meta, kw = rec["x"], rec["g"], rec["meta"], rec["kw"]
-    n, L = x.shape[0], meta.n_levels
-    with torch.no_grad():
-        ms = _time_ms(lambda: B._bwd_cuda(x, g, meta, **kw))
-        groups = sum(B.brick_atomic_groups(x, meta))
-    print(f"[B7 brick_bwd] on the F=2 step's own {n:,} points x {L} levels "
-          f"(step it = {it}; need_dx {kw.get('need_dx')}): kernel "
-          f"{ms:.4f} ms alone | float2 "
-          f"atomics {groups:,} of {n * L * 8:,} after the warps' aggregation")
-    row = next(k for k in kernels if k["key"] == "brick_bwd")
-    row.update(ms_step_points=ms, n_step_points=n, step_points_it=it,
-               atomic_groups_step_points=groups,
-               atomics_naive_step_points=n * L * 8)
+    recs = _record_step(model, o, d, it, module, tuple(rows))
+    for fn, key in rows.items():
+        a = recs[fn]
+        x, meta = a["x"], a["meta"]
+        n, L = x.shape[0], meta.n_levels
+        with torch.no_grad():
+            ms = _time_ms(lambda: getattr(module, fn)(**a))
+            groups = sum(B.brick_atomic_groups(x, meta))
+        row = next(k for k in kernels if k["key"] == key)
+        print(f"[{row['name']}] on the train step's own {n:,} points x {L} "
+              f"levels (step it = {it}; need_dx {a['need_dx']}): kernel "
+              f"{ms:.4f} ms alone | atomics {groups:,} of {n * L * 8:,} "
+              f"after the warps' aggregation")
+        row.update(ms_step_points=ms, n_step_points=n, step_points_it=it,
+                   atomic_groups_step_points=groups,
+                   atomics_naive_step_points=n * L * 8)
 
 
 def _serve(model, cpu_model, o, d, per_render: dict, label: str, smi: str,
@@ -747,6 +765,7 @@ def _f4_kernel_phases(model, o, d, kernels) -> "torch.Tensor":
     B2 and B4 at the train step's. Returns the step's 147,456 points."""
     import torch
     from nr3d_lib_tpu_torch.ops import gather1d as G
+    from nr3d_lib_tpu_torch.ops import lotd_brick as B
     from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
     from nr3d_lib_tpu_torch.ops import occgrid_march as OM
 
@@ -876,28 +895,47 @@ def _f4_kernel_phases(model, o, d, kernels) -> "torch.Tensor":
              "changes from run to run"),
             ("dL/dx", _err(dx_k, dx_p), 1e-4 + 1e-4 * float(dx_p.abs().max()),
              "sums over corners, feats and levels scaled by res-2")])
+        # dL/dx is each point's own level sum: the same bits in another
+        # order of the points
+        perm = torch.randperm(n, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(7))
+        xp2, gp2, ggp4 = (v[perm].contiguous() for v in (x3, g2, gg4))
+        dx_perm, _ = B4._bwd_cuda(xp2, gp2, meta, need_dx=True,
+                                  words=B4._fwd_cuda(xp2, packed, meta,
+                                                     want_g=True)[1])
+        _require(torch.equal(dx_perm, dx_k[perm]), "B2: a point's dL/dx "
+                 "depends on its place in the batch")
         ms = _time_ms(lambda: B4._bwd_cuda(x3, g2, meta, need_dx=False))
         ms_dx = _time_ms(lambda: B4._bwd_cuda(x3, g2, meta, need_dx=True,
                                               words=words))
+        ms_perm = _time_ms(lambda: B4._bwd_cuda(xp2, gp2, meta,
+                                                need_dx=False))
         plain_ms = _time_ms(lambda: B4.brick4_encode_bwd_xla(
             x3, table, g2, meta, False), iters=5)
         plain_dx = _time_ms(lambda: B4.brick4_encode_bwd_xla(
             x3, table, g2, meta, True), iters=5)
+        # float4 atomics: one a (point, level, corner), and what the warps'
+        # aggregation leaves at ray order (B2 and B4 scatter the same keys)
+        naive = n * L * 8
+        groups = sum(B.brick_atomic_groups(x3, meta))
         # each (point, level): 12 index ops + 8 corners × (2 weight muls +
         # 4 products + 4 adds) = 92; with dL/dx + 8 × (7 for g·val + 9)
         bound = _bound(n * (12 + 16 * L) + dtab_bytes, n * L * 92)
         bound_dx = _bound(n * (12 + 16 * L + 64 * L + 12) + dtab_bytes,
                           n * L * (92 + 128))
         print(f"[B2 brick4_bwd] need_dx false (the step's form): kernel "
-              f"{ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
-              f"{bound[0]:.4f} ms ({bound[1]}); need_dx true: kernel "
-              f"{ms_dx:.4f} ms | plain {plain_dx:.4f} ms | bound "
-              f"{bound_dx[0]:.4f} ms ({bound_dx[1]}) | library: none")
+              f"{ms:.4f} ms (permuted {ms_perm:.4f} ms) | plain "
+              f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}); "
+              f"need_dx true: kernel {ms_dx:.4f} ms | plain {plain_dx:.4f} "
+              f"ms | bound {bound_dx[0]:.4f} ms ({bound_dx[1]}) | library: "
+              f"none | float4 atomics {groups:,} of {naive:,} after the "
+              f"warps' aggregation")
         _kernel_row(kernels, name="brick4_bwd (B2)", key="brick4_bwd",
                     path="f4 train step", source=src, replaces=f"{rep}:380",
                     err=err, ms=ms, plain_ms=plain_ms, bound=bound,
                     ms_need_dx=ms_dx, plain_ms_need_dx=plain_dx,
-                    bound_ms_need_dx=bound_dx[0])
+                    bound_ms_need_dx=bound_dx[0], ms_permuted=ms_perm,
+                    atomics_naive=naive, atomic_groups=groups)
 
         # B4: the nablas' backward
         dg_p, dx4_p, dt4_p = B4.brick4_nablas_bwd_xla(g2, x3, table, gg4,
@@ -916,9 +954,18 @@ def _f4_kernel_phases(model, o, d, kernels) -> "torch.Tensor":
             ("dL/dtable", max(_err(dt4_k, dt4_p), _err(dt4_k2, dt4_p)),
              1e-6 + 1e-5 * float(dt4_p.abs().max()),
              "atomics, order changes from run to run")])
+        # dL/dg_up and dL/dx are each point's own sums: the same bits in
+        # another order of the points
+        dg_perm, dx4_perm, _ = B4._bwd2_cuda(gp2, xp2, packed, ggp4, meta)
+        _require(torch.equal(dg_perm, dg_k[perm]) and
+                 torch.equal(dx4_perm, dx4_k[perm]),
+                 "B4: a point's dL/dg_up or dL/dx depends on its place in "
+                 "the batch")
         ms = _time_ms(lambda: B4._bwd2_cuda(g2, x3, packed, gg4, meta,
                                             need_dx=False))
         ms_dx = _time_ms(lambda: B4._bwd2_cuda(g2, x3, packed, gg4, meta))
+        ms_perm = _time_ms(lambda: B4._bwd2_cuda(gp2, xp2, packed, ggp4,
+                                                 meta, need_dx=False))
         plain_ms = _time_ms(lambda: B4.brick4_nablas_bwd_xla(
             g2, x3, table, gg4, meta), iters=5)
         # each (point, level): 18 index/scale ops + 8 corners × (11 for c_k
@@ -927,14 +974,18 @@ def _f4_kernel_phases(model, o, d, kernels) -> "torch.Tensor":
         bound = _bound(io, n * L * 234)
         bound_dx = _bound(io + n * 12, n * L * 434)
         print(f"[B4 brick4_bwd2] need_dx false (the step's form): kernel "
-              f"{ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}); need_dx "
-              f"true: kernel {ms_dx:.4f} ms | bound {bound_dx[0]:.4f} ms "
+              f"{ms:.4f} ms (permuted {ms_perm:.4f} ms) | bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); need_dx true: kernel "
+              f"{ms_dx:.4f} ms | bound {bound_dx[0]:.4f} ms "
               f"({bound_dx[1]}); plain (all three gradients) {plain_ms:.4f}"
-              f" ms | library: none")
+              f" ms | library: none | float4 atomics {groups:,} of "
+              f"{naive:,} after the warps' aggregation")
         _kernel_row(kernels, name="brick4_bwd2 (B4)", key="brick4_bwd2",
                     path="f4 train step", source=src, replaces=f"{rep}:875",
                     err=err, ms=ms, plain_ms=plain_ms, bound=bound,
-                    ms_need_dx=ms_dx, bound_ms_need_dx=bound_dx[0])
+                    ms_need_dx=ms_dx, bound_ms_need_dx=bound_dx[0],
+                    ms_permuted=ms_perm, atomics_naive=naive,
+                    atomic_groups=groups)
     return x3
 
 
@@ -1978,6 +2029,8 @@ def main() -> int:
         model, o, d, smi, "f4", {"brick4_fwd": 6, "brick4_bwd": 1,
                                  "brick4_dydx": 1, "brick4_bwd2": 1,
                                  "gather1d": 1}, {"brick4_fwd": 1}), N_STEPS)
+    _step_points(model, o, d, kernels, B4, {"_bwd_cuda": "brick4_bwd",
+                                            "_bwd2_cuda": "brick4_bwd2"})
 
     # ------------------------------------ path A: the F=2 NeRF serving
     nerf_cpu = _cpu_twin(nerf, LoTDNeRFModel, NERF_CFG)
@@ -2003,7 +2056,7 @@ def main() -> int:
         neus2, o, d, smi, "f2", {"brick_fwd": 6, "brick_bwd": 1,
                                  "brick_dydx": 1, "brick_bwd2": 1,
                                  "gather1d": 1}, {"brick_fwd": 1}), N_STEPS)
-    _b7_step_points(neus2, o, d, kernels)
+    _step_points(neus2, o, d, kernels, B, {"_bwd_cuda": "brick_bwd"})
 
     # ------------------------- path C: the dynamic (x,t) permuto NeuS
     dyn_cpu = _cpu_twin(dyn, DynamicPermutoNeuSModel, DYN_CFG)

@@ -17,25 +17,40 @@
 // point for the nablas (its [N,3] output sums over levels, so a thread owns
 // a point and no atomics are needed); the index math (the JAX `_prologue`)
 // runs in the kernel, so nothing but x, the table and the output touches
-// device memory. No shared memory: the row is used once per thread.
-// The TPU kernels' software pipelining, lane patterns and MXU reductions
-// exist only for the TPU and are not carried over.
+// device memory. The two backwards (B2, B4) give each warp 32 consecutive
+// points at one level, a block the run at all levels, as the F=2 brick
+// backwards do (brick.cu B7, B9): x and the upstream gradients are staged
+// in shared memory, B4's dL/dg_up leaves through it as one coalesced
+// [32, L] run, and dL/dx sums the levels there in level order. The TPU
+// kernels' software pipelining, lane patterns and MXU reductions exist
+// only for the TPU and are not carried over.
 //
 // The backwards (B2, B4) scatter dL/dtable into the natural unpacked
-// layout [rows, 256] (lane vertex*4 + f) with one 16-byte float4
-// atomicAdd per (point, level, corner): the 4 features of a vertex are
-// contiguous there. The TPU's half-plane outputs are a Mosaic workaround
-// and are not carried over. Atomics make them bound by L2 atomic
-// throughput, worst on the dense 16^3 level, where every point lands in
-// one of 125 brick rows; the sums' order changes from run to run.
+// layout [rows, 256] (lane vertex*4 + f) with 16-byte float4 atomicAdds in
+// L2: the 4 features of a vertex are contiguous there. The TPU's
+// half-plane outputs are a Mosaic workaround and are not carried over.
+// The atomics bound them, worst on the dense 16^3 level, where every
+// point lands in one of 125 brick rows; the sums' order changes from run
+// to run. Their warps sum, corner by corner, the lanes that add to one
+// slot and issue one atomic for the group (`warp_add4`,
+// warp_atomics.cuh): a key is the slot row*64 + vertex, the same at F=2
+// and F=4, so `ops/lotd_brick.brick_atomic_groups` counts what they
+// issue. The C entries zero dL/dtable on the stream; dL/dx is written
+// once, not accumulated.
 //
 // Bit-exactness notes. x*(res-2)+0.5 uses __fmul_rn/__fadd_rn: nvcc would
 // contract it into an FMA, which moves points on a cell boundary into the
 // neighbouring cell relative to the plain version. Packed words are only
-// loaded, shifted and masked; no arithmetic touches packed bits.
+// loaded, shifted and masked; no arithmetic touches packed bits. B4's
+// dL/dg_up and dL/dx are the bits of its one-thread-per-point form (the
+// per-level sums keep their order and that form's roundings, written
+// out; the level sum d += e * (res-2) is the FMA nvcc made of it there);
+// B2's dL/dx takes the same level sum.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "warp_atomics.cuh"
 
 #define BRICK4_MAX_LEVELS 4
 
@@ -98,6 +113,11 @@ __device__ __forceinline__ void unpack4(uint2 w, float f[4]) {
   f[3] = __uint_as_float(w.y & 0xFFFF0000u);
 }
 
+// corner k = (b0, b1, b2) bits -> vertex offset inside the brick
+__device__ __forceinline__ int corner_off(int k) {
+  return ((k >> 2) & 1) * 16 + ((k >> 1) & 1) * 4 + (k & 1);
+}
+
 // words (may be null, the want_g form): the 8 corners' packed words of each
 // (point, level), [n, L, 8] uint2, which B2 reads back for dL/dx.
 __global__ void brick4_fwd_kernel(const float* __restrict__ x,
@@ -130,25 +150,25 @@ __global__ void brick4_fwd_kernel(const float* __restrict__ x,
   y[i] = make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
 
-// 16-byte atomic add into global memory (one instruction on sm_90).
-__device__ __forceinline__ void atomic_add4(float4* dst, float4 v) {
-#if __CUDACC_VER_MAJOR__ > 12 || \
-    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1)
-  atomicAdd(dst, v);
-#else
-  atomicAdd(&dst->x, v.x);
-  atomicAdd(&dst->y, v.y);
-  atomicAdd(&dst->z, v.z);
-  atomicAdd(&dst->w, v.w);
-#endif
-}
+// B2's and B4's run of consecutive points: one warp's width at each level
+constexpr int BRICK4_POINTS = 32;
+// runs a block takes: blockDim = 32 L BRICK4_RUNS, warp w the run w / L
+// at level w % L
+constexpr int BRICK4_RUNS = 1;
+constexpr int BRICK4_BLOCK_POINTS = BRICK4_POINTS * BRICK4_RUNS;
 
-// B2: one thread per (point, level). dtab [rows, 64] float4 (zeroed by the
-// caller) += w_k * g for each corner k. With dx (zeroed, may be null):
-// dL/dx += (res-2) * sum_k (g . val_k) * dw_k/dfrac, the corner values
-// taken from `words` when the forward saved them, else from the packed
-// table. The index math is B1's, so a point on a cell boundary scatters
-// into the row the forward read.
+// B2, the encode's backward. dtab [rows, 64] float4 (zeroed by the entry)
+// += w_k g at corner k. With dx (may be null): dL/dx_a = sum_l (res_a-2)
+// t_a, t_a = sum_k (g . val_k) dw_k/dfrac_a, the corner values taken from
+// `words` (the want_g forward's [n, L, 8] uint2: a lane's 64 contiguous
+// bytes, four 16-byte loads) when it saved them, else from the packed
+// table. x and g's [points, L] slots are staged in shared memory,
+// dL/dtable leaves through `warp_add4` corner by corner, and each (level,
+// point) parks t in [L, points, 3] there, so one thread a coordinate sums
+// the levels in level order and the block writes dL/dx once: no memset,
+// no dx atomics, the same bits in any order of the points. The index math
+// is B1's, so a point on a cell boundary scatters into the row the
+// forward read.
 __global__ void brick4_bwd_kernel(const float* __restrict__ x,
                                   const float4* __restrict__ g,
                                   const uint2* __restrict__ words,
@@ -156,44 +176,78 @@ __global__ void brick4_bwd_kernel(const float* __restrict__ x,
                                   const __grid_constant__ Brick4Meta meta,
                                   float4* __restrict__ dtab,
                                   float* __restrict__ dx, long long n) {
+  constexpr int P = BRICK4_BLOCK_POINTS;
+  __shared__ float xs[P * 3];
+  __shared__ float4 gs[P * BRICK4_MAX_LEVELS];
+  __shared__ float ts[BRICK4_MAX_LEVELS * P * 3];
   const int L = meta.n_levels;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n * L) return;
-  const long long p = i / L;
-  const int l = (int)(i - p * L);
-  const float xp[3] = {x[p * 3], x[p * 3 + 1], x[p * 3 + 2]};
-  const Brick4Level& lv = meta.lv[l];
-  const Located c = locate(xp, lv);
-  const float4 gv = g[i];
-  const long long base = (long long)c.row * 64 + c.vert0;
-  float s[3][2];
+  const long long p0 = (long long)blockIdx.x * P;
+  const int np = (int)min((long long)P, n - p0);
+  for (int k = threadIdx.x; k < np * 3; k += blockDim.x) xs[k] = x[p0 * 3 + k];
+  for (int k = threadIdx.x; k < np * L; k += blockDim.x) gs[k] = g[p0 * L + k];
+  __syncthreads();
+  const int w = threadIdx.x >> 5;
+  const int l = w % L, i = (w / L) * BRICK4_POINTS + (threadIdx.x & 31);
+  const unsigned active = __ballot_sync(0xffffffffu, i < np);
+  if (i < np) {
+    const float xp[3] = {xs[i * 3], xs[i * 3 + 1], xs[i * 3 + 2]};
+    const Brick4Level& lv = meta.lv[l];
+    const Located c = locate(xp, lv);
+    const float4 gv = gs[i * L + l];
+    const int base = c.row * 64 + c.vert0;
+    float s[3][2];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    s[a][0] = 1.f - c.frac[a];
-    s[a][1] = c.frac[a];
-  }
-  float t[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
-    const int off = b0 * 16 + b1 * 4 + b2;
-    const float w = s[0][b0] * s[1][b1] * s[2][b2];
-    atomic_add4(dtab + base + off,
-                make_float4(w * gv.x, w * gv.y, w * gv.z, w * gv.w));
+    for (int a = 0; a < 3; ++a) {
+      s[a][0] = 1.f - c.frac[a];
+      s[a][1] = c.frac[a];
+    }
+    uint2 v[8];
     if (dx != nullptr) {
-      float f[4];
-      unpack4(words != nullptr ? words[i * 8 + k] : __ldg(table + base + off),
-              f);
-      const float h = gv.x * f[0] + gv.y * f[1] + gv.z * f[2] + gv.w * f[3];
-      t[0] += (b0 ? h : -h) * s[1][b1] * s[2][b2];
-      t[1] += (b1 ? h : -h) * s[0][b0] * s[2][b2];
-      t[2] += (b2 ? h : -h) * s[0][b0] * s[1][b1];
+      if (words != nullptr) {
+        const uint4* wp =
+            reinterpret_cast<const uint4*>(words) + ((p0 + i) * L + l) * 4;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint4 u = __ldg(wp + q);
+          v[2 * q] = make_uint2(u.x, u.y);
+          v[2 * q + 1] = make_uint2(u.z, u.w);
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = __ldg(table + base + corner_off(k));
+      }
+    }
+    float t[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
+      const float wk = s[0][b0] * s[1][b1] * s[2][b2];
+      // a key does not name its corner, so lanes meet corner by corner
+      warp_add4(dtab, base + corner_off(k),
+                make_float4(wk * gv.x, wk * gv.y, wk * gv.z, wk * gv.w),
+                active);
+      if (dx != nullptr) {
+        float f[4];
+        unpack4(v[k], f);
+        const float h = gv.x * f[0] + gv.y * f[1] + gv.z * f[2] + gv.w * f[3];
+        t[0] += (b0 ? h : -h) * s[1][b1] * s[2][b2];
+        t[1] += (b1 ? h : -h) * s[0][b0] * s[2][b2];
+        t[2] += (b2 ? h : -h) * s[0][b0] * s[1][b1];
+      }
+    }
+    if (dx != nullptr) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) ts[(l * P + i) * 3 + a] = t[a];
     }
   }
-  if (dx != nullptr) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-      atomicAdd(dx + p * 3 + a, t[a] * (float)(lv.res[a] - 2));
+  if (dx == nullptr) return;  // uniform over the block
+  __syncthreads();
+  for (int k = threadIdx.x; k < np * 3; k += blockDim.x) {
+    const int a = k % 3;
+    float d = 0.f;
+    for (int ll = 0; ll < L; ++ll)
+      d = fmaf(ts[ll * P * 3 + k], (float)(meta.lv[ll].res[a] - 2), d);
+    dx[p0 * 3 + k] = d;
   }
 }
 
@@ -238,14 +292,21 @@ __global__ void brick4_dydx_kernel(const float4* __restrict__ g_up,
   dx[p * 3 + 2] = d[2];
 }
 
-// B4, the backward of B3: one thread per point, looping over levels. With
-// D_a = gg_a (res_a - 2), h_k = g_up . val_k and sg_a = 2 bit_a - 1:
+// B4, the backward of B3. With D_a = gg_a (res_a - 2), h_k = g_up . val_k
+// and sg_a = 2 bit_a - 1:
 //   c_k           = sum_a D_a dw_k/dfrac_a
 //   dL/dg_up[l,f] = sum_k c_k val_k[f]              (written, no atomics)
-//   dL/dtable     += c_k g_up[l,:] at corner k       (float4 atomicAdd)
+//   dL/dtable     += c_k g_up[l,:] at corner k       (float4 atomics)
 //   dL/dx_b       += (res_b-2) sum_k h_k sg_b sum_{a!=b} D_a sg_a s_c(k)
 // where c is the axis other than a and b (trilinear weights are linear in
-// each frac, so only the mixed second derivatives survive).
+// each frac, so only the mixed second derivatives survive). The blocks
+// of B2: g_up's [points, L] slots in shared memory are overwritten by
+// dL/dg_up (each thread reads its own slot first); e, the level's dL/dx
+// before its (res-2), goes to [L, points, 3] there. Every rounding is
+// written out (__fmul_rn, __fadd_rn, __fmaf_rn), so ptxas cannot fuse
+// other products in these warps' blocks: the forms are those that
+// ptxas chose for the one-thread-per-point kernel (read from its SASS),
+// so dL/dg_up and dL/dx keep its bits.
 __global__ void brick4_bwd2_kernel(const float4* __restrict__ g_up,
                                    const float* __restrict__ x,
                                    const uint2* __restrict__ table,
@@ -254,17 +315,30 @@ __global__ void brick4_bwd2_kernel(const float4* __restrict__ g_up,
                                    float4* __restrict__ dgup,
                                    float4* __restrict__ dtab,
                                    float* __restrict__ dx, long long n) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
+  constexpr int P = BRICK4_BLOCK_POINTS;
+  __shared__ float xs[P * 3], ggs[P * 3];
+  __shared__ float4 gs[P * BRICK4_MAX_LEVELS];
+  __shared__ float es[BRICK4_MAX_LEVELS * P * 3];
   const int L = meta.n_levels;
-  const float xp[3] = {x[p * 3], x[p * 3 + 1], x[p * 3 + 2]};
-  const float ggp[3] = {gg[p * 3], gg[p * 3 + 1], gg[p * 3 + 2]};
-  float d[3] = {0.f, 0.f, 0.f};
-  for (int l = 0; l < L; ++l) {
+  const long long p0 = (long long)blockIdx.x * P;
+  const int np = (int)min((long long)P, n - p0);
+  for (int k = threadIdx.x; k < np * 3; k += blockDim.x) {
+    xs[k] = x[p0 * 3 + k];
+    ggs[k] = gg[p0 * 3 + k];
+  }
+  for (int k = threadIdx.x; k < np * L; k += blockDim.x)
+    gs[k] = g_up[p0 * L + k];
+  __syncthreads();
+  const int w = threadIdx.x >> 5;
+  const int l = w % L, i = (w / L) * BRICK4_POINTS + (threadIdx.x & 31);
+  const unsigned active = __ballot_sync(0xffffffffu, i < np);
+  if (i < np) {
+    const float xp[3] = {xs[i * 3], xs[i * 3 + 1], xs[i * 3 + 2]};
+    const float ggp[3] = {ggs[i * 3], ggs[i * 3 + 1], ggs[i * 3 + 2]};
     const Brick4Level& lv = meta.lv[l];
     const Located c = locate(xp, lv);
-    const float4 g = g_up[p * L + l];
-    const long long base = (long long)c.row * 64 + c.vert0;
+    const float4 g = gs[i * L + l];
+    const int base = c.row * 64 + c.vert0;
     float s[3][2], D[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -277,41 +351,70 @@ __global__ void brick4_bwd2_kernel(const float4* __restrict__ g_up,
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
-      const int off = b0 * 16 + b1 * 4 + b2;
-      const float sg0 = b0 ? 1.f : -1.f, sg1 = b1 ? 1.f : -1.f,
-                  sg2 = b2 ? 1.f : -1.f;
+      const int off = corner_off(k);
+      // D_a sg_a: a sign, exact
+      const float d0 = b0 ? D[0] : -D[0], d1 = b1 ? D[1] : -D[1],
+                  d2 = b2 ? D[2] : -D[2];
       float f[4];
       unpack4(__ldg(table + base + off), f);
-      const float ck = D[0] * sg0 * s[1][b1] * s[2][b2] +
-                       D[1] * sg1 * s[0][b0] * s[2][b2] +
-                       D[2] * sg2 * s[0][b0] * s[1][b1];
-      dg.x += ck * f[0];
-      dg.y += ck * f[1];
-      dg.z += ck * f[2];
-      dg.w += ck * f[3];
-      atomic_add4(dtab + base + off,
-                  make_float4(ck * g.x, ck * g.y, ck * g.z, ck * g.w));
+      // the one-thread-per-point form's bits, written out (see the notes
+      // at the top): c_k rounds every product and sum
+      const float ck = __fadd_rn(
+          __fadd_rn(__fmul_rn(__fmul_rn(d0, s[1][b1]), s[2][b2]),
+                    __fmul_rn(__fmul_rn(d1, s[0][b0]), s[2][b2])),
+          __fmul_rn(__fmul_rn(d2, s[0][b0]), s[1][b1]));
+      dg.x = __fmaf_rn(ck, f[0], dg.x);
+      dg.y = __fmaf_rn(ck, f[1], dg.y);
+      dg.z = __fmaf_rn(ck, f[2], dg.z);
+      dg.w = __fmaf_rn(ck, f[3], dg.w);
+      // a key does not name its corner, so lanes meet corner by corner
+      warp_add4(dtab, base + off,
+                make_float4(__fmul_rn(ck, g.x), __fmul_rn(ck, g.y),
+                            __fmul_rn(ck, g.z), __fmul_rn(ck, g.w)),
+                active);
       if (dx != nullptr) {
-        const float h = g.x * f[0] + g.y * f[1] + g.z * f[2] + g.w * f[3];
-        e[0] += h * sg0 * (D[1] * sg1 * s[2][b2] + D[2] * sg2 * s[1][b1]);
-        e[1] += h * sg1 * (D[0] * sg0 * s[2][b2] + D[2] * sg2 * s[0][b0]);
-        e[2] += h * sg2 * (D[0] * sg0 * s[1][b1] + D[1] * sg1 * s[0][b0]);
+        const float h = __fmaf_rn(
+            g.w, f[3],
+            __fmaf_rn(g.z, f[2], __fmaf_rn(g.x, f[0], __fmul_rn(g.y, f[1]))));
+        // x_a = sum_{b != a} D_b sg_b s_c, one product fused as there:
+        // for x0 D2's where b1 = 0, else D1's; for x1 D0's; none for x2
+        const float x0 = b1 ? __fmaf_rn(d1, s[2][b2], __fmul_rn(d2, s[1][b1]))
+                            : __fmaf_rn(d2, s[1][b1], __fmul_rn(d1, s[2][b2]));
+        const float x1 = __fmaf_rn(d0, s[2][b2], __fmul_rn(d2, s[0][b0]));
+        const float x2 =
+            __fadd_rn(__fmul_rn(d0, s[1][b1]), __fmul_rn(d1, s[0][b0]));
+        e[0] = __fmaf_rn(b0 ? h : -h, x0, e[0]);
+        e[1] = __fmaf_rn(b1 ? h : -h, x1, e[1]);
+        e[2] = __fmaf_rn(b2 ? h : -h, x2, e[2]);
       }
     }
-    dgup[p * L + l] = dg;
+    gs[i * L + l] = dg;
+    if (dx != nullptr) {
 #pragma unroll
-    for (int a = 0; a < 3; ++a) d[a] += e[a] * (float)(lv.res[a] - 2);
+      for (int a = 0; a < 3; ++a) es[(l * P + i) * 3 + a] = e[a];
+    }
   }
+  __syncthreads();
+  for (int k = threadIdx.x; k < np * L; k += blockDim.x)
+    dgup[p0 * L + k] = gs[k];
   if (dx != nullptr) {
-    dx[p * 3] = d[0];
-    dx[p * 3 + 1] = d[1];
-    dx[p * 3 + 2] = d[2];
+    for (int k = threadIdx.x; k < np * 3; k += blockDim.x) {
+      const int a = k % 3;
+      float d = 0.f;
+      for (int ll = 0; ll < L; ++ll)
+        d = fmaf(es[ll * P * 3 + k], (float)(meta.lv[ll].res[a] - 2), d);
+      dx[p0 * 3 + k] = d;
+    }
   }
 }
 
 static long long total_rows(const Brick4Meta& meta) {
   const Brick4Level& last = meta.lv[meta.n_levels - 1];
   return (long long)last.row_offset + last.n_rows;
+}
+
+static unsigned n_blocks(long long total, int threads) {
+  return (unsigned)((total + threads - 1) / threads);
 }
 
 extern "C" {
@@ -331,21 +434,19 @@ int brick4_fwd(const void* x, const void* table, Brick4Meta meta, void* y,
   return (int)cudaGetLastError();
 }
 
-// x [n,3] f32, g [n,4L] f32, words [n,L,8] uint2 or null, table packed
-// [rows,128] or null, dtab [rows,256] f32 (zeroed here), dx [n,3] f32 or
-// null (zeroed here). dx needs words or the table.
+// x [n,3] f32, g [n,4L] f32, words [n,L,8] uint2 (16-byte aligned) or
+// null, table packed [rows,128] or null, dtab [rows,256] f32 (zeroed
+// here), dx [n,3] f32 or null (written, not accumulated). dx needs words
+// or the table.
 int brick4_bwd(const void* x, const void* g, const void* words,
                const void* table, Brick4Meta meta, void* dtab, void* dx,
                long long n, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaMemsetAsync(dtab, 0, (size_t)total_rows(meta) * 256 * sizeof(float),
                   st);
-  if (dx != nullptr) cudaMemsetAsync(dx, 0, (size_t)n * 3 * sizeof(float), st);
-  const long long total = n * meta.n_levels;
-  if (total > 0) {
-    const int threads = 256;
-    const long long blocks = (total + threads - 1) / threads;
-    brick4_bwd_kernel<<<(unsigned)blocks, threads, 0, st>>>(
+  if (n > 0 && meta.n_levels > 0) {
+    brick4_bwd_kernel<<<n_blocks(n, BRICK4_BLOCK_POINTS),
+                        32 * meta.n_levels * BRICK4_RUNS, 0, st>>>(
         (const float*)x, (const float4*)g, (const uint2*)words,
         (const uint2*)table, meta, (float4*)dtab, (float*)dx, n);
   }
@@ -374,10 +475,9 @@ int brick4_bwd2(const void* g_up, const void* x, const void* table,
   cudaStream_t st = (cudaStream_t)stream;
   cudaMemsetAsync(dtab, 0, (size_t)total_rows(meta) * 256 * sizeof(float),
                   st);
-  if (n > 0) {
-    const int threads = 256;
-    const long long blocks = (n + threads - 1) / threads;
-    brick4_bwd2_kernel<<<(unsigned)blocks, threads, 0, st>>>(
+  if (n > 0 && meta.n_levels > 0) {
+    brick4_bwd2_kernel<<<n_blocks(n, BRICK4_BLOCK_POINTS),
+                         32 * meta.n_levels * BRICK4_RUNS, 0, st>>>(
         (const float4*)g_up, (const float*)x, (const uint2*)table,
         (const float*)gg, meta, (float4*)dgup, (float4*)dtab, (float*)dx, n);
   }

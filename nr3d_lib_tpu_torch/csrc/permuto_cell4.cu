@@ -47,10 +47,12 @@
 //
 // The simplex search, the dL/dx algebra (elevation_vjp) and the
 // bit-exactness rules live in permuto_simplex.cuh, shared with the F=2
-// kernels of permuto_cell.cu. Packed words are only loaded, shifted and
-// masked.
+// kernels of permuto_cell.cu; `warp_add4` lives in warp_atomics.cuh,
+// shared with the F=4 brick backwards (brick4.cu). Packed words are only
+// loaded, shifted and masked.
 
 #include "permuto_simplex.cuh"
+#include "warp_atomics.cuh"
 
 // packed word pair of a vertex: bf16(f0) | bf16(f1) << 16, bf16(f2) |
 // bf16(f3) << 16
@@ -98,46 +100,6 @@ __global__ void permuto4_fwd_kernel(const float* __restrict__ x,
   }
   __syncthreads();
   for (int k = threadIdx.x; k < np * L; k += blockDim.x) y[p0 * L + k] = ys[k];
-}
-
-// 16-byte atomic add into global memory (one instruction on sm_90).
-__device__ __forceinline__ void atomic_add4(float4* dst, float4 v) {
-#if __CUDACC_VER_MAJOR__ > 12 || \
-    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1)
-  atomicAdd(dst, v);
-#else
-  atomicAdd(&dst->x, v.x);
-  atomicAdd(&dst->y, v.y);
-  atomicAdd(&dst->z, v.z);
-  atomicAdd(&dst->w, v.w);
-#endif
-}
-
-__device__ __forceinline__ float4 shfl4(unsigned mask, float4 v, int src) {
-  return make_float4(__shfl_sync(mask, v.x, src), __shfl_sync(mask, v.y, src),
-                     __shfl_sync(mask, v.z, src), __shfl_sync(mask, v.w, src));
-}
-
-// dst[key] += v for each lane of `active` (the warp's lanes that hold a
-// point; all of them call this with the same `active`). The lanes with
-// the same key sum their v first, pairwise in a tree over their ranks
-// (ceil(log2 group) rounds of shuffles), and the lowest lane of the group
-// issues one atomic.
-__device__ __forceinline__ void warp_add4(float4* dst, int key, float4 v,
-                                          unsigned active) {
-  const unsigned peers = __match_any_sync(active, key);
-  const unsigned lane = threadIdx.x & 31u;
-  const unsigned below = peers & ((1u << lane) - 1u);
-  unsigned rest = peers & ~((2u << lane) - 1u);  // the group's lanes above
-  unsigned rank = __popc(below);
-  while (__any_sync(active, rest != 0u)) {
-    const int next = __ffs(rest);  // the next lane of the group, 1-based
-    const float4 t = shfl4(active, v, (next - 1) & 31);
-    if (next) v = make_float4(v.x + t.x, v.y + t.y, v.z + t.z, v.w + t.w);
-    rest &= ~__ballot_sync(active, rank & 1u);  // summed into a lower lane
-    rank >>= 1;
-  }
-  if (below == 0u) atomic_add4(dst + key, v);
 }
 
 // B15: the blocks of B14. dtab [rows, 64] float4 (zeroed by the caller) +=

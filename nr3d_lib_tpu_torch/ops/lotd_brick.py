@@ -208,11 +208,13 @@ def _level_corners(x: torch.Tensor, t_flat: torch.Tensor, level,
 def brick_atomic_groups(x: torch.Tensor, meta: BrickMeta,
                         warp: int = 32) -> List[int]:
     """Per level, the table-gradient atomics that B7 (`brick_bwd`) and B9
-    (`brick_bwd2`) each issue at the points x [N, 3] in their order: a
+    (`brick_bwd2`) each issue at the points x [N, 3] in their order, and
+    at an F=4 meta (`lotd_brick4.make_brick4_meta`, the same geometry)
+    B2 (`brick4_bwd`) and B4 (`brick4_bwd2`), float4 atomics there: a
     warp takes `warp` consecutive points at one level, and corner by
-    corner its lanes that add to one slot (row·64 + vertex) sum first, so
-    one atomic per distinct (warp, corner, slot); one lane alone issues
-    N·8 a level."""
+    corner its lanes that add to one slot (row·64 + vertex, in both
+    layouts) sum first, so one atomic per distinct (warp, corner, slot);
+    one lane alone issues N·8 a level."""
     bits = _corner_bits(x.device)
     corner_v = (bits[:, 0] * BRICK_W + bits[:, 1]) * BRICK_W + bits[:, 2]
     n_slots = meta.total_rows * 64

@@ -182,11 +182,14 @@ def _bwd_cuda(x: torch.Tensor, g: torch.Tensor, meta: BrickMeta, *,
               packed: Optional[torch.Tensor] = None):
     """B2 → (dL/dx [N,3] or None, dL/dtable [rows,256]). dL/dx reads the
     corner values from `words` (the want_g forward's) or else from the
-    packed table."""
+    packed table; it is each point's own level sum, the same bits in any
+    order of the points."""
     if need_dx and words is None and packed is None:
         raise ValueError("brick4_bwd: dL/dx needs the forward's words or "
                          "the packed table")
     x, g = aligned(x), aligned(g)
+    words = None if words is None else aligned(words)
+    packed = None if packed is None else aligned(packed)
     dtab = torch.empty((meta.total_rows, 2 * LANES), device=x.device,
                        dtype=torch.float32)
     dx = torch.empty_like(x) if need_dx else None

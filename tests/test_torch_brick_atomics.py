@@ -1,16 +1,19 @@
 """The count of the table-gradient atomics that the F=2 brick encode's
 backward (B7, `csrc/brick.cu` `brick_bwd`) and the nablas' backward (B9,
 `brick_bwd2`) each issue once their warps sum, corner by corner, the
-lanes that add to one slot (`ops/lotd_brick.brick_atomic_groups`). The
-kernels themselves run only on a card (`tests/test_torch_kernels_gpu.py`);
-this holds the host-side count that `chip_ab.py` and `chip_smoke.py`
-report beside their times."""
+lanes that add to one slot (`ops/lotd_brick.brick_atomic_groups`), and
+that the F=4 ones (B2 and B4, `csrc/brick4.cu` `brick4_bwd` and
+`brick4_bwd2`) issue in the same warps at an F=4 meta. The kernels
+themselves run only on a card (`tests/test_torch_kernels_gpu.py`); this
+holds the host-side count that `chip_ab.py` and `chip_smoke.py` report
+beside their times."""
 
 import numpy as np
 import pytest
 import torch
 
 from nr3d_lib_tpu_torch.ops import lotd_brick as B
+from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
 
 # a dense and a hashed level of the F=2 NeuS's kind, and eight levels
 # (the most the kernels take) with hashed levels of 256 rows
@@ -122,6 +125,87 @@ def test_b7_issues_what_brick_atomic_groups_counts(name, n):
     for xx in (x, x[perm]):
         assert _b7_launch(xx, meta) == B.brick_atomic_groups(xx, meta) == \
             _brute_force(xx, meta, 32)
+
+
+# the F=4 NeuS's production levels, and four levels (the most the F=4
+# kernels take)
+F4_METAS = {"production": ([16, 64], ["Dense", "Hash"], 4096),
+            "four_levels": ([16, 32, 64, 128], ["Dense", "Dense", "Hash",
+                                                "Hash"], 4096)}
+
+
+def _f4_slots(x: torch.Tensor, meta) -> torch.Tensor:
+    """[N, L, 8] slot (row·64 + vertex) of each (point, level, corner), as
+    the F=4 plain version reads it: a table whose features hold their own
+    slot in base 256 (exact in bf16), gathered by
+    `brick4_corner_words_xla` and decoded from the packed words."""
+    slot = torch.arange(meta.total_rows * 64)
+    digits = torch.stack([slot % 256, slot // 256 % 256, slot // 65536,
+                          torch.zeros_like(slot)], -1)
+    table = digits.to(torch.float32).reshape(meta.total_rows, 256)
+    words = B4.brick4_corner_words_xla(x, table, meta).to(torch.int64)
+
+    def bf16(bits):                              # 16 bits → its float
+        u = bits << 16
+        return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(
+            torch.int32).view(torch.float32).to(torch.int64)
+
+    w0, w1 = words[..., 0] & 0xFFFFFFFF, words[..., 1] & 0xFFFFFFFF
+    return bf16(w0 & 0xFFFF) + 256 * bf16(w0 >> 16) + 65536 * bf16(
+        w1 & 0xFFFF)
+
+
+def _f4_launch(slots: torch.Tensor, runs: int):
+    """B2's and B4's launch simulated warp by warp from the slots [N, L, 8]:
+    block b takes the points [32 R b, 32 R (b + 1)) of R = `runs` runs at
+    all L levels (blockDim = 32 L R), warp w the run w // L at level
+    w % L; corner by corner a warp issues one atomic for each distinct
+    slot among its lanes that hold a point. Per level, the atomics."""
+    n, L, _ = slots.shape
+    s = slots.tolist()
+    out = [0] * L
+    for b in range(-(-n // (32 * runs))):
+        for w in range(L * runs):
+            r, l = divmod(w, L)
+            pts = range(32 * (runs * b + r), min(32 * (runs * b + r + 1), n))
+            for k in range(8):
+                out[l] += len({s[p][l][k] for p in pts})
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(F4_METAS))
+@pytest.mark.parametrize("n", [1, 33, 1000])
+def test_brick_atomic_groups_count_the_f4_kernels(name, n):
+    """At an F=4 meta, `brick_atomic_groups` gives what B2's and B4's
+    warps issue at the slots that the F=4 plain version reads (one or two
+    runs a block), at ray order and permuted, n = 1, a ragged last warp
+    and 1000 points; the slots are the F=2 formula's."""
+    meta = B4.make_brick4_meta(*F4_METAS[name])
+    assert {lv.kind for lv in meta.levels} == {"dense", "hash"}
+    x = _ray_points(n, 10)
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(11))
+    for xx in (x, x[perm]):
+        slots = _f4_slots(xx, meta)
+        for l, lv in enumerate(meta.levels):
+            row, lane0, _ = B._level_rows_and_lanes(xx, lv)
+            assert torch.equal(slots[:, l, 0], row * 64 + lane0 // 2)
+        got = B.brick_atomic_groups(xx, meta)
+        assert got == _f4_launch(slots, 1) == _f4_launch(slots, 2)
+        assert got == _brute_force(xx, meta, 32)
+        assert all(g <= n * 8 for g in got)
+
+
+@pytest.mark.parametrize("name", sorted(F4_METAS))
+def test_f4_ray_order_needs_fewer_atomics(name):
+    """Along rays the F=4 kernels' warps merge most at the dense level:
+    ray order needs fewer atomics there than the same points permuted,
+    and never more at any level."""
+    meta = B4.make_brick4_meta(*F4_METAS[name])
+    x = _ray_points(96 * 40, 12)
+    perm = torch.randperm(len(x), generator=torch.Generator().manual_seed(13))
+    ray, shuffled = (B.brick_atomic_groups(xx, meta) for xx in (x, x[perm]))
+    assert all(a <= b for a, b in zip(ray, shuffled))
+    assert ray[0] < shuffled[0]
 
 
 def test_c_meta_refuses_slots_past_int32():

@@ -31,10 +31,11 @@ its warp vote skips must be exact zeros), and at the bench scene's
 attrs. B10 and B14 also run on points along rays and on the same
 points permuted (the permuted rows must be the same bits), d = 2–5; so
 does B15, whose dL/dx must then be the same bits, and on warps whose
-points share one cell; so do B11/B12 (F=2, the same design) and B9,
+points share one cell; so do B11/B12 (F=2, the same design), B9 and B4,
 whose dL/dg_up and dL/dx must be the same bits in two runs and in both
-orders. The search's shortcuts are checked over all 2^32 inputs: its
-division by d+1 bitwise against x / b, its modulus exactly.
+orders, and B7 and B2, whose dL/dx must (L = 1-8 and 1-4). The search's
+shortcuts are checked over all 2^32 inputs: its division by d+1 bitwise
+against x / b, its modulus exactly.
 """
 
 import numpy as np
@@ -1434,6 +1435,151 @@ def test_brick_bwd_one_brick_warps(cuda):
     corners = B._fwd_cuda(x, table, meta, want_g=True)[1]
     dx, dtab = B._bwd_cuda(x, g, meta, need_dx=True, corners=corners)
     dx_p, dtab_p = B.brick_encode_bwd_xla(x, table, g, meta, True)
+    _close(dx, dx_p, 1e-4)
+    _close(dtab, dtab_p, 1e-5)
+
+
+# ------------- B2, B4: the F=4 backwards in level-major warps (as B7, B9)
+B4_LEVELS = ([16, 32, 64, 128], ["Dense", "Dense", "Hash", "Hash"], 4096)
+
+
+def _brick4_ray_inputs(dev, n_levels: int, n: int, seed: int):
+    """B2's and B4's inputs at points along rays, on the first `n_levels`
+    levels of a four-level F=4 meta (dense, then hashed), from seeds."""
+    lod_res, types, rows = B4_LEVELS
+    meta = B4.make_brick4_meta(lod_res[:n_levels], types[:n_levels], rows)
+    x = _pc_ray_points(dev, 3, max(-(-n // 96), 1), 96, seed)[:n].contiguous()
+    rng = np.random.default_rng(seed + 1)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (meta.total_rows, 256)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(n, 4 * n_levels)).astype(
+        np.float32)).to(dev)
+    gg = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
+    perm = torch.from_numpy(rng.permutation(n)).to(dev)
+    return meta, x, table, g, gg, perm
+
+
+@pytest.mark.parametrize("n_levels", range(1, 5))
+@pytest.mark.parametrize("n", [0, 1, 255, 100_000])
+@pytest.mark.parametrize("form", ["no_dx", "dx_words", "dx_table"])
+def test_brick4_bwd_ray_and_permuted_order(cuda, n_levels, n, form):
+    """B2 at ray order and permuted, L = 1-4: dL/dx is each point's own
+    level sum, so it is bitwise the same in two runs and in both orders
+    once un-permuted; dL/dtable and dL/dx within their tolerances of the
+    plain version. n = 0, n < 32 and a ragged last run; dL/dx from the
+    want_g words or from the packed table."""
+    meta, x, table, g, _, perm = _brick4_ray_inputs(cuda, n_levels, n,
+                                                    120 + n_levels)
+    packed = B4.pack_table4(table)
+    need_dx = form != "no_dx"
+    dxs = []
+    for xx, gp in ((x, g), (x[perm].contiguous(), g[perm].contiguous())):
+        kw = {}
+        if form == "dx_words":
+            kw["words"] = B4._fwd_cuda(xx, packed, meta, want_g=True)[1]
+        elif form == "dx_table":
+            kw["packed"] = packed
+        before = _build.LAUNCHES["brick4_bwd"]
+        dx, dtab = B4._bwd_cuda(xx, gp, meta, need_dx=need_dx, **kw)
+        dx2, dtab2 = B4._bwd_cuda(xx, gp, meta, need_dx=need_dx, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["brick4_bwd"] == before + 2
+        assert dtab.shape == (meta.total_rows, 256)
+        if n == 0:
+            assert not dtab.any()
+        else:
+            dx_p, dtab_p = B4.brick4_encode_bwd_xla(xx, table, gp, meta,
+                                                    need_dx)
+            _close(dtab, dtab_p, 1e-5)
+            _close(dtab2, dtab_p, 1e-5)
+            if need_dx:
+                _close(dx, dx_p, 1e-4)
+        if need_dx:
+            assert dx.shape == (n, 3) and torch.equal(dx, dx2)
+        else:
+            assert dx is None and dx2 is None
+        dxs.append(dx)
+    if need_dx:
+        assert torch.equal(dxs[1][torch.argsort(perm)], dxs[0])
+
+
+@pytest.mark.parametrize("n_levels", range(1, 5))
+@pytest.mark.parametrize("n", [0, 1, 255, 100_000])
+def test_brick4_bwd2_ray_and_permuted_order(cuda, n_levels, n):
+    """B4 at ray order and permuted, L = 1-4: dL/dg_up and dL/dx are each
+    point's own sums (levels in order), so they are bitwise the same in
+    two runs and in both orders once un-permuted; all three gradients
+    within their tolerances of the plain version, and without dL/dx the
+    same dL/dg_up. n = 0, n < 32 and a ragged last run."""
+    meta, x, table, g, gg, perm = _brick4_ray_inputs(cuda, n_levels, n,
+                                                     130 + n_levels)
+    packed = B4.pack_table4(table)
+    outs = []
+    for xx, gp, ggp in ((x, g, gg), (x[perm].contiguous(),
+                                     g[perm].contiguous(),
+                                     gg[perm].contiguous())):
+        before = _build.LAUNCHES["brick4_bwd2"]
+        dg, dx, dtab = B4._bwd2_cuda(gp, xx, packed, ggp, meta)
+        dg2, dx2, dtab2 = B4._bwd2_cuda(gp, xx, packed, ggp, meta,
+                                        need_dx=False)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["brick4_bwd2"] == before + 2
+        assert dg.shape == (n, 4 * n_levels) and dx.shape == (n, 3)
+        assert dx2 is None and torch.equal(dg, dg2)
+        if n == 0:
+            assert dtab.shape == (meta.total_rows, 256) and not dtab.any()
+        else:
+            dg_p, dx_p, dtab_p = B4.brick4_nablas_bwd_xla(gp, xx, table, ggp,
+                                                          meta)
+            _close(dg, dg_p, 1e-4)
+            _close(dx, dx_p, 1e-4)
+            _close(dtab, dtab_p, 1e-5)
+            _close(dtab2, dtab_p, 1e-5)
+        dg3, dx3, _ = B4._bwd2_cuda(gp, xx, packed, ggp, meta)
+        assert torch.equal(dg, dg3) and torch.equal(dx, dx3)
+        outs.append((dg, dx))
+    inv = torch.argsort(perm)
+    assert torch.equal(outs[1][0][inv], outs[0][0])
+    assert torch.equal(outs[1][1][inv], outs[0][1])
+
+
+def _brick4_one_brick_inputs(dev, seed: int):
+    """Every warp's 32 points at one point of space (one group per corner
+    and warp at every level, the most the aggregation merges), on the
+    production levels."""
+    meta = B4.make_brick4_meta(*META_ARGS)
+    rng = np.random.default_rng(seed)
+    n_warps = 300
+    x = np.repeat(rng.uniform(0.0, 1.0, (n_warps, 3)), 32, 0)
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (meta.total_rows, 256)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.normal(size=(len(x), 4 * meta.n_levels))
+                         .astype(np.float32)).to(dev)
+    gg = torch.from_numpy(rng.normal(size=(len(x), 3)).astype(
+        np.float32)).to(dev)
+    assert B.brick_atomic_groups(x, meta) == [n_warps * 8] * meta.n_levels
+    return meta, x, table, g, gg
+
+
+def test_brick4_bwd_one_brick_warps(cuda):
+    """B2 where each warp's lanes all add to the same 8 slots: the groups'
+    sums against the plain version."""
+    meta, x, table, g, _ = _brick4_one_brick_inputs(cuda, 140)
+    words = B4._fwd_cuda(x, B4.pack_table4(table), meta, want_g=True)[1]
+    dx, dtab = B4._bwd_cuda(x, g, meta, need_dx=True, words=words)
+    dx_p, dtab_p = B4.brick4_encode_bwd_xla(x, table, g, meta, True)
+    _close(dx, dx_p, 1e-4)
+    _close(dtab, dtab_p, 1e-5)
+
+
+def test_brick4_bwd2_one_brick_warps(cuda):
+    """B4 where each warp's lanes all add to the same 8 slots: the groups'
+    sums against the plain version."""
+    meta, x, table, g, gg = _brick4_one_brick_inputs(cuda, 141)
+    dg, dx, dtab = B4._bwd2_cuda(g, x, B4.pack_table4(table), gg, meta)
+    dg_p, dx_p, dtab_p = B4.brick4_nablas_bwd_xla(g, x, table, gg, meta)
+    _close(dg, dg_p, 1e-4)
     _close(dx, dx_p, 1e-4)
     _close(dtab, dtab_p, 1e-5)
 
