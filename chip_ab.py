@@ -1,10 +1,8 @@
 #!/usr/bin/env python3
-"""Time the parent commit's B2 and B4 kernels against this tree's, in
-turns, on one card, with probes, and compare their outputs: the F=4
-brick encode's backward B2 (`brick4_bwd`, `csrc/brick4.cu`) and the
-nablas' backward B4 (`brick4_bwd2`); and B15 (`permuto4_bwd`,
-`csrc/permuto_cell4.cu`), whose `warp_add4` moved into
-`csrc/warp_atomics.cuh` for B2 and B4 to share.
+"""Time the parent commit's B6 kernel against this tree's, in turns, on one
+card, with probes, and compare their outputs: the F=2 brick encode B6
+(`brick_fwd`, `csrc/brick.cu`) in both of its forms, y only and want_g (y
+and the corner values that B7 reads back).
 
     git archive <parent> nr3d_lib_tpu_torch/csrc | tar -x -C _archive/parent
     python3 chip_ab.py _archive/parent/nr3d_lib_tpu_torch/csrc
@@ -12,52 +10,54 @@ nablas' backward B4 (`brick4_bwd2`); and B15 (`permuto4_bwd`,
 (`_archive/` is listed in `.gitignore`; run the second line where the
 card is.) Builds, with the port's nvcc flags, into `_archive/ab_build/`,
 one nvcc per library, all started together, each source with its own
-directory's headers (`-I`): the parent's and this tree's `brick4.cu` and
-`permuto_cell4.cu`, and probes made by text substitution, in lieu of
-`ncu`:
+directory's headers (`-I`): the parent's and this tree's `brick.cu`, and
+probes made by text substitution of this tree's, in lieu of `ncu`:
 
-- `brick4_noatomics`: this tree's `warp_add4` (`warp_atomics.cuh`) sends
-  each sum to a register sink that is never stored (wrong table
-  gradients: the atomics' and the aggregation's cost);
-- `brick4_lane_atomics`: `warp_add4` issues one atomic per lane (the
-  aggregation off: the parent's atomics in this tree's warps);
-- `brick4_runs2`: a block takes two runs of 32 points (`BRICK4_RUNS` 2,
-  blockDim 64 L);
-- `brick4_parent_noatomics`: the parent's B2 and B4 without their
-  atomics (its `atomic_add4` returns at once).
+- `brick_lane_corners`: the want_g corners written by each lane as its
+  own 64 bytes, four float4 stores, not staged in shared memory (the
+  other layout; y and the corners stay right);
+- `brick_stage_x`: the block's x staged in shared memory behind a
+  barrier, as B7 and B9 stage it, not read by each lane (right);
+- `brick_direct_y`: y stored by each lane, L·8 bytes from its
+  neighbour's, not through shared memory (right);
+- `brick_pair_loads`: each pair of corners adjacent in z read by one
+  16-byte load where the pair is 16-byte aligned (even vertex), else by
+  two (right);
+- `brick_noloads`: no table loads (each corner's value is made from its
+  row and vertex: wrong outputs, the loads' cost);
+- `brick_nostores`: y and the corners not stored to device memory (each
+  store behind a test that fails: the stores' cost);
+- `brick_noloads_nostores`: both (what is left: the index math, the
+  weights, x's loads and the shared-memory staging);
+- `brick_nomod`: the hash level's `h % n_rows` as `h & (n_rows - 1)`
+  (the modulo's cost; exact where n_rows is a power of two, as at every
+  hashed level of the two F=2 configurations).
 
-Prints each library's ptxas registers and the SASS instruction counts of
-B2, B4 and B15 (B15's instructions, parent and new, must be the same
-list), then, with the tolerances of `chip_smoke.py`:
+Prints each library's ptxas registers of B6's two instances, the SASS
+instruction counts of B6 and of B7, B8 and B9 (whose source did not
+change: their instructions, parent and new, must be the same lists), then:
 
-- B2 and B4 at the F=4 NeuS train step's shape (`chip_smoke.py`'s
-  147,456 points along rays × 2 levels, 4221 rows), ray order and
-  randomly permuted: the gradients against the plain version; B4's
-  dL/dg_up and dL/dx bitwise equal to the parent's (with and without
-  dL/dx); B2's dL/dx bitwise equal in two runs and between the orders;
-  dL/dtable's largest and root-mean-square distance to a float64 sum of
-  the same contributions (the plain version's and six runs each of the
-  parent's, the new and the one-atomic-a-lane kernels'; the new no
-  farther than the parent's, on the mean of the runs); the float4
-  atomics issued
-  (`ops/lotd_brick.brick_atomic_groups`); times in turns (parent, new,
-  probes, probes reversed, new, parent) without dL/dx (the step's form)
-  and, parent and new, with it;
-- B2 and B4 on the step's own inputs: the arguments that their wrappers
-  receive inside the F=4 NeuS train step, recorded
-  (`chip_smoke._record_step`) at two steps of one run of `chip_smoke.py`'s
-  train step from its seeded weights: it = 4 (after three steps) and the
-  step that `chip_smoke.py` itself records, it = 23 (after its 2 warm-up
-  and 20 timed steps, across the occupancy update at it = 16). At each:
-  the points as recorded and permuted, the atomics they need, times
-  alone in turns, with a cold L2 as well, and B2's and B4's device time
-  inside that step with the step's device time (torch.profiler over
-  three of its forward-backward passes, both wrappers routed to the
-  parent's or the new library, in turns);
-- B15 at path C's shape (`chip_smoke.py`'s 393,216 (x,t) points × 4
-  levels, 14,080 rows): dL/dx bitwise equal to the parent's, dL/dtable
-  against the plain version, times in turns with and without dL/dx, ray
-  order and permuted.
+- B6 at the three shapes of its `PERF.md` rows, from `chip_smoke.py`'s
+  seeded models and points: the NeRF render's 196,608 points × 6 levels
+  (23,005 rows), the NeuS render's 589,824 × 4 (9,648 rows) and the
+  want_g form at the NeuS train step's 147,456 × 4; each in ray order and
+  randomly permuted. y bitwise the parent's in both forms and equal in
+  the two forms, the corners equal to the parent's and to the plain
+  version's, a permuted batch's y the permuted y, y within 1e-5 of the
+  plain version; times in turns (parent, new, probes, probes reversed,
+  new, parent), y only and want_g, and each row's bound;
+- B6 on the inputs of each of its six launches in one F=2 NeuS render
+  (recorded around `lotd_brick._fwd_cuda`): y bitwise the parent's,
+  times in turns, each launch's bound;
+- B6 inside the paths, with `lotd_brick._fwd_cuda` routed to the
+  parent's or the new library, in turns (torch.profiler; ms per pass
+  over three passes): the F=2 NeuS render (6 launches), that model's
+  autograd nablas (`forward_sdf` with x requiring grad: 1 want_g launch
+  and B7) on the train step's 147,456 points, and its train step at it =
+  23 (forward and backward, no optimizer step; `chip_smoke.py`'s seeded
+  model after 22 of its train steps); B6's device time and the pass's
+  device time in each, and the pass's outputs bitwise equal between the
+  two libraries.
 
 The last line of its output is one JSON object with every number. It
 exits 1 if a comparison failed (the JSON's "failed" names it).
@@ -73,63 +73,105 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
-
 REPO = Path(__file__).resolve().parent
 BUILD = REPO / "_archive" / "ab_build"
 NEW = REPO / "nr3d_lib_tpu_torch" / "csrc"
 
-# the body of warp_add4, from its first line to its last
-AGG_FIRST = "  const unsigned peers = __match_any_sync(active, key);"
-AGG_LAST = "  if (below == 0u) atomic_add4(dst + key, v);"
-NO_ATOMICS = ("  if (v.x == 1.0e38f && v.y == -1.0e38f) "
-              "atomic_add4(dst + key, v);")
-LANE_ATOMICS = "  atomic_add4(dst + key, v);"
-RUNS_1 = "constexpr int BRICK4_RUNS = 1;"
-RUNS_2 = "constexpr int BRICK4_RUNS = 2;"
-# the parent's float4 atomic, shared by its B2 and B4
-PARENT_ATOMIC = \
-    "__device__ __forceinline__ void atomic_add4(float4* dst, float4 v) {"
-PARENT_SINK = (PARENT_ATOMIC +
-               "\n  if (v.x != 1.0e38f || v.y != -1.0e38f) return;")
-PROD_META = ([16, 64], ["Dense", "Hash"], 4096)
-KERNELS = ("brick4_bwd_kernel", "brick4_bwd2_kernel", "permuto4_bwd_kernel")
+# this tree's B6: a lane's corners into shared memory, the block's run out
+# of it, and the run's shared memory at the launch
+STAGE_CORNERS = """        cs[i * rec + l * 4 + q] = make_float4("""
+LANE_CORNERS = (
+    """        corners[((p0 + i) * L + l) * 4 + q] = make_float4(""")
+STAGE_OUT = "      if (pi < np) out[j * 32 * L + t] = cs[pi * rec + tr];"
+LANE_OUT = "      (void)out;"
+STAGE_SMEM = ("      const size_t smem = (size_t)BRICK_POINTS * (4 * L + 1) * "
+              "sizeof(float4);")
+LANE_SMEM = "      const size_t smem = 0;"
+LOAD = "      v[k] = __ldg(rowp + corner_off(k));"
+NO_LOAD = ("      v[k] = make_float2((float)(c.row * 64 + c.vert0 + "
+           "corner_off(k)), (float)c.vert0);")
+Y_OUT = "  if (t < np * L) y[p0 * L + t] = ys[t];  // np L <= 32 L = blockDim"
+Y_SINK = "  if (t < np * L && ys[t].x == 1.0e38f) y[p0 * L + t] = ys[t];"
+C_SINK = ("      if (pi < np && cs[pi * rec + tr].x == 1.0e38f)\n"
+          "        out[j * 32 * L + t] = cs[pi * rec + tr];")
+Y_STAGE = "    ys[i * L + l] = make_float2(a0, a1);"
+Y_DIRECT = "    y[(p0 + i) * L + l] = make_float2(a0, a1);"
+X_DIRECT = """  const int rec = 4 * L + 1;  // float4s a point takes in cs
+  if (i < np) {
+    const float* xi = x + (p0 + i) * 3;
+    const float xp[3] = {xi[0], xi[1], xi[2]};"""
+X_STAGE = """  __shared__ float xs[BRICK_POINTS * 3];
+  for (int k = t; k < np * 3; k += blockDim.x) xs[k] = x[p0 * 3 + k];
+  __syncthreads();
+  const int rec = 4 * L + 1;  // float4s a point takes in cs
+  if (i < np) {
+    const float xp[3] = {xs[i * 3], xs[i * 3 + 1], xs[i * 3 + 2]};"""
+MOD = "    row = (int)(h % (uint32_t)L.n_rows);"
+NO_MOD = "    row = (int)(h & (uint32_t)(L.n_rows - 1));"
+LOOP = """    float2 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {"""
+PAIRS = """    float2 v[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2* pp = rowp + corner_off(2 * q);
+      if (c.vert0 & 1) {
+        v[2 * q] = __ldg(pp);
+        v[2 * q + 1] = __ldg(pp + 1);
+      } else {
+        const float4 w4 = __ldg(reinterpret_cast<const float4*>(pp));
+        v[2 * q] = make_float2(w4.x, w4.y);
+        v[2 * q + 1] = make_float2(w4.z, w4.w);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {"""
+PROBES = {
+    "brick_lane_corners": [(STAGE_CORNERS, LANE_CORNERS),
+                           (STAGE_OUT, LANE_OUT), (STAGE_SMEM, LANE_SMEM)],
+    "brick_stage_x": [(X_DIRECT, X_STAGE)],
+    "brick_direct_y": [(Y_STAGE, Y_DIRECT), (Y_OUT, "")],
+    "brick_pair_loads": [(LOOP, PAIRS), (LOAD, "")],
+    "brick_noloads": [(LOAD, NO_LOAD)],
+    "brick_nostores": [(Y_OUT, Y_SINK), (STAGE_OUT, C_SINK)],
+    "brick_noloads_nostores": [(LOAD, NO_LOAD), (Y_OUT, Y_SINK),
+                               (STAGE_OUT, C_SINK)],
+    "brick_nomod": [(MOD, NO_MOD)],
+}
+NAMES = ("brick_parent", "brick_new", *PROBES)
+TWO = ("brick_parent", "brick_new")
+# the probes whose outputs are right
+EXACT = ("brick_new", "brick_lane_corners", "brick_stage_x",
+         "brick_direct_y", "brick_pair_loads")
+B6 = "brick_fwd_kernel"
+UNCHANGED = ("brick_bwd_kernel", "brick_dydx_kernel", "brick_bwd2_kernel")
 
 
-def _probe(name: str, tree: Path, target: str, old: str, new: str,
-           src: str) -> tuple:
-    """A copy of the sources `tree` in BUILD/name with `old` replaced by
-    `new` in the file `target`; (the copy's `src`, its -I dir)."""
+def _probe(name: str, subs) -> tuple:
+    """A copy of this tree's sources in BUILD/name with each (old, new) of
+    `subs` replaced in `brick.cu`; (the copy's brick.cu, its -I dir)."""
     out = BUILD / name
     if out.exists():
         shutil.rmtree(out)
-    shutil.copytree(tree, out)
-    text = (out / target).read_text()
-    if old not in text:
-        raise RuntimeError(f"{target}: the text {name} replaces is not in "
-                           f"it")
-    (out / target).write_text(text.replace(old, new, 1))
-    return out / src, out
-
-
-def _agg_body() -> str:
-    text = (NEW / "warp_atomics.cuh").read_text()
-    a = text.index(AGG_FIRST, text.index("void warp_add4("))
-    return text[a:text.index(AGG_LAST, a) + len(AGG_LAST)]
-
-
-def _ours(kernel: str) -> bool:
-    return any(k in kernel for k in KERNELS)
+    shutil.copytree(NEW, out)
+    text = (out / "brick.cu").read_text()
+    for old, new in subs:
+        if old not in text:
+            raise RuntimeError(f"brick.cu: the text {name} replaces is not "
+                               f"in it: {old!r}")
+        text = text.replace(old, new, 1)
+    (out / "brick.cu").write_text(text)
+    return out / "brick.cu", out
 
 
 def _nvcc_all(sources: dict) -> None:
     """One nvcc per library, all started together; prints ptxas'
-    registers of B2's, B4's and B15's kernels."""
-    from nr3d_lib_tpu_torch.ops import _build as B
+    registers of B6's instances."""
+    from nr3d_lib_tpu_torch.ops import _build as Bu
 
     procs = {}
     for name, (src, inc) in sources.items():
-        cmd = [B._nvcc(), *B.NVCC_FLAGS, "-I", str(inc), "-o",
+        cmd = [Bu._nvcc(), *Bu.NVCC_FLAGS, "-I", str(inc), "-o",
                str(BUILD / f"lib{name}.so"), str(src)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
@@ -141,51 +183,44 @@ def _nvcc_all(sources: dict) -> None:
         for line in text.splitlines():
             if "Compiling entry" in line:
                 entry = line.split("'")[1] if "'" in line else line
-            elif "registers" in line and _ours(entry):
-                print(f"[ptxas {name}] {entry[:60]}: {line.strip()}")
+            elif "registers" in line and B6 in entry:
+                print(f"[ptxas {name}] {entry[:48]}: {line.strip()}")
 
 
 def _build() -> dict:
     parent = Path(sys.argv[1]).resolve()
     BUILD.mkdir(parents=True, exist_ok=True)
-    body = _agg_body()
-    sources = {
-        "brick4_parent": (parent / "brick4.cu", parent),
-        "brick4_new": (NEW / "brick4.cu", NEW),
-        "brick4_noatomics": _probe("brick4_noatomics", NEW,
-                                   "warp_atomics.cuh", body, NO_ATOMICS,
-                                   "brick4.cu"),
-        "brick4_lane_atomics": _probe("brick4_lane_atomics", NEW,
-                                      "warp_atomics.cuh", body,
-                                      LANE_ATOMICS, "brick4.cu"),
-        "brick4_runs2": _probe("brick4_runs2", NEW, "brick4.cu", RUNS_1,
-                               RUNS_2, "brick4.cu"),
-        "brick4_parent_noatomics": _probe(
-            "brick4_parent_noatomics", parent, "brick4.cu", PARENT_ATOMIC,
-            PARENT_SINK, "brick4.cu"),
-        "p4_parent": (parent / "permuto_cell4.cu", parent),
-        "p4_new": (NEW / "permuto_cell4.cu", NEW),
-    }
+    sources = {"brick_parent": (parent / "brick.cu", parent),
+               "brick_new": (NEW / "brick.cu", NEW)}
+    sources.update({name: _probe(name, subs)
+                    for name, subs in PROBES.items()})
     _nvcc_all(sources)
     return {name: BUILD / f"lib{name}.so" for name in sources}
 
 
 def _load(path: Path) -> ctypes.CDLL:
-    from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
-    from nr3d_lib_tpu_torch.ops import permuto_cell as PC
+    from nr3d_lib_tpu_torch.ops import lotd_brick as B
 
     vp, n = ctypes.c_void_p, ctypes.c_longlong
     lib = ctypes.CDLL(str(path))
-    if hasattr(lib, "brick4_bwd"):
-        sigs = {"brick4_bwd": [vp, vp, vp, vp, B4._Meta, vp, vp, n, vp],
-                "brick4_bwd2": [vp, vp, vp, vp, B4._Meta, vp, vp, vp, n,
-                                vp]}
-    else:
-        sigs = {"permuto4_bwd": [vp, vp, vp, PC._Meta, vp, vp, n, vp]}
-    for fn, types in sigs.items():
-        getattr(lib, fn).argtypes = types
-        getattr(lib, fn).restype = ctypes.c_int
+    lib.brick_fwd.argtypes = [vp, vp, B._Meta, vp, vp, n, vp]
+    lib.brick_fwd.restype = ctypes.c_int
     return lib
+
+
+def _fwd(lib, x, table, meta, want_g=False):
+    """B6 of one library → y [N,2L], or (y, corners [N,L,8,2])."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import _build as Bu
+    from nr3d_lib_tpu_torch.ops import lotd_brick as B
+
+    n, L = x.shape[0], meta.n_levels
+    y = torch.empty(n, 2 * L, device=x.device)
+    c = torch.empty(n, L, 8, 2, device=x.device) if want_g else None
+    Bu.check(lib.brick_fwd(x.data_ptr(), table.data_ptr(), B.c_meta(meta),
+                           y.data_ptr(), B.ptr(c), n,
+                           Bu.stream_ptr(x.device)), "brick_fwd")
+    return (y, c) if want_g else y
 
 
 def _turns(fns: dict, order) -> dict:
@@ -197,424 +232,238 @@ def _turns(fns: dict, order) -> dict:
     return ms
 
 
-def _bwd(lib, x, g, meta, need_dx=False, words=None):
-    """B2 of one library → (dL/dx or None, dL/dtable [rows, 256])."""
-    import torch
-    from nr3d_lib_tpu_torch.ops import _build as Bu
-    from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
+def _models(dev):
+    """`chip_smoke.py`'s path A and path B models, seeded as it seeds
+    them."""
+    import chip_smoke as CS
+    from nr3d_lib_tpu_torch.models.model_base import (LoTDNeRFModel,
+                                                      LoTDNeuSModel)
 
-    dtab = torch.empty(meta.total_rows, 256, device=x.device)
-    dx = torch.empty_like(x) if need_dx else None
-    Bu.check(lib.brick4_bwd(x.data_ptr(), g.data_ptr(),
-                            words.data_ptr() if need_dx else None, None,
-                            B4.c_meta(meta, B4._Meta), dtab.data_ptr(),
-                            dx.data_ptr() if need_dx else None, x.shape[0],
-                            Bu.stream_ptr(x.device)), "brick4_bwd")
-    return dx, dtab
-
-
-def _bwd2(lib, g_up, x, packed, gg, meta, need_dx=False):
-    """B4 of one library → (dL/dg_up, dL/dx or None, dL/dtable)."""
-    import torch
-    from nr3d_lib_tpu_torch.ops import _build as Bu
-    from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
-
-    dgup = torch.empty_like(g_up)
-    dtab = torch.empty(meta.total_rows, 256, device=x.device)
-    dx = torch.empty_like(x) if need_dx else None
-    Bu.check(lib.brick4_bwd2(g_up.data_ptr(), x.data_ptr(), packed.data_ptr(),
-                             gg.data_ptr(), B4.c_meta(meta, B4._Meta),
-                             dgup.data_ptr(), dtab.data_ptr(),
-                             dx.data_ptr() if need_dx else None, x.shape[0],
-                             Bu.stream_ptr(x.device)), "brick4_bwd2")
-    return dgup, dx, dtab
+    neus = LoTDNeuSModel(**CS.NEUS_F2_CFG, seed=0)
+    CS._seed_weights(neus, neus.field.implicit_surface.encoding, 3)
+    neus.populate()
+    CS._seed_occupancy(neus)
+    nerf = LoTDNeRFModel(**CS.NERF_CFG, seed=0)
+    CS._seed_weights(nerf, nerf.field.encoding, 2)
+    nerf.populate()
+    CS._seed_occupancy(nerf)
+    return neus, nerf
 
 
-def _p4_bwd(lib, x, g, meta, packed=None):
-    """B15 of one library → (dL/dx or None, dL/dtable [rows, 256])."""
-    import torch
-    from nr3d_lib_tpu_torch.ops import _build as Bu
-    from nr3d_lib_tpu_torch.ops import permuto_cell as PC
-
-    dtab = torch.empty(meta.total_rows, 256, device=x.device)
-    dx = torch.empty_like(x) if packed is not None else None
-    Bu.check(lib.permuto4_bwd(x.data_ptr(), g.data_ptr(),
-                              None if packed is None else packed.data_ptr(),
-                              PC.c_meta(meta), dtab.data_ptr(),
-                              None if dx is None else dx.data_ptr(),
-                              x.shape[0], Bu.stream_ptr(x.device)),
-             "permuto4_bwd")
-    return dx, dtab
-
-
-def _rays(dev):
+def _rays(dev, n):
     import torch
     import chip_smoke as CS
 
-    return (torch.from_numpy(a).to(dev) for a in CS._rays(CS.N_RAYS, seed=0))
+    return tuple(torch.from_numpy(a).to(dev) for a in CS._rays(n, seed=0))
 
 
-def _f64_dtab(x, meta, g, gg=None):
-    """dL/dtable [rows·64, 4] in float64 from the kernels' float32 cell
-    fractions: B2's Σ w_k g or, with gg, B4's Σ c_k g_up, c_k = Σ_a
-    gg_a (res_a − 2) dw_k/dfrac_a."""
+def _same(res: dict, key: str, a, b) -> None:
     import torch
+
+    res[key] = bool(torch.equal(a, b))
+
+
+def _shape(libs: dict, x, table, meta, want_g: bool) -> dict:
+    """B6 on the points x, in ray order and permuted: bits and times in
+    turns."""
+    import torch
+    import chip_smoke as CS
     from nr3d_lib_tpu_torch.ops import lotd_brick as B
 
-    dev = x.device
-    ref = torch.zeros(meta.total_rows * 64, 4, dtype=torch.float64,
-                      device=dev)
-    bits = B._corner_bits(dev)
-    offs = (bits[:, 0] * 4 + bits[:, 1]) * 4 + bits[:, 2]
-    bd = bits.double()
-    for l, lv in enumerate(meta.levels):
-        row, lane0, frac = B._level_rows_and_lanes(x, lv)
-        f = frac.double()[:, None, :]
-        sel = f * bd + (1.0 - f) * (1.0 - bd)                      # [N,8,3]
-        if gg is None:
-            c = sel.prod(-1)
+    dev, (n, L) = x.device, (x.shape[0], meta.n_levels)
+    perm = torch.randperm(n, device=dev,
+                          generator=torch.Generator(dev).manual_seed(5))
+    r = {"n": n, "levels": L, "rows": meta.total_rows}
+    y_plain = B.brick_encode_xla(x, table, meta)
+    for order, xx in (("ray", x), ("permuted", x[perm].contiguous())):
+        out = {m: _fwd(libs[m], xx, table, meta, True)
+               for m in ("brick_parent", *EXACT)}
+        y_only = {m: _fwd(libs[m], xx, table, meta) for m in out}
+        par_y, par_c = out["brick_parent"]
+        for m in EXACT:
+            y, c = out[m]
+            _same(r, f"{order}_{m}_y_bitwise_vs_parent", y_only[m],
+                  y_only["brick_parent"])
+            _same(r, f"{order}_{m}_want_g_y_bitwise_vs_parent", y, par_y)
+            _same(r, f"{order}_{m}_y_same_in_both_forms", y, y_only[m])
+            _same(r, f"{order}_{m}_corners_equal_parent", c, par_c)
+        if order == "ray":
+            ray_y = y_only["brick_new"]
+            r["y_err"] = float((ray_y - y_plain).abs().max())
+            r["y_tol"] = 1e-5 + 1e-5 * float(y_plain.abs().max())
+            if want_g:
+                _same(r, "corners_equal_plain", out["brick_new"][1],
+                      B.brick_corner_values_xla(x, table, meta))
         else:
-            scale = torch.tensor([r - 2.0 for r in lv.res],
-                                 dtype=torch.float64, device=dev)
-            dd = gg.double() * scale                               # [N,3]
-            c = sum(dd[:, None, a] * (2.0 * bd[:, a] - 1.0) *
-                    sel[..., (a + 1) % 3] * sel[..., (a + 2) % 3]
-                    for a in range(3))
-        slot = row[:, None] * 64 + lane0[:, None] // 2 + offs
-        ref.index_add_(0, slot.reshape(-1), (
-            c[..., None] * g[:, None, 4 * l:4 * l + 4].double())
-            .reshape(-1, 4))
-    return ref
+            _same(r, "permuted_y_is_the_permuted_y", y_only["brick_new"],
+                  ray_y[perm])
+        r[f"{order}_ms"] = _turns(
+            {m: (lambda m=m, a=xx: _fwd(libs[m], a, table, meta, want_g))
+             for m in NAMES}, NAMES + NAMES[::-1])
+    if not want_g:
+        r["want_g_ms"] = _turns(
+            {m: (lambda m=m: _fwd(libs[m], x, table, meta, True))
+             for m in TWO}, TWO + TWO[::-1])
+    r["bound_ms"], r["bound_by"] = CS._b6_bound(n, L, table.numel(),
+                                                 want_g)
+    return r
 
 
-def _f64_dist(dtabs, ref) -> dict:
-    """Each dL/dtable's largest and root-mean-square distance to `ref`."""
-    err = [(t.double().view(ref.shape) - ref).abs() for t in dtabs]
-    return {"max": [float(e.max()) for e in err],
-            "rms": [float(e.square().mean().sqrt()) for e in err]}
-
-
-def _no_farther(dist: dict, new: str, parent: str) -> bool:
-    """The new kernel's dL/dtable no farther from the float64 sum than the
-    parent's, by the mean over the runs of both distances (the largest
-    distance of one run moves with the atomics' order)."""
-    return all(np.mean(dist[new][k]) <= np.mean(dist[parent][k])
-               for k in ("max", "rms"))
-
-
-def _steps(dev, its: tuple):
-    """`chip_smoke.py`'s F=4 NeuS (`PROD_CFG`) from its seeded weights
-    and occupancy, trained by its train step (`chip_smoke._train_step`);
-    yields (it, model, rays) just before each train step `it` in `its`."""
+def _shapes(libs: dict, dev, neus, nerf) -> dict:
+    """B6 at its rows' shapes, from `chip_smoke.py`'s points."""
     import torch
     import chip_smoke as CS
-    from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel
 
-    o, d = _rays(dev)
-    m = LoTDNeuSModel(**CS.PROD_CFG, seed=0)
-    CS._seed_weights(m, m.field.implicit_surface.encoding, 1)
-    m.populate()
-    CS._seed_occupancy(m)
-    opt, gen = CS._train_state(m, dev)
-    for it in range(1, max(its) + 1):
-        if it in its:
-            yield it, m, (o, d)
-        with torch.enable_grad():
-            CS._train_step(m, opt, gen, o, d, it)
+    o, d = _rays(dev, CS.N_RAYS)
+    o8, d8 = _rays(dev, CS.N_RAYS_NERF)
+    res = {}
+    with torch.no_grad():
+        for key, enc, x, want_g in (
+                ("nerf", nerf.field.encoding,
+                 CS._ray_points(o8, d8, 24, 12), False),
+                ("neus", neus.field.implicit_surface.encoding,
+                 CS._ray_points(o, d, 144, 13), False),
+                ("want_g", neus.field.implicit_surface.encoding,
+                 CS._ray_points(o, d, 36, 14), True)):
+            res[key] = _shape(libs, x, enc._build_table(), enc.meta, want_g)
+            print(f"[B6 {key}] {json.dumps(res[key])}")
+    return res
 
 
-def _in_step_ms(libs: dict, dev, model, rays, it: int, names) -> dict:
-    """B2's and B4's device time inside train step `it` (its forward and
-    backward, no optimizer step, the generator seeded as
-    `chip_smoke._record_step` seeds it), and the pass's device time, with
-    both wrappers routed to each library in `names`, in turns: ms per
-    pass over three passes (torch.profiler)."""
+def _render_launches(libs: dict, dev, neus) -> dict:
+    """B6 on the inputs of each of its launches in one F=2 NeuS render."""
+    import torch
+    import chip_smoke as CS
+    from nr3d_lib_tpu_torch.ops import lotd_brick as B
+
+    o, d = _rays(dev, CS.N_RAYS)
+    rec, fwd = [], B._fwd_cuda
+
+    def keep(x, table, meta, want_g=False):
+        rec.append((x.clone(), table.clone(), meta, want_g))
+        return fwd(x, table, meta, want_g)
+
+    B._fwd_cuda = keep
+    try:
+        with torch.no_grad():
+            neus.ray_query(CS._tested(neus, o, d))
+        torch.cuda.synchronize()
+    finally:
+        B._fwd_cuda = fwd
+    out = []
+    for k, (x, table, meta, want_g) in enumerate(rec):
+        n, L = x.shape[0], meta.n_levels
+        r = {"n": n, "form": "want_g" if want_g else "y"}
+        _same(r, "y_bitwise_vs_parent", _fwd(libs["brick_new"], x, table,
+                                             meta),
+              _fwd(libs["brick_parent"], x, table, meta))
+        r["ms"] = _turns({m: (lambda m=m: _fwd(libs[m], x, table, meta))
+                          for m in NAMES}, NAMES + NAMES[::-1])
+        r["bound_ms"], r["bound_by"] = CS._b6_bound(n, L, table.numel())
+        print(f"[B6 render launch {k}] {json.dumps(r)}")
+        out.append(r)
+    return {"launches": out}
+
+
+def _in_path(libs: dict, dev, run, names=TWO) -> dict:
+    """B6's device time and the pass's inside `run()` (three passes under
+    torch.profiler), with `lotd_brick._fwd_cuda` routed to each library of
+    `names` in turns; and whether the passes' outputs are the same bits
+    under every library."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    import chip_smoke as CS
-    from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
+    from nr3d_lib_tpu_torch.ops import lotd_brick as B
 
-    orig, out = (B4._bwd_cuda, B4._bwd2_cuda), {}
+    orig, out, outputs = B._fwd_cuda, {}, {}
 
     def one(name):
-        def via_bwd(x, g, meta, *, need_dx, words=None, packed=None):
-            if need_dx:
-                raise RuntimeError("the step's B2 runs without dL/dx")
-            return _bwd(libs[name], B4.aligned(x), B4.aligned(g), meta)
-
-        def via_bwd2(g_up, x, packed, gg, meta, need_dx=True):
-            dg, dx, dtab = _bwd2(libs[name], *(B4.aligned(t) for t in (
-                g_up, x, packed, gg)), meta, need_dx)
-            return dg, dx, dtab
-
-        B4._bwd_cuda, B4._bwd2_cuda = via_bwd, via_bwd2
+        def via(x, table, meta, want_g=False):
+            return _fwd(libs[name], B.aligned(x), B.aligned(table), meta,
+                        want_g)
+        B._fwd_cuda = via
         try:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(3):
-                    gen = torch.Generator(device=dev).manual_seed(9)
-                    model.training_before_per_step(it, gen)
-                    CS._step_loss(model, *rays, generator=gen).backward()
-                    model.zero_grad(set_to_none=True)
+                    got = run()
                 torch.cuda.synchronize()
         finally:
-            B4._bwd_cuda, B4._bwd2_cuda = orig
-        got = {"b2": 0.0, "b4": 0.0, "pass": 0.0}
+            B._fwd_cuda = orig
+        outputs.setdefault(name, got)
+        t = {"b6": 0.0, "b6_events": 0, "pass": 0.0}
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA or \
                     getattr(ev, "is_user_annotation", False):
                 continue
             ms = getattr(ev, "self_device_time_total", 0.0) / 3e3
-            got["pass"] += ms
-            if "brick4_bwd_kernel" in ev.key:
-                got["b2"] += ms
-            elif "brick4_bwd2_kernel" in ev.key:
-                got["b4"] += ms
-        if not (got["b2"] and got["b4"]):
-            raise RuntimeError("no brick4_bwd(2)_kernel in the step's "
-                               "profile")
-        for k, v in got.items():
+            t["pass"] += ms
+            if B6 in ev.key:
+                t["b6"] += ms
+                t["b6_events"] += ev.count / 3
+        if not t["b6"]:
+            raise RuntimeError("no brick_fwd_kernel in the pass's profile")
+        for k, v in t.items():
             out.setdefault(k, {}).setdefault(name, []).append(v)
 
     for name in tuple(names) + tuple(names)[::-1]:
         one(name)
+    a, b = (outputs[n] for n in names[:2])
+    out["outputs_bitwise_equal"] = all(
+        torch.equal(a[k], b[k]) for k in a)
     return out
 
 
-def _brick4(libs: dict, dev) -> dict:
-    """B2 and B4 at the F=4 NeuS train step's shape, and on the step's own
-    inputs."""
+def _paths(libs: dict, dev, neus) -> dict:
+    """B6 inside the F=2 NeuS render, its autograd nablas and its train
+    step at it = 23."""
     import torch
     import chip_smoke as CS
-    from nr3d_lib_tpu_torch.ops import lotd_brick as B
-    from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
+    from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel
 
-    o, d = _rays(dev)
-    meta = B4.make_brick4_meta(*PROD_META)
-    x = CS._ray_points(o, d, 36, seed=3)
-    n, L = x.shape[0], meta.n_levels
-    table = torch.from_numpy(np.random.default_rng(15).uniform(
-        -0.1, 0.1, (meta.total_rows, 256)).astype(np.float32)).to(dev)
-    packed = B4.pack_table4(table)
-    gen = torch.Generator(dev).manual_seed(16)
-    g = torch.randn(n, 4 * L, device=dev, generator=gen)
-    gg = torch.randn(n, 3, device=dev, generator=gen)
-    perm = torch.randperm(n, device=dev,
-                          generator=torch.Generator(dev).manual_seed(5))
-    res = {"n": n, "rows": meta.total_rows, "atomics_naive": n * L * 8}
-    names = ("brick4_parent", "brick4_new", "brick4_noatomics",
-             "brick4_lane_atomics", "brick4_runs2",
-             "brick4_parent_noatomics")
-    two = ("brick4_parent", "brick4_new")
+    o, d = _rays(dev, CS.N_RAYS)
+    res = {}
 
-    with torch.no_grad():
-        ref2, ref4 = _f64_dtab(x, meta, g), _f64_dtab(x, meta, g, gg)
-        res["b2_dtab_vs_f64"] = {"plain": _f64_dist(
-            [B4.brick4_encode_bwd_xla(x, table, g, meta, False)[1]], ref2)}
-        res["b4_dtab_vs_f64"] = {"plain": _f64_dist(
-            [B4.brick4_nablas_bwd_xla(g, x, table, gg, meta)[2]], ref4)}
-        for m in ("brick4_parent", "brick4_new", "brick4_lane_atomics"):
-            res["b2_dtab_vs_f64"][m] = _f64_dist(
-                [_bwd(libs[m], x, g, meta)[1] for _ in range(6)], ref2)
-            res["b4_dtab_vs_f64"][m] = _f64_dist(
-                [_bwd2(libs[m], g, x, packed, gg, meta)[2]
-                 for _ in range(6)], ref4)
-        for k in ("b2", "b4"):
-            res[f"{k}_dtab_no_farther_than_parent"] = _no_farther(
-                res[f"{k}_dtab_vs_f64"], "brick4_new", "brick4_parent")
-        del ref2, ref4
-        dxs = {}
-        for order, xx, g2, gg2 in (
-                ("ray", x, g, gg),
-                ("permuted", *(v[perm].contiguous() for v in (x, g, gg)))):
-            groups = B.brick_atomic_groups(xx, meta)
-            res[f"{order}_atomic_groups"] = sum(groups)
-            res[f"{order}_atomic_groups_by_level"] = groups
-            words = B4._fwd_cuda(xx, packed, meta, want_g=True)[1]
-            # B2
-            dx_p, dt_p = B4.brick4_encode_bwd_xla(xx, table, g2, meta, True)
-            dx, dtab = _bwd(libs["brick4_new"], xx, g2, meta, True, words)
-            dx_par, _ = _bwd(libs["brick4_parent"], xx, g2, meta, True, words)
-            dxs[order] = dx
-            key = f"b2_{order}"
-            res[f"{key}_dtab_err"] = float((dtab - dt_p).abs().max())
-            res[f"{key}_dtab_tol"] = 1e-6 + 1e-5 * float(dt_p.abs().max())
-            for m in ("brick4_lane_atomics", "brick4_runs2"):
-                res[f"{key}_{m}_dtab_err"] = float(
-                    (_bwd(libs[m], xx, g2, meta)[1] - dt_p).abs().max())
-                res[f"{key}_{m}_dtab_tol"] = res[f"{key}_dtab_tol"]
-            res[f"{key}_dx_err"] = float((dx - dx_p).abs().max())
-            res[f"{key}_dx_tol"] = 1e-4 + 1e-4 * float(dx_p.abs().max())
-            res[f"{key}_parent_dx_err"] = float((dx_par - dx_p).abs().max())
-            res[f"{key}_dx_max_diff_vs_parent"] = float(
-                (dx - dx_par).abs().max())
-            res[f"{key}_dx_bitwise_between_runs"] = bool(torch.equal(
-                dx, _bwd(libs["brick4_new"], xx, g2, meta, True, words)[0]))
-            res[f"{key}_runs2_dx_bitwise"] = bool(torch.equal(
-                dx, _bwd(libs["brick4_runs2"], xx, g2, meta, True, words)[0]))
-            res[f"{key}_ms"] = _turns(
-                {m: (lambda m=m, a=(xx, g2): _bwd(libs[m], *a, meta))
-                 for m in names}, names + names[::-1])
-            res[f"{key}_need_dx_ms"] = _turns(
-                {m: (lambda m=m, a=(xx, g2): _bwd(libs[m], *a, meta, True,
-                                                  words))
-                 for m in two}, two + two[::-1])
-            # B4
-            dg_p, dx4_p, dt4_p = B4.brick4_nablas_bwd_xla(g2, xx, table, gg2,
-                                                          meta)
-            outs = {m: _bwd2(libs[m], g2, xx, packed, gg2, meta, True)
-                    for m in ("brick4_parent", "brick4_new", "brick4_runs2")}
-            dg, dx4, dt4 = outs["brick4_new"]
-            key = f"b4_{order}"
-            res[f"{key}_dgup_err"] = float((dg - dg_p).abs().max())
-            res[f"{key}_dgup_tol"] = 1e-4 + 1e-4 * float(dg_p.abs().max())
-            res[f"{key}_dx_err"] = float((dx4 - dx4_p).abs().max())
-            res[f"{key}_dx_tol"] = 1e-4 + 1e-4 * float(dx4_p.abs().max())
-            res[f"{key}_dtab_err"] = float((dt4 - dt4_p).abs().max())
-            res[f"{key}_dtab_tol"] = 1e-6 + 1e-5 * float(dt4_p.abs().max())
-            for m in ("brick4_new", "brick4_runs2"):
-                sfx = "" if m == "brick4_new" else "_runs2"
-                par = outs["brick4_parent"]
-                res[f"{key}{sfx}_dgup_bitwise_vs_parent"] = bool(
-                    torch.equal(outs[m][0], par[0]))
-                res[f"{key}{sfx}_dx_bitwise_vs_parent"] = bool(
-                    torch.equal(outs[m][1], par[1]))
-            no_dx = {m: _bwd2(libs[m], g2, xx, packed, gg2, meta)
-                     for m in two}
-            res[f"{key}_no_dx_dgup_bitwise_vs_parent"] = bool(torch.equal(
-                no_dx["brick4_new"][0], no_dx["brick4_parent"][0]))
-            res[f"{key}_ms"] = _turns(
-                {m: (lambda m=m, a=(g2, xx, packed, gg2): _bwd2(
-                    libs[m], *a, meta)) for m in names}, names + names[::-1])
-            res[f"{key}_need_dx_ms"] = _turns(
-                {m: (lambda m=m, a=(g2, xx, packed, gg2): _bwd2(
-                    libs[m], *a, meta, True)) for m in two}, two + two[::-1])
-        res["b2_dx_bitwise_between_orders"] = bool(torch.equal(
-            dxs["permuted"][torch.argsort(perm)], dxs["ray"]))
+    def render():
+        with torch.no_grad():
+            rendered, _ = neus.ray_query(CS._tested(neus, o, d))
+        return {k: v for k, v in rendered.items()
+                if isinstance(v, torch.Tensor)}
 
-        # the step's own inputs at it = 4 and at the smoke's step, each as
-        # recorded and permuted; B2 and B4 inside each step
-        smoke_it = CS.N_WARMUP_STEPS + CS.N_STEPS + 1
-        for it, model, rays in _steps(dev, (4, smoke_it)):
-            key = f"step_it{it}"
-            with torch.enable_grad():
-                rec = CS._record_step(model, *rays, it, B4,
-                                      ("_bwd_cuda", "_bwd2_cuda"))
-                res[f"{key}_in_step_ms"] = _in_step_ms(libs, dev, model,
-                                                       rays, it, two)
-            _step_points(libs, dev, rec, key, names, two, res)
-    return res
+    res["render"] = _in_path(libs, dev, render)
+    x = (CS._ray_points(o, d, 36, 14) * 2.0 - 1.0).detach()
 
+    def nablas():
+        xr = x.clone().requires_grad_(True)
+        (nab, ) = torch.autograd.grad(neus.forward_sdf(xr)["sdf"].sum(), xr)
+        return {"nablas": nab}
 
-def _step_points(libs, dev, rec, key, names, two, res) -> None:
-    """B2 and B4 alone on one step's recorded inputs (as recorded and
-    permuted): atomics, times in turns, times with a cold L2, dL/dtable
-    against the plain version (B2) and a float64 sum (B4), B4's dL/dg_up
-    bitwise against the parent's; into `res` under `key`."""
-    import torch
-    import chip_smoke as CS
-    from nr3d_lib_tpu_torch.ops import lotd_brick as B
-    from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
+    res["autograd_nablas"] = _in_path(libs, dev, nablas)
 
-    a2, a4 = rec["_bwd_cuda"], rec["_bwd2_cuda"]
-    meta = a2["meta"]
-    xs, gs = a2["x"], a2["g"]
-    g_up, x4, packed, gg = a4["g_up"], a4["x"], a4["packed"], a4["gg"]
-    ns = xs.shape[0]
-    res[f"{key}_n"] = {"b2": ns, "b4": x4.shape[0]}
-    res[f"{key}_need_dx"] = {"b2": a2["need_dx"], "b4": a4["need_dx"]}
-    res[f"{key}_b4_same_points_as_b2"] = bool(torch.equal(x4, xs))
-    res[f"{key}_atomics_naive"] = ns * meta.n_levels * 8
-    ps = torch.randperm(ns, device=dev,
-                        generator=torch.Generator(dev).manual_seed(6))
-    for order, sel in (("ray", slice(None)), ("permuted", ps)):
-        xx, g2 = xs[sel].contiguous(), gs[sel].contiguous()
-        gu, x44, gg2 = (v[sel].contiguous() for v in (g_up, x4, gg))
-        groups = B.brick_atomic_groups(xx, meta)
-        res[f"{key}_{order}_atomic_groups"] = sum(groups)
-        res[f"{key}_{order}_atomic_groups_by_level"] = groups
-        res[f"{key}_{order}_b2_ms"] = _turns(
-            {m: (lambda m=m: _bwd(libs[m], xx, g2, meta)) for m in names},
-            names + names[::-1])
-        res[f"{key}_{order}_b4_ms"] = _turns(
-            {m: (lambda m=m: _bwd2(libs[m], gu, x44, packed, gg2, meta,
-                                   a4["need_dx"])) for m in names},
-            names + names[::-1])
-    # the same, each launch after 128 MB written (the 50 MB L2 holds none
-    # of their inputs or of the gradient table then), less the writes'
-    # own time
-    junk = torch.empty(32 * 2 ** 20, device=dev)
-    flush = CS._time_ms(lambda: junk.fill_(1.0))
-    res[f"{key}_flush_ms"] = flush
-    for kern, fn in (("b2", lambda m: _bwd(libs[m], xs, gs, meta)),
-                     ("b4", lambda m: _bwd2(libs[m], g_up, x4, packed, gg,
-                                            meta, a4["need_dx"]))):
-        res[f"{key}_ray_{kern}_cold_l2_ms"] = {
-            m: [v - flush for v in vs] for m, vs in _turns(
-                {m: (lambda m=m: (junk.fill_(1.0), fn(m))) for m in two},
-                two + two[::-1]).items()}
-    del junk
-    zeros = torch.zeros(meta.total_rows, 256, device=dev)
-    _, dt_p = B4.brick4_encode_bwd_xla(xs, zeros, gs, meta, False)
-    dtab = _bwd(libs["brick4_new"], xs, gs, meta)[1]
-    res[f"b2_{key}_dtab_err"] = float((dtab - dt_p).abs().max())
-    res[f"b2_{key}_dtab_tol"] = 1e-6 + 1e-5 * float(dt_p.abs().max())
-    outs = {m: _bwd2(libs[m], g_up, x4, packed, gg, meta, a4["need_dx"])
-            for m in two}
-    res[f"b4_{key}_dgup_bitwise_vs_parent"] = bool(torch.equal(
-        outs["brick4_new"][0], outs["brick4_parent"][0]))
-    dt4_p = _f64_dtab(x4, meta, g_up, gg)
-    res[f"b4_{key}_dtab_err"] = float(
-        (outs["brick4_new"][2].double().view(dt4_p.shape) - dt4_p)
-        .abs().max())
-    res[f"b4_{key}_dtab_tol"] = 1e-6 + 1e-5 * float(dt4_p.abs().max())
+    # chip_smoke.py's path B model trained by its steps up to it = 23
+    m = LoTDNeuSModel(**CS.NEUS_F2_CFG, seed=0)
+    CS._seed_weights(m, m.field.implicit_surface.encoding, 3)
+    m.populate()
+    CS._seed_occupancy(m)
+    opt, gen = CS._train_state(m, dev)
+    it = CS.N_WARMUP_STEPS + CS.N_STEPS + 1
+    with torch.enable_grad():
+        for i in range(1, it):
+            CS._train_step(m, opt, gen, o, d, i)
 
+    def step():
+        g = torch.Generator(device=dev).manual_seed(9)
+        m.training_before_per_step(it, g)
+        with torch.enable_grad():
+            loss = CS._step_loss(m, o, d, generator=g)
+            loss.backward()
+        m.zero_grad(set_to_none=True)
+        return {"loss": loss.detach()}
 
-def _b15(libs: dict, dev) -> dict:
-    """B15 at path C's shape, parent and new (only `warp_add4`'s place
-    changed): dL/dx bitwise, dL/dtable against the plain version, times
-    in turns."""
-    import torch
-    import chip_smoke as CS
-    from nr3d_lib_tpu_torch.models.model_families import \
-        DynamicPermutoNeuSModel
-    from nr3d_lib_tpu_torch.ops import permuto_cell4 as P4
-
-    o, d = _rays(dev)
-    bank = DynamicPermutoNeuSModel(**CS.DYN_CFG, seed=0) \
-        .field.implicit_surface.bank
-    meta = bank.meta
-    ts = torch.from_numpy(np.random.default_rng(6).uniform(
-        -1.0, 1.0, CS.N_RAYS).astype(np.float32)).to(dev)
-    x = CS._dyn_points(o, d, ts, 96, seed=16)
-    n, L = x.shape[0], meta.n_levels
-    table = torch.from_numpy(np.random.default_rng(17).uniform(
-        -0.1, 0.1, (meta.total_rows, 256)).astype(np.float32)).to(dev)
-    packed = P4.pack_table4(table)
-    g = torch.randn(n, 4 * L, device=dev,
-                    generator=torch.Generator(dev).manual_seed(18))
-    perm = torch.randperm(n, device=dev,
-                          generator=torch.Generator(dev).manual_seed(19))
-    two = ("p4_parent", "p4_new")
-    res = {"n": n, "rows": meta.total_rows}
-    with torch.no_grad():
-        dx_p, dt_p = P4.permuto_cell4_encode_bwd_xla(x, table, g, meta, True)
-        outs = {m: _p4_bwd(libs[m], x, g, meta, packed) for m in two}
-        res["b15_dx_bitwise_vs_parent"] = bool(torch.equal(
-            outs["p4_new"][0], outs["p4_parent"][0]))
-        res["b15_dtab_err"] = float((outs["p4_new"][1] - dt_p).abs().max())
-        res["b15_dtab_tol"] = 1e-6 + 1e-5 * float(dt_p.abs().max())
-        res["b15_dx_err"] = float((outs["p4_new"][0] - dx_p).abs().max())
-        res["b15_dx_tol"] = 1e-4 + 1e-4 * float(dx_p.abs().max())
-        for order, xx, g2 in (("ray", x, g), ("permuted", x[perm].contiguous(),
-                                              g[perm].contiguous())):
-            res[f"b15_{order}_ms"] = _turns(
-                {m: (lambda m=m: _p4_bwd(libs[m], xx, g2, meta))
-                 for m in two}, two + two[::-1])
-        res["b15_need_dx_ms"] = _turns(
-            {m: (lambda m=m: _p4_bwd(libs[m], x, g, meta, packed))
-             for m in two}, two + two[::-1])
+    res["step"] = _in_path(libs, dev, step)
+    res["step"]["it"] = it
+    for k, v in res.items():
+        print(f"[B6 in the {k}] {json.dumps(v)}")
     return res
 
 
@@ -622,22 +471,28 @@ def _check(res: dict) -> list:
     """What the run must show (every error within its tolerance, every
     yes-or-no check true); the names of what failed."""
     bad = []
-    for part in ("brick4", "b15"):
-        for key, v in res[part].items():
-            tol = res[part].get(key[:-4] + "_tol")
-            if key.endswith("_err") and tol is not None and v > tol:
-                bad.append(f"{part}.{key}")
-            if isinstance(v, bool) and not v:
-                bad.append(f"{part}.{key}")
-    if not res["b15_sass_same_as_parent"]:
-        bad.append("b15_sass_same_as_parent")
+
+    def walk(path, v):
+        if isinstance(v, dict):
+            for k, w in v.items():
+                if k.endswith("_err") and v.get(k[:-4] + "_tol") is not None \
+                        and w > v[k[:-4] + "_tol"]:
+                    bad.append(f"{path}.{k}")
+                walk(f"{path}.{k}", w)
+        elif isinstance(v, list):
+            for i, w in enumerate(v):
+                walk(f"{path}[{i}]", w)
+        elif isinstance(v, bool) and not v:
+            bad.append(path)
+
+    walk("res", {k: v for k, v in res.items() if k != "sass"})
     return bad
 
 
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2 or not Path(sys.argv[1], "brick4.cu").is_file():
+    if len(sys.argv) != 2 or not Path(sys.argv[1], "brick.cu").is_file():
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -654,26 +509,25 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = _build()
     print(f"[build] {len(paths)} libraries: {time.perf_counter() - t0:.1f} s")
-    sass = {name: {k: v for k, v in CS._sass_functions(paths[name]).items()
-                   if _ours(k)} for name in (
-        "brick4_parent", "brick4_new", "brick4_runs2", "p4_parent",
-        "p4_new")}
+    sass = {name: CS._sass_functions(paths[name]) for name in NAMES}
     res = {"device": smi,
-           "sass": {name: {k: len(v) for k, v in code.items()}
-                    for name, code in sass.items()},
-           "b15_sass_same_as_parent": all(
-               [i for _, i in sass["p4_new"][k]] ==
-               [i for _, i in sass["p4_parent"].get(k, [])]
-               for k in sass["p4_new"])}
-    print(f"[sass] {json.dumps(res['sass'])}; B15's the parent's: "
-          f"{res['b15_sass_same_as_parent']}")
+           "sass": {name: {k: len(v) for k, v in code.items()
+                           if B6 in k or any(u in k for u in UNCHANGED)}
+                    for name, code in sass.items()}}
+
+    def instrs(name, kernel):
+        return [i for k, v in sass[name].items() if kernel in k for _, i in v]
+
+    res["b7_b9_sass_same_as_parent"] = all(
+        instrs("brick_new", k) == instrs("brick_parent", k) and
+        instrs("brick_new", k) for k in UNCHANGED)
+    print(f"[sass] {json.dumps(res['sass'])}; B7-B9 the parent's: "
+          f"{res['b7_b9_sass_same_as_parent']}")
     libs = {n: _load(p) for n, p in paths.items()}
-    res["b15"] = _b15({n: l for n, l in libs.items() if n.startswith("p4")},
-                      dev)
-    print(f"[B15] {json.dumps(res['b15'])}")
-    res["brick4"] = _brick4({n: l for n, l in libs.items()
-                             if n.startswith("brick4")}, dev)
-    print(f"[B2 B4] {json.dumps(res['brick4'])}")
+    neus, nerf = _models(dev)
+    res["shapes"] = _shapes(libs, dev, neus, nerf)
+    res["render_launches"] = _render_launches(libs, dev, neus)
+    res["paths"] = _paths(libs, dev, neus)
     res["failed"] = _check(res)
     print(json.dumps(res))
     return 1 if res["failed"] else 0

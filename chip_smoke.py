@@ -23,7 +23,8 @@
    and dL/dx must be the same bits, their rows counting the float4
    atomics before and after the warps' aggregation. F=2 (slice 3):
    B6 (brick_fwd) at the NeRF render's 196,608 points × 6 levels and at
-   the NeuS render's 589,824 × 4; B6 want_g, B7 (brick_bwd, with and
+   the NeuS render's 589,824 × 4, and on the inputs of each of its six
+   launches in one F=2 NeuS render; B6 want_g, B7 (brick_bwd, with and
    without dL/dx), B8 (brick_dydx) and B9 (brick_bwd2) at 147,456 × 4.
    B7 and B9 are also timed on the same points in a random order, where
    their dL/dx (and B9's dL/dg_up) must be the same bits, and their rows
@@ -72,7 +73,9 @@
      in the model's default mode march_occ (1 B6 on 786,432 points, 1 B5).
    - Path B, F=2 NeuS (`LoTDNeuSModel`, bench_render.py `main_train` kind
      neus_compressed with use_brick=True; 9,648 table rows): 10 renders of
-     4096 rays (6 B6, 1 B8, 1 B5 per render; `[B6 launches]` as B1's);
+     4096 rays (6 B6, 1 B8, 1 B5 per render; `[B6 launches]` as B1's,
+     its time over the bound the sum of the six launches' own times less
+     their bounds);
      the autograd nablas (B6
      want_g, B7 with dL/dx); one train step against the CPU port; 2
      warm-up and 20 timed steps (6 B6 + 1 per update, 1 each of B7, B8,
@@ -283,6 +286,14 @@ def _bound(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _b6_bound(n: int, L: int, table_numel: int, want_g: bool = False):
+    """B6's bound: x in, y (and with want_g the corner values, 8 corners ×
+    8 B a level) out, the table once; each (point, level) 3 axes × 4 index
+    ops + 8 corners × (2 weight muls + 2 FMAs) = 60 float ops."""
+    return _bound(n * (12 + 8 * L + (64 * L if want_g else 0)) +
+                  table_numel * 4, n * L * 60)
 
 
 def _profile(run, wall_ms: float, what: str) -> None:
@@ -725,19 +736,16 @@ def _serve(model, cpu_model, o, d, per_render: dict, label: str, smi: str,
     return launches, cpu_s
 
 
-def _launch_sizes(model, o, d, module, tag: str, kernels, key: str
-                  ) -> None:
-    """Points of each forward-encode launch (`module._fwd_cuda`) in one
-    render of `model`, outside the counted renders, printed on a
-    `[tag launches]` line; their sum against the kernel row's N weighs
-    the row's time by what a render runs."""
+def _render_fwd_calls(model, o, d, module) -> list:
+    """The arguments of each forward-encode launch (`module._fwd_cuda`) in
+    one render of `model`, outside the counted renders: [(args, kw)]."""
     import torch
 
-    sizes, fwd = [], module._fwd_cuda
+    calls, fwd = [], module._fwd_cuda
 
-    def recording(x, *args, **kw):
-        sizes.append(int(x.shape[0]))
-        return fwd(x, *args, **kw)
+    def recording(*args, **kw):
+        calls.append((args, kw))
+        return fwd(*args, **kw)
 
     module._fwd_cuda = recording
     try:
@@ -746,18 +754,39 @@ def _launch_sizes(model, o, d, module, tag: str, kernels, key: str
         torch.cuda.synchronize()
     finally:
         module._fwd_cuda = fwd
+    return calls
+
+
+def _launch_sizes(model, o, d, module, tag: str, kernels, key: str
+                  ) -> None:
+    """Points of each forward-encode launch (`module._fwd_cuda`) in one
+    render of `model`, printed on a `[tag launches]` line; their sum
+    against the kernel row's N weighs the row's time by what a render
+    runs. Where the row holds each launch's own time (B6), the render's
+    time over the bound is their sum instead."""
+    sizes = [int(a[0].shape[0]) for a, _ in _render_fwd_calls(model, o, d,
+                                                                module)]
     row = next(k for k in kernels if k["key"] == key)
     n_row = row.get("n_points_neus_render", row["n_points"])
     ms = row.get("ms_neus_render", row["ms"])
     bound = row.get("bound_ms_neus_render", row["bound_ms"])
     share = sum(sizes) / n_row
+    over = share * (ms - bound)
+    how = f"weight {share:.4f} x ({ms:.4f} - {bound:.4f})"
+    if "ms_by_launch_render" in row:
+        _require(sizes == row["n_points_by_launch_render"], f"{tag}: the "
+                 f"render's launches differ from the kernel phase's")
+        over = sum(t - b for t, b in zip(row["ms_by_launch_render"],
+                                         row["bound_ms_by_launch_render"]))
+        how = (f"each launch's own time less its bound, summed (weight "
+               f"{share:.4f} x the row's would give {share * (ms - bound):.4f}"
+               f")")
     print(f"[{tag} launches] one render: {len(sizes)} launches of "
           f"{', '.join(f'{s:,}' for s in sizes)} points, {sum(sizes):,} in "
-          f"all = {share:.4f} x the row's N={n_row:,}; weight {share:.4f} "
-          f"x ({ms:.4f} - {bound:.4f}) = {share * (ms - bound):.4f} ms over "
-          f"the bound a render")
+          f"all = {share:.4f} x the row's N={n_row:,}; {how} = {over:.4f} "
+          f"ms over the bound a render")
     row["n_points_by_launch_render"] = sizes
-    row["weight_ms_render"] = share * (ms - bound)
+    row["weight_ms_render"] = over
 
 
 def _f4_kernel_phases(model, o, d, kernels) -> "torch.Tensor":
@@ -1017,14 +1046,24 @@ def _f2_kernel_phases(nerf, neus, o8, d8, o, d, kernels) -> "torch.Tensor":
             ms = _time_ms(lambda: B._fwd_cuda(x, table, meta))
             plain_ms = _time_ms(lambda: B.brick_encode_xla(x, table, meta),
                                 iters=5)
-            # each (point, level): 3 axes × 4 index ops + 8 corners × (2
-            # weight muls + 2 FMAs) → 60 float ops
-            bound = _bound(n * (12 + 8 * L) + table.numel() * 4, n * L * 60)
+            bound = _b6_bound(n, L, table.numel())
             print(f"[B6 brick_fwd, {what}] kernel {ms:.4f} ms | plain "
                   f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]})"
                   f" | library: none")
             shapes.append(dict(n=n, levels=L, err=err, ms=ms,
                                plain_ms=plain_ms, bound=bound))
+        # on the inputs of each of its launches in one F=2 NeuS render
+        # (outside the counted renders): `[B6 launches]` sums their times
+        by_launch = []
+        for k, (args, kw) in enumerate(_render_fwd_calls(neus, o, d, B)):
+            x, table, meta = args[:3]
+            n, L = x.shape[0], meta.n_levels
+            ms = _time_ms(lambda: B._fwd_cuda(*args, **kw))
+            bound = _b6_bound(n, L, table.numel())
+            print(f"[B6 brick_fwd, NeuS render launch {k}] {n:,} points x "
+                  f"{L} levels: kernel {ms:.4f} ms | bound {bound[0]:.4f} ms "
+                  f"({bound[1]})")
+            by_launch.append((n, ms, bound[0]))
         a, b = shapes
         _kernel_row(kernels, name="brick_fwd (B6)", key="brick_fwd",
                     path="nerf render", source=src, replaces=f"{rep}:440",
@@ -1032,7 +1071,10 @@ def _f2_kernel_phases(nerf, neus, o8, d8, o, d, kernels) -> "torch.Tensor":
                     plain_ms=a["plain_ms"], bound=a["bound"], n_points=a["n"],
                     ms_neus_render=b["ms"], plain_ms_neus_render=b["plain_ms"],
                     bound_ms_neus_render=b["bound"][0],
-                    n_points_neus_render=b["n"])
+                    n_points_neus_render=b["n"],
+                    n_points_by_launch_render=[t[0] for t in by_launch],
+                    ms_by_launch_render=[t[1] for t in by_launch],
+                    bound_ms_by_launch_render=[t[2] for t in by_launch])
 
         # ------------------ the NeuS train step's shapes (147,456 × 4)
         enc = neus.field.implicit_surface.encoding
@@ -1058,8 +1100,7 @@ def _f2_kernel_phases(nerf, neus, o8, d8, o, d, kernels) -> "torch.Tensor":
         plain_ms = _time_ms(lambda: (
             B.brick_encode_xla(x3, table, meta),
             B.brick_corner_values_xla(x3, table, meta)), iters=5)
-        # B6's bytes and operations plus 8 corners × 8 B per level
-        bound = _bound(n * (12 + 8 * L + 64 * L) + tab_bytes, n * L * 60)
+        bound = _b6_bound(n, L, table.numel(), want_g=True)
         print(f"[B6 want_g brick_fwd_g] kernel {ms:.4f} ms | plain "
               f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}) | "
               f"library: none")

@@ -16,19 +16,27 @@
 // rows = 4.9 MB for the NeuS, 23,005 rows = 11.8 MB for the NeRF) stay
 // resident in the 50 MB L2, so the loads are bound by L2 latency and
 // transactions, far above the DRAM bound of the points' own bytes (12 B in,
-// 8 B per level out). Design: one thread per (point, level) for the
-// encode, one thread per point for the nablas (their [N,3] output sums
-// over levels, so a thread owns a point and the nablas need no atomics);
-// the index math (the JAX `_prologue`) runs in the kernel, so nothing but
-// x, the table and the outputs touches device memory. The two backwards
+// 8 B per level out). B6 measured on an H100 at 700 W (chip_ab.py, probes
+// made by text substitution): at the NeuS render's 589,824 points along
+// rays, 0.0262 ms, of which 0.0165 remain without the table loads and the
+// stores (the index math and the weights: 179 SASS instructions); at the
+// NeRF render's 196,608 points, 24 a ray, 0.0327 ms, of which 0.0097
+// remain without them: there every lane of a fine level reads its own
+// rows. The hash modulo costs nothing measurable. Design: one thread per
+// point for the nablas (B8; their [N,3] output sums over levels, so a
+// thread owns a point and the nablas need no atomics); the index math (the
+// JAX `_prologue`) runs in the kernel, so nothing but x, the table and the
+// outputs touches device memory. The encode (B6) and the two backwards
 // (B7, B9) give each warp 32 consecutive points at one level, a block the
-// run at all levels, as the cell permuto kernels do (permuto_cell.cu): x
-// and the upstream gradients are staged in shared memory, B9's dL/dg_up
-// leaves through it as one coalesced [32, L] run, and dL/dx sums the
-// levels there in level order. The TPU kernels' software pipelining,
-// lane-packed [tile,128] vectors, one-hot MXU row gather, matmul
-// reductions, per-level _pad8 accumulators and chunking exist only for
-// the TPU and are not carried over.
+// run at all levels, as the cell permuto kernels do (permuto_cell.cu): a
+// warp reads its level's meta uniformly, no thread divides by L, and at
+// the coarse levels the lanes of a warp share brick rows. The backwards
+// stage x and the upstream gradients in shared memory (B6 reads x lane by
+// lane), y, B6's corner values and B9's dL/dg_up leave through it as
+// coalesced runs, and dL/dx sums the levels there in level order. The TPU
+// kernels' software pipelining, lane-packed [tile,128] vectors, one-hot
+// MXU row gather, matmul reductions, per-level _pad8 accumulators and
+// chunking exist only for the TPU and are not carried over.
 //
 // The backwards scatter dL/dtable into the natural [rows, 128] layout
 // with 8-byte float2 atomicAdds in L2, worst on the dense 16^3 (125 rows)
@@ -119,39 +127,78 @@ __device__ __forceinline__ int corner_off(int k) {
   return ((k >> 2) & 1) * 16 + ((k >> 1) & 1) * 4 + (k & 1);
 }
 
-// B6: one thread per (point, level), i = p * L + l. y [n, L] float2.
-// corners (may be null, the want_g form): the 8 corners' values of each
-// (point, level), [n, L, 8] float2, which B7 reads back for dL/dx.
+// The run of consecutive points of B6, B7 and B9: one warp's width at each
+// level
+constexpr int BRICK_POINTS = 32;
+
+// B6: a block takes a run of BRICK_POINTS consecutive points at all L
+// levels (blockDim = 32 L), warp l the run at level l -> y [n, L] float2.
+// Each lane reads its point's x itself (the L warps share the run's 384
+// bytes in L1): staging x in shared memory puts a barrier, and the x
+// load's latency, before every table load of the block (0.0365 ms against
+// 0.0327 at the NeRF render's launch, chip_ab.py on an H100). y leaves
+// through shared memory as the block's one coalesced [32, L] run. The
+// want_g form (G) also writes the 8 corners' values of each (point,
+// level), [n, L, 8] float2, which B7 reads back for dL/dx: the block's
+// corners are one contiguous [32, L, 8] run, staged as [32][4 L + 1]
+// float4 in dynamic shared memory (a point's records padded by one float4,
+// so that the 8 lanes of a quarter-warp write 8 distinct bank groups) and
+// written as float4, coalesced: 0.0263 ms at the F=2 NeuS step's 147,456
+// points, against 0.0505 with each lane's own 64 bytes stored as four
+// float4 (chip_ab.py on an H100). Each (point, level) does the arithmetic
+// of the one-thread-a-(point, level) form, so y has its bits.
+template <bool G>
 __global__ void brick_fwd_kernel(const float* __restrict__ x,
                                  const float2* __restrict__ table,
                                  const __grid_constant__ BrickMeta meta,
                                  float2* __restrict__ y,
-                                 float2* __restrict__ corners, long long n) {
+                                 float4* __restrict__ corners, long long n) {
+  extern __shared__ float4 cs[];
+  __shared__ float2 ys[BRICK_POINTS * BRICK_MAX_LEVELS];
   const int L = meta.n_levels;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n * L) return;
-  const long long p = i / L;
-  const int l = (int)(i - p * L);
-  const float xp[3] = {x[p * 3], x[p * 3 + 1], x[p * 3 + 2]};
-  const Located c = locate(xp, meta.lv[l]);
-  const float2* rowp = table + (long long)c.row * 64 + c.vert0;
-  float a0 = 0.f, a1 = 0.f;
+  const long long p0 = (long long)blockIdx.x * BRICK_POINTS;
+  const int np = (int)min((long long)BRICK_POINTS, n - p0);
+  const int t = threadIdx.x, l = t >> 5, i = t & 31;
+  const int rec = 4 * L + 1;  // float4s a point takes in cs
+  if (i < np) {
+    const float* xi = x + (p0 + i) * 3;
+    const float xp[3] = {xi[0], xi[1], xi[2]};
+    const Located c = locate(xp, meta.lv[l]);
+    const float2* rowp = table + (unsigned)(c.row * 64 + c.vert0);
+    float a0 = 0.f, a1 = 0.f;
+    float2 v[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
-    const float w = (b0 ? c.frac[0] : 1.f - c.frac[0]) *
-                    (b1 ? c.frac[1] : 1.f - c.frac[1]) *
-                    (b2 ? c.frac[2] : 1.f - c.frac[2]);
-    const float2 v = __ldg(rowp + corner_off(k));
-    if (corners != nullptr) corners[i * 8 + k] = v;
-    a0 += w * v.x;
-    a1 += w * v.y;
+    for (int k = 0; k < 8; ++k) {
+      const int b0 = (k >> 2) & 1, b1 = (k >> 1) & 1, b2 = k & 1;
+      const float w = (b0 ? c.frac[0] : 1.f - c.frac[0]) *
+                      (b1 ? c.frac[1] : 1.f - c.frac[1]) *
+                      (b2 ? c.frac[2] : 1.f - c.frac[2]);
+      v[k] = __ldg(rowp + corner_off(k));
+      a0 += w * v[k].x;
+      a1 += w * v[k].y;
+    }
+    ys[i * L + l] = make_float2(a0, a1);
+    if (G) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        cs[i * rec + l * 4 + q] = make_float4(v[2 * q].x, v[2 * q].y,
+                                              v[2 * q + 1].x, v[2 * q + 1].y);
+    }
   }
-  y[i] = make_float2(a0, a1);
+  __syncthreads();
+  if (t < np * L) y[p0 * L + t] = ys[t];  // np L <= 32 L = blockDim
+  if (G) {
+    // float4 f = j * 32 L + t of the block's run is record t % 4L of
+    // point j * 8 + t / 4L
+    const int ti = t / (4 * L), tr = t - ti * 4 * L;
+    float4* out = corners + p0 * L * 4;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int pi = j * 8 + ti;
+      if (pi < np) out[j * 32 * L + t] = cs[pi * rec + tr];
+    }
+  }
 }
-
-// B9's and B7's run of consecutive points: one warp's width at each level
-constexpr int BRICK_POINTS = 32;
 
 // B7, the encode's backward. dtab [rows, 64] float2 (zeroed by the entry)
 // += w_k g at corner k. With dx (may be null): dL/dx_a = sum_l (res_a-2)
@@ -389,15 +436,24 @@ static unsigned n_blocks(long long total, int threads) {
 
 extern "C" {
 
-// x [n,3] f32, table [rows,128] f32, y [n,2L] f32, corners [n,L,8,2] f32 or
-// null.
+// x [n,3] f32, table [rows,128] f32, y [n,2L] f32, corners [n,L,8,2] f32
+// (16-byte aligned) or null.
 int brick_fwd(const void* x, const void* table, BrickMeta meta, void* y,
               void* corners, long long n, void* stream) {
-  const long long total = n * meta.n_levels;
-  if (total > 0) {
-    brick_fwd_kernel<<<n_blocks(total, 256), 256, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (const float2*)table, meta, (float2*)y,
-        (float2*)corners, n);
+  const int L = meta.n_levels;
+  if (n > 0 && L > 0) {
+    const unsigned blocks = n_blocks(n, BRICK_POINTS);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (corners == nullptr) {
+      brick_fwd_kernel<false><<<blocks, 32 * L, 0, st>>>(
+          (const float*)x, (const float2*)table, meta, (float2*)y, nullptr,
+          n);
+    } else {
+      const size_t smem = (size_t)BRICK_POINTS * (4 * L + 1) * sizeof(float4);
+      brick_fwd_kernel<true><<<blocks, 32 * L, smem, st>>>(
+          (const float*)x, (const float2*)table, meta, (float2*)y,
+          (float4*)corners, n);
+    }
   }
   return (int)cudaGetLastError();
 }

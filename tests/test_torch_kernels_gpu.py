@@ -33,7 +33,9 @@ points permuted (the permuted rows must be the same bits), d = 2–5; so
 does B15, whose dL/dx must then be the same bits, and on warps whose
 points share one cell; so do B11/B12 (F=2, the same design), B9 and B4,
 whose dL/dg_up and dL/dx must be the same bits in two runs and in both
-orders, and B7 and B2, whose dL/dx must (L = 1-8 and 1-4). The search's
+orders, and B7 and B2, whose dL/dx must (L = 1-8 and 1-4); B6 too, in
+both forms and at six levels as well, whose y must be the same bits in
+both forms and in both orders and whose corners must be exact. The search's
 shortcuts are checked over all 2^32 inputs: its division by d+1 bitwise
 against x / b, its modulus exactly.
 """
@@ -1437,6 +1439,47 @@ def test_brick_bwd_one_brick_warps(cuda):
     dx_p, dtab_p = B.brick_encode_bwd_xla(x, table, g, meta, True)
     _close(dx, dx_p, 1e-4)
     _close(dtab, dtab_p, 1e-5)
+
+
+# ------ B6: level-major warps, y and the corners out of shared memory
+# the F=2 metas and the NeRF's six levels (blockDim 192)
+F2_FWD_METAS = {**F2_METAS,
+                "nerf_six": ([16, 32, 64, 128, 256, 512],
+                             ["Dense"] * 3 + ["Hash"] * 3, 4096)}
+
+
+@pytest.mark.parametrize("meta_name", sorted(F2_FWD_METAS))
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 1000, 96 * 1001])
+def test_brick_fwd_ray_and_permuted_order(cuda, meta_name, n):
+    """B6 in both forms at points along rays and permuted: y within its
+    tolerance of the plain version and the same bits in the two forms,
+    the corners equal to the plain version's, and a permuted batch's y
+    the permuted y (a (point, level) computes alone). n = 0, n < 32 and a
+    ragged last run; one launch counted a call."""
+    lod_res, types, rows = F2_FWD_METAS[meta_name]
+    meta = B.make_brick_meta(lod_res, types, rows)
+    L = meta.n_levels
+    x = _pc_ray_points(cuda, 3, max(-(-n // 96), 1), 96, 97)[:n].contiguous()
+    rng = np.random.default_rng(98)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (meta.total_rows, 128)).astype(np.float32)).to(cuda)
+    perm = torch.from_numpy(rng.permutation(n)).to(cuda)
+    ys = []
+    for xx in (x, x[perm].contiguous()):
+        before = (_build.LAUNCHES["brick_fwd"], _build.LAUNCHES["brick_fwd_g"])
+        y = B._fwd_cuda(xx, table, meta)
+        y_g, corners = B._fwd_cuda(xx, table, meta, want_g=True)
+        torch.cuda.synchronize()
+        assert (_build.LAUNCHES["brick_fwd"], _build.LAUNCHES["brick_fwd_g"]
+                ) == (before[0] + 1, before[1] + 1)
+        assert y.shape == (n, 2 * L) and corners.shape == (n, L, 8, 2)
+        assert torch.equal(y, y_g)
+        if n:
+            _close(y, B.brick_encode_xla(xx, table, meta), 1e-5)
+            assert torch.equal(corners,
+                               B.brick_corner_values_xla(xx, table, meta))
+        ys.append(y)
+    assert torch.equal(ys[1], ys[0][perm])
 
 
 # ------------- B2, B4: the F=4 backwards in level-major warps (as B7, B9)
