@@ -19,9 +19,10 @@
    (brick4_dydx) at 147,456, B5 (gather1d) at 393,216 lookups into a
    [4096, 64] table; B1 want_g, B2 (brick4_bwd, with and without dL/dx)
    and B4 (brick4_bwd2) at the train step's 147,456 points, also timed on
-   the same points in a random order, where B2's dL/dx and B4's dL/dg_up
-   and dL/dx must be the same bits, their rows counting the float4
-   atomics before and after the warps' aggregation. F=2 (slice 3):
+   the same points in a random order, where B1 want_g's y and words, B2's
+   dL/dx and B4's dL/dg_up and dL/dx must be the same bits, B2's and B4's
+   rows counting the float4 atomics before and after the warps'
+   aggregation. F=2 (slice 3):
    B6 (brick_fwd) at the NeRF render's 196,608 points × 6 levels and at
    the NeuS render's 589,824 × 4, and on the inputs of each of its six
    launches in one F=2 NeuS render; B6 want_g, B7 (brick_bwd, with and
@@ -45,7 +46,9 @@
    timed on the same points in a random order, whose rows must be the
    ray order's rows bit for bit), B11 and B12 (permuto_bwd without and
    with dL/dx, as B15: B12's dL/dx the same bits in the random order, the
-   atomics counted) and B13 (permuto_dydx). Gaussian splatting (path E),
+   atomics counted) and B13 (permuto_dydx, also timed in the random
+   order, where its nablas must be the same bits). Gaussian splatting
+   (path E),
    at the bench scene's 1024 tiles of 16² × 256 slots: B17 (gs_blend;
    its row counts the (warp, slot) pairs of its 8 x 4 warps that its cull
    keeps, by the cull's plain mirror, beside those some pixel takes, and
@@ -294,6 +297,22 @@ def _b6_bound(n: int, L: int, table_numel: int, want_g: bool = False):
     ops + 8 corners × (2 weight muls + 2 FMAs) = 60 float ops."""
     return _bound(n * (12 + 8 * L + (64 * L if want_g else 0)) +
                   table_numel * 4, n * L * 60)
+
+
+def _b1_want_g_bound(n: int, L: int, table_bytes: int):
+    """B1 want_g's bound: B1's bytes (x in, y out, the packed table once)
+    plus 8 corners × 8 B of words a (point, level) out; each (point,
+    level) 12 index ops + 8 corners × (2 weight muls + 4 products + 4
+    adds) = 92 operations."""
+    return _bound(n * (12 + 16 * L + 64 * L) + table_bytes, n * L * 92)
+
+
+def _b13_bound(n: int, dim: int, L: int, table_bytes: int):
+    """B13's bound: x, g_up in and dx out, the table once; each (point,
+    level) the simplex search + (d+1) × 3 for g·val + the elevation vjp
+    ~8(d+1)."""
+    return _bound(n * (4 * dim + 8 * L + 4 * dim) + table_bytes,
+                  n * L * (_simplex_ops(dim) + 11 * (dim + 1)))
 
 
 def _profile(run, wall_ms: float, what: str) -> None:
@@ -890,6 +909,9 @@ def _f4_kernel_phases(model, o, d, kernels) -> "torch.Tensor":
         dtab_bytes = meta.total_rows * 256 * 4       # the zeroed f32 output
 
         # B1 with want_g: y and the corner words B2 reads back for dL/dx
+        perm = torch.randperm(n, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(7))
+        xp2, gp2, ggp4 = (v[perm].contiguous() for v in (x3, g2, gg4))
         y_k, words = B4._fwd_cuda(x3, packed, meta, want_g=True)
         y_p = B4.brick4_encode_xla(x3, table, meta)
         words_ok = bool(torch.equal(
@@ -899,19 +921,28 @@ def _f4_kernel_phases(model, o, d, kernels) -> "torch.Tensor":
              "as B1"),
             ("corner words", 0.0 if words_ok else float("inf"), 0.0,
              "a copy")])
+        # a (point, level) computes alone: the same bits in another order
+        # of the points
+        y_perm, words_perm = B4._fwd_cuda(xp2, packed, meta, want_g=True)
+        _require(torch.equal(y_perm, y_k[perm]) and
+                 torch.equal(words_perm, words[perm]),
+                 "B1 want_g: a point's y or words depend on its place in "
+                 "the batch")
         ms = _time_ms(lambda: B4._fwd_cuda(x3, packed, meta, want_g=True))
+        ms_perm = _time_ms(lambda: B4._fwd_cuda(xp2, packed, meta,
+                                                want_g=True))
         plain_ms = _time_ms(lambda: (
             B4.brick4_encode_xla(x3, table, meta),
             B4.brick4_corner_words_xla(x3, table, meta)), iters=5)
-        # B1's bytes and operations plus 8 corners × 8 B of words per level
-        bound = _bound(n * (12 + 16 * L + 64 * L) + table_bytes, n * L * 92)
-        print(f"[B1 want_g brick4_fwd_g] kernel {ms:.4f} ms | plain "
-              f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}) | "
-              f"library: none")
+        bound = _b1_want_g_bound(n, L, table_bytes)
+        print(f"[B1 want_g brick4_fwd_g] kernel {ms:.4f} ms (the same "
+              f"points permuted: {ms_perm:.4f} ms, bitwise the same y and "
+              f"words) | plain {plain_ms:.4f} ms | bound {bound[0]:.4f} ms "
+              f"({bound[1]}) | library: none")
         _kernel_row(kernels, name="brick4_fwd want_g (B1)",
                     key="brick4_fwd_g", path="f4 autograd nablas",
                     source=src, replaces=f"{rep}:172", err=err, ms=ms,
-                    plain_ms=plain_ms, bound=bound)
+                    plain_ms=plain_ms, bound=bound, ms_permuted=ms_perm)
 
         # B2: dL/dtable by float4 atomics; dL/dx from the want_g words
         dx_p, dtab_p = B4.brick4_encode_bwd_xla(x3, table, g2, meta, True)
@@ -926,9 +957,6 @@ def _f4_kernel_phases(model, o, d, kernels) -> "torch.Tensor":
              "sums over corners, feats and levels scaled by res-2")])
         # dL/dx is each point's own level sum: the same bits in another
         # order of the points
-        perm = torch.randperm(n, device=dev, generator=torch.Generator(
-            device=dev).manual_seed(7))
-        xp2, gp2, ggp4 = (v[perm].contiguous() for v in (x3, g2, gg4))
         dx_perm, _ = B4._bwd_cuda(xp2, gp2, meta, need_dx=True,
                                   words=B4._fwd_cuda(xp2, packed, meta,
                                                      want_g=True)[1])
@@ -1517,23 +1545,32 @@ def _permuto_kernel_phases(pathd, field, o, d, ts, kernels) -> None:
                 1e-4 + 1e-4 * float(n_p.abs().max()),
                 f"sums over {dim + 1} vertices × 2 feats × {L} levels "
                 f"through the elevation Jacobian, in another order")])
+            # B13 sums each point's levels in its block: the same bits in
+            # another order of the points
+            _require(torch.equal(PC._dydx_cuda(g_perm, x_perm, table, meta),
+                                 PC._dydx_cuda(g, x, table, meta)[perm]),
+                     f"B13 at {what}: a point's nablas depend on its place "
+                     f"in the batch")
             ms = _time_ms(lambda: PC._dydx_cuda(g, x, table, meta))
+            ms_perm = _time_ms(lambda: PC._dydx_cuda(g_perm, x_perm, table,
+                                                     meta))
             plain_ms = _time_ms(lambda: PC.permuto_cell_nablas_xla(
                 g, x, table, meta), iters=5)
-            bound = _bound(n * (4 * dim + 8 * L + 4 * dim) + table_bytes,
-                           n * L * (sops + 11 * (dim + 1)))
+            bound = _b13_bound(n, dim, L, table_bytes)
             # its backward on the CUDA path is plain PyTorch (the JAX
             # package's is XLA): the vjp of the plain nablas
             gg = torch.randn(n, dim, device=dev, generator=gen)
             bwd_ms = _time_ms(lambda: PC.permuto_cell_nablas_bwd_xla(
                 g, x, table, gg, meta), iters=5)
-            print(f"[B13 permuto_dydx, {what}] kernel {ms:.4f} ms | plain "
-                  f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms "
-                  f"({bound[1]}) | library: none | its backward (plain "
-                  f"PyTorch, no kernel) {bwd_ms:.4f} ms")
+            print(f"[B13 permuto_dydx, {what}] kernel {ms:.4f} ms (the "
+                  f"same points permuted: {ms_perm:.4f} ms, bitwise the same "
+                  f"nablas) | plain {plain_ms:.4f} ms | bound "
+                  f"{bound[0]:.4f} ms ({bound[1]}) | library: none | its "
+                  f"backward (plain PyTorch, no kernel) {bwd_ms:.4f} ms")
             errs["dydx"].append(err)
             rows["dydx"].update({f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms,
                                  f"bound{sfx}": bound,
+                                 f"ms_permuted{sfx}": ms_perm,
                                  f"backward_plain_ms{sfx}": bwd_ms})
             if not sfx:
                 # many small kernels fill the launch queue, so the events

@@ -14,16 +14,17 @@
 // the 50 MB L2, so the loads are L2 latency/transaction bound, far above
 // the DRAM bound of the points' own bytes (12 B in, 32 B out per point).
 // Design: one thread per (point, level) for the forward and one thread per
-// point for the nablas (its [N,3] output sums over levels, so a thread owns
-// a point and no atomics are needed); the index math (the JAX `_prologue`)
-// runs in the kernel, so nothing but x, the table and the output touches
-// device memory. The two backwards (B2, B4) give each warp 32 consecutive
-// points at one level, a block the run at all levels, as the F=2 brick
-// backwards do (brick.cu B7, B9): x and the upstream gradients are staged
-// in shared memory, B4's dL/dg_up leaves through it as one coalesced
-// [32, L] run, and dL/dx sums the levels there in level order. The TPU
-// kernels' software pipelining, lane patterns and MXU reductions exist
-// only for the TPU and are not carried over.
+// point for the nablas (its [N,3] output sums over levels, so a thread owns a
+// point and no atomics are needed); the index math (the JAX `_prologue`) runs
+// in the kernel, so nothing but x, the table and the output touches device
+// memory. The forward's want_g form (B1 want_g) takes blocks of 32 points at
+// all levels and stores its corner words through shared memory as coalesced
+// uint4 runs. The two backwards (B2, B4) give each warp 32 consecutive points
+// at one level, a block the run at all levels, as the F=2 brick backwards do
+// (brick.cu B7, B9): x and the upstream gradients are staged in shared memory,
+// B4's dL/dg_up leaves through it as one coalesced [32, L] run, and dL/dx sums
+// the levels there in level order. The TPU kernels' software pipelining, lane
+// patterns and MXU reductions exist only for the TPU and are not carried over.
 //
 // The backwards (B2, B4) scatter dL/dtable into the natural unpacked
 // layout [rows, 256] (lane vertex*4 + f) with 16-byte float4 atomicAdds in
@@ -118,8 +119,11 @@ __device__ __forceinline__ int corner_off(int k) {
   return ((k >> 2) & 1) * 16 + ((k >> 1) & 1) * 4 + (k & 1);
 }
 
-// words (may be null, the want_g form): the 8 corners' packed words of each
-// (point, level), [n, L, 8] uint2, which B2 reads back for dL/dx.
+// B1, y only: one thread per (point, level), i = p L + l, so that y [n, L]
+// float4 is stored coalesced. Its launch passes words = null: the want_g
+// form is brick4_fwd_g_kernel below. (This kernel's words branch, each
+// lane's eight 8-byte stores 64 bytes from its neighbour's, took 0.0357
+// ms at the F=4 step's 147,456 points x 2 levels, that kernel 0.0141.)
 __global__ void brick4_fwd_kernel(const float* __restrict__ x,
                                   const uint2* __restrict__ table,
                                   const __grid_constant__ Brick4Meta meta,
@@ -150,8 +154,72 @@ __global__ void brick4_fwd_kernel(const float* __restrict__ x,
   y[i] = make_float4(acc[0], acc[1], acc[2], acc[3]);
 }
 
-// B2's and B4's run of consecutive points: one warp's width at each level
+// B1's, B2's and B4's run of consecutive points: one warp's width at each
+// level
 constexpr int BRICK4_POINTS = 32;
+
+// B1's want_g form: y and the 8 corners' packed words of each (point,
+// level), [n, L, 8] uint2, which B2 reads back for dL/dx. A block takes a
+// run of BRICK4_POINTS consecutive points at all L levels (blockDim = 32
+// L), point-major as the y-only form (thread t: point t / L, level t % L),
+// so that y leaves coalesced. The block's words are one contiguous [32,
+// L, 8] run: staged as [32][4 L + 1] uint4 in dynamic shared memory (a
+// point's records padded by one uint4, so that the 8 lanes of a
+// quarter-warp write 8 distinct bank groups) and written as uint4,
+// coalesced, as B6's corners (brick.cu). Each (point, level) does the
+// y-only form's arithmetic, so y has its bits. On an H100 at 700 W
+// (chip_ab.py, the F=4 step's 147,456 points x 2 levels): 0.0141 ms, of
+// which 0.0102 remain without the word stores; in level-major warps (y
+// through shared memory) 0.0138 in ray order but 0.0219 against 0.0198
+// permuted, so the point-major form stays.
+__global__ void brick4_fwd_g_kernel(const float* __restrict__ x,
+                                    const uint2* __restrict__ table,
+                                    const __grid_constant__ Brick4Meta meta,
+                                    float4* __restrict__ y,
+                                    uint4* __restrict__ words, long long n) {
+  extern __shared__ uint4 ws[];
+  const int L = meta.n_levels;
+  const long long p0 = (long long)blockIdx.x * BRICK4_POINTS;
+  const int np = (int)min((long long)BRICK4_POINTS, n - p0);
+  const int t = threadIdx.x, i = t / L, l = t - i * L;
+  const int rec = 4 * L + 1;  // uint4s a point takes in ws
+  if (i < np) {
+    const float* xi = x + (p0 + i) * 3;
+    const float xp[3] = {xi[0], xi[1], xi[2]};
+    const Located c = locate(xp, meta.lv[l]);
+    const uint2* rowp = table + (long long)c.row * 64 + c.vert0;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    uint2 v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int dx = (k >> 2) & 1, dy = (k >> 1) & 1, dz = k & 1;
+      const float w = (dx ? c.frac[0] : 1.f - c.frac[0]) *
+                      (dy ? c.frac[1] : 1.f - c.frac[1]) *
+                      (dz ? c.frac[2] : 1.f - c.frac[2]);
+      v[k] = __ldg(rowp + dx * 16 + dy * 4 + dz);
+      float f[4];
+      unpack4(v[k], f);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q] += w * f[q];
+    }
+    y[p0 * L + t] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      ws[i * rec + l * 4 + q] = make_uint4(v[2 * q].x, v[2 * q].y,
+                                           v[2 * q + 1].x, v[2 * q + 1].y);
+  }
+  __syncthreads();
+  // uint4 f = j * 32 L + t of the block's run is record t % 4L of point
+  // j * 8 + t / 4L
+  const int ti = t / (4 * L), tr = t - ti * 4 * L;
+  uint4* out = words + p0 * L * 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int pi = j * 8 + ti;
+    if (pi < np) out[j * 32 * L + t] = ws[pi * rec + tr];
+  }
+}
+
 // runs a block takes: blockDim = 32 L BRICK4_RUNS, warp w the run w / L
 // at level w % L
 constexpr int BRICK4_RUNS = 1;
@@ -420,16 +488,24 @@ static unsigned n_blocks(long long total, int threads) {
 extern "C" {
 
 // x [n,3] f32, table packed [rows,128] 32-bit words, y [n,4L] f32, words
-// [n,L,8] uint2 or null.
+// [n,L,8] uint2 (16-byte aligned) or null.
 int brick4_fwd(const void* x, const void* table, Brick4Meta meta, void* y,
                void* words, long long n, void* stream) {
-  const long long total = n * meta.n_levels;
+  const int L = meta.n_levels;
+  const long long total = n * L;
+  cudaStream_t st = (cudaStream_t)stream;
   if (total > 0) {
-    const int threads = 256;
-    const long long blocks = (total + threads - 1) / threads;
-    brick4_fwd_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (const uint2*)table, meta, (float4*)y,
-        (uint2*)words, n);
+    if (words == nullptr) {
+      const int threads = 256;
+      brick4_fwd_kernel<<<n_blocks(total, threads), threads, 0, st>>>(
+          (const float*)x, (const uint2*)table, meta, (float4*)y, nullptr,
+          n);
+    } else {
+      const size_t smem = (size_t)BRICK4_POINTS * (4 * L + 1) * sizeof(uint4);
+      brick4_fwd_g_kernel<<<n_blocks(n, BRICK4_POINTS), 32 * L, smem, st>>>(
+          (const float*)x, (const uint2*)table, meta, (float4*)y,
+          (uint4*)words, n);
+    }
   }
   return (int)cudaGetLastError();
 }

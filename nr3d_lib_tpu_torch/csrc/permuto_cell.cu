@@ -38,12 +38,18 @@
 // warp_atomics.cuh; vertex k's slot has k bits set, so lanes meet only at
 // the same k). dL/dx, when asked for, sums each point's levels in shared
 // memory in level order and is written once: no atomics, no memset, and
-// the same bits whatever the order of the points. The nablas are one
-// thread per point looping over levels (its [N,d] output sums over
-// levels, so a thread owns a point and needs no atomics). All levels go
-// in one launch. The TPU kernels' level groups, A/B row buffers,
-// lane-pattern extraction, MXU reduce/weight matrices and point chunking
-// exist only for the TPU and are not carried over.
+// the same bits whatever the order of the points. The nablas (B13) take
+// the same blocks and the same level sum, and read x and g_up lane by
+// lane. On an H100 at 700 W (chip_ab.py, ray order) they took 0.0347 ms
+// at the dynamic NeuS's 393,216 points x 5 levels and 0.0398 at the 3D
+// fields' x 8, against 0.0407 and 0.0490 as one thread per point looping
+// over the levels; x and g_up staged behind a barrier, 0.0377 and 0.0447;
+// elevation_vjp's selects in place of elevation_terms' rank tables,
+// 0.0432 and 0.0466. The search alone (no loads, no vjp) takes 0.0314 of
+// the 0.0347 ms. All levels go in one launch. The TPU kernels' level
+// groups, A/B row buffers, lane-pattern extraction, MXU reduce/weight
+// matrices and point chunking exist only for the TPU and are not carried
+// over.
 //
 // Vertex k's two features sit at lanes lane_k, lane_k + 1 of its row
 // (lane_k even), so one aligned float2 load reads both and one float2
@@ -52,9 +58,9 @@
 // pads each level to 8 vertex slots; here a thread simply loops over the
 // d+1 real ones.
 //
-// The simplex search, the dL/dx algebra (elevation_vjp) and the
-// bit-exactness rules live in permuto_simplex.cuh, shared with the F=4
-// kernels of permuto_cell4.cu.
+// The simplex search, the dL/dx algebra (elevation_vjp, and B13's
+// elevation_terms) and the bit-exactness rules live in
+// permuto_simplex.cuh, shared with the F=4 kernels of permuto_cell4.cu.
 
 #include "permuto_simplex.cuh"
 #include "warp_atomics.cuh"
@@ -163,37 +169,54 @@ __global__ void permuto_bwd_kernel(const float* __restrict__ x,
   }
 }
 
-// B13: one thread per point, looping over levels -> dx [n, D].
+// B13: the blocks of B10 -> dx [n, D] = the sum over the levels, in level
+// order, of each level's elevation vjp of gf_k = g_up . val_k. Each lane
+// reads its point's x and its (point, level)'s g_up itself, before the
+// search, so no barrier stands before the search; each (level, point)
+// parks its terms t (elevation_terms) in [L, 32, D] in shared memory, and
+// one thread a (point, coordinate) sums the levels there, d = fma(t,
+// scale, d) from level 0, and writes dx once: the bits of elevation_vjp
+// called level by level on one running dx, in any order of the points.
+// Dynamic shared memory: the [L, 32, D] terms and elevation_terms' [D+1,
+// 32 L] rank tables.
 template <int D>
 __global__ void permuto_dydx_kernel(const float2* __restrict__ g_up,
                                     const float* __restrict__ x,
                                     const float2* __restrict__ table,
                                     const __grid_constant__ PCMeta meta,
                                     float* __restrict__ dx, long long n) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
+  extern __shared__ float ts[];                        // [L, 32, D]
   const int L = meta.n_levels;
-  float xp[D], d[D];
+  float* hs = ts + L * PC_POINTS * D;                  // [D + 1, 32 L]
+  const long long p0 = (long long)blockIdx.x * PC_POINTS;
+  const int np = (int)min((long long)PC_POINTS, n - p0);
+  const int l = threadIdx.x >> 5, i = threadIdx.x & 31;
+  if (i < np) {
+    float xp[D];
 #pragma unroll
-  for (int a = 0; a < D; ++a) {
-    xp[a] = x[p * D + a];
-    d[a] = 0.f;
-  }
-  for (int l = 0; l < L; ++l) {
-    const PCLevel& lv = meta.lv[l];
+    for (int a = 0; a < D; ++a) xp[a] = x[(p0 + i) * D + a];
+    const float2 g = g_up[(p0 + i) * L + l];
     Simplex<D> s;
-    find_simplex<D>(xp, meta, lv, s);
-    const float2 g = g_up[p * L + l];
+    find_simplex<D>(xp, meta, meta.lv[l], s);
     float gf[D + 1];
 #pragma unroll
     for (int k = 0; k <= D; ++k) {
       const float2 v = __ldg(table + s.vtx[k]);
-      gf[k] = g.x * v.x + g.y * v.y;
+      gf[k] = __fmaf_rn(g.x, v.x, __fmul_rn(g.y, v.y));
     }
-    elevation_vjp<D>(s, gf, meta, lv, d);
-  }
+    float t[D];
+    elevation_terms<D>(s, gf, meta, hs + threadIdx.x, blockDim.x, t);
 #pragma unroll
-  for (int a = 0; a < D; ++a) dx[p * D + a] = d[a];
+    for (int a = 0; a < D; ++a) ts[(l * PC_POINTS + i) * D + a] = t[a];
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < np * D; k += blockDim.x) {
+    const int a = k % D;
+    float d = 0.f;
+    for (int ll = 0; ll < L; ++ll)
+      d = __fmaf_rn(ts[ll * PC_POINTS * D + k], meta.lv[ll].scale[a], d);
+    dx[p0 * D + k] = d;
+  }
 }
 
 extern "C" {
@@ -242,10 +265,14 @@ int permuto_bwd(const void* x, const void* g, const void* table,
 int permuto_dydx(const void* g_up, const void* x, const void* table,
                  PCMeta meta, void* dx, long long n, void* stream) {
   if (n > 0) {
-    const int threads = 256;
+    const int L = meta.n_levels, d = meta.n_dims;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (L == 0)  // no level: dx is 0
+      return (int)cudaMemsetAsync(dx, 0, sizeof(float) * n * d, st);
+    const size_t smem = sizeof(float) * PC_POINTS * L * (2 * d + 1);
 #define PC_DYDX(D)                                                         \
-  permuto_dydx_kernel<D><<<pc_blocks_for(n, threads), threads, 0,          \
-                           (cudaStream_t)stream>>>(                        \
+  permuto_dydx_kernel<D><<<pc_blocks_for(n, PC_POINTS), 32 * L, smem,      \
+                           st>>>(                                          \
       (const float2*)g_up, (const float*)x, (const float2*)table, meta,    \
       (float*)dx, n)
     PC_DISPATCH(meta.n_dims, PC_DYDX)

@@ -280,6 +280,41 @@ __device__ __forceinline__ void elevation_vjp(const Simplex<D>& s,
   }
 }
 
+// B13's form of elevation_vjp, for a level sum taken elsewhere: t_a =
+// dL/dcf_a * sf_a, to be summed as d_a = fma(t_a, scale_a, d_a) over the
+// levels in level order. dL/delevated_i depends on coordinate i only
+// through its rank r: h_r = (gf[d - r] - gf[r == 0 ? 0 : d+1-r]) / (d+1).
+// So the d+1 values h_r are computed once, parked in the thread's column
+// of shared memory (h[r * stride]) and read back at rank_i, in place of
+// elevation_vjp's 2(d+1)^2 compares and selects (a rank outside [0, d],
+// which only a point with a non-finite coordinate can have, reads h_d).
+// Every rounding is written out as ptxas compiles elevation_vjp called
+// level by level on one running dx (its SASS: the product by a+1 fused
+// into dcf's difference, dcf * sf rounded, then fused with scale into the
+// running sum), so such a sum has the bits of that loop.
+template <int D>
+__device__ __forceinline__ void elevation_terms(const Simplex<D>& s,
+                                                const float gf[D + 1],
+                                                const PCMeta& m, float* h,
+                                                int stride, float t[D]) {
+  constexpr int DP1 = D + 1;
+#pragma unroll
+  for (int r = 0; r <= D; ++r)
+    h[r * stride] =
+        div_dp1<DP1>(__fsub_rn(gf[D - r], gf[r == 0 ? 0 : DP1 - r]));
+  float delev[DP1];
+#pragma unroll
+  for (int i = 0; i <= D; ++i)
+    delev[i] = h[min((unsigned)s.rank[i], (unsigned)D) * stride];
+  float run = 0.f;
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+    run = __fadd_rn(run, delev[a]);
+    const float dcf = __fmaf_rn(-(float)(a + 1), delev[a + 1], run);
+    t[a] = __fmul_rn(dcf, m.sf[a]);
+  }
+}
+
 static inline long long pc_total_rows(const PCMeta& meta) {
   const PCLevel& last = meta.lv[meta.n_levels - 1];
   return (long long)last.row_offset + last.n_rows;

@@ -35,9 +35,11 @@ points share one cell; so do B11/B12 (F=2, the same design), B9 and B4,
 whose dL/dg_up and dL/dx must be the same bits in two runs and in both
 orders, and B7 and B2, whose dL/dx must (L = 1-8 and 1-4); B6 too, in
 both forms and at six levels as well, whose y must be the same bits in
-both forms and in both orders and whose corners must be exact. The search's
-shortcuts are checked over all 2^32 inputs: its division by d+1 bitwise
-against x / b, its modulus exactly.
+both forms and in both orders and whose corners must be exact; B1's
+want_g form at L = 1-4 likewise (its words exact); and B13 at the path D
+and 3D lattice metas, whose dx must be the same bits in both orders. The
+search's shortcuts are checked over all 2^32 inputs: its division by d+1
+bitwise against x / b, its modulus exactly.
 """
 
 import numpy as np
@@ -1685,3 +1687,69 @@ def test_gs_blend_cull_other_tiles_match_plain(cuda, tile):
                                                 GS_FLOOR)):
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()) + 1e-7)
+
+
+# ------- B13: level-major warps, the levels summed in the block in order
+@pytest.mark.parametrize("meta_name", sorted(PC_METAS))
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 1000, 96 * 1001])
+def test_permuto_dydx_ray_and_permuted_order(cuda, meta_name, n):
+    """B13 at path D's meta and the 3D lattice's, on points along rays
+    and the same points permuted: dx within 1e-4 of the plain version,
+    and a permuted batch's dx bitwise the permuted dx (each point's
+    levels are summed in its block, in level order). n = 0, n < 32, a
+    ragged last run and many runs; one launch counted a call."""
+    dim, res, rows = PC_METAS[meta_name]
+    meta = PC.make_permuto_cell_meta(dim, res, rows)
+    x = _pc_ray_points(cuda, dim, max(-(-n // 96), 1), 96,
+                       dim + 140)[:n].contiguous()
+    rng = np.random.default_rng(dim + 141)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (meta.total_rows, 128)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(n, 2 * meta.n_levels)).astype(
+        np.float32)).to(cuda)
+    perm = torch.from_numpy(rng.permutation(n)).to(cuda)
+    dxs = []
+    for xx, gg in ((x, g), (x[perm].contiguous(), g[perm].contiguous())):
+        before = _build.LAUNCHES["permuto_dydx"]
+        with torch.no_grad():
+            dx = PC.permuto_cell_nablas(gg, xx, table, meta)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["permuto_dydx"] == before + 1
+        assert dx.shape == (n, dim)
+        if n:
+            _close(dx, PC.permuto_cell_nablas_xla(gg, xx, table, meta), 1e-4)
+        dxs.append(dx)
+    assert torch.equal(dxs[1], dxs[0][perm])
+
+
+# --------- B1 want_g: the block's corner words out as coalesced uint4 runs
+@pytest.mark.parametrize("n_levels", range(1, 5))
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 1000, 96 * 1001])
+def test_brick4_want_g_ray_and_permuted_order(cuda, n_levels, n):
+    """B1's want_g form on points along rays and permuted, L = 1-4: the
+    words equal to the plain version's, y within 1e-5 of it and the same
+    bits as the y-only form's, and a permuted batch's outputs the
+    permuted outputs. n = 0, n < 32 and runs of 32 cut short; one launch
+    counted a call of each form."""
+    meta, x, table, _, _, perm = _brick4_ray_inputs(cuda, n_levels, n,
+                                                    150 + n_levels)
+    packed = B4.pack_table4(table)
+    outs = []
+    for xx in (x, x[perm].contiguous()):
+        before = (_build.LAUNCHES["brick4_fwd"],
+                  _build.LAUNCHES["brick4_fwd_g"])
+        y = B4._fwd_cuda(xx, packed, meta)
+        y_g, words = B4._fwd_cuda(xx, packed, meta, want_g=True)
+        torch.cuda.synchronize()
+        assert (_build.LAUNCHES["brick4_fwd"], _build.LAUNCHES["brick4_fwd_g"]
+                ) == (before[0] + 1, before[1] + 1)
+        assert y_g.shape == (n, 4 * n_levels)
+        assert words.shape == (n, n_levels, 8, 2)
+        assert torch.equal(y_g, y)
+        if n:
+            _close(y_g, B4.brick4_encode_xla(xx, table, meta), 1e-5)
+            assert torch.equal(words,
+                               B4.brick4_corner_words_xla(xx, table, meta))
+        outs.append((y_g, words))
+    assert torch.equal(outs[1][0], outs[0][0][perm])
+    assert torch.equal(outs[1][1], outs[0][1][perm])
