@@ -315,6 +315,21 @@ def _b13_bound(n: int, dim: int, L: int, table_bytes: int):
                   n * L * (_simplex_ops(dim) + 11 * (dim + 1)))
 
 
+def _b8_bound(n: int, L: int, table_bytes: int):
+    """B8's bound: x, g_up in and dx out, the table once; each (point,
+    level) 12 index ops + 8 corners × (3 for g·val + 9) + 3 scale FMAs =
+    111 float ops."""
+    return _bound(n * (12 + 8 * L + 12) + table_bytes, n * L * 111)
+
+
+def _b16_bound(n: int, dim: int, L: int, table_bytes: int):
+    """B16's bound: x, g_up in and dx out, the packed table once; each
+    (point, level) the simplex search + 5 vertices × (4 unpacks + 7 for
+    g·val) + the elevation vjp (~30)."""
+    return _bound(n * (4 * dim + 16 * L + 4 * dim) + table_bytes,
+                  n * L * (_simplex_ops(dim) + 55 + 30))
+
+
 def _profile(run, wall_ms: float, what: str) -> None:
     """Device time by kernel over two calls of `run` (torch.profiler), and
     the share of one call's wall time `wall_ms` that the device is busy.
@@ -1197,17 +1212,27 @@ def _f2_kernel_phases(nerf, neus, o8, d8, o, d, kernels) -> "torch.Tensor":
             1e-4 + 1e-4 * float(n_p.abs().max()),
             f"sums over 8 corners × 2 feats × {L} levels, scaled by res-2, "
             f"in another order")])
+        # B8 sums each point's levels in its block: the same bits in
+        # another order of the points
+        perm = torch.randperm(n, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(18))
+        xp8, gp8 = x3[perm].contiguous(), g2[perm].contiguous()
+        _require(torch.equal(B._dydx_cuda(gp8, xp8, table, meta),
+                             B._dydx_cuda(g2, x3, table, meta)[perm]),
+                 "B8: a point's nablas depend on its place in the batch")
         ms = _time_ms(lambda: B._dydx_cuda(g2, x3, table, meta))
+        ms_perm = _time_ms(lambda: B._dydx_cuda(gp8, xp8, table, meta))
         plain_ms = _time_ms(lambda: B.brick_nablas_xla(g2, x3, table, meta),
                             iters=5)
-        # each (point, level): 12 index ops + 8 corners × (3 for g·val + 9)
-        # + 3 scale FMAs → 111 float ops
-        bound = _bound(n * (12 + 8 * L + 12) + tab_bytes, n * L * 111)
-        print(f"[B8 brick_dydx] kernel {ms:.4f} ms | plain {plain_ms:.4f} ms"
-              f" | bound {bound[0]:.4f} ms ({bound[1]}) | library: none")
+        bound = _b8_bound(n, L, tab_bytes)
+        print(f"[B8 brick_dydx] kernel {ms:.4f} ms (the same points "
+              f"permuted: {ms_perm:.4f} ms, bitwise the same nablas) | plain "
+              f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}) | "
+              f"library: none")
         _kernel_row(kernels, name="brick_dydx (B8)", key="brick_dydx",
                     path="f2 render", source=src, replaces=f"{rep}:992",
-                    err=err, ms=ms, plain_ms=plain_ms, bound=bound)
+                    err=err, ms=ms, plain_ms=plain_ms, bound=bound,
+                    ms_permuted=ms_perm)
 
         # B9: the nablas' backward
         dg_p, dx_p, dt_p = B.brick_nablas_bwd_xla(g2, x3, table, gg, meta)
@@ -1381,23 +1406,31 @@ def _permuto4_kernel_phases(model, o, d, ts, kernels) -> None:
             1e-4 + 1e-4 * float(n_p.abs().max()),
             f"sums over 5 vertices × 4 feats × {L} levels through the "
             f"elevation Jacobian, in another order")])
+        # B16 sums each point's levels in its block: the same bits in
+        # another order of the points
+        _require(torch.equal(P4._dydx_cuda(g_perm, x_perm, packed, meta),
+                             P4._dydx_cuda(g, x, packed, meta)[perm]),
+                 "B16: a point's nablas depend on its place in the batch")
         ms = _time_ms(lambda: P4._dydx_cuda(g, x, packed, meta))
+        ms_perm = _time_ms(lambda: P4._dydx_cuda(g_perm, x_perm, packed,
+                                                 meta))
         plain_ms = _time_ms(lambda: P4.permuto_cell4_nablas_xla(g, x, table,
                                                                 meta), iters=5)
-        bound = _bound(n * (4 * dim + 16 * L + 4 * dim) + table_bytes,
-                       n * L * (simplex_ops + 55 + 30))
+        bound = _b16_bound(n, dim, L, table_bytes)
         # its backward on the CUDA path is plain PyTorch (the JAX package's
         # is XLA): the vjp of the plain nablas, gathers and index_add_
         gg = torch.randn(n, dim, device=dev, generator=gen)
         bwd_ms = _time_ms(lambda: P4.permuto_cell4_nablas_bwd_xla(
             g, x, table, gg, meta), iters=5)
-        print(f"[B16 permuto4_dydx] kernel {ms:.4f} ms | plain {plain_ms:.4f}"
-              f" ms | bound {bound[0]:.4f} ms ({bound[1]}) | library: none | "
-              f"its backward (plain PyTorch, no kernel) {bwd_ms:.4f} ms")
+        print(f"[B16 permuto4_dydx] kernel {ms:.4f} ms (the same points "
+              f"permuted: {ms_perm:.4f} ms, bitwise the same nablas) | plain "
+              f"{plain_ms:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]}) | "
+              f"library: none | its backward (plain PyTorch, no kernel) "
+              f"{bwd_ms:.4f} ms")
         _kernel_row(kernels, name="permuto4_dydx (B16)", key="permuto4_dydx",
                     path="dyn render", source=src, replaces=f"{rep}:544",
                     err=err, ms=ms, plain_ms=plain_ms, bound=bound,
-                    backward_plain_ms=bwd_ms)
+                    ms_permuted=ms_perm, backward_plain_ms=bwd_ms)
         # its ~700 small kernels fill the launch queue, so the events above
         # may time the host; the profile gives the device's own time
         _profile(lambda: P4.permuto_cell4_nablas_bwd_xla(g, x, table, gg,

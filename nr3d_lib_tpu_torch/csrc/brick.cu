@@ -22,21 +22,26 @@
 // stores (the index math and the weights: 179 SASS instructions); at the
 // NeRF render's 196,608 points, 24 a ray, 0.0327 ms, of which 0.0097
 // remain without them: there every lane of a fine level reads its own
-// rows. The hash modulo costs nothing measurable. Design: one thread per
-// point for the nablas (B8; their [N,3] output sums over levels, so a
-// thread owns a point and the nablas need no atomics); the index math (the
-// JAX `_prologue`) runs in the kernel, so nothing but x, the table and the
-// outputs touches device memory. The encode (B6) and the two backwards
-// (B7, B9) give each warp 32 consecutive points at one level, a block the
-// run at all levels, as the cell permuto kernels do (permuto_cell.cu): a
-// warp reads its level's meta uniformly, no thread divides by L, and at
-// the coarse levels the lanes of a warp share brick rows. The backwards
-// stage x and the upstream gradients in shared memory (B6 reads x lane by
-// lane), y, B6's corner values and B9's dL/dg_up leave through it as
-// coalesced runs, and dL/dx sums the levels there in level order. The TPU
-// kernels' software pipelining, lane-packed [tile,128] vectors, one-hot
-// MXU row gather, matmul reductions, per-level _pad8 accumulators and
-// chunking exist only for the TPU and are not carried over.
+// rows. The hash modulo costs nothing measurable. B8 (an H100 at 700 W,
+// chip_ab.py, the F=2 NeuS step's 147,456 points in ray order) takes
+// 0.0145 ms, 0.0075 without its table loads and 0.0082 with every lane of
+// a warp reading lane 0's row: the lanes' scattered rows, not the loads'
+// latency, bound it, so the layout below barely moves it (0.0149 as one
+// thread per point looping over the levels; 0.0217 against 0.0202 with
+// the points in a random order). Design: the index math (the JAX
+// `_prologue`) runs in the kernel, so nothing but x, the table and the
+// outputs touches device memory. All four kernels give each warp 32
+// consecutive points at one level, a block the run at all levels, as the
+// cell permuto kernels do (permuto_cell.cu): a warp reads its level's
+// meta uniformly, no thread divides by L, and at the coarse levels the
+// lanes of a warp share brick rows. The backwards stage x and the
+// upstream gradients in shared memory (B6 and B8 read x lane by lane), y,
+// B6's corner values and B9's dL/dg_up leave through it as coalesced
+// runs, and dL/dx and B8's nablas sum the levels there in level order, so
+// the nablas need no atomics. The TPU kernels' software pipelining,
+// lane-packed [tile,128] vectors, one-hot MXU row gather, matmul
+// reductions, per-level _pad8 accumulators and chunking exist only for
+// the TPU and are not carried over.
 //
 // The backwards scatter dL/dtable into the natural [rows, 128] layout
 // with 8-byte float2 atomicAdds in L2, worst on the dense 16^3 (125 rows)
@@ -60,7 +65,8 @@
 // in uint32, as the plain version does in int64 with & 0xFFFFFFFF. B9's
 // dL/dg_up and dL/dx are the bits of its one-thread-per-point form (the
 // per-level sums keep their order; the level sum d += e * (res-2) is the
-// FMA nvcc made of it there); B7's dL/dx takes the same level sum. This
+// FMA nvcc made of it there); B7's dL/dx and B8's nablas take the same
+// level sum, and B8's nablas are the bits of its own such form. This
 // file shares only warp_atomics.cuh with the other sources; the build's
 // hash covers every header.
 
@@ -127,8 +133,7 @@ __device__ __forceinline__ int corner_off(int k) {
   return ((k >> 2) & 1) * 16 + ((k >> 1) & 1) * 4 + (k & 1);
 }
 
-// The run of consecutive points of B6, B7 and B9: one warp's width at each
-// level
+// The run of consecutive points of B6-B9: one warp's width at each level
 constexpr int BRICK_POINTS = 32;
 
 // B6: a block takes a run of BRICK_POINTS consecutive points at all L
@@ -291,22 +296,30 @@ __global__ void brick_bwd_kernel(const float* __restrict__ x,
   }
 }
 
-// B8: one thread per point, looping over levels; no atomics.
+// B8: the blocks of B9, no atomics -> dx [n, 3]:
 //   dx_a = sum_l (res_a-2) sum_k (g_up . val_k) (2 bit_a - 1) prod_{b!=a} s_b
+// Each lane reads its point's x and its (point, level)'s float2 of g_up
+// itself, as B6 reads x, so no barrier stands before the table loads;
+// each (level, point) does the one-thread-per-point form's arithmetic and
+// parks t in [L, 32, 3] in shared memory, and one thread a (point,
+// coordinate) sums the levels there, d = fma(t, res-2, d) from level 0 (the
+// FMA nvcc made of that form's d += t * (res-2)), and writes dx once: its
+// bits, in any order of the points.
 __global__ void brick_dydx_kernel(const float2* __restrict__ g_up,
                                   const float* __restrict__ x,
                                   const float2* __restrict__ table,
                                   const __grid_constant__ BrickMeta meta,
                                   float* __restrict__ dx, long long n) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
+  __shared__ float ts[BRICK_MAX_LEVELS * BRICK_POINTS * 3];
   const int L = meta.n_levels;
-  const float xp[3] = {x[p * 3], x[p * 3 + 1], x[p * 3 + 2]};
-  float d[3] = {0.f, 0.f, 0.f};
-  for (int l = 0; l < L; ++l) {
-    const BrickLevel& lv = meta.lv[l];
-    const Located c = locate(xp, lv);
-    const float2 g = g_up[p * L + l];
+  const long long p0 = (long long)blockIdx.x * BRICK_POINTS;
+  const int np = (int)min((long long)BRICK_POINTS, n - p0);
+  const int l = threadIdx.x >> 5, i = threadIdx.x & 31;
+  if (i < np) {
+    const float* xi = x + (p0 + i) * 3;
+    const float xp[3] = {xi[0], xi[1], xi[2]};
+    const float2 g = g_up[(p0 + i) * L + l];
+    const Located c = locate(xp, meta.lv[l]);
     const float2* rowp = table + (long long)c.row * 64 + c.vert0;
     float s[3][2];
 #pragma unroll
@@ -325,11 +338,17 @@ __global__ void brick_dydx_kernel(const float2* __restrict__ g_up,
       t[2] += (b2 ? h : -h) * s[0][b0] * s[1][b1];
     }
 #pragma unroll
-    for (int a = 0; a < 3; ++a) d[a] += t[a] * (float)(lv.res[a] - 2);
+    for (int a = 0; a < 3; ++a) ts[(l * BRICK_POINTS + i) * 3 + a] = t[a];
   }
-  dx[p * 3] = d[0];
-  dx[p * 3 + 1] = d[1];
-  dx[p * 3 + 2] = d[2];
+  __syncthreads();
+  for (int k = threadIdx.x; k < np * 3; k += blockDim.x) {
+    const int a = k % 3;
+    float d = 0.f;
+    for (int ll = 0; ll < L; ++ll)
+      d = fmaf(ts[ll * BRICK_POINTS * 3 + k], (float)(meta.lv[ll].res[a] - 2),
+               d);
+    dx[p0 * 3 + k] = d;
+  }
 }
 
 // B9, the backward of B8. With D_a = gg_a (res_a - 2), h_k = g_up . val_k
@@ -481,7 +500,11 @@ int brick_bwd(const void* x, const void* g, const void* corners,
 int brick_dydx(const void* g_up, const void* x, const void* table,
                BrickMeta meta, void* dx, long long n, void* stream) {
   if (n > 0) {
-    brick_dydx_kernel<<<n_blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(
+    const int L = meta.n_levels;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (L == 0)  // no level: dx is 0
+      return (int)cudaMemsetAsync(dx, 0, sizeof(float) * n * 3, st);
+    brick_dydx_kernel<<<n_blocks(n, BRICK_POINTS), 32 * L, 0, st>>>(
         (const float2*)g_up, (const float*)x, (const float2*)table, meta,
         (float*)dx, n);
   }

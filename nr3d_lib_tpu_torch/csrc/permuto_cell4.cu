@@ -18,13 +18,17 @@
 // ms and 0.0281 without its table loads, so the search's instructions
 // bound it; B15 takes 0.0678 ms, 0.0381 without its atomics and 0.1735
 // with one atomic per lane: its 5 float4 atomics a (point, level) bound
-// it, and the warps' aggregation leaves 2.96 M of them (of 7.86 M).
+// it, and the warps' aggregation leaves 2.96 M of them (of 7.86 M). B16
+// takes 0.0307 ms (0.0340 as one thread per point looping over the
+// levels), 0.0287 without its table loads and 0.0288 without loads and
+// vjp: the search bounds it too.
 //
-// Design. The forward and the backward give each warp 32 consecutive
-// points at one level; a block takes the run at all L levels (blockDim =
-// 32 L), so each warp reads its level's meta uniformly, x is staged in
-// shared memory once and y (and the backward's g) pass through shared
-// memory, so that the block's [points, L] rows move as one coalesced run.
+// Design. All three kernels give each warp 32 consecutive points at one
+// level; a block takes the run at all L levels (blockDim = 32 L), so each
+// warp reads its level's meta uniformly. The forward and the backward
+// stage x in shared memory once, and y (and the backward's g) pass
+// through shared memory, so that the block's [points, L] rows move as one
+// coalesced run; the nablas (B16) read x and g_up lane by lane.
 // The paths feed points ray by ray (96 samples a ray, t constant along
 // it), so at the coarse levels a warp's lanes mostly fall in one cell:
 // the forward's loads merge into few sectors, and the backward's lanes
@@ -34,22 +38,26 @@
 // butterfly fast path for them measured slower: 0.0747 ms.) dL/dx, when
 // asked for, sums each point's levels in shared memory in level order and
 // is written once: no atomics, no memset, and the same bits whatever the
-// order of the points. The nablas are one thread per point looping over
-// levels (its [N,d] output sums over levels, so a thread owns a point).
-// The TPU kernels' level groups, A/B row buffers, lane-pattern extraction
-// and MXU reduce/weight matrices exist only for the TPU and are not
-// carried over.
+// order of the points. The nablas sum their levels the same way, from
+// `elevation_terms`' rank table in shared memory (B13's form,
+// permuto_cell.cu): the table, in place of elevation_vjp's 2(d+1)^2
+// compares and selects (0.0382 ms), keeps the one-thread-per-point form's
+// bits. In a random order of the points B16 takes 0.0497 ms, the
+// one-thread-per-point form 0.0481. The TPU kernels' level groups, A/B
+// row buffers, lane-pattern extraction and MXU reduce/weight matrices
+// exist only for the TPU and are not carried over.
 //
 // The backward scatters dL/dtable into the natural unpacked layout
 // [rows, 256] (lane 2*lane_k + f): vertex k's 4 features are contiguous
 // there and 16-byte aligned (lane_k is even), so each group's sum is one
 // float4 atomicAdd; the sums' order changes from run to run.
 //
-// The simplex search, the dL/dx algebra (elevation_vjp) and the
-// bit-exactness rules live in permuto_simplex.cuh, shared with the F=2
-// kernels of permuto_cell.cu; `warp_add4` lives in warp_atomics.cuh,
-// shared with the F=4 brick backwards (brick4.cu). Packed words are only
-// loaded, shifted and masked.
+// The simplex search, the dL/dx algebra (elevation_vjp, and B16's
+// elevation_terms) and the bit-exactness rules live in
+// permuto_simplex.cuh, shared with the F=2 kernels of permuto_cell.cu;
+// `warp_add4` lives in warp_atomics.cuh, shared with the F=4 brick
+// backwards (brick4.cu). Packed words are only loaded, shifted and
+// masked.
 
 #include "permuto_simplex.cuh"
 #include "warp_atomics.cuh"
@@ -63,7 +71,7 @@ __device__ __forceinline__ void unpack4(uint2 w, float f[4]) {
   f[3] = __uint_as_float(w.y & 0xFFFF0000u);
 }
 
-// B14 and B15's run of consecutive points: one warp's width at each level
+// B14-B16's run of consecutive points: one warp's width at each level
 constexpr int PC4_POINTS = 32;
 
 // B14: a block takes a run of PC4_POINTS consecutive points at all L
@@ -168,38 +176,59 @@ __global__ void permuto4_bwd_kernel(const float* __restrict__ x,
   }
 }
 
-// B16: one thread per point, looping over levels -> dx [n, D].
+// B16: the blocks of B14 -> dx [n, D] = the sum over the levels, in level
+// order, of each level's elevation vjp of gf_k = g_up . val_k, as B13
+// (permuto_cell.cu) at F=4. Each lane reads its point's x and its (point,
+// level)'s float4 of g_up itself, before the search, so no barrier stands
+// before the search; each (level, point) parks its terms t
+// (elevation_terms) in [L, 32, D] in shared memory, and one thread a
+// (point, coordinate) sums the levels there, d = fma(t, scale, d) from
+// level 0, and writes dx once: the bits of elevation_vjp called level by
+// level on one running dx, in any order of the points. gf_k's roundings
+// are the ones nvcc made of the one-thread-per-point form's g.x * f0 +
+// g.y * f1 + g.z * f2 + g.w * f3 (its SASS), written out. Dynamic shared
+// memory: the [L, 32, D] terms and elevation_terms' [D+1, 32 L] rank
+// tables.
 template <int D>
 __global__ void permuto4_dydx_kernel(const float4* __restrict__ g_up,
                                      const float* __restrict__ x,
                                      const uint2* __restrict__ table,
                                      const __grid_constant__ PCMeta meta,
                                      float* __restrict__ dx, long long n) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
+  extern __shared__ float ts[];                        // [L, 32, D]
   const int L = meta.n_levels;
-  float xp[D], d[D];
+  float* hs = ts + L * PC4_POINTS * D;                 // [D + 1, 32 L]
+  const long long p0 = (long long)blockIdx.x * PC4_POINTS;
+  const int np = (int)min((long long)PC4_POINTS, n - p0);
+  const int l = threadIdx.x >> 5, i = threadIdx.x & 31;
+  if (i < np) {
+    float xp[D];
 #pragma unroll
-  for (int a = 0; a < D; ++a) {
-    xp[a] = x[p * D + a];
-    d[a] = 0.f;
-  }
-  for (int l = 0; l < L; ++l) {
-    const PCLevel& lv = meta.lv[l];
+    for (int a = 0; a < D; ++a) xp[a] = x[(p0 + i) * D + a];
+    const float4 g = g_up[(p0 + i) * L + l];
     Simplex<D> s;
-    find_simplex<D>(xp, meta, lv, s);
-    const float4 g = g_up[p * L + l];
+    find_simplex<D>(xp, meta, meta.lv[l], s);
     float gf[D + 1];
 #pragma unroll
     for (int k = 0; k <= D; ++k) {
       float f[4];
       unpack4(__ldg(table + s.vtx[k]), f);
-      gf[k] = g.x * f[0] + g.y * f[1] + g.z * f[2] + g.w * f[3];
+      gf[k] = __fmaf_rn(g.w, f[3], __fmaf_rn(g.z, f[2], __fmaf_rn(
+                  g.x, f[0], __fmul_rn(g.y, f[1]))));
     }
-    elevation_vjp<D>(s, gf, meta, lv, d);
-  }
+    float t[D];
+    elevation_terms<D>(s, gf, meta, hs + threadIdx.x, blockDim.x, t);
 #pragma unroll
-  for (int a = 0; a < D; ++a) dx[p * D + a] = d[a];
+    for (int a = 0; a < D; ++a) ts[(l * PC4_POINTS + i) * D + a] = t[a];
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < np * D; k += blockDim.x) {
+    const int a = k % D;
+    float d = 0.f;
+    for (int ll = 0; ll < L; ++ll)
+      d = __fmaf_rn(ts[ll * PC4_POINTS * D + k], meta.lv[ll].scale[a], d);
+    dx[p0 * D + k] = d;
+  }
 }
 
 template <int B>
@@ -283,10 +312,14 @@ int permuto4_bwd(const void* x, const void* g, const void* table,
 int permuto4_dydx(const void* g_up, const void* x, const void* table,
                   PCMeta meta, void* dx, long long n, void* stream) {
   if (n > 0) {
-    const int threads = 256;
+    const int L = meta.n_levels, d = meta.n_dims;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (L == 0)  // no level: dx is 0
+      return (int)cudaMemsetAsync(dx, 0, sizeof(float) * n * d, st);
+    const size_t smem = sizeof(float) * PC4_POINTS * L * (2 * d + 1);
 #define PC4_DYDX(D)                                                        \
-  permuto4_dydx_kernel<D><<<pc_blocks_for(n, threads), threads, 0,         \
-                            (cudaStream_t)stream>>>(                       \
+  permuto4_dydx_kernel<D><<<pc_blocks_for(n, PC4_POINTS), 32 * L, smem,    \
+                            st>>>(                                         \
       (const float4*)g_up, (const float*)x, (const uint2*)table, meta,     \
       (float*)dx, n)
     PC_DISPATCH(meta.n_dims, PC4_DYDX)

@@ -36,8 +36,9 @@ whose dL/dg_up and dL/dx must be the same bits in two runs and in both
 orders, and B7 and B2, whose dL/dx must (L = 1-8 and 1-4); B6 too, in
 both forms and at six levels as well, whose y must be the same bits in
 both forms and in both orders and whose corners must be exact; B1's
-want_g form at L = 1-4 likewise (its words exact); and B13 at the path D
-and 3D lattice metas, whose dx must be the same bits in both orders. The
+want_g form at L = 1-4 likewise (its words exact); B13 at the path D
+and 3D lattice metas, B16 at the F=4 metas and B8 at the F=2 ones, whose
+dx must be the same bits in both orders. The
 search's shortcuts are checked over all 2^32 inputs: its division by d+1
 bitwise against x / b, its modulus exactly.
 """
@@ -1721,6 +1722,64 @@ def test_permuto_dydx_ray_and_permuted_order(cuda, meta_name, n):
         dxs.append(dx)
     assert torch.equal(dxs[1], dxs[0][perm])
 
+
+
+# ------ B16: B13's blocks at F=4, the rank table and the level sum in them
+@pytest.mark.parametrize("meta_name", sorted(P4_METAS))
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 1000, 96 * 1001])
+def test_permuto4_dydx_ray_and_permuted_order(cuda, meta_name, n):
+    """B16 at path C's meta (d = 4) and a small 3D one, on points along
+    rays and the same points permuted: dx within 1e-4 of the plain
+    version, and a permuted batch's dx bitwise the permuted dx (each
+    point's levels are summed in its block, in level order). n = 0,
+    n < 32, a ragged last run and many runs; one launch counted a
+    call."""
+    dim, res, rows = P4_METAS[meta_name]
+    meta = P4.make_permuto_cell4_meta(dim, res, rows)
+    x = _pc_ray_points(cuda, dim, max(-(-n // 96), 1), 96,
+                       dim + 160)[:n].contiguous()
+    rng = np.random.default_rng(dim + 161)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (meta.total_rows, 256)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(n, 4 * meta.n_levels)).astype(
+        np.float32)).to(cuda)
+    perm = torch.from_numpy(rng.permutation(n)).to(cuda)
+    dxs = []
+    for xx, gg in ((x, g), (x[perm].contiguous(), g[perm].contiguous())):
+        before = _build.LAUNCHES["permuto4_dydx"]
+        with torch.no_grad():
+            dx = P4.permuto_cell4_nablas(gg, xx, table, meta)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["permuto4_dydx"] == before + 1
+        assert dx.shape == (n, dim)
+        if n:
+            _close(dx, P4.permuto_cell4_nablas_xla(gg, xx, table, meta), 1e-4)
+        dxs.append(dx)
+    assert torch.equal(dxs[1], dxs[0][perm])
+
+
+# --------------------- B8: B9's blocks, the levels summed in the block
+@pytest.mark.parametrize("meta_name", sorted(F2_METAS))
+@pytest.mark.parametrize("n", [0, 1, 31, 33, 1000, 96 * 1001])
+def test_brick_dydx_ray_and_permuted_order(cuda, meta_name, n):
+    """B8 at both F=2 metas (4 and 8 levels), on points along rays and
+    the same points permuted: dx within 1e-4 of the plain version, and a
+    permuted batch's dx bitwise the permuted dx (each point's levels are
+    summed in its block, in level order). n = 0, n < 32, a ragged last
+    run and many runs; one launch counted a call."""
+    meta, x, table, g, _, perm = _brick_ray_inputs(cuda, meta_name, n, 170)
+    dxs = []
+    for xx, gg in ((x, g), (x[perm].contiguous(), g[perm].contiguous())):
+        before = _build.LAUNCHES["brick_dydx"]
+        with torch.no_grad():
+            dx = B.brick_nablas(gg, xx, table, meta)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["brick_dydx"] == before + 1
+        assert dx.shape == (n, 3)
+        if n:
+            _close(dx, B.brick_nablas_xla(gg, xx, table, meta), 1e-4)
+        dxs.append(dx)
+    assert torch.equal(dxs[1], dxs[0][perm])
 
 # --------- B1 want_g: the block's corner words out as coalesced uint4 runs
 @pytest.mark.parametrize("n_levels", range(1, 5))
