@@ -322,6 +322,13 @@ def _b8_bound(n: int, L: int, table_bytes: int):
     return _bound(n * (12 + 8 * L + 12) + table_bytes, n * L * 111)
 
 
+def _b3_bound(n: int, L: int, table_bytes: int):
+    """B3's bound: x, g_up in and dx out, the packed table once; each
+    (point, level) 8 corners × (7 for g·val + 3 axes × 3) + 3 axes × 4
+    index ops + 3 scale FMAs = 146 float ops."""
+    return _bound(n * (12 + 16 * L + 12) + table_bytes, n * L * 146)
+
+
 def _b16_bound(n: int, dim: int, L: int, table_bytes: int):
     """B16's bound: x, g_up in and dx out, the packed table once; each
     (point, level) the simplex search + 5 vertices × (4 unpacks + 7 for
@@ -878,9 +885,7 @@ def _f4_kernel_phases(model, o, d, kernels) -> "torch.Tensor":
         ms = _time_ms(lambda: B4._dydx_cuda(g3, x3, packed, meta))
         plain_ms = _time_ms(lambda: B4.brick4_nablas_xla(g3, x3, table, meta),
                             iters=5)
-        # each (point, level): 8 corners × (7 for g·val + 3 axes × 3) +
-        # 3 axes × 4 index ops + 3 scale FMAs → 146 float ops
-        bound = _bound(n * (12 + 16 * L + 12) + table_bytes, n * L * 146)
+        bound = _b3_bound(n, L, table_bytes)
         print(f"[B3 brick4_dydx] kernel {ms:.4f} ms | plain {plain_ms:.4f} "
               f"ms | bound {bound[0]:.4f} ms ({bound[1]}) | library: none")
         _kernel_row(kernels, name="brick4_dydx (B3)", key="brick4_dydx",

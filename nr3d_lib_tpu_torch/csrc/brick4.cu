@@ -319,16 +319,33 @@ __global__ void brick4_bwd_kernel(const float* __restrict__ x,
   }
 }
 
-__global__ void brick4_dydx_kernel(const float4* __restrict__ g_up,
-                                   const float* __restrict__ x,
-                                   const uint2* __restrict__ table,
-                                   const __grid_constant__ Brick4Meta meta,
-                                   float* __restrict__ dx, long long n) {
+// B3, the nablas: dx_a = sum_l (res_a - 2) t_a, t_a = sum_k (g_up . val_k)
+// dw_k/dfrac_a. One thread a point sums its levels in level order, so dx
+// has the same bits in any order of the points. The number of levels is a
+// template parameter (an instance for L = 1..4), so the loop over them
+// unrolls and a thread's 8 L corner loads are in flight together; blocks
+// of 64 threads of at most 56 registers (18 blocks an SM) hold the F=4
+// step's 147,456 points in one wave, shared evenly over the SMs. On an
+// H100 at 700 W (chip_ab.py, that shape, ray order) 0.0077 ms against
+// 0.0085 for one level at a time in blocks of 256 (40 registers, 6 blocks
+// an SM); B8's level-major form took 0.0081, and forms that split a
+// (point, level) over 8 lanes, lane k loading corner k (one load
+// instruction for 4 points), 0.0087-0.022: the moves between lanes cost
+// more than the fewer lines saved. The level sum d += t (res-2) is the
+// FFMA that the one-level-at-a-time form compiled to, so dx keeps its
+// bits.
+template <int L>
+__global__ void __launch_bounds__(64, 18)
+    brick4_dydx_kernel(const float4* __restrict__ g_up,
+                       const float* __restrict__ x,
+                       const uint2* __restrict__ table,
+                       const __grid_constant__ Brick4Meta meta,
+                       float* __restrict__ dx, long long n) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
-  const int L = meta.n_levels;
   const float xp[3] = {x[p * 3], x[p * 3 + 1], x[p * 3 + 2]};
   float d[3] = {0.f, 0.f, 0.f};
+#pragma unroll
   for (int l = 0; l < L; ++l) {
     const Brick4Level& lv = meta.lv[l];
     const Located c = locate(xp, lv);
@@ -518,13 +535,16 @@ int brick4_bwd(const void* x, const void* g, const void* words,
                const void* table, Brick4Meta meta, void* dtab, void* dx,
                long long n, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaMemsetAsync(dtab, 0, (size_t)total_rows(meta) * 256 * sizeof(float),
-                  st);
+  if (meta.n_levels > 0)
+    cudaMemsetAsync(dtab, 0, (size_t)total_rows(meta) * 256 * sizeof(float),
+                    st);
   if (n > 0 && meta.n_levels > 0) {
     brick4_bwd_kernel<<<n_blocks(n, BRICK4_BLOCK_POINTS),
                         32 * meta.n_levels * BRICK4_RUNS, 0, st>>>(
         (const float*)x, (const float4*)g, (const uint2*)words,
         (const uint2*)table, meta, (float4*)dtab, (float*)dx, n);
+  } else if (n > 0 && dx != nullptr) {  // no level: dx is 0
+    cudaMemsetAsync(dx, 0, sizeof(float) * n * 3, st);
   }
   return (int)cudaGetLastError();
 }
@@ -532,14 +552,18 @@ int brick4_bwd(const void* x, const void* g, const void* words,
 // g_up [n,4L] f32, x [n,3] f32, table packed [rows,128], dx [n,3] f32.
 int brick4_dydx(const void* g_up, const void* x, const void* table,
                 Brick4Meta meta, void* dx, long long n, void* stream) {
-  if (n > 0) {
-    const int threads = 256;
-    const long long blocks = (n + threads - 1) / threads;
-    brick4_dydx_kernel<<<(unsigned)blocks, threads, 0,
-                         (cudaStream_t)stream>>>(
+  using Kernel = void (*)(const float4*, const float*, const uint2*,
+                          Brick4Meta, float*, long long);
+  static const Kernel kernels[BRICK4_MAX_LEVELS] = {
+      brick4_dydx_kernel<1>, brick4_dydx_kernel<2>, brick4_dydx_kernel<3>,
+      brick4_dydx_kernel<4>};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n > 0 && meta.n_levels == 0)  // no level: dx is 0
+    return (int)cudaMemsetAsync(dx, 0, sizeof(float) * n * 3, st);
+  if (n > 0)
+    kernels[meta.n_levels - 1]<<<n_blocks(n, 64), 64, 0, st>>>(
         (const float4*)g_up, (const float*)x, (const uint2*)table, meta,
         (float*)dx, n);
-  }
   return (int)cudaGetLastError();
 }
 
@@ -549,13 +573,16 @@ int brick4_bwd2(const void* g_up, const void* x, const void* table,
                 const void* gg, Brick4Meta meta, void* dgup, void* dtab,
                 void* dx, long long n, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaMemsetAsync(dtab, 0, (size_t)total_rows(meta) * 256 * sizeof(float),
-                  st);
+  if (meta.n_levels > 0)
+    cudaMemsetAsync(dtab, 0, (size_t)total_rows(meta) * 256 * sizeof(float),
+                    st);
   if (n > 0 && meta.n_levels > 0) {
     brick4_bwd2_kernel<<<n_blocks(n, BRICK4_BLOCK_POINTS),
                          32 * meta.n_levels * BRICK4_RUNS, 0, st>>>(
         (const float4*)g_up, (const float*)x, (const uint2*)table,
         (const float*)gg, meta, (float4*)dgup, (float4*)dtab, (float*)dx, n);
+  } else if (n > 0 && dx != nullptr) {  // no level: dx is 0
+    cudaMemsetAsync(dx, 0, sizeof(float) * n * 3, st);
   }
   return (int)cudaGetLastError();
 }

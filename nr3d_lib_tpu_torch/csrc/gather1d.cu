@@ -7,9 +7,14 @@
 // What bounds it on an H100: per lookup it reads two int32 indices and
 // writes one f32 (12 B), plus one 4-byte random read from the table. The
 // occupancy table of the render ([4096, 64] f32 = 1 MB) stays in L2, so the
-// indices and the output bound it: the index and output streams are read
+// indices and the output set its bound: the index and output streams are read
 // and written coalesced, one thread per lookup. Indices are clamped into
-// the table, like the plain version's `mode="clip"` take.
+// the table, like the plain version's `mode="clip"` take. On an H100 at
+// 700 W (chip_ab.py, the F=4 render's 393,216 lookups) it takes 0.0043
+// ms, of which 0.0030 is a launch that only stores and 0.0002 the index
+// and output streams; 4 or 2 lookups a thread (int4/float4 or int2/
+// float2, a grid of at most one wave) took 0.0046-0.0047, one a thread in
+// one wave 0.0044.
 
 #include <cuda_runtime.h>
 

@@ -24,21 +24,26 @@ torch.set_num_threads(1)
 LOD_RES = [16, 64]
 LOD_TYPES = ["Dense", "Hash"]
 HASHMAP_ROWS = 64
+# the nablas' metas: the render's, and the F=4 NeRF's three levels
+# (experiments/bench_render.py:37-43)
+NABLAS_METAS = {"2_levels": (LOD_RES, LOD_TYPES),
+                "3_levels": ([16, 64, 512], ["Dense", "Hash", "Hash"])}
 
 
-def _metas():
-    return (JB4.make_brick4_meta(LOD_RES, LOD_TYPES, HASHMAP_ROWS),
-            TB4.make_brick4_meta(LOD_RES, LOD_TYPES, HASHMAP_ROWS))
+def _metas(lod_res=LOD_RES, lod_types=LOD_TYPES):
+    return (JB4.make_brick4_meta(lod_res, lod_types, HASHMAP_ROWS),
+            TB4.make_brick4_meta(lod_res, lod_types, HASHMAP_ROWS))
 
 
-def _points(n: int, seed: int = 0) -> np.ndarray:
+def _points(n: int, seed: int = 0, lod_res=LOD_RES) -> np.ndarray:
     rng = np.random.default_rng(seed)
     x = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
-    # points exactly on cell boundaries of both levels, and the cube's faces
-    for i, r in enumerate(LOD_RES):
+    # points exactly on cell boundaries of every level, and the cube's faces
+    for i, r in enumerate(lod_res):
         k = rng.integers(0, r - 2, (64, 3))
         x[64 * i:64 * (i + 1)] = ((k + 0.5) / (r - 2)).astype(np.float32)
-    x[128:136] = np.asarray([[0, 0, 0], [1, 1, 1], [0, 1, 0.5], [1, 0, 1]] * 2,
+    m = 64 * len(lod_res)
+    x[m:m + 8] = np.asarray([[0, 0, 0], [1, 1, 1], [0, 1, 0.5], [1, 0, 1]] * 2,
                             np.float32)
     return x
 
@@ -100,10 +105,13 @@ def test_encode_matches_jax():
     np.testing.assert_allclose(yt.numpy(), yj, rtol=1e-5, atol=1e-7)
 
 
-def test_nablas_matches_jax_and_autograd():
-    jm, tm = _metas()
-    x, t = _points(2048), _table(jm)
-    g = np.random.default_rng(3).standard_normal((2048, 8)).astype(np.float32)
+@pytest.mark.parametrize("levels", sorted(NABLAS_METAS))
+def test_nablas_matches_jax_and_autograd(levels):
+    lod_res, lod_types = NABLAS_METAS[levels]
+    jm, tm = _metas(lod_res, lod_types)
+    x, t = _points(2048, lod_res=lod_res), _table(jm)
+    g = np.random.default_rng(3).standard_normal(
+        (2048, 4 * len(lod_res))).astype(np.float32)
     nj = np.asarray(JB4.brick4_nablas(jnp.asarray(g), jnp.asarray(x),
                                       jnp.asarray(t), jm))
     nt = TB4.brick4_nablas(torch.from_numpy(g), torch.from_numpy(x),

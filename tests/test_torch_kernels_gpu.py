@@ -37,8 +37,11 @@ orders, and B7 and B2, whose dL/dx must (L = 1-8 and 1-4); B6 too, in
 both forms and at six levels as well, whose y must be the same bits in
 both forms and in both orders and whose corners must be exact; B1's
 want_g form at L = 1-4 likewise (its words exact); B13 at the path D
-and 3D lattice metas, B16 at the F=4 metas and B8 at the F=2 ones, whose
-dx must be the same bits in both orders. The
+and 3D lattice metas, B16 at the F=4 metas, B8 at the F=2 ones and B3
+at L = 1, 3 and 4, whose dx must be the same bits in both orders (B3's
+zeros at L = 0, as B1, B2 and B4 give their empty outputs and dL/dx of
+zeros there); B5 at every length mod 4, on misaligned views and clamped
+indices, exactly. The
 search's shortcuts are checked over all 2^32 inputs: its division by d+1
 bitwise against x / b, its modulus exactly.
 """
@@ -1812,3 +1815,94 @@ def test_brick4_want_g_ray_and_permuted_order(cuda, n_levels, n):
         outs.append((y_g, words))
     assert torch.equal(outs[1][0], outs[0][0][perm])
     assert torch.equal(outs[1][1], outs[0][1][perm])
+
+
+# -------- B3: a thread a point, the levels unrolled (an instance for L = 1-4)
+@pytest.mark.parametrize("n_levels", [0, 1, 3, 4])
+@pytest.mark.parametrize("n", [1, 31, 33, 100_000])
+def test_brick4_dydx_ray_and_permuted_order(cuda, n_levels, n):
+    """B3 on points along rays and the same points permuted, at L = 1, 3
+    and 4 levels: dx within 1e-4 of the plain version, and a permuted
+    batch's dx bitwise the permuted dx (each point sums its own levels in
+    level order); at L = 0, dx all zeros. n < 32, a ragged last block and
+    many blocks; one launch counted a call."""
+    meta, x, table, g, _, perm = _brick4_ray_inputs(cuda, n_levels, n,
+                                                    180 + n_levels)
+    dxs = []
+    for xx, gg in ((x, g), (x[perm].contiguous(), g[perm].contiguous())):
+        before = _build.LAUNCHES["brick4_dydx"]
+        with torch.no_grad():
+            dx = B4.brick4_nablas(gg, xx, table, meta)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["brick4_dydx"] == before + 1
+        assert dx.shape == (n, 3)
+        if n_levels:
+            _close(dx, B4.brick4_nablas_xla(gg, xx, table, meta), 1e-4)
+        else:
+            assert not dx.any()
+        dxs.append(dx)
+    assert torch.equal(dxs[1], dxs[0][perm])
+
+
+def test_brick4_zero_levels(cuda):
+    """An F=4 meta with no level: B1 gives [n, 0] (and [n, 0, 8, 2] words),
+    B2 and B4 a table gradient of 0 rows and dL/dx of zeros, written by
+    their entries (the memory they get held NaNs just before), B4 a
+    dL/dg_up of [n, 0]."""
+    meta, x, table, g, gg, _ = _brick4_ray_inputs(cuda, 0, 100, 190)
+    packed = B4.pack_table4(table)
+    y = B4._fwd_cuda(x, packed, meta)
+    y_g, words = B4._fwd_cuda(x, packed, meta, want_g=True)
+    assert y.shape == y_g.shape == (100, 0) and words.shape == (100, 0, 8, 2)
+    for bwd in (lambda: B4._bwd_cuda(x, g, meta, need_dx=True,
+                                     packed=packed),
+                lambda: B4._bwd2_cuda(g, x, packed, gg, meta)[1:]):
+        nan = torch.full_like(x, float("nan"))
+        del nan
+        dx, dtab = bwd()
+        torch.cuda.synchronize()
+        assert dtab.shape == (0, 256)
+        assert dx.shape == (100, 3) and not dx.any()
+    dg, _, _ = B4._bwd2_cuda(g, x, packed, gg, meta, need_dx=False)
+    assert dg.shape == (100, 0)
+
+
+# ---------------------------- B5: every tail, views, clamps, shapes
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 393_217])
+def test_gather1d_tails_views_and_clamps(cuda, n):
+    """B5 bitwise equal to `gather_rows_lanes_plain` at n = 0, 1, 3, 5 and
+    393,217 (every length mod 4), on indices out of range at both ends
+    (the flat index clamped into the table, as the plain version's take)
+    and on `row[1:]` and `lane[1:]` views (4 bytes off their storage);
+    one launch counted a call."""
+    rng = np.random.default_rng(n + 3)
+    values = torch.from_numpy(rng.standard_normal((4096, 64))
+                              .astype(np.float32)).to(cuda)
+    row = torch.from_numpy(rng.integers(-3, 4100, n + 1)
+                           .astype(np.int32)).to(cuda)
+    lane = torch.from_numpy(rng.integers(-70, 140, n + 1)
+                            .astype(np.int32)).to(cuda)
+    for r, c in ((row[:n], lane[:n]), (row[1:], lane[1:])):
+        before = _build.LAUNCHES["gather1d"]
+        out = G.gather_rows_lanes(values, r, c)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["gather1d"] == before + 1
+        assert out.shape == (n,) and out.dtype == torch.float32
+        assert torch.equal(out, G.gather_rows_lanes_plain(values, r, c))
+
+
+def test_gather1d_keeps_nd_shape(cuda):
+    """B5 on [3, 7, 5] index arrays with entries clamped at both ends of
+    the table: the output keeps the shape and equals the plain version."""
+    rng = np.random.default_rng(7)
+    values = torch.from_numpy(rng.standard_normal((256, 64))
+                              .astype(np.float32)).to(cuda)
+    row = rng.integers(0, 256, (3, 7, 5)).astype(np.int32)
+    lane = rng.integers(0, 64, (3, 7, 5)).astype(np.int32)
+    row[0, 0, :4], lane[0, 0, :4] = [-1, 300, 255, 0], [0, 70, 63, -5]
+    row, lane = torch.from_numpy(row).to(cuda), torch.from_numpy(lane).to(cuda)
+    out = G.gather_rows_lanes(values, row, lane)
+    assert out.shape == (3, 7, 5)
+    want = G.gather_rows_lanes_plain(values, row, lane)
+    assert torch.equal(out, want)
+    assert out[0, 0, 0] == values[0, 0] and out[0, 0, 1] == values[-1, -1]
