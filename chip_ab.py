@@ -2,7 +2,13 @@
 """Time the parent commit's B3 and B5 kernels against this tree's, in
 turns, on one card, with probes and rival forms, and compare their
 outputs: the F=4 brick nablas B3 (`brick4_dydx`, `csrc/brick4.cu`) and
-the occupancy gather B5 (`gather1d`, `csrc/gather1d.cu`).
+the occupancy gather B5 (`gather1d`, `csrc/gather1d.cu`). With `--bidx`
+first, it only builds a parent's and this tree's `brick.cu` and holds
+the null-bidx forms of B6 (both forms) and B8 bitwise against the
+parent's, which take no `bidx` (`b68_null_bidx_bitwise`; the parent
+from before the forest's bidx argument, 70fc0b1):
+
+    python3 chip_ab.py --bidx _archive/parent/nr3d_lib_tpu_torch/csrc
 
     git archive <parent> nr3d_lib_tpu_torch/csrc | tar -x -C _archive/parent
     python3 chip_ab.py _archive/parent/nr3d_lib_tpu_torch/csrc
@@ -104,6 +110,9 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 BUILD = REPO / "_archive" / "ab_build"
 NEW = REPO / "nr3d_lib_tpu_torch" / "csrc"
+
+# ---------------- B6 and B8 (brick.cu): the null-bidx forms' bits
+B68F = "brick.cu"
 
 # --------------------------------------------------- B3 (brick4.cu)
 B3F = "brick4.cu"
@@ -567,8 +576,16 @@ def _load(path: Path) -> ctypes.CDLL:
     from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
 
     vp, n = ctypes.c_void_p, ctypes.c_longlong
+    from nr3d_lib_tpu_torch.ops import lotd_brick as B
+
     lib = ctypes.CDLL(str(path))
-    if path.name.startswith("libb3"):
+    if path.name.startswith("libb68"):
+        # this tree's entries take the forest's bidx after the table
+        b = [vp] if path.name == "libb68_new.so" else []
+        lib.brick_fwd.argtypes = [vp, vp, *b, B._Meta, vp, vp, n, vp]
+        lib.brick_dydx.argtypes = [vp, vp, vp, *b, B._Meta, vp, n, vp]
+        lib.brick_fwd.restype = lib.brick_dydx.restype = ctypes.c_int
+    elif path.name.startswith("libb3"):
         lib.brick4_dydx.argtypes = [vp, vp, vp, B4._Meta, vp, n, vp]
         lib.brick4_dydx.restype = ctypes.c_int
     else:
@@ -779,6 +796,62 @@ def _b3(libs: dict, dev, model) -> dict:
     return res
 
 
+def _b68(libs: dict, dev, neus2, nerf) -> dict:
+    """B6 (both forms) and B8 with a null bidx against the parent's
+    (which has no bidx argument): y, the corner values and dx bit for
+    bit at the F=2 NeuS's and NeRF's metas, on points along rays and on
+    the F=2 NeuS render's own B6 inputs."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import _build as Bu
+    from nr3d_lib_tpu_torch.ops import lotd_brick as B
+
+    def run(name, x, table, meta, g):
+        lib, st = libs[name], Bu.stream_ptr(dev)
+        nb = [None] if name == "b68_new" else []
+        n, L = x.shape[0], meta.n_levels
+        y = torch.empty((n, 2 * L), device=dev)
+        yg = torch.empty_like(y)
+        cs = torch.empty((n, L, 8, 2), device=dev)
+        dx = torch.empty_like(x)
+        m = B.c_meta(meta)
+        for err in (
+                lib.brick_fwd(x.data_ptr(), table.data_ptr(), *nb, m,
+                              y.data_ptr(), None, n, st),
+                lib.brick_fwd(x.data_ptr(), table.data_ptr(), *nb, m,
+                              yg.data_ptr(), cs.data_ptr(), n, st),
+                lib.brick_dydx(g.data_ptr(), x.data_ptr(), table.data_ptr(),
+                               *nb, m, dx.data_ptr(), n, st)):
+            Bu.check(err, name)
+        torch.cuda.synchronize()
+        return y, yg, cs, dx
+
+    cases = []
+    for what, enc, x in (
+            ("neus", neus2.field.implicit_surface.encoding,
+             _ray_inputs(dev, 147_456, 61)),
+            ("nerf", nerf.field.encoding, _ray_inputs(dev, 196_608, 62))):
+        cases.append((what, enc.meta, enc._build_table().detach(), x))
+    o, d = _rays(dev, 4096)
+    for k, args in enumerate(_recorded_calls(neus2, o, d, B, "_fwd_cuda")):
+        x, table, meta = args[:3]
+        cases.append((f"neus render launch {k}", meta, table, x))
+    res = {}
+    with torch.no_grad():
+        for what, meta, table, x in cases:
+            x, table = B.aligned(x), B.aligned(table)
+            gen = torch.Generator(device=dev).manual_seed(63)
+            g = torch.randn((x.shape[0], 2 * meta.n_levels), device=dev,
+                            generator=gen)
+            outs = [run(n, x, table, meta, g)
+                    for n in ("b68_parent", "b68_new")]
+            same = all(torch.equal(a, b) for a, b in zip(*outs))
+            print(f"[b68 null bidx] {what}: {x.shape[0]:,} points x "
+                  f"{meta.n_levels} levels; y, want_g y and corners, dx "
+                  f"bitwise the parent's: {same}")
+            res[what] = same
+    return res
+
+
 def _b5(libs: dict, dev, model) -> dict:
     """B5 at the F=4 render's lookups (bits against the plain version,
     times in turns with its probes and `values[row, lane]`), and its bits
@@ -945,10 +1018,32 @@ def _check(res: dict) -> list:
     return bad
 
 
+def _main_bidx(parent: Path) -> int:
+    """`--bidx`: the null-bidx B6 and B8 against the parent's brick.cu
+    (a parent from before the forest's bidx argument) only."""
+    import torch
+    import chip_smoke as CS
+
+    dev = torch.device("cuda")
+    print(f"[device] {CS._smi()}")
+    BUILD.mkdir(parents=True, exist_ok=True)
+    sources = {"b68_parent": (parent / B68F, parent),
+               "b68_new": (NEW / B68F, NEW)}
+    _nvcc_all(sources)
+    libs = {n: _load(BUILD / f"lib{n}.so") for n in sources}
+    _, neus2, nerf = _models()
+    res = {"b68_null_bidx_bitwise": _b68(libs, dev, neus2, nerf)}
+    res["failed"] = _check(res)
+    print(json.dumps(res))
+    return 1 if res["failed"] else 0
+
+
 def main() -> int:
     import torch
 
-    if len(sys.argv) != 2 or not Path(sys.argv[1], B3F).is_file():
+    bidx = sys.argv[1:2] == ["--bidx"]
+    args = sys.argv[2:] if bidx else sys.argv[1:]
+    if len(args) != 1 or not Path(args[0], B3F).is_file():
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -957,6 +1052,8 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     import chip_smoke as CS
 
+    if bidx:
+        return _main_bidx(Path(args[0]).resolve())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")

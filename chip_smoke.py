@@ -55,7 +55,9 @@
    gives the issue ceiling at the kept pairs) and B18 (gs_blend_bwd,
    upstream gradients from numpy; its row also counts the (pixel, slot)
    pairs above the α floor and the (warp, slot) pairs in which any pixel
-   is, the work its warp vote leaves).
+   is, the work its warp vote leaves). The forest forms of B6 and B8
+   (`brick_fwd_b`, `brick_dydx_b`: a block row offset per point) on the
+   inputs of each of their launches in one forest render.
 4. The paths, each through the entry points a user calls, with seeded
    weights, a seeded 15% occupancy and seeded rays. Launch counters are
    zeroed just before each path and read just after; every count must be
@@ -83,6 +85,27 @@
      want_g, B7 with dL/dx); one train step against the CPU port; 2
      warm-up and 20 timed steps (6 B6 + 1 per update, 1 each of B7, B8,
      B9, B5 per step).
+   - `nerf_w4_serve_8192`, the F=4 NeRF (bench_render.py `main(w4=True)`:
+     lod_res [16, 64, 512], F=4, Dense/Hash/Hash): 10 renders of 8192
+     rays in march_occ_compressed, then 10 in march_occ (1 B1 and 1 B5
+     per render in each).
+   - `nerf_f2_fixed_train_4096`, the NeRF train step (bench_render.py
+     `main_train` kind nerf, use_brick=True: path A's field,
+     `nerf_ray_query_fixed` at 64 samples a ray, MSE(rgb, |d|),
+     Adam(5e-3), no lifecycle): one step against the CPU port, 2 warm-up
+     and 20 timed steps (1 B6 and 1 B7 without dL/dx per step).
+   - `neus_f2_coarse_train_4096`, the NeuS train step (kind neus,
+     use_brick=True: path B's field, `coarse_multi_upsample` with 64
+     coarse samples and three rounds of 32, MSE + 0.1·eikonal over every
+     queried nablas): one step against the CPU port, 2 warm-up and 20
+     timed steps (5 B6, 1 each of B7, B8, B9 per step).
+   - `forest_serve_8192`, the forest NeuS (`LoTDForestNeuSModel`,
+     bench_render.py `main_forest`: 64 blocks of 0.5 at resolution
+     (4,4,4), per-block F=2 brick tables lod_res [8, 16, 32], segmented
+     marching of 8 segments × 16 steps, two upsample rounds, budgeted
+     compaction): 10 renders of 8192 rays (5 `brick_fwd_b` and 1
+     `brick_dydx_b` per render); the CPU comparison keeps as many rays
+     as fit CPU_STEP_BUDGET_S and prints how many.
    - Path C, the dynamic (x,t) NeuS (`DynamicPermutoNeuSModel`,
      examples/configs/dynamic_permuto_w4.yaml at full width; 14,080 table
      rows), rays with seeded timestamps in [-1, 1]: 10 renders of 4096
@@ -204,6 +227,39 @@ NERF_CFG = dict(
                "step_size": 2.0 / 96},
     ray_query_cfg={"query_mode": "march_occ_compressed",
                    "compression_factor": 0.25})
+
+
+# the F=4 NeRF: experiments/bench_render.py:37-43 (`main(w4=True)`, brick;
+# mode march_occ_compressed, then march_occ)
+NERF_W4_CFG = dict(NERF_CFG, field_cfg=dict(
+    NERF_CFG["field_cfg"], encoding_cfg={"lotd_cfg": {
+        "lod_res": [16, 64, 512], "lod_n_feats": 4,
+        "lod_types": ["Dense", "Hash", "Hash"], "hashmap_size": 2 ** 17},
+        "backend": "brick"}))
+# the NeRF train step: bench_render.py:122-133 (`main_train(kind="nerf",
+# use_brick=True)`): path A's field, no accel in the step,
+# nerf_ray_query_fixed at 64 samples a ray
+NERF_FIXED_CFG = dict(field_cfg=NERF_CFG["field_cfg"])
+N_SAMPLES_FIXED = 64
+# the NeuS train step: bench_render.py:139-160 (`main_train(kind="neus",
+# use_brick=True)`): 64 coarse samples, three upsample rounds of 32
+NEUS_COARSE_CFG = dict(
+    field_cfg=NEUS_F2_CFG["field_cfg"],
+    ray_query_cfg={"query_mode": "coarse_multi_upsample", "n_coarse": 64})
+# the forest: bench_render.py:257-292 (`main_forest`): 64 blocks of 0.5,
+# per-block F=2 brick tables, segmented marching
+N_RAYS_FOREST = 8192
+FOREST_CFG = dict(
+    space_cfg={"resolution": (4, 4, 4), "origin": (-1.0, -1.0, -1.0),
+               "block_size": 0.5},
+    field_cfg={"surface_cfg": {
+        "lotd_cfg": {"lod_res": [8, 16, 32], "lod_n_feats": 2,
+                     "lod_types": ["Dense", "Dense", "Hash"],
+                     "hashmap_size": 2 ** 12, "backend": "brick"},
+        "decoder_cfg": {"D": 1, "W": 64}},
+        "radiance_cfg": {"D": 2, "W": 64}},
+    n_march_steps=128, march_mode="segments", max_segments=8,
+    steps_per_segment=16)
 
 
 def _smi() -> str:
@@ -383,12 +439,13 @@ def _profile(run, wall_ms: float, what: str) -> None:
               f"x{count:<4.0f} {key[:90]}")
 
 
-def _rays(n: int, seed: int):
-    """experiments/bench_render.py's ray distribution, from numpy."""
+def _rays(n: int, seed: int, radius: float = 2.0):
+    """experiments/bench_render.py's ray distribution, from numpy (the
+    forest's at radius 2.5)."""
     rng = np.random.default_rng(seed)
     o = rng.normal(size=(n, 3))
-    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * 2.0
-    d = -o / 2.0 + rng.normal(size=(n, 3)) * 0.1
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * radius
+    d = -o / radius + rng.normal(size=(n, 3)) * 0.1
     d = d / np.linalg.norm(d, axis=-1, keepdims=True)
     return o.astype(np.float32), d.astype(np.float32)
 
@@ -456,6 +513,22 @@ def _step_loss(model, o, d, extra=None, **query):
     return loss + 0.1 * eikonal_loss(vb["nablas"])
 
 
+def _fixed_loss(model, o, d, extra=None, draw=None, generator=None):
+    """bench_render.py:199-203: MSE(rgb, |d|) of `nerf_ray_query_fixed`
+    at N_SAMPLES_FIXED stratified samples a ray."""
+    import torch
+    from nr3d_lib_tpu_torch.graphics.nerf_ray_query import \
+        nerf_ray_query_fixed
+    from nr3d_lib_tpu_torch.graphics.raysample import uniform_draw
+
+    if draw is None and generator is not None:
+        draw = uniform_draw(generator)
+    rendered, _ = nerf_ray_query_fixed(model, model.space,
+                                       _tested(model, o, d),
+                                       n_samples=N_SAMPLES_FIXED, draw=draw)
+    return torch.mean((rendered["rgb_volume"] - torch.abs(d)) ** 2)
+
+
 def _kernel_row(kernels, *, name, key, path, source, replaces, err, ms,
                 plain_ms, bound, library_ms=None, **extra) -> None:
     kernels.append(dict(name=name, route="cuda", source=source,
@@ -510,7 +583,7 @@ def _autograd_nablas(model, x01, prefix: str) -> dict:
 
 
 def _step_vs_cpu(model, cpu, o, d, cpu_render_s: float, label: str,
-                 extra=None) -> None:
+                 extra=None, loss=None) -> None:
     """One step's loss and gradients on the card against the CPU port from
     the same weights and uniforms: the card's draws are recorded and
     replayed on the CPU. The ray count is cut when the CPU step, estimated
@@ -537,12 +610,13 @@ def _step_vs_cpu(model, cpu, o, d, cpu_render_s: float, label: str,
         _require(tuple(u.shape) == tuple(shape), "replayed draw shape")
         return u
 
+    loss = loss or _step_loss
     model.zero_grad(set_to_none=True)
     cpu.zero_grad(set_to_none=True)
-    loss_g = _step_loss(model, o[:n], d[:n], extra, draw=record)
+    loss_g = loss(model, o[:n], d[:n], extra, draw=record)
     loss_g.backward()
     t0 = time.perf_counter()
-    loss_c = _step_loss(cpu, o[:n].cpu(), d[:n].cpu(), extra, draw=replay)
+    loss_c = loss(cpu, o[:n].cpu(), d[:n].cpu(), extra, draw=replay)
     loss_c.backward()
     cpu_step_s = time.perf_counter() - t0
     loss_g, loss_c = float(loss_g.detach()), float(loss_c.detach())
@@ -572,23 +646,29 @@ def _train_state(model, device):
             torch.Generator(device=device).manual_seed(9))
 
 
-def _train_step(model, opt, gen, o, d, it: int, extra=None):
-    """Train step `it` (1, 2, ...): lifecycle, loss, backward, Adam.
-    Returns the loss, detached."""
-    model.training_before_per_step(it, gen)
+def _train_step(model, opt, gen, o, d, it: int, extra=None, loss_fn=None,
+                lifecycle: bool = True):
+    """Train step `it` (1, 2, ...): lifecycle (the production step's; the
+    bench's `main_train` steps of kind nerf and neus run none), loss,
+    backward, Adam. Returns the loss, detached."""
+    if lifecycle:
+        model.training_before_per_step(it, gen)
     opt.zero_grad(set_to_none=True)
-    loss = _step_loss(model, o, d, extra, generator=gen)
+    loss = (loss_fn or _step_loss)(model, o, d, extra, generator=gen)
     loss.backward()
     opt.step()
-    model.training_after_per_step(it, gen)
+    if lifecycle:
+        model.training_after_per_step(it, gen)
     return loss.detach()
 
 
 def _train(model, o, d, smi: str, label: str, per_step: dict,
-           per_update: dict, extra=None) -> dict:
-    """The production train step: warm-up, then N_STEPS timed steps that
-    cross an occupancy update; each step must launch exactly `per_step`,
-    plus `per_update` at an update. Returns the timed steps' launches."""
+           per_update: dict, extra=None, loss_fn=None,
+           lifecycle: bool = True) -> dict:
+    """A train step: warm-up, then N_STEPS timed steps that cross an
+    occupancy update (with the lifecycle); each step must launch exactly
+    `per_step`, plus `per_update` at an update. Returns the timed steps'
+    launches."""
     import torch
     from nr3d_lib_tpu_torch.ops import _build
 
@@ -598,7 +678,8 @@ def _train(model, o, d, smi: str, label: str, per_step: dict,
 
     def step():
         it = next(its)
-        losses.append(_train_step(model, opt, gen, o, d, it, extra))
+        losses.append(_train_step(model, opt, gen, o, d, it, extra, loss_fn,
+                                  lifecycle))
         return it
 
     for _ in range(N_WARMUP_STEPS):
@@ -617,15 +698,17 @@ def _train(model, o, d, smi: str, label: str, per_step: dict,
     med = statistics.median(times)
     q1, _, q3 = statistics.quantiles(times, n=4)
     vals = [float(v) for v in losses]
-    print(f"[{label} train] {N_RAYS} rays x {N_STEPS} steps (it {timed[0]}.."
+    n_rays = o.shape[0]
+    print(f"[{label} train] {n_rays} rays x {N_STEPS} steps (it {timed[0]}.."
           f"{timed[-1]}) on {smi}: median {med:.3f} ms/step (quartiles "
           f"{q1:.3f}/{q3:.3f}, min {min(times):.3f}, max {max(times):.3f}) "
-          f"-> {N_RAYS / med:.1f} Krays/s | peak memory {peak_mib:.1f} MiB")
+          f"-> {n_rays / med:.1f} Krays/s | peak memory {peak_mib:.1f} MiB")
     print(f"[{label} train] loss per step: "
           f"{' '.join(f'{v:.6f}' for v in vals)}")
     print(f"[{label} train] launches in the {N_STEPS} timed steps: "
           f"{launches}")
-    n_upd = sum(it % model.lifecycle_update_every == 0 for it in timed)
+    n_upd = sum(it % model.lifecycle_update_every == 0
+                for it in timed) if lifecycle else 0
     expect = {k: v * N_STEPS + per_update.get(k, 0) * n_upd
               for k, v in per_step.items()}
     print(f"[{label} train] expected: {expect} ({per_step} per step + "
@@ -705,11 +788,13 @@ def _step_points(model, o, d, kernels, module, rows: dict) -> None:
 
 
 def _serve(model, cpu_model, o, d, per_render: dict, label: str, smi: str,
-           n_renders: int = N_RENDERS, extra=None):
+           n_renders: int = N_RENDERS, extra=None, cpu_rays=None):
     """Timed renders under no_grad with exact launches per render, all
     outputs finite, a device profile, and the same rays rendered by the
-    CPU port: ≥ 99% of rays must agree within 1e-4 in rgb and depth.
-    Returns (launches, seconds of the CPU render)."""
+    CPU port: ≥ 99% of rays must agree within 1e-4 in rgb and depth
+    (`cpu_rays`: only the first that many, rendered alone on the CPU; the
+    render treats each ray alone). Returns (launches, seconds of the CPU
+    render)."""
     import torch
     from nr3d_lib_tpu_torch.ops import _build
 
@@ -737,8 +822,9 @@ def _serve(model, cpu_model, o, d, per_render: dict, label: str, smi: str,
             q1, _, q3 = statistics.quantiles(times, n=4)
             quart = f" (quartiles {q1:.3f}/{q3:.3f}, min {min(times):.3f}, " \
                 f"max {max(times):.3f})"
+        slots = vb["valid"] if "valid" in vb else vb.get("ridx")
         compact = f" | n_compact {int(vb['n_compact'])} of " \
-            f"{vb['valid'].numel()} slots" if "n_compact" in vb else ""
+            f"{slots.numel()} slots" if "n_compact" in vb else ""
         print(f"[{label}] {n_rays} rays x {n_renders} renders on {smi}: "
               f"median {med:.3f} ms/render{quart} -> {n_rays / med:.1f} "
               f"Krays/s | peak memory {peak_mib:.1f} MiB{compact}")
@@ -755,46 +841,53 @@ def _serve(model, cpu_model, o, d, per_render: dict, label: str, smi: str,
         _require(mask_mean > 0.1, "the render is trivially empty")
         _profile(render, med, label)
 
-        cpu_model.ray_query_cfg = dict(model.ray_query_cfg)
+        if hasattr(model, "ray_query_cfg"):
+            cpu_model.ray_query_cfg = dict(model.ray_query_cfg)
+        n_cpu = cpu_rays or n_rays
+        if n_cpu < n_rays:
+            print(f"[{label}] the CPU comparison keeps the first {n_cpu} of "
+                  f"the {n_rays} rays (CPU_STEP_BUDGET_S)")
         t0 = time.perf_counter()
-        r_cpu, _ = cpu_model.ray_query(_tested(cpu_model, o.cpu(), d.cpu(),
-                                              extra))
+        r_cpu, _ = cpu_model.ray_query(_tested(
+            cpu_model, o[:n_cpu].cpu(), d[:n_cpu].cpu(), extra))
         cpu_s = time.perf_counter() - t0
-    ok = torch.ones(n_rays, dtype=torch.bool)
+    ok = torch.ones(n_cpu, dtype=torch.bool)
     errs = []
     for k in ("rgb_volume", "depth_volume"):
-        e = (rendered[k].cpu() - r_cpu[k]).abs().reshape(n_rays, -1)
+        e = (rendered[k][:n_cpu].cpu() - r_cpu[k]).abs().reshape(n_cpu, -1)
         e = e.amax(-1)
         errs.append(e)
         ok &= e <= 1e-4
     e_max = torch.stack(errs).amax(0)
     share = float(ok.float().mean())
-    print(f"[{label}] GPU vs CPU port ({cpu_s:.1f} s on the CPU): "
-          f"{share * 100:.2f}% of rays agree within 1e-4 on rgb and depth "
+    print(f"[{label}] GPU vs CPU port ({n_cpu} of {n_rays} rays, "
+          f"{cpu_s:.1f} s on the CPU): {share * 100:.2f}% of rays agree "
+          f"within 1e-4 on rgb and depth "
           f"({float((e_max <= 1e-3).float().mean()) * 100:.2f}% within "
           f"1e-3; max {float(e_max.max()):.3e})")
     _require(share >= 0.99, f"{label}: GPU and CPU renders disagree")
     return launches, cpu_s
 
 
-def _render_fwd_calls(model, o, d, module) -> list:
-    """The arguments of each forward-encode launch (`module._fwd_cuda`) in
-    one render of `model`, outside the counted renders: [(args, kw)]."""
+def _render_fwd_calls(model, o, d, module, fn: str = "_fwd_cuda") -> list:
+    """The arguments of each launch of `module.<fn>` (the forward encode by
+    default) in one render of `model`, outside the counted renders:
+    [(args, kw)]."""
     import torch
 
-    calls, fwd = [], module._fwd_cuda
+    calls, fwd = [], getattr(module, fn)
 
     def recording(*args, **kw):
         calls.append((args, kw))
         return fwd(*args, **kw)
 
-    module._fwd_cuda = recording
+    setattr(module, fn, recording)
     try:
         with torch.no_grad():
             model.ray_query(_tested(model, o, d))
         torch.cuda.synchronize()
     finally:
-        module._fwd_cuda = fwd
+        setattr(module, fn, fwd)
     return calls
 
 
@@ -1294,6 +1387,84 @@ def _f2_kernel_phases(nerf, neus, o8, d8, o, d, kernels) -> "torch.Tensor":
                     ms_permuted=ms_perm, atomics_naive=naive,
                     atomic_groups=groups)
     return x3
+
+
+def _forest_kernel_phases(forest, o, d, kernels) -> None:
+    """The forest forms of B6 and B8 (`brick_fwd_b`, `brick_dydx_b`) on the
+    inputs of each of their launches in one forest render (outside the
+    counted renders), each held against its plain version
+    (`brick_encode_xla_batched`, `brick_nablas_xla_batched`) and timed;
+    the rows take the largest launch's numbers and list every launch's."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import lotd_brick as B
+
+    src = "nr3d_lib_tpu_torch/csrc/brick.cu"
+    rep = "nr3d_lib_tpu/ops/lotd_brick.py"
+    for fn, key, name, replaces, plain in (
+            ("_fwd_cuda", "brick_fwd_b", "brick_fwd_b (B6, forest)",
+             f"{rep}:440", B.brick_encode_xla_batched),
+            ("_dydx_cuda", "brick_dydx_b", "brick_dydx_b (B8, forest)",
+             f"{rep}:992", B.brick_nablas_xla_batched)):
+        calls = _render_fwd_calls(forest, o, d, B, fn)
+        _require(calls and all(kw.get("bidx") is not None
+                               for _, kw in calls),
+                 f"{key}: the forest render made no launch with bidx")
+        launches = []
+        with torch.no_grad():
+            for k, (args, kw) in enumerate(calls):
+                bidx = kw["bidx"]
+                if fn == "_fwd_cuda":
+                    x, table, meta = args[:3]
+
+                    def plain_call():
+                        return plain(x, table, meta, bidx)
+                    got = B._fwd_cuda(x, table, meta, bidx=bidx)
+                    want = plain_call()
+                    tol = 1e-5 + 1e-5 * float(want.abs().max())
+                    why = "8-term sums in another order"
+                    # B6's bytes and operations, and 4 B of bidx a point
+                    io = x.shape[0] * (12 + 4 + 8 * meta.n_levels)
+                    ops = x.shape[0] * meta.n_levels * 60
+                else:
+                    g, x, table, meta = args[:4]
+
+                    def plain_call():
+                        return plain(g, x, table, meta, bidx)
+                    got = B._dydx_cuda(g, x, table, meta, bidx=bidx)
+                    want = plain_call()
+                    tol = 1e-4 + 1e-4 * float(want.abs().max())
+                    why = "sums over corners, features and levels, " \
+                        "scaled by res-2, in another order"
+                    # B8's bytes and operations, and 4 B of bidx a point
+                    io = x.shape[0] * (12 + 4 + 8 * meta.n_levels + 12)
+                    ops = x.shape[0] * meta.n_levels * 111
+                bound = _bound(io + table.numel() * 4, ops)
+                n, L = x.shape[0], meta.n_levels
+                blocks = table.shape[0] // meta.total_rows
+                err = _check(f"{name} launch {k}, {blocks} blocks of "
+                             f"{meta.total_rows} rows", n,
+                             [("out", _err(got, want), tol, why)])
+                ms = _time_ms(lambda: getattr(B, fn)(*args, **kw))
+                plain_ms = _time_ms(plain_call, iters=3)
+                print(f"[{name} launch {k}] {n:,} points x {L} levels, bidx "
+                      f"< 0 at {int((bidx < 0).sum()):,}: kernel {ms:.4f} ms"
+                      f" | plain {plain_ms:.4f} ms | bound {bound[0]:.4f} ms "
+                      f"({bound[1]}) | library: none")
+                launches.append(dict(n=n, err=err, ms=ms, plain_ms=plain_ms,
+                                     bound=bound, levels=L, blocks=blocks))
+        top = max(launches, key=lambda r: r["n"])
+        _kernel_row(kernels, name=name, key=key, path="forest_serve_8192",
+                    source=src, replaces=replaces,
+                    err=max(r["err"] for r in launches), ms=top["ms"],
+                    plain_ms=top["plain_ms"], bound=top["bound"],
+                    n_points=top["n"], levels=top["levels"],
+                    blocks=top["blocks"],
+                    n_points_by_launch_render=[r["n"] for r in launches],
+                    ms_by_launch_render=[r["ms"] for r in launches],
+                    plain_ms_by_launch_render=[r["plain_ms"]
+                                               for r in launches],
+                    bound_ms_by_launch_render=[r["bound"][0]
+                                               for r in launches])
 
 
 def _permuto4_kernel_phases(model, o, d, ts, kernels) -> None:
@@ -2042,6 +2213,17 @@ def _seed_occupancy(model) -> None:
     model.accel.occ.val_grid.copy_(torch.from_numpy(occ.astype(np.float32)))
 
 
+def _cpu_seconds(fn, o, d, n_try: int = 512) -> float:
+    """Seconds the CPU port would take for `fn(o, d)` on all the rays,
+    scaled from `n_try` of them (under no_grad)."""
+    import torch
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fn(o[:n_try].cpu(), d[:n_try].cpu())
+    return (time.perf_counter() - t0) * o.shape[0] / n_try
+
+
 def _cpu_twin(model, cls, cfg):
     """The same model on the CPU (plain versions), from the same state."""
     cpu = cls(**cfg, seed=0, device="cpu")
@@ -2067,6 +2249,7 @@ def main() -> int:
     from nr3d_lib_tpu_torch import bridge
     from nr3d_lib_tpu_torch.models.fields.nerf import PermutoNeRF
     from nr3d_lib_tpu_torch.models.fields.sdf import PermutoSDF
+    from nr3d_lib_tpu_torch.models.fields_forest import LoTDForestNeuSModel
     from nr3d_lib_tpu_torch.models.model_base import (LoTDNeRFModel,
                                                       LoTDNeuSModel)
     from nr3d_lib_tpu_torch.models.model_families import \
@@ -2173,6 +2356,62 @@ def main() -> int:
                                  "brick_dydx": 1, "brick_bwd2": 1,
                                  "gather1d": 1}, {"brick_fwd": 1}), N_STEPS)
     _step_points(neus2, o, d, kernels, B, {"_bwd_cuda": "brick_bwd"})
+
+    # ---------------- A8b: the F=4 NeRF serving, in both NeRF modes
+    nerf4 = seeded(LoTDNeRFModel, NERF_W4_CFG, lambda m: m.field.encoding,
+                   22)
+    nerf4_cpu = _cpu_twin(nerf4, LoTDNeRFModel, NERF_W4_CFG)
+    for mode, label in (("march_occ_compressed", "nerf_w4_serve_8192"),
+                        ("march_occ", "nerf_w4_serve_8192 march_occ")):
+        nerf4.ray_query_cfg = dict(NERF_W4_CFG["ray_query_cfg"]) \
+            if mode == "march_occ_compressed" else {"query_mode": mode}
+        launches, _ = _serve(nerf4, nerf4_cpu, o8, d8, {"brick4_fwd": 1,
+                                                        "gather1d": 1},
+                             label, smi)
+        paths[label] = (launches, N_RENDERS)
+
+    # ------- A8b: the NeRF train step (nerf_ray_query_fixed; B6 and B7)
+    nerf_fx = LoTDNeRFModel(**NERF_FIXED_CFG, seed=0)
+    _seed_weights(nerf_fx, nerf_fx.field.encoding, 23)
+    nerf_fx_cpu = _cpu_twin(nerf_fx, LoTDNeRFModel, NERF_FIXED_CFG)
+    _step_vs_cpu(nerf_fx, nerf_fx_cpu, o, d, _cpu_seconds(
+        lambda oo, dd: _fixed_loss(nerf_fx_cpu, oo, dd), o, d),
+        "nerf_f2_fixed_train_4096", loss=_fixed_loss)
+    paths["nerf_f2_fixed_train_4096"] = (_train(
+        nerf_fx, o, d, smi, "nerf_f2_fixed_train_4096",
+        {"brick_fwd": 1, "brick_bwd": 1}, {}, loss_fn=_fixed_loss,
+        lifecycle=False), N_STEPS)
+
+    # --- A8b: the NeuS train step (coarse_multi_upsample; B6 to B9)
+    neus_c = LoTDNeuSModel(**NEUS_COARSE_CFG, seed=0)
+    _seed_weights(neus_c, neus_c.field.implicit_surface.encoding, 24)
+    neus_c.populate()
+    neus_c_cpu = _cpu_twin(neus_c, LoTDNeuSModel, NEUS_COARSE_CFG)
+    _step_vs_cpu(neus_c, neus_c_cpu, o, d, _cpu_seconds(
+        lambda oo, dd: _step_loss(neus_c_cpu, oo, dd), o, d),
+        "neus_f2_coarse_train_4096")
+    paths["neus_f2_coarse_train_4096"] = (_train(
+        neus_c, o, d, smi, "neus_f2_coarse_train_4096",
+        {"brick_fwd": 5, "brick_dydx": 1, "brick_bwd": 1, "brick_bwd2": 1},
+        {}, lifecycle=False), N_STEPS)
+
+    # -------- A11: the forest NeuS serving (B6 and B8 with bidx)
+    forest = LoTDForestNeuSModel(**FOREST_CFG, seed=0)
+    _seed_weights(forest, forest.field.implicit_surface.encoding, 25)
+    forest.populate()
+    of, df = (torch.from_numpy(a).to(dev)
+              for a in _rays(N_RAYS_FOREST, seed=0, radius=2.5))
+    forest_cpu = _cpu_twin(forest, LoTDForestNeuSModel, FOREST_CFG)
+    cpu_s = _cpu_seconds(lambda oo, dd: forest_cpu.ray_query(
+        forest_cpu.ray_test(oo, dd)), of, df)
+    n_cpu = N_RAYS_FOREST
+    while n_cpu > 256 and cpu_s * n_cpu / N_RAYS_FOREST > CPU_STEP_BUDGET_S:
+        n_cpu //= 2
+    _forest_kernel_phases(forest, of, df, kernels)
+    launches, _ = _serve(forest, forest_cpu, of, df, {
+        "brick_fwd_b": 5, "brick_dydx_b": 1}, "forest_serve_8192", smi,
+        cpu_rays=n_cpu)
+    paths["forest_serve_8192"] = (launches, N_RENDERS)
 
     # ------------------------- path C: the dynamic (x,t) permuto NeuS
     dyn_cpu = _cpu_twin(dyn, DynamicPermutoNeuSModel, DYN_CFG)

@@ -13,6 +13,14 @@ path maps to the dotted `state_dict` key of the same name:
   * `field/var_ctrl/ln_s`, `space/aabb`, `accel/occ/val_grid` and
     `accel/occ/it`.
 
+A forest model (`LoTDForestNeuSModel`) comes across with
+`forest_from_jax_state`: its encoding's `flattened_params` is [n_trees,
+n_params]; the JAX state lists the shared block space under
+`accel/space/`, and of it only `occupied`, `origin` and `block_idx` come
+across (the port rebuilds the slots, the block coordinates and the
+culling levels from `occupied` when the state is loaded); the accel's EMA
+grids are `accel/occ/val_grid`.
+
 Gaussian splatting keeps its parameters in a plain dictionary
 (experiments/bench_render.py `main_train_gaussian`: `means`, `scales`,
 `quats`, `opac`, `cols`); `gaussians_from_jax` makes them trainable
@@ -28,8 +36,8 @@ import torch
 
 from nr3d_lib_tpu_torch.device import resolve_device
 
-__all__ = ["from_jax_state", "to_jax_paths", "gaussians_from_jax",
-           "GAUSSIAN_KEYS"]
+__all__ = ["from_jax_state", "forest_from_jax_state", "to_jax_paths",
+           "gaussians_from_jax", "GAUSSIAN_KEYS"]
 
 GAUSSIAN_KEYS = ("means", "scales", "quats", "opac", "cols")
 
@@ -45,6 +53,26 @@ def from_jax_state(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             raise ValueError(f"{path}: float64 state; the model is float32")
         out[path.replace("/", ".")] = torch.from_numpy(arr.copy())
     return out
+
+
+_FOREST_SPACE = "accel/space/"
+_FOREST_SPACE_STATE = ("occupied", "origin", "block_idx")
+
+
+def forest_from_jax_state(flat: Mapping[str, np.ndarray]
+                          ) -> Dict[str, torch.Tensor]:
+    """A JAX forest model's {nnx path: numpy array} → the port's state
+    dict: the space's state moves from `accel/space/` to `space/`, and
+    what the port derives from `occupied` is dropped."""
+    out = {}
+    for path, value in flat.items():
+        if path.startswith(_FOREST_SPACE):
+            name = path[len(_FOREST_SPACE):]
+            if name not in _FOREST_SPACE_STATE:
+                continue
+            path = "space/" + name
+        out[path] = value
+    return from_jax_state(out)
 
 
 def to_jax_paths(named: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:

@@ -5,7 +5,16 @@
 // (via `_brick_encode_pallas`, and with want_g via `_brick_encode_pallas_g`),
 // `_bwd_kernel_v4` (via `_brick_bwd_pallas_v4`; the frozen-x form is
 // need_dx=false), `_dydx_kernel_v3` (via `_brick_dydx_pallas`) and
-// `_bwd2_kernel_v3` (via `_brick_bwd2_pallas`).
+// `_bwd2_kernel_v3` (via `_brick_bwd2_pallas`). B6 and B8 also take the
+// forest's per-point block index (`bidx`, the JAX `_offset_rows` applied
+// in `_brick_encode_pallas_impl` and `_brick_dydx_pallas`): block b owns
+// rows [b total_rows, (b+1) total_rows) of a [B total_rows, 128] table,
+// and bidx < 0 reads block 0 (the callers zero those points). The offset
+// is added where each warp locates its level's row, in 64-bit: a 4096-
+// block forest of 23,005 rows a block has 94 M rows, and row * 64
+// overflows int32 past 2^25 rows. With bidx null the kernels are the
+// instances they were before it existed (a template flag), so their
+// outputs keep their bits.
 //
 // Table layout: f32 [rows, 128], lane = vertex*2 + f, read here as 64
 // float2 per 512-byte brick row. Each (point, level) reads its 8 corners,
@@ -133,6 +142,16 @@ __device__ __forceinline__ int corner_off(int k) {
   return ((k >> 2) & 1) * 16 + ((k >> 1) & 1) * 4 + (k & 1);
 }
 
+// The forest form's corner (0,0,0) slot of point p: its block's rows
+// start at max(bidx[p], 0) block_rows; 64-bit throughout.
+__device__ __forceinline__ long long block_row(const int* __restrict__ bidx,
+                                               long long p,
+                                               long long block_rows,
+                                               const Located& c) {
+  const long long b = max(__ldg(bidx + p), 0);
+  return (b * block_rows + c.row) * 64 + c.vert0;
+}
+
 // The run of consecutive points of B6-B9: one warp's width at each level
 constexpr int BRICK_POINTS = 32;
 
@@ -152,9 +171,11 @@ constexpr int BRICK_POINTS = 32;
 // points, against 0.0505 with each lane's own 64 bytes stored as four
 // float4 (chip_ab.py on an H100). Each (point, level) does the arithmetic
 // of the one-thread-a-(point, level) form, so y has its bits.
-template <bool G>
+template <bool G, bool B>
 __global__ void brick_fwd_kernel(const float* __restrict__ x,
                                  const float2* __restrict__ table,
+                                 const int* __restrict__ bidx,
+                                 long long block_rows,
                                  const __grid_constant__ BrickMeta meta,
                                  float2* __restrict__ y,
                                  float4* __restrict__ corners, long long n) {
@@ -169,7 +190,8 @@ __global__ void brick_fwd_kernel(const float* __restrict__ x,
     const float* xi = x + (p0 + i) * 3;
     const float xp[3] = {xi[0], xi[1], xi[2]};
     const Located c = locate(xp, meta.lv[l]);
-    const float2* rowp = table + (unsigned)(c.row * 64 + c.vert0);
+    const float2* rowp = B ? table + block_row(bidx, p0 + i, block_rows, c)
+                           : table + (unsigned)(c.row * 64 + c.vert0);
     float a0 = 0.f, a1 = 0.f;
     float2 v[8];
 #pragma unroll
@@ -305,9 +327,12 @@ __global__ void brick_bwd_kernel(const float* __restrict__ x,
 // coordinate) sums the levels there, d = fma(t, res-2, d) from level 0 (the
 // FMA nvcc made of that form's d += t * (res-2)), and writes dx once: its
 // bits, in any order of the points.
+template <bool B>
 __global__ void brick_dydx_kernel(const float2* __restrict__ g_up,
                                   const float* __restrict__ x,
                                   const float2* __restrict__ table,
+                                  const int* __restrict__ bidx,
+                                  long long block_rows,
                                   const __grid_constant__ BrickMeta meta,
                                   float* __restrict__ dx, long long n) {
   __shared__ float ts[BRICK_MAX_LEVELS * BRICK_POINTS * 3];
@@ -320,7 +345,8 @@ __global__ void brick_dydx_kernel(const float2* __restrict__ g_up,
     const float xp[3] = {xi[0], xi[1], xi[2]};
     const float2 g = g_up[(p0 + i) * L + l];
     const Located c = locate(xp, meta.lv[l]);
-    const float2* rowp = table + (long long)c.row * 64 + c.vert0;
+    const float2* rowp = B ? table + block_row(bidx, p0 + i, block_rows, c)
+                           : table + (long long)c.row * 64 + c.vert0;
     float s[3][2];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -444,7 +470,10 @@ __global__ void brick_bwd2_kernel(const float2* __restrict__ g_up,
   }
 }
 
+// The rows of the table (of one block's, in the forest form); 0 for a
+// meta with no level (never read lv[-1]).
 static long long total_rows(const BrickMeta& meta) {
+  if (meta.n_levels <= 0) return 0;
   const BrickLevel& last = meta.lv[meta.n_levels - 1];
   return (long long)last.row_offset + last.n_rows;
 }
@@ -455,23 +484,31 @@ static unsigned n_blocks(long long total, int threads) {
 
 extern "C" {
 
-// x [n,3] f32, table [rows,128] f32, y [n,2L] f32, corners [n,L,8,2] f32
-// (16-byte aligned) or null.
-int brick_fwd(const void* x, const void* table, BrickMeta meta, void* y,
-              void* corners, long long n, void* stream) {
+// x [n,3] f32, table [rows,128] f32 ([B rows,128] with bidx), bidx [n]
+// int32 or null, y [n,2L] f32, corners [n,L,8,2] f32 (16-byte aligned) or
+// null; not both bidx and corners (the forest form has no want_g).
+int brick_fwd(const void* x, const void* table, const void* bidx,
+              BrickMeta meta, void* y, void* corners, long long n,
+              void* stream) {
   const int L = meta.n_levels;
+  if (bidx != nullptr && corners != nullptr)
+    return (int)cudaErrorInvalidValue;
   if (n > 0 && L > 0) {
     const unsigned blocks = n_blocks(n, BRICK_POINTS);
     cudaStream_t st = (cudaStream_t)stream;
-    if (corners == nullptr) {
-      brick_fwd_kernel<false><<<blocks, 32 * L, 0, st>>>(
-          (const float*)x, (const float2*)table, meta, (float2*)y, nullptr,
-          n);
+    if (bidx != nullptr) {
+      brick_fwd_kernel<false, true><<<blocks, 32 * L, 0, st>>>(
+          (const float*)x, (const float2*)table, (const int*)bidx,
+          total_rows(meta), meta, (float2*)y, nullptr, n);
+    } else if (corners == nullptr) {
+      brick_fwd_kernel<false, false><<<blocks, 32 * L, 0, st>>>(
+          (const float*)x, (const float2*)table, nullptr, 0, meta,
+          (float2*)y, nullptr, n);
     } else {
       const size_t smem = (size_t)BRICK_POINTS * (4 * L + 1) * sizeof(float4);
-      brick_fwd_kernel<true><<<blocks, 32 * L, smem, st>>>(
-          (const float*)x, (const float2*)table, meta, (float2*)y,
-          (float4*)corners, n);
+      brick_fwd_kernel<true, false><<<blocks, 32 * L, smem, st>>>(
+          (const float*)x, (const float2*)table, nullptr, 0, meta,
+          (float2*)y, (float4*)corners, n);
     }
   }
   return (int)cudaGetLastError();
@@ -485,28 +522,39 @@ int brick_bwd(const void* x, const void* g, const void* corners,
               const void* table, BrickMeta meta, void* dtab, void* dx,
               long long n, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaMemsetAsync(dtab, 0, (size_t)total_rows(meta) * 128 * sizeof(float),
-                  st);
+  if (meta.n_levels > 0)
+    cudaMemsetAsync(dtab, 0, (size_t)total_rows(meta) * 128 * sizeof(float),
+                    st);
   if (n > 0 && meta.n_levels > 0) {
     brick_bwd_kernel<<<n_blocks(n, BRICK_POINTS), 32 * meta.n_levels, 0,
                        st>>>(
         (const float*)x, (const float2*)g, (const float2*)corners,
         (const float2*)table, meta, (float2*)dtab, (float*)dx, n);
+  } else if (n > 0 && dx != nullptr) {  // no level: dx is 0
+    cudaMemsetAsync(dx, 0, sizeof(float) * n * 3, st);
   }
   return (int)cudaGetLastError();
 }
 
-// g_up [n,2L] f32, x [n,3] f32, table [rows,128] f32, dx [n,3] f32.
+// g_up [n,2L] f32, x [n,3] f32, table [rows,128] f32 ([B rows,128] with
+// bidx), bidx [n] int32 or null, dx [n,3] f32.
 int brick_dydx(const void* g_up, const void* x, const void* table,
-               BrickMeta meta, void* dx, long long n, void* stream) {
+               const void* bidx, BrickMeta meta, void* dx, long long n,
+               void* stream) {
   if (n > 0) {
     const int L = meta.n_levels;
     cudaStream_t st = (cudaStream_t)stream;
     if (L == 0)  // no level: dx is 0
       return (int)cudaMemsetAsync(dx, 0, sizeof(float) * n * 3, st);
-    brick_dydx_kernel<<<n_blocks(n, BRICK_POINTS), 32 * L, 0, st>>>(
-        (const float2*)g_up, (const float*)x, (const float2*)table, meta,
-        (float*)dx, n);
+    if (bidx != nullptr)
+      brick_dydx_kernel<true><<<n_blocks(n, BRICK_POINTS), 32 * L, 0, st>>>(
+          (const float2*)g_up, (const float*)x, (const float2*)table,
+          (const int*)bidx, total_rows(meta), meta, (float*)dx, n);
+    else
+      brick_dydx_kernel<false><<<n_blocks(n, BRICK_POINTS), 32 * L, 0,
+                                 st>>>(
+          (const float2*)g_up, (const float*)x, (const float2*)table,
+          nullptr, 0, meta, (float*)dx, n);
   }
   return (int)cudaGetLastError();
 }
@@ -517,13 +565,16 @@ int brick_bwd2(const void* g_up, const void* x, const void* table,
                const void* gg, BrickMeta meta, void* dgup, void* dtab,
                void* dx, long long n, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaMemsetAsync(dtab, 0, (size_t)total_rows(meta) * 128 * sizeof(float),
-                  st);
+  if (meta.n_levels > 0)
+    cudaMemsetAsync(dtab, 0, (size_t)total_rows(meta) * 128 * sizeof(float),
+                    st);
   if (n > 0 && meta.n_levels > 0) {
     brick_bwd2_kernel<<<n_blocks(n, BRICK_POINTS), 32 * meta.n_levels, 0,
                         st>>>(
         (const float2*)g_up, (const float*)x, (const float2*)table,
         (const float*)gg, meta, (float2*)dgup, (float2*)dtab, (float*)dx, n);
+  } else if (n > 0 && dx != nullptr) {  // no level: dx is 0
+    cudaMemsetAsync(dx, 0, sizeof(float) * n * 3, st);
   }
   return (int)cudaGetLastError();
 }

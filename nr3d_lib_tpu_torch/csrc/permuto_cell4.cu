@@ -290,8 +290,9 @@ int permuto4_bwd(const void* x, const void* g, const void* table,
                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dx != nullptr && table == nullptr) return (int)cudaErrorInvalidValue;
-  cudaMemsetAsync(dtab, 0,
-                  (size_t)pc_total_rows(meta) * 256 * sizeof(float), st);
+  if (meta.n_levels > 0)
+    cudaMemsetAsync(dtab, 0,
+                    (size_t)pc_total_rows(meta) * 256 * sizeof(float), st);
   if (n > 0 && meta.n_levels > 0) {
     const int L = meta.n_levels, d = meta.n_dims;
     const size_t smem = sizeof(float4) * PC4_POINTS * L +
@@ -304,6 +305,8 @@ int permuto4_bwd(const void* x, const void* g, const void* table,
       (float4*)dtab, (float*)dx, n)
     PC_DISPATCH(meta.n_dims, PC4_BWD)
 #undef PC4_BWD
+  } else if (n > 0 && dx != nullptr) {  // no level: dx is 0
+    cudaMemsetAsync(dx, 0, sizeof(float) * n * meta.n_dims, st);
   }
   return (int)cudaGetLastError();
 }

@@ -315,7 +315,9 @@ __device__ __forceinline__ void elevation_terms(const Simplex<D>& s,
   }
 }
 
+// The rows of the table; 0 for a meta with no level (never read lv[-1]).
 static inline long long pc_total_rows(const PCMeta& meta) {
+  if (meta.n_levels <= 0) return 0;
   const PCLevel& last = meta.lv[meta.n_levels - 1];
   return (long long)last.row_offset + last.n_rows;
 }

@@ -1,6 +1,6 @@
 """NeRF ray-query strategies (port of nr3d_lib_tpu/graphics/nerf_ray_query.py
-`_composite`, `nerf_ray_query_march_occ` and
-`nerf_ray_query_march_occ_compressed`).
+`_composite`, `nerf_ray_query_march_occ`,
+`nerf_ray_query_march_occ_compressed` and `nerf_ray_query_fixed`).
 
 Dense [R, S] sample slabs with validity masks: padding never contributes
 (its alpha is forced to 0). The compressed mode compacts the marched slab
@@ -9,7 +9,8 @@ the transmittance before the radiance query.
 
 Randomness: a `draw` callable (`graphics.raysample`) hands the march its
 [R, S] uniforms, the draw the JAX version takes from `perturb_key`; None
-marches at the step midpoints.
+marches at the step midpoints. The fixed query draws its stratified
+jitter the same way.
 """
 
 from __future__ import annotations
@@ -21,9 +22,11 @@ import torch
 from nr3d_lib_tpu_torch.graphics import _scan
 from nr3d_lib_tpu_torch.graphics import pack_ops as po
 from nr3d_lib_tpu_torch.graphics.nerf import ray_alpha_to_vw, tau_to_alpha
-from nr3d_lib_tpu_torch.graphics.raysample import Draw
+from nr3d_lib_tpu_torch.graphics.raysample import (Draw,
+                                                   batch_sample_step_linear)
 
-__all__ = ["nerf_ray_query_march_occ", "nerf_ray_query_march_occ_compressed"]
+__all__ = ["nerf_ray_query_march_occ", "nerf_ray_query_march_occ_compressed",
+           "nerf_ray_query_fixed"]
 
 Out = Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
 
@@ -141,3 +144,30 @@ def nerf_ray_query_march_occ_compressed(
                      "t": t2, "alpha": alpha2, "vw": vw, "valid": valid2,
                      "n_compact": torch.sum(valid2)}
     return rendered, volume_buffer
+
+
+def nerf_ray_query_fixed(model, space, ray_tested: Dict, *,
+                         n_samples: int = 128,
+                         draw: Optional[Draw] = None) -> Out:
+    """Fixed-count stratified sampling without acceleration: `n_samples`
+    bins between near and far, a density and a radiance query at every
+    sample. `draw` jitters each bin ([R, n_samples] in [0,1), the JAX
+    version's `perturb_key` draw); None samples the bin midpoints. A plain
+    function, as in JAX: `LoTDNeRFModel` has no such query mode."""
+    rays_o, rays_d = ray_tested["rays_o"], ray_tested["rays_d"]
+    near, far, ray_mask = ray_tested["near"], ray_tested["far"], \
+        ray_tested["mask"]
+    o_n, d_n = space.normalize_rays(rays_o, rays_d)
+    u = None if draw is None else draw((rays_o.shape[0], n_samples), 0.0,
+                                       1.0)
+    t, dt = batch_sample_step_linear(near, far, n_samples, u)
+    x = o_n[:, None, :] + d_n[:, None, :] * t[..., None]
+    r, s = t.shape
+    den = model.forward_density(x.reshape(r * s, 3))
+    sigma = den["sigma"].reshape(r, s)
+    alpha = tau_to_alpha(sigma * dt)
+    alpha = torch.where(ray_mask[:, None], alpha, torch.zeros_like(alpha))
+    v = rays_d[:, None, :].expand(r, s, 3).reshape(r * s, 3)
+    rgb = model.radiance(x.reshape(r * s, 3), v, None,
+                         den["h"]).reshape(r, s, 3)
+    return _composite(t, alpha, rgb, ray_mask)

@@ -1,5 +1,6 @@
-"""NeuS importance upsampling (port of
-nr3d_lib_tpu/graphics/neus_ray_query.py `_upsample_rounds`).
+"""NeuS importance upsampling and the coarse query (port of
+nr3d_lib_tpu/graphics/neus_ray_query.py `_upsample_rounds`,
+`_final_composite` and `neus_ray_query_coarse_multi_upsample`).
 
 Dense [R, S] slabs: invalid slots carry t=far and sdf=+BIG so their alphas
 vanish; merging an upsample round into the slab is a stable per-ray sort
@@ -8,16 +9,18 @@ with the validity and cached SDF values carried along as payloads.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from nr3d_lib_tpu_torch.graphics.nerf import ray_alpha_to_vw
 from nr3d_lib_tpu_torch.graphics.neus import neus_ray_sdf_to_alpha
 from nr3d_lib_tpu_torch.graphics.raysample import (CDF_EPS, Draw,
-                                                   batch_sample_pdf)
+                                                   batch_sample_pdf,
+                                                   batch_sample_step_linear)
 
-__all__ = ["_upsample_rounds"]
+__all__ = ["_upsample_rounds", "_final_composite",
+           "neus_ray_query_coarse_multi_upsample"]
 
 _BIG_SDF = 1e4
 
@@ -68,3 +71,73 @@ def _upsample_rounds(sdf_fn, o_n: torch.Tensor, d_n: torch.Tensor,
         sdf = torch.cat([sdf, sdf_new], -1)
     t, valid, _ = _sort_tvs(t, valid, sdf, far)
     return t, valid
+
+
+def _final_composite(model, o_n: torch.Tensor, d_n: torch.Tensor,
+                     rays_d: torch.Tensor, t: torch.Tensor,
+                     valid: torch.Tensor, ray_mask: torch.Tensor, inv_s,
+                     with_rgb: bool = True
+                     ) -> Tuple[Dict[str, torch.Tensor],
+                                Dict[str, torch.Tensor]]:
+    """The SDF + nablas (+ radiance) query at every slot of the [R, S]
+    slab, then the NeuS volume composite; invalid slots and masked rays
+    get alpha 0."""
+    r, s = t.shape
+    x = o_n[:, None, :] + d_n[:, None, :] * t[..., None]
+    v = rays_d[:, None, :].expand(r, s, 3).reshape(r * s, 3)
+    out = model(x.reshape(r * s, 3), v, with_rgb=with_rgb, with_nablas=True)
+    sdf = torch.where(valid, out["sdf"].reshape(r, s),
+                      torch.full_like(t, _BIG_SDF))
+    alpha = neus_ray_sdf_to_alpha(sdf, inv_s, append_cdf_1=True)   # [R,S]
+    alpha = torch.where(valid & ray_mask[:, None], alpha,
+                        torch.zeros_like(alpha))
+    vw = ray_alpha_to_vw(alpha)
+    acc = torch.sum(vw, -1)
+    zero_r = torch.zeros_like(acc)
+    rendered = {"mask_volume": torch.where(ray_mask, acc, zero_r)}
+    if with_rgb:
+        rgb = torch.sum(vw[..., None] * out["rgb"].reshape(r, s, 3), -2)
+        rendered["rgb_volume"] = torch.where(ray_mask[:, None], rgb,
+                                             torch.zeros_like(rgb))
+    depth = torch.sum(vw * t, -1) / torch.clamp(acc, min=1e-10)
+    rendered["depth_volume"] = torch.where(ray_mask, depth, zero_r)
+    nablas = out["nablas"].reshape(r, s, 3)
+    n_img = torch.sum(vw[..., None] * nablas, -2)
+    rendered["normals_volume"] = torch.where(ray_mask[:, None], n_img,
+                                             torch.zeros_like(n_img))
+    volume_buffer = {"t": t, "alpha": alpha, "vw": vw, "sdf": sdf,
+                     "ray_mask": ray_mask, "valid": valid, "nablas": nablas,
+                     "x": x}
+    return rendered, volume_buffer
+
+
+def neus_ray_query_coarse_multi_upsample(
+        model, space, ray_tested: Dict, *, n_coarse: int = 64,
+        upsample_inv_s_factors: Sequence[float] = (1.0, 4.0, 16.0),
+        n_importance: int = 32, upsample_inv_s: float = 64.0,
+        with_rgb: bool = True, draw: Optional[Draw] = None
+        ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Coarse stratified samples, then iterative NeuS upsampling, then the
+    final query over the whole slab (n_coarse + rounds·n_importance
+    samples a ray). `draw` perturbs the coarse samples ([R, n_coarse] in
+    [0,1)) and then each upsample round, the order in which the JAX
+    version splits its key; None renders at the bin midpoints and fixed
+    quantiles. Only the final query and inv_s carry gradients: the
+    sampling runs under no_grad."""
+    rays_o, rays_d = ray_tested["rays_o"], ray_tested["rays_d"]
+    near, far, ray_mask = ray_tested["near"], ray_tested["far"], \
+        ray_tested["mask"]
+    o_n, d_n = space.normalize_rays(rays_o, rays_d)
+    u = None if draw is None else draw((rays_o.shape[0], n_coarse), 0.0,
+                                       1.0)
+    t, _ = batch_sample_step_linear(near, far, n_coarse, u)
+    valid = torch.ones_like(t, dtype=torch.bool)
+
+    def sdf_fn(x):
+        return model.forward_sdf(x)["sdf"]
+
+    t, valid = _upsample_rounds(sdf_fn, o_n, d_n, t, valid, far,
+                                upsample_inv_s, upsample_inv_s_factors,
+                                n_importance, draw)
+    return _final_composite(model, o_n, d_n, rays_d, t, valid, ray_mask,
+                            model.forward_inv_s(), with_rgb)

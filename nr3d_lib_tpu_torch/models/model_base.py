@@ -4,8 +4,10 @@ nr3d_lib_tpu/models/model_base.py `ModelMixin`, `LoTDNeuSModel`,
 
 A renderable model owns (field net, space, accel) and dispatches
 `ray_query` to the strategy function of its query mode. Ported modes: the
-NeuS `march_occ_multi_upsample_compressed`, the NeRF `march_occ` and
-`march_occ_compressed`; the others raise.
+NeuS `march_occ_multi_upsample_compressed` and `coarse_multi_upsample`,
+the NeRF `march_occ` and `march_occ_compressed`; the others raise (the
+NeRF's fixed query is a plain function, `graphics.nerf_ray_query.
+nerf_ray_query_fixed`, as in JAX).
 
 Randomness: `jax.random` keys become a `torch.Generator` (`ray_query`'s
 `generator`, `training_before_per_step`'s), or a `draw` callable through
@@ -135,6 +137,13 @@ class LoTDNeuSModel(nn.Module, ModelMixin):
             return neus_ray_query_march_occ_multi_upsample_compressed(
                 self, self.accel, self.space, ray_tested, with_rgb=with_rgb,
                 draw=draw, **cfg)
+        if mode == "coarse_multi_upsample":
+            from nr3d_lib_tpu_torch.graphics.neus_ray_query import (
+                neus_ray_query_coarse_multi_upsample)
+
+            return neus_ray_query_coarse_multi_upsample(
+                self, self.space, ray_tested, with_rgb=with_rgb, draw=draw,
+                **cfg)
         raise NotImplementedError(
             f"query_mode {mode!r} is not ported yet (ROADMAP.md A8b)")
 

@@ -21,6 +21,13 @@ requires grad, B6 saves the corner values that B7 reads for dL/dx) and
 `_BrickNablas` (B8 forward, B9 backward). Neither backward is itself
 differentiable. The plain backwards `brick_encode_bwd_xla` and
 `brick_nablas_bwd_xla` are for tests and for holding the kernels against.
+
+The forest (per-block tables, `brick_encode_batched` and
+`brick_nablas_batched`) runs B6 and B8 with a block row offset `bidx`
+(launches counted as `brick_fwd_b` and `brick_dydx_b`); their plain
+versions are `brick_encode_xla_batched` and `brick_nablas_xla_batched`.
+Their backwards belong to the forest train step (ROADMAP.md A11) and
+raise.
 """
 
 from __future__ import annotations
@@ -42,7 +49,10 @@ __all__ = ["BrickLevel", "BrickMeta", "make_brick_meta",
            "brick_encode", "brick_encode_frozen_x", "brick_nablas",
            "brick_encode_xla", "brick_corner_values_xla",
            "brick_encode_bwd_xla", "brick_nablas_xla", "brick_nablas_bwd_xla",
-           "brick_atomic_groups", "HASH_PRIMES", "BRICK_W", "LANES", "MAX_LEVELS"]
+           "brick_atomic_groups", "make_forest_meta",
+           "brick_encode_xla_batched", "brick_nablas_xla_batched",
+           "brick_encode_batched", "brick_nablas_batched",
+           "HASH_PRIMES", "BRICK_W", "LANES", "MAX_LEVELS"]
 
 # nr3d_lib_tpu/ops/lotd.py HASH_PRIMES (copied: the port imports nothing of
 # the JAX package)
@@ -193,11 +203,14 @@ def materialize_dense_brick_table(vertex_params: torch.Tensor,
 
 # ---------------------------------------------------------- plain versions
 def _level_corners(x: torch.Tensor, t_flat: torch.Tensor, level,
-                   n_feat: int):
+                   n_feat: int, row_add: Optional[torch.Tensor] = None):
     """Corner values [N,8,n_feat] and fractional coords [N,3] of one level
     of a table whose rows hold 64 vertices × n_feat values (`t_flat` is
-    the table flattened)."""
+    the table flattened); `row_add` [N] shifts each point's row (the
+    forest's block offset)."""
     row, lane0, frac = _level_rows_and_lanes(x, level)
+    if row_add is not None:
+        row = row + row_add
     bits = _corner_bits(x.device)
     corner_v = (bits[:, 0] * BRICK_W + bits[:, 1]) * BRICK_W + bits[:, 2]
     vert = row[:, None] * 64 + lane0[:, None] // N_FEAT + corner_v  # [N,8]
@@ -230,18 +243,20 @@ def brick_atomic_groups(x: torch.Tensor, meta: BrickMeta,
 
 
 def _encode_plain(x: torch.Tensor, t_flat: torch.Tensor, meta: BrickMeta,
-                  n_feat: int) -> torch.Tensor:
+                  n_feat: int, row_add: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """Σ_corners w·value per level → [N, n_feat·L], column l·n_feat + f."""
     outs = []
     for level in meta.levels:
-        vals, frac = _level_corners(x, t_flat, level, n_feat)
+        vals, frac = _level_corners(x, t_flat, level, n_feat, row_add)
         w = _corner_weights(frac).to(vals.dtype)                     # [N,8]
         outs.append(torch.sum(w[..., None] * vals, 1))
     return torch.cat(outs, -1)
 
 
 def _nablas_plain(g_up: torch.Tensor, x: torch.Tensor, t_flat: torch.Tensor,
-                  meta: BrickMeta, n_feat: int) -> torch.Tensor:
+                  meta: BrickMeta, n_feat: int,
+                  row_add: Optional[torch.Tensor] = None) -> torch.Tensor:
     """J_enc(x)ᵀ·g_up [N,3], written out analytically (the JAX reference
     takes the vjp of the plain encode):
     dx_a = Σ_l (res_a−2) Σ_corners (g_up·val)·(2·bit_a−1)·Π_{b≠a} s_b."""
@@ -249,7 +264,7 @@ def _nablas_plain(g_up: torch.Tensor, x: torch.Tensor, t_flat: torch.Tensor,
     sign = 2.0 * cb - 1.0
     dx = [0.0, 0.0, 0.0]
     for l, level in enumerate(meta.levels):
-        vals, frac = _level_corners(x, t_flat, level, n_feat)
+        vals, frac = _level_corners(x, t_flat, level, n_feat, row_add)
         h = torch.sum(vals * g_up[:, None, n_feat * l:n_feat * (l + 1)], -1)
         s = frac[:, None, :] * cb + (1.0 - frac[:, None, :]) * (1.0 - cb)
         for a in range(3):
@@ -335,8 +350,14 @@ _Meta = meta_struct(MAX_LEVELS)
 
 
 def c_meta(meta: BrickMeta, struct: type = _Meta):
-    """A BrickMeta as the kernels' by-value meta argument."""
+    """A BrickMeta as the kernels' by-value meta argument. Refuses a meta
+    with no level, as the JAX reference and the plain versions do (they
+    have nothing to stack), and more levels or rows than the kernels
+    take."""
     cap = struct._fields_[1][1]._length_
+    if meta.n_levels == 0:
+        raise ValueError("the brick kernels take at least one level, got a "
+                         "meta with none")
     if meta.n_levels > cap:
         raise ValueError(f"the brick kernels take at most {cap} levels, got "
                          f"{meta.n_levels}")
@@ -387,26 +408,29 @@ def check_cuda_args(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta,
 def _lib():
     vp, n = _build.VP, ctypes.c_longlong
     return _build.load("brick", {
-        "brick_fwd": [vp, vp, _Meta, vp, vp, n, vp],
+        "brick_fwd": [vp, vp, vp, _Meta, vp, vp, n, vp],
         "brick_bwd": [vp, vp, vp, vp, _Meta, vp, vp, n, vp],
-        "brick_dydx": [vp, vp, vp, _Meta, vp, n, vp],
+        "brick_dydx": [vp, vp, vp, vp, _Meta, vp, n, vp],
         "brick_bwd2": [vp, vp, vp, vp, _Meta, vp, vp, vp, n, vp]})
 
 
 def _fwd_cuda(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta,
-              want_g: bool = False):
+              want_g: bool = False, bidx: Optional[torch.Tensor] = None):
     """B6 → y [N,2L]; with `want_g` → (y, corners [N,L,8,2]), the corner
-    values that B7 reads back for dL/dx. Counted as `brick_fwd` or
-    `brick_fwd_g`."""
+    values that B7 reads back for dL/dx; with `bidx` [N] int32 the forest
+    form over a [B·total_rows, 128] table (no want_g). Counted as
+    `brick_fwd`, `brick_fwd_g` or `brick_fwd_b`."""
     x, table = aligned(x), aligned(table)
+    bidx = None if bidx is None else bidx.contiguous()
     n, L = x.shape[0], meta.n_levels
     y = torch.empty((n, N_FEAT * L), device=x.device, dtype=torch.float32)
     corners = torch.empty((n, L, 8, N_FEAT), device=x.device,
                           dtype=torch.float32) if want_g else None
-    err = _lib().brick_fwd(x.data_ptr(), table.data_ptr(), c_meta(meta),
-                           y.data_ptr(), ptr(corners), n,
+    err = _lib().brick_fwd(x.data_ptr(), table.data_ptr(), ptr(bidx),
+                           c_meta(meta), y.data_ptr(), ptr(corners), n,
                            _build.stream_ptr(x.device))
-    name = "brick_fwd_g" if want_g else "brick_fwd"
+    name = "brick_fwd_g" if want_g else \
+        "brick_fwd" if bidx is None else "brick_fwd_b"
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return (y, corners) if want_g else y
@@ -437,15 +461,20 @@ def _bwd_cuda(x: torch.Tensor, g: torch.Tensor, meta: BrickMeta, *,
 
 
 def _dydx_cuda(g_up: torch.Tensor, x: torch.Tensor, table: torch.Tensor,
-               meta: BrickMeta) -> torch.Tensor:
-    """B8 → J_enc(x)ᵀ·g_up [N,3]."""
+               meta: BrickMeta, bidx: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """B8 → J_enc(x)ᵀ·g_up [N,3]; with `bidx` [N] int32 the forest form
+    over a [B·total_rows, 128] table. Counted as `brick_dydx` or
+    `brick_dydx_b`."""
     g_up, x, table = aligned(g_up), aligned(x), aligned(table)
+    bidx = None if bidx is None else bidx.contiguous()
     dx = torch.empty_like(x)
     err = _lib().brick_dydx(g_up.data_ptr(), x.data_ptr(), table.data_ptr(),
-                            c_meta(meta), dx.data_ptr(), x.shape[0],
-                            _build.stream_ptr(x.device))
-    _build.check(err, "brick_dydx")
-    _build.LAUNCHES["brick_dydx"] += 1
+                            ptr(bidx), c_meta(meta), dx.data_ptr(),
+                            x.shape[0], _build.stream_ptr(x.device))
+    name = "brick_dydx" if bidx is None else "brick_dydx_b"
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
     return dx
 
 
@@ -552,3 +581,130 @@ def brick_nablas(g_up: torch.Tensor, x: torch.Tensor, table: torch.Tensor,
     if wants_grad(g_up, x, table):
         return _BrickNablas.apply(g_up, x, table, meta)
     return _dydx_cuda(g_up, x, table, meta)
+
+
+# ----------------------------------------------------------- forest/batched
+def make_forest_meta(meta: BrickMeta) -> BrickMeta:
+    """The meta of per-block tables: the same levels (the JAX version only
+    turns off its TPU one-hot row gather, which the port does not have)."""
+    return meta
+
+
+def _block_rows(bidx: torch.Tensor, meta: BrickMeta) -> torch.Tensor:
+    """Each point's first row in a [B·total_rows, 128] table: block
+    max(bidx, 0) (bidx < 0 reads block 0; the callers zero those
+    points)."""
+    return torch.clamp(bidx.to(torch.int64), min=0) * meta.total_rows
+
+
+def brick_encode_xla_batched(x: torch.Tensor, table: torch.Tensor,
+                             meta: BrickMeta, bidx: torch.Tensor
+                             ) -> torch.Tensor:
+    """Plain PyTorch version of the forest form of B6: table [B·total_rows,
+    128], block b owns rows [b·total_rows, (b+1)·total_rows), bidx [N]
+    int32 (< B). Differentiable in x and table."""
+    return _encode_plain(x, table.reshape(-1), meta, N_FEAT,
+                         _block_rows(bidx, meta))
+
+
+def brick_nablas_xla_batched(g_up: torch.Tensor, x: torch.Tensor,
+                             table: torch.Tensor, meta: BrickMeta,
+                             bidx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the forest form of B8: the vjp of
+    `brick_encode_xla_batched` in x, written out as `brick_nablas_xla`."""
+    return _nablas_plain(g_up, x, table.reshape(-1), meta, N_FEAT,
+                         _block_rows(bidx, meta))
+
+
+def _check_batched(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta,
+                   bidx: torch.Tensor, what: str) -> None:
+    """Shapes, types and devices the forest forms take; raises otherwise
+    (bidx must also be < B: the kernels do not check it)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dim() != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
+        raise ValueError(f"{what}: x must be [N,3] float32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if table.dim() != 2 or table.shape[1] != LANES or \
+            table.shape[0] % meta.total_rows or \
+            table.dtype != torch.float32 or table.device != x.device:
+        raise ValueError(f"{what}: table must be [B·{meta.total_rows}, "
+                         f"{LANES}] float32 on {x.device}, got "
+                         f"{tuple(table.shape)} {table.dtype}")
+    if bidx.shape != x.shape[:1] or bidx.dtype != torch.int32 or \
+            bidx.device != x.device:
+        raise ValueError(f"{what}: bidx must be [N] int32 on {x.device}, got "
+                         f"{tuple(bidx.shape)} {bidx.dtype} {bidx.device}")
+
+
+def _encode_batched(x, table, meta, bidx):
+    if x.device.type == "cpu":
+        return brick_encode_xla_batched(x, table, meta, bidx)
+    return _fwd_cuda(x, table, meta, bidx=bidx)
+
+
+def _nablas_batched(g_up, x, table, meta, bidx):
+    if x.device.type == "cpu":
+        return brick_nablas_xla_batched(g_up, x, table, meta, bidx)
+    return _dydx_cuda(g_up, x, table, meta, bidx=bidx)
+
+
+_FOREST_BWD = ("the forest encode's backward (B7 and B9 with a block row "
+               "offset) belongs to the forest train step, which is not "
+               "ported yet (ROADMAP.md A11)")
+
+
+class _BrickEncodeBatched(torch.autograd.Function):
+    """The forest form of B6; its backward is the forest train step's."""
+
+    @staticmethod
+    def forward(ctx, x, table, meta, bidx):
+        return _encode_batched(x, table, meta, bidx)
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(_FOREST_BWD)
+
+
+class _BrickNablasBatched(torch.autograd.Function):
+    """The forest form of B8; its backward is the forest train step's."""
+
+    @staticmethod
+    def forward(ctx, g_up, x, table, meta, bidx):
+        return _nablas_batched(g_up, x, table, meta, bidx)
+
+    @staticmethod
+    def backward(ctx, gg):
+        raise NotImplementedError(_FOREST_BWD)
+
+
+def brick_encode_batched(x: torch.Tensor, table: torch.Tensor,
+                         meta: BrickMeta, bidx: torch.Tensor
+                         ) -> torch.Tensor:
+    """Per-block brick encode (the forest): x [N,3] in [0,1], table
+    [B·total_rows, 128], bidx [N] int32 → [N, 2L]. One row gather per
+    (point, level) whatever the block count. CPU tensor → plain version;
+    CUDA tensor → the `brick_fwd` kernel with its block row offset
+    (counted as `brick_fwd_b`). A gradient through it raises (A11)."""
+    _check_batched(x, table, meta, bidx, "brick_encode_batched")
+    if wants_grad(x, table):
+        return _BrickEncodeBatched.apply(x, table, meta, bidx)
+    return _encode_batched(x, table, meta, bidx)
+
+
+def brick_nablas_batched(g_up: torch.Tensor, x: torch.Tensor,
+                         table: torch.Tensor, meta: BrickMeta,
+                         bidx: torch.Tensor) -> torch.Tensor:
+    """Per-block nablas J_enc(x)ᵀ·g_up [N,3] (the forest). CPU tensor →
+    plain version; CUDA tensor → the `brick_dydx` kernel with its block
+    row offset (counted as `brick_dydx_b`). A gradient through it raises
+    (A11)."""
+    _check_batched(x, table, meta, bidx, "brick_nablas_batched")
+    if g_up.shape != (x.shape[0], N_FEAT * meta.n_levels) or \
+            g_up.dtype != torch.float32 or g_up.device != x.device:
+        raise ValueError(f"brick_nablas_batched: g_up must be [N, "
+                         f"{N_FEAT * meta.n_levels}] float32 on {x.device},"
+                         f" got {tuple(g_up.shape)} {g_up.dtype}")
+    if wants_grad(g_up, x, table):
+        return _BrickNablasBatched.apply(g_up, x, table, meta, bidx)
+    return _nablas_batched(g_up, x, table, meta, bidx)

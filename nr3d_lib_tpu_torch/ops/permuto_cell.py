@@ -432,9 +432,14 @@ def fastmod_constants(m: int) -> Tuple[int, int, int]:
 
 def c_meta(meta: PermutoCellMeta) -> _Meta:
     """A PermutoCellMeta as the kernels' by-value meta argument. Refuses
-    what the kernels cannot take: more levels or dimensions than the meta
-    holds, a cells_per_row other than 2^(5−d) (a constant of the kernels'
-    dimension) and a table whose vertex slots (rows · 64) overflow int32."""
+    what the kernels cannot take: no level (the JAX reference and the
+    plain versions refuse it too: they have nothing to stack), more levels
+    or dimensions than the meta holds, a cells_per_row other than 2^(5−d)
+    (a constant of the kernels' dimension) and a table whose vertex slots
+    (rows · 64) overflow int32."""
+    if meta.n_levels == 0:
+        raise ValueError("the permuto kernels take at least one level, got "
+                         "a meta with none")
     if meta.n_levels > MAX_LEVELS or meta.n_dims > MAX_DIMS:
         raise ValueError(f"the permuto kernels take at most {MAX_LEVELS} "
                          f"levels of at most {MAX_DIMS} dimensions, got "

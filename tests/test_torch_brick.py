@@ -333,3 +333,31 @@ def test_cuda_functions_plumbing(monkeypatch):
                                     table.clone().requires_grad_(True), tm)
         (dg,) = torch.autograd.grad(nab.sum(), gt, create_graph=True)
         torch.autograd.grad(dg.sum(), gt)
+
+
+def test_meta_with_no_level_is_refused_like_jax():
+    """A brick meta with no level: the JAX reference refuses it (nothing
+    to stack), and so do the port's plain version, its entry on a CPU
+    tensor and the kernels' `c_meta`, F=2 and F=4 alike; the C entries'
+    own guards at such a meta are held on the card
+    (`test_torch_kernels_gpu.py::test_backward_entries_at_zero_levels`)."""
+    from nr3d_lib_tpu_torch.ops import lotd_brick4 as TB4
+
+    x = np.random.default_rng(0).uniform(size=(5, 3)).astype(np.float32)
+    jmeta = JB.make_brick_meta([], [], 64)
+    with pytest.raises(ValueError):
+        JB.brick_encode_xla(jnp.asarray(x), jnp.zeros((0, 128), jnp.float32),
+                            jmeta)
+    meta = TB.make_brick_meta([], [], 64)
+    assert meta.n_levels == 0 and meta.total_rows == 0
+    xt, tab = torch.from_numpy(x), torch.zeros((0, 128))
+    for call in (lambda: TB.brick_encode_xla(xt, tab, meta),
+                 lambda: TB.brick_encode(xt, tab, meta),
+                 lambda: TB.brick_nablas(torch.zeros((5, 0)), xt, tab, meta)):
+        with pytest.raises((ValueError, RuntimeError, TypeError)):
+            call()
+    for m, struct in ((meta, TB._Meta),
+                      (TB4.make_brick4_meta([], [], 64), TB4._Meta)):
+        with pytest.raises(ValueError, match="at least one level"):
+            TB.c_meta(m, struct)
+    assert TB.c_meta(TB.make_brick_meta([16], ["Dense"], 64)).n_levels == 1

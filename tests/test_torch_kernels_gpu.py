@@ -40,8 +40,15 @@ want_g form at L = 1-4 likewise (its words exact); B13 at the path D
 and 3D lattice metas, B16 at the F=4 metas, B8 at the F=2 ones and B3
 at L = 1, 3 and 4, whose dx must be the same bits in both orders (B3's
 zeros at L = 0, as B1, B2 and B4 give their empty outputs and dL/dx of
-zeros there); B5 at every length mod 4, on misaligned views and clamped
-indices, exactly. The
+zeros there, now through the C entry: the wrappers refuse a meta with
+no level, as the JAX reference does); B5 at every length mod 4, on
+misaligned views and clamped indices, exactly. The backward entries of
+B7, B9, B11/B12 and B15 (and B8) at a meta with no level, through their
+C entries: dL/dx zeroed, the table gradient's rows untouched. The forest
+forms of B6 and B8 (a block row offset `bidx`) against their plain
+versions at random blocks, −1 included (1e-5 and 1e-4, as B6 and B8),
+with bidx 0 on one block bitwise the null-bidx entries, and on a block
+whose rows start past 2^25 rows of the table (the 64-bit offset). The
 search's shortcuts are checked over all 2^32 inputs: its division by d+1
 bitwise against x / b, its modulus exactly.
 """
@@ -1828,6 +1835,13 @@ def test_brick4_dydx_ray_and_permuted_order(cuda, n_levels, n):
     many blocks; one launch counted a call."""
     meta, x, table, g, _, perm = _brick4_ray_inputs(cuda, n_levels, n,
                                                     180 + n_levels)
+    if not n_levels:
+        # the wrapper refuses a meta with no level, as the reference does;
+        # the C entry, handed one, zeroes dx
+        with pytest.raises(ValueError, match="at least one level"):
+            B4.brick4_nablas(g, x, table, meta)
+        assert not _zero_level_entry("brick4_dydx", x).any()
+        return
     dxs = []
     for xx, gg in ((x, g), (x[perm].contiguous(), g[perm].contiguous())):
         before = _build.LAUNCHES["brick4_dydx"]
@@ -1836,35 +1850,155 @@ def test_brick4_dydx_ray_and_permuted_order(cuda, n_levels, n):
         torch.cuda.synchronize()
         assert _build.LAUNCHES["brick4_dydx"] == before + 1
         assert dx.shape == (n, 3)
-        if n_levels:
-            _close(dx, B4.brick4_nablas_xla(gg, xx, table, meta), 1e-4)
-        else:
-            assert not dx.any()
+        _close(dx, B4.brick4_nablas_xla(gg, xx, table, meta), 1e-4)
         dxs.append(dx)
     assert torch.equal(dxs[1], dxs[0][perm])
 
 
 def test_brick4_zero_levels(cuda):
-    """An F=4 meta with no level: B1 gives [n, 0] (and [n, 0, 8, 2] words),
-    B2 and B4 a table gradient of 0 rows and dL/dx of zeros, written by
-    their entries (the memory they get held NaNs just before), B4 a
-    dL/dg_up of [n, 0]."""
+    """An F=4 meta with no level: the wrappers refuse it (`c_meta`), as the
+    JAX reference and the plain versions do; the C entries, handed one
+    (`_zero_level_entry`), write no y and give B2, B3 and B4 a dL/dx of
+    zeros without touching the table gradient's memory."""
     meta, x, table, g, gg, _ = _brick4_ray_inputs(cuda, 0, 100, 190)
     packed = B4.pack_table4(table)
-    y = B4._fwd_cuda(x, packed, meta)
-    y_g, words = B4._fwd_cuda(x, packed, meta, want_g=True)
-    assert y.shape == y_g.shape == (100, 0) and words.shape == (100, 0, 8, 2)
-    for bwd in (lambda: B4._bwd_cuda(x, g, meta, need_dx=True,
-                                     packed=packed),
-                lambda: B4._bwd2_cuda(g, x, packed, gg, meta)[1:]):
-        nan = torch.full_like(x, float("nan"))
-        del nan
-        dx, dtab = bwd()
-        torch.cuda.synchronize()
-        assert dtab.shape == (0, 256)
-        assert dx.shape == (100, 3) and not dx.any()
-    dg, _, _ = B4._bwd2_cuda(g, x, packed, gg, meta, need_dx=False)
-    assert dg.shape == (100, 0)
+    for call in (lambda: B4._fwd_cuda(x, packed, meta),
+                 lambda: B4._fwd_cuda(x, packed, meta, want_g=True),
+                 lambda: B4._bwd_cuda(x, g, meta, need_dx=True,
+                                      packed=packed),
+                 lambda: B4._bwd2_cuda(g, x, packed, gg, meta)):
+        with pytest.raises(ValueError, match="at least one level"):
+            call()
+    for entry in ("brick4_fwd", "brick4_bwd", "brick4_bwd2", "brick4_dydx"):
+        dx = _zero_level_entry(entry, x)
+        assert entry == "brick4_fwd" or not dx.any()
+
+
+# ------------- the backward and nablas entries at a meta with no level
+def _zero_level_entry(entry: str, x: torch.Tensor) -> torch.Tensor:
+    """Call a C entry with a meta of no level (n_dims 3 for the cell
+    permuto), a dL/dx of NaNs, and 4 rows of NaNs where its table
+    gradient would be (a memset sized from the level before the meta's
+    first would reach them, or beyond); asserts the entry returned 0 and
+    left those rows alone, and returns dL/dx (dx for a forward)."""
+    dev, n = x.device, x.shape[0]
+    lib = {"brick": B._lib, "brick4": B4._lib, "permuto": PC._lib,
+           "permuto4": P4._lib}[entry.split("_")[0]]()
+    meta = {"brick": B._Meta, "brick4": B4._Meta, "permuto": PC._Meta,
+            "permuto4": PC._Meta}[entry.split("_")[0]]()
+    if entry.startswith("permuto"):
+        meta.n_dims, meta.cells_per_row = 3, 4
+    dx = torch.full((n, 3), float("nan"), device=dev)
+    dtab = torch.full((4, 256), float("nan"), device=dev)
+    table = torch.zeros((4, 256), device=dev)
+    empty = torch.empty((n, 0), device=dev)
+    gg = torch.zeros((n, 3), device=dev)
+    st = _build.stream_ptr(dev)
+    p = (x.data_ptr(), empty.data_ptr(), table.data_ptr(), dtab.data_ptr(),
+         dx.data_ptr(), gg.data_ptr())
+    xp, gp, tp, dtp, dxp, ggp = p
+    args = {
+        "brick_bwd": (xp, gp, None, tp, meta, dtp, dxp, n, st),
+        "brick4_bwd": (xp, gp, None, tp, meta, dtp, dxp, n, st),
+        "brick_bwd2": (gp, xp, tp, ggp, meta, gp, dtp, dxp, n, st),
+        "brick4_bwd2": (gp, xp, tp, ggp, meta, gp, dtp, dxp, n, st),
+        "brick_dydx": (gp, xp, tp, None, meta, dxp, n, st),
+        "brick4_dydx": (gp, xp, tp, meta, dxp, n, st),
+        "brick4_fwd": (xp, tp, meta, gp, None, n, st),
+        "permuto_bwd": (xp, gp, tp, meta, dtp, dxp, n, st),
+        "permuto4_bwd": (xp, gp, tp, meta, dtp, dxp, n, st),
+    }[entry]
+    assert getattr(lib, entry)(*args) == 0
+    torch.cuda.synchronize()
+    assert torch.isnan(dtab).all()
+    return dx
+
+
+@pytest.mark.parametrize("entry", ["brick_bwd", "brick_bwd2", "brick_dydx",
+                                   "permuto_bwd", "permuto4_bwd"])
+@pytest.mark.parametrize("n", [1, 100_000])
+def test_backward_entries_at_zero_levels(cuda, entry, n):
+    """B7, B9 (and B8), B11/B12 and B15 at a meta with no level, through
+    their C entries: no read of the level before the meta's first (the
+    table gradient's memset is skipped: the rows it would have sized
+    keep their NaNs) and dL/dx zeroed, not left unwritten. The wrappers
+    refuse such a meta, as the JAX reference and the plain versions do."""
+    x = torch.rand((n, 3), device=cuda)
+    assert not _zero_level_entry(entry, x).any()
+    if entry.startswith("brick"):
+        empty = B.make_brick_meta([], [], 64)
+        with pytest.raises(ValueError, match="at least one level"):
+            B.brick_nablas(torch.empty((n, 0), device=cuda), x,
+                           torch.empty((0, 128), device=cuda), empty)
+    else:
+        empty = PC.make_permuto_cell_meta(3, [], 64)
+        with pytest.raises(ValueError, match="at least one level"):
+            PC.c_meta(empty)
+
+
+# ------------------------- B6 and B8 with a block row offset (the forest)
+def _forest_inputs(dev, meta_name: str, n: int, blocks: int, seed: int):
+    meta, x, _, g, _ = _f2_inputs(dev, meta_name, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    table = torch.from_numpy(rng.uniform(
+        -0.1, 0.1, (blocks * meta.total_rows, 128)).astype(np.float32)
+        ).to(dev)
+    bidx = torch.from_numpy(rng.integers(-1, blocks, n).astype(np.int32)
+                            ).to(dev)
+    return meta, x, table, g, bidx
+
+
+@pytest.mark.parametrize("meta_name,n", F2_CASES)
+def test_brick_fwd_b_and_dydx_b_match_plain(cuda, meta_name, n):
+    """The forest forms of B6 and B8 (`brick_fwd_b`, `brick_dydx_b`) at
+    random block indices, −1 included (it reads block 0): y within 1e-5
+    and dx within 1e-4 of `brick_encode_xla_batched` and
+    `brick_nablas_xla_batched`; one launch counted a call under the
+    forest keys. With every bidx 0 on a one-block table both forms give
+    the bits of the null-bidx entries."""
+    meta, x, table, g, bidx = _forest_inputs(cuda, meta_name, n, 5, 31)
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        y = B.brick_encode_batched(x, table, meta, bidx)
+        dx = B.brick_nablas_batched(g, x, table, meta, bidx)
+    torch.cuda.synchronize()
+    for key in ("brick_fwd_b", "brick_dydx_b"):
+        assert _build.LAUNCHES[key] == before.get(key, 0) + 1
+    assert _build.LAUNCHES["brick_fwd"] == before.get("brick_fwd", 0)
+    assert _build.LAUNCHES["brick_dydx"] == before.get("brick_dydx", 0)
+    _close(y, B.brick_encode_xla_batched(x, table, meta, bidx), 1e-5)
+    _close(dx, B.brick_nablas_xla_batched(g, x, table, meta, bidx), 1e-4)
+    one = table[:meta.total_rows].contiguous()
+    zero = torch.zeros_like(bidx)
+    assert torch.equal(B._fwd_cuda(x, one, meta, bidx=zero),
+                       B._fwd_cuda(x, one, meta))
+    assert torch.equal(B._dydx_cuda(g, x, one, meta, bidx=zero),
+                       B._dydx_cuda(g, x, one, meta))
+    # the forest form has no want_g: the entry refuses both together
+    corners = torch.empty((n, meta.n_levels, 8, 2), device=cuda)
+    assert B._lib().brick_fwd(
+        x.data_ptr(), table.data_ptr(), bidx.data_ptr(), B.c_meta(meta),
+        y.data_ptr(), corners.data_ptr(), n, _build.stream_ptr(cuda)) != 0
+
+
+def test_brick_fwd_b_rows_beyond_int32_slots(cuda):
+    """A block whose rows start past 2^25 rows of a `torch.empty` forest
+    table (so past 2^31 float2 slots): only that block is filled, and the
+    forest forms of B6 and B8 read it, equal to the plain versions on the
+    block alone (the 64-bit row arithmetic)."""
+    meta, x, small, g, _ = _f2_inputs(cuda, "dense_hash", 4096, 41)
+    b = (1 << 25) // meta.total_rows + 2
+    assert b * meta.total_rows * 64 >= 1 << 31
+    table = torch.empty(((b + 1) * meta.total_rows, 128), device=cuda)
+    table[b * meta.total_rows:] = small
+    bidx = torch.full((x.shape[0],), b, dtype=torch.int32, device=cuda)
+    with torch.no_grad():
+        y = B.brick_encode_batched(x, table, meta, bidx)
+        dx = B.brick_nablas_batched(g, x, table, meta, bidx)
+    torch.cuda.synchronize()
+    del table
+    _close(y, B.brick_encode_xla(x, small, meta), 1e-5)
+    _close(dx, B.brick_nablas_xla(g, x, small, meta), 1e-4)
 
 
 # ---------------------------- B5: every tail, views, clamps, shapes

@@ -1,7 +1,10 @@
 """Port parity: the LoTD NeRF (`LoTDNeRFModel` over the F=2 brick
-encoding) against the JAX package on the CPU, at a small size (three
-levels with a 64-row hash, decoder and radiance width 16, a 16³ grid, 32
-march steps, 256 rays).
+encoding, and over the bf16-packed F=4 one: the
+experiments/bench_render.py `main(w4=True)` layout) against the JAX
+package on the CPU, at a small size (three F=2 levels or two F=4 levels
+with a 64-row hash, decoder and radiance width 16, a 16³ grid, 32 march
+steps, 256 rays). The model's tests are cases of both layouts (ids
+`march_occ`, `march_occ_compressed` for F=2, `…-F4` for F=4).
 
 Weights cross by the state bridge; the table is raised to ±0.1 and half
 the occupancy grid is set from a numpy seed, so the renders are not empty
@@ -33,12 +36,10 @@ torch.set_num_threads(1)
 
 N_RAYS = 256
 N_STEPS = 32
-ENC = {"lotd_cfg": {"lod_res": [8, 16, 32], "lod_n_feats": 2,
-                    "lod_types": ["Dense", "Dense", "Hash"],
-                    "hashmap_size": 2 ** 15},
-       "backend": "brick", "hashmap_rows": 64}
-FIELD = {"encoding_cfg": ENC, "density_decoder_cfg": {"D": 1, "W": 16},
-         "radiance_cfg": {"D": 2, "W": 16}}
+LOTD = {2: {"lod_res": [8, 16, 32], "lod_n_feats": 2,
+            "lod_types": ["Dense", "Dense", "Hash"]},
+        4: {"lod_res": [16, 64], "lod_n_feats": 4,
+            "lod_types": ["Dense", "Hash"]}}
 ACCEL = {"resolution": 16, "max_steps_per_ray": N_STEPS,
          "step_size": 2.0 / N_STEPS}
 MODES = {"march_occ": {"query_mode": "march_occ"},
@@ -46,8 +47,12 @@ MODES = {"march_occ": {"query_mode": "march_occ"},
                                   "compression_factor": 0.25}}
 
 
-def _cfg(mode):
-    return dict(field_cfg=FIELD, accel_cfg=ACCEL, ray_query_cfg=MODES[mode])
+def _cfg(mode, n_feats=2):
+    enc = {"lotd_cfg": {**LOTD[n_feats], "hashmap_size": 2 ** 15},
+           "backend": "brick", "hashmap_rows": 64}
+    field = {"encoding_cfg": enc, "density_decoder_cfg": {"D": 1, "W": 16},
+             "radiance_cfg": {"D": 2, "W": 16}}
+    return dict(field_cfg=field, accel_cfg=ACCEL, ray_query_cfg=MODES[mode])
 
 
 def _flat_state(model) -> dict:
@@ -64,10 +69,14 @@ def _rays(n: int, seed: int):
     return o.astype(np.float32), d.astype(np.float32)
 
 
-@pytest.fixture(scope="module", params=sorted(MODES))
+CASES = [(mode, f) for f in (2, 4) for mode in sorted(MODES)]
+
+
+@pytest.fixture(scope="module", params=CASES,
+                ids=[m if f == 2 else f"{m}-F4" for m, f in CASES])
 def models(request):
-    mode = request.param
-    jm = JaxModel(**_cfg(mode))
+    mode, n_feats = request.param
+    jm = JaxModel(**_cfg(mode, n_feats))
     jm.populate()
     rng = np.random.default_rng(0)
     flat = _flat_state(jm)
@@ -79,10 +88,10 @@ def models(request):
     for k, v in nnx.to_flat_state(state):
         v[...] = jnp.asarray(flat["/".join(str(p) for p in k)])
     nnx.update(jm, state)
-    tm = TorchModel(**_cfg(mode), device="cpu")
+    tm = TorchModel(**_cfg(mode, n_feats), device="cpu")
     tm.populate()
     tm.load_state_dict(from_jax_state(flat))
-    return mode, jm, tm
+    return mode, jm, tm, n_feats
 
 
 def _jax_render(jm, o, d, key=None):
@@ -109,7 +118,7 @@ def _replay(us):
 
 @pytest.mark.parametrize("perturb", [False, True])
 def test_render_matches_jax(models, perturb):
-    mode, jm, tm = models
+    mode, jm, tm, n_feats = models
     o, d = _rays(N_RAYS, 1)
     key = jax.random.key(3) if perturb else None
     rj, ncj = _jax_render(jm, o, d, key)
@@ -133,7 +142,7 @@ def test_render_grads_match_jax(models):
     """MSE(rgb, |d|) of a perturbed render, differentiated into every
     parameter: the density path through the frozen-x encode (dL/dtable
     only), the radiance path through the decoder's h."""
-    mode, jm, tm = models
+    mode, jm, tm, n_feats = models
     o, d = _rays(N_RAYS, 2)
     key = jax.random.key(4)
     graphdef, params, rest = nnx.split(jm, nnx.Param, ...)
@@ -163,11 +172,11 @@ def test_render_grads_match_jax(models):
 
 
 def test_training_hooks_and_modes(models):
-    mode, jm, tm = models
+    mode, jm, tm, n_feats = models
     assert tm.lifecycle_update_every == 16
     before = tm.accel.occ.val_grid.clone()
     g = torch.Generator().manual_seed(0)
-    tm2 = TorchModel(**_cfg(mode), device="cpu")
+    tm2 = TorchModel(**_cfg(mode, n_feats), device="cpu")
     tm2.load_state_dict(tm.state_dict())
     tm2.training_before_per_step(5, g)            # off the interval: no-op
     assert torch.equal(tm2.accel.occ.val_grid, before)
@@ -175,10 +184,10 @@ def test_training_hooks_and_modes(models):
     assert int(tm2.accel.occ.it) == 1
     assert not torch.equal(tm2.accel.occ.val_grid, before)
     # populate keeps the initial all-occupied grid, as JAX's init(key, None)
-    tm3 = TorchModel(**_cfg(mode), device="cpu")
+    tm3 = TorchModel(**_cfg(mode, n_feats), device="cpu")
     tm3.populate()
     assert bool((tm3.accel.occ.val_grid == 1.0).all())
-    tm4 = TorchModel(**{**_cfg(mode), "ray_query_cfg": {
+    tm4 = TorchModel(**{**_cfg(mode, n_feats), "ray_query_cfg": {
         "query_mode": "march_occ_multi_upsample_compressed"}}, device="cpu")
     with pytest.raises(NotImplementedError, match="A8b"):
         tm4.ray_query({})

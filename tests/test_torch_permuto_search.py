@@ -111,3 +111,18 @@ def test_atomic_groups_match_brute_force(name):
         assert all(g <= len(xx) * (meta.n_dims + 1) for g in got)
     # along rays the coarse levels share slots within a warp
     assert got[0] > PC.atomic_groups(x, meta)[0]
+
+
+def test_c_meta_refuses_a_meta_with_no_level():
+    """No level: the kernels' `c_meta` refuses the meta, as the JAX
+    reference (`permuto_cell_encode_xla`: nothing to stack) and the
+    plain version refuse it; the C entries' own guards are held on the
+    card (`test_torch_kernels_gpu.py::test_backward_entries_at_zero_levels`)."""
+    meta = PC.make_permuto_cell_meta(3, [], 64)
+    assert meta.n_levels == 0 and meta.total_rows == 0
+    with pytest.raises(ValueError, match="at least one level"):
+        PC.c_meta(meta)
+    x = torch.rand(5, 3)
+    with pytest.raises((ValueError, RuntimeError)):
+        PC.permuto_cell_encode(x, torch.zeros((0, 128)), meta)
+    assert PC.c_meta(PC.make_permuto_cell_meta(3, [8.0], 64)).n_levels == 1
