@@ -5,8 +5,14 @@ outputs: the F=4 brick nablas B3 (`brick4_dydx`, `csrc/brick4.cu`) and
 the occupancy gather B5 (`gather1d`, `csrc/gather1d.cu`). With `--bidx`
 first, it only builds a parent's and this tree's `brick.cu` and holds
 the null-bidx forms of B6 (both forms) and B8 bitwise against the
-parent's, which take no `bidx` (`b68_null_bidx_bitwise`; the parent
-from before the forest's bidx argument, 70fc0b1):
+parent's (`b68_null_bidx_bitwise`), and the null-bidx B7 and B9 against
+the parent's (`b79_null_bidx`): B7's dL/dx (from the want_g corners and
+from the table) and B9's dL/dg_up and dL/dx bit for bit, their dL/dtable
+within the atomics' tolerance (1e-5 of its largest entry: the sums'
+order changes from run to run), each timed in turns (parent, this tree,
+this tree, parent). An entry takes the forest's bidx where the source's
+C entry names it, so the parent may come from before B6 and B8 took it
+(70fc0b1) or from before B7 and B9 did (a40ce1c):
 
     python3 chip_ab.py --bidx _archive/parent/nr3d_lib_tpu_torch/csrc
 
@@ -104,6 +110,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -111,8 +118,16 @@ REPO = Path(__file__).resolve().parent
 BUILD = REPO / "_archive" / "ab_build"
 NEW = REPO / "nr3d_lib_tpu_torch" / "csrc"
 
-# ---------------- B6 and B8 (brick.cu): the null-bidx forms' bits
+# --------- B6-B9 (brick.cu): the null-bidx forms' bits (`--bidx`)
 B68F = "brick.cu"
+ENTRIES = ("brick_fwd", "brick_bwd", "brick_dydx", "brick_bwd2")
+
+
+def _takes_bidx(src: Path, entry: str) -> bool:
+    """Whether a brick.cu's C entry `entry` takes the forest's bidx."""
+    text = src.read_text()
+    head = text[text.index(f"int {entry}("):]
+    return "bidx" in head[:head.index(")")]
 
 # --------------------------------------------------- B3 (brick4.cu)
 B3F = "brick4.cu"
@@ -572,7 +587,9 @@ def _build() -> dict:
     return {name: BUILD / f"lib{name}.so" for name in sources}
 
 
-def _load(path: Path) -> ctypes.CDLL:
+def _load(path: Path, src: Optional[Path] = None) -> ctypes.CDLL:
+    """A built library with its entries' argtypes; `src`: the brick.cu it
+    was built from (whether its entries take the forest's bidx)."""
     from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
 
     vp, n = ctypes.c_void_p, ctypes.c_longlong
@@ -580,11 +597,22 @@ def _load(path: Path) -> ctypes.CDLL:
 
     lib = ctypes.CDLL(str(path))
     if path.name.startswith("libb68"):
-        # this tree's entries take the forest's bidx after the table
-        b = [vp] if path.name == "libb68_new.so" else []
-        lib.brick_fwd.argtypes = [vp, vp, *b, B._Meta, vp, vp, n, vp]
-        lib.brick_dydx.argtypes = [vp, vp, vp, *b, B._Meta, vp, n, vp]
-        lib.brick_fwd.restype = lib.brick_dydx.restype = ctypes.c_int
+        # an entry takes the forest's bidx (and B7 and B9 the table's
+        # block count) after the table where its source names it
+        b = {e: _takes_bidx(src, e) for e in ENTRIES}
+        b1 = lambda e: [vp] if b[e] else []            # noqa: E731
+        b2 = lambda e: [vp, n] if b[e] else []         # noqa: E731
+        lib.brick_fwd.argtypes = [vp, vp, *b1("brick_fwd"), B._Meta, vp, vp,
+                                  n, vp]
+        lib.brick_dydx.argtypes = [vp, vp, vp, *b1("brick_dydx"), B._Meta,
+                                   vp, n, vp]
+        lib.brick_bwd.argtypes = [vp, vp, vp, vp, *b2("brick_bwd"), B._Meta,
+                                  vp, vp, n, vp]
+        lib.brick_bwd2.argtypes = [vp, vp, vp, vp, *b2("brick_bwd2"),
+                                   B._Meta, vp, vp, vp, n, vp]
+        for e in ENTRIES:
+            getattr(lib, e).restype = ctypes.c_int
+        lib.takes_bidx = b
     elif path.name.startswith("libb3"):
         lib.brick4_dydx.argtypes = [vp, vp, vp, B4._Meta, vp, n, vp]
         lib.brick4_dydx.restype = ctypes.c_int
@@ -807,7 +835,7 @@ def _b68(libs: dict, dev, neus2, nerf) -> dict:
 
     def run(name, x, table, meta, g):
         lib, st = libs[name], Bu.stream_ptr(dev)
-        nb = [None] if name == "b68_new" else []
+        nb = [None] if lib.takes_bidx["brick_fwd"] else []
         n, L = x.shape[0], meta.n_levels
         y = torch.empty((n, 2 * L), device=dev)
         yg = torch.empty_like(y)
@@ -849,6 +877,88 @@ def _b68(libs: dict, dev, neus2, nerf) -> dict:
                   f"{meta.n_levels} levels; y, want_g y and corners, dx "
                   f"bitwise the parent's: {same}")
             res[what] = same
+    return res
+
+
+def _b79(libs: dict, dev, neus2, nerf) -> dict:
+    """B7 (without dL/dx, with it from the want_g corners and from the
+    table) and B9 (with and without dL/dx) with a null bidx against the
+    parent's: dL/dx and dL/dg_up bit for bit, dL/dtable within 1e-5 of
+    its largest entry (atomics), at the F=2 NeuS's and NeRF's metas on
+    points along rays; each timed in turns."""
+    import torch
+    import chip_smoke as CS
+    from nr3d_lib_tpu_torch.ops import _build as Bu
+    from nr3d_lib_tpu_torch.ops import lotd_brick as B
+
+    def bwd(name, x, g, corners, table, meta, need_dx):
+        lib, st = libs[name], Bu.stream_ptr(dev)
+        nb = [None, 1] if lib.takes_bidx["brick_bwd"] else []
+        dtab = torch.empty((meta.total_rows, 128), device=dev)
+        dx = torch.empty_like(x) if need_dx else None
+        Bu.check(lib.brick_bwd(x.data_ptr(), g.data_ptr(), B.ptr(corners),
+                               B.ptr(table), *nb, B.c_meta(meta),
+                               dtab.data_ptr(), B.ptr(dx), x.shape[0], st),
+                 name)
+        return dx, dtab
+
+    def bwd2(name, g, x, table, gg, meta, need_dx):
+        lib, st = libs[name], Bu.stream_ptr(dev)
+        nb = [None, 1] if lib.takes_bidx["brick_bwd2"] else []
+        dg = torch.empty_like(g)
+        dtab = torch.empty((meta.total_rows, 128), device=dev)
+        dx = torch.empty_like(x) if need_dx else None
+        Bu.check(lib.brick_bwd2(g.data_ptr(), x.data_ptr(), table.data_ptr(),
+                                gg.data_ptr(), *nb, B.c_meta(meta),
+                                dg.data_ptr(), dtab.data_ptr(), B.ptr(dx),
+                                x.shape[0], st), name)
+        return dg, dx, dtab
+
+    res = {}
+    with torch.no_grad():
+        for what, enc, x in (
+                ("neus", neus2.field.implicit_surface.encoding,
+                 _ray_inputs(dev, 147_456, 71)),
+                ("nerf", nerf.field.encoding, _ray_inputs(dev, 196_608, 72))):
+            meta, table = enc.meta, B.aligned(enc._build_table().detach())
+            x = B.aligned(x)
+            gen = torch.Generator(device=dev).manual_seed(73)
+            g = torch.randn((x.shape[0], 2 * meta.n_levels), device=dev,
+                            generator=gen)
+            gg = torch.randn((x.shape[0], 3), device=dev, generator=gen)
+            corners = B.aligned(B._fwd_cuda(x, table, meta, want_g=True)[1])
+            forms = {
+                "b7": lambda n: bwd(n, x, g, None, None, meta, False),
+                "b7_dx_corners": lambda n: bwd(n, x, g, corners, None, meta,
+                                               True),
+                "b7_dx_table": lambda n: bwd(n, x, g, None, table, meta,
+                                             True),
+                "b9": lambda n: bwd2(n, g, x, table, gg, meta, False),
+                "b9_dx": lambda n: bwd2(n, g, x, table, gg, meta, True)}
+            row = {}
+            for form, call in forms.items():
+                outs = {n: call(n) for n in ("b68_parent", "b68_new")}
+                torch.cuda.synchronize()
+                par, new = outs["b68_parent"], outs["b68_new"]
+                bits = all((a is None and b is None) or torch.equal(a, b)
+                           for a, b in zip(par[:-1], new[:-1]))
+                tol = 1e-5 * float(par[-1].abs().max())
+                err = float((par[-1] - new[-1]).abs().max())
+                ms = {n: [] for n in outs}
+                for n in ("b68_parent", "b68_new", "b68_new", "b68_parent"):
+                    ms[n].append(CS._time_ms(lambda: call(n)))
+                ms = {n: min(v) for n, v in ms.items()}
+                print(f"[b79 null bidx] {what} {form}: {x.shape[0]:,} "
+                      f"points x {meta.n_levels} levels; dL/dx and "
+                      f"dL/dg_up bitwise the parent's: {bits}; dL/dtable "
+                      f"max|new-parent| {err:.3e} (tolerance {tol:.3e}); "
+                      f"parent {ms['b68_parent']:.4f} ms, this tree "
+                      f"{ms['b68_new']:.4f} ms (in turns)")
+                row[form] = {"bitwise": bits, "dtab_err": err,
+                             "dtab_tol": tol,
+                             "ms_parent": ms["b68_parent"],
+                             "ms_new": ms["b68_new"]}
+            res[what] = row
     return res
 
 
@@ -1019,8 +1129,8 @@ def _check(res: dict) -> list:
 
 
 def _main_bidx(parent: Path) -> int:
-    """`--bidx`: the null-bidx B6 and B8 against the parent's brick.cu
-    (a parent from before the forest's bidx argument) only."""
+    """`--bidx`: the null-bidx B6, B7, B8 and B9 against the parent's
+    brick.cu only."""
     import torch
     import chip_smoke as CS
 
@@ -1030,9 +1140,11 @@ def _main_bidx(parent: Path) -> int:
     sources = {"b68_parent": (parent / B68F, parent),
                "b68_new": (NEW / B68F, NEW)}
     _nvcc_all(sources)
-    libs = {n: _load(BUILD / f"lib{n}.so") for n in sources}
+    libs = {n: _load(BUILD / f"lib{n}.so", src)
+            for n, (src, _) in sources.items()}
     _, neus2, nerf = _models()
-    res = {"b68_null_bidx_bitwise": _b68(libs, dev, neus2, nerf)}
+    res = {"b68_null_bidx_bitwise": _b68(libs, dev, neus2, nerf),
+           "b79_null_bidx": _b79(libs, dev, neus2, nerf)}
     res["failed"] = _check(res)
     print(json.dumps(res))
     return 1 if res["failed"] else 0

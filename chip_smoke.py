@@ -57,7 +57,13 @@
    pairs above the α floor and the (warp, slot) pairs in which any pixel
    is, the work its warp vote leaves). The forest forms of B6 and B8
    (`brick_fwd_b`, `brick_dydx_b`: a block row offset per point) on the
-   inputs of each of their launches in one forest render.
+   inputs of each of their launches in one forest render; the forest
+   forms of B7 and B9 (`brick_bwd_b`, `brick_bwd2_b`) on the inputs one
+   forest train step hands them (163,840 compacted slots × 3 levels over
+   64 blocks), with and without dL/dx, also timed on the same points in
+   a random order, where their dL/dx and B9's dL/dg_up must be the same
+   bits; their rows count the float2 atomics before and after the warps'
+   aggregation, keyed on the global slot.
 4. The paths, each through the entry points a user calls, with seeded
    weights, a seeded 15% occupancy and seeded rays. Launch counters are
    zeroed just before each path and read just after; every count must be
@@ -106,6 +112,15 @@
      compaction): 10 renders of 8192 rays (5 `brick_fwd_b` and 1
      `brick_dydx_b` per render); the CPU comparison keeps as many rays
      as fit CPU_STEP_BUDGET_S and prints how many.
+   - `forest_train_4096`, the forest NeuS trained as
+     examples/train_forest_street.py:119-147 does (the same model,
+     another seed): perturbed `ray_query`, MSE(rgb, |d|) + 0.01·mean((‖
+     nablas_packed‖ − 1)²) over every packed slot, Adam(1e-2), the
+     lifecycle every `lifecycle_update_every` steps; 4096 rays from the
+     radius-2.5 sphere. One step against the CPU port (its rays cut to
+     CPU_STEP_BUDGET_S), 2 warm-up and 20 timed steps (5 `brick_fwd_b`,
+     1 each of `brick_dydx_b`, `brick_bwd_b`, `brick_bwd2_b` per step,
+     +1 `brick_fwd_b` at each occupancy update).
    - Path C, the dynamic (x,t) NeuS (`DynamicPermutoNeuSModel`,
      examples/configs/dynamic_permuto_w4.yaml at full width; 14,080 table
      rows), rays with seeded timestamps in [-1, 1]: 10 renders of 4096
@@ -529,6 +544,19 @@ def _fixed_loss(model, o, d, extra=None, draw=None, generator=None):
     return torch.mean((rendered["rgb_volume"] - torch.abs(d)) ** 2)
 
 
+def _forest_loss(model, o, d, extra=None, draw=None, generator=None):
+    """examples/train_forest_street.py:121-127: MSE(rgb, |d|) + 0.01·the
+    mean of (‖nablas‖ − 1)² over every packed slot, padding included."""
+    import torch
+
+    rendered, vb = model.ray_query(model.ray_test(o, d), draw=draw,
+                                   generator=generator)
+    eik = torch.mean((torch.linalg.norm(vb["nablas_packed"], dim=-1)
+                      - 1.0) ** 2)
+    return torch.mean((rendered["rgb_volume"] - torch.abs(d)) ** 2) + \
+        0.01 * eik
+
+
 def _kernel_row(kernels, *, name, key, path, source, replaces, err, ms,
                 plain_ms, bound, library_ms=None, **extra) -> None:
     kernels.append(dict(name=name, route="cuda", source=source,
@@ -638,33 +666,39 @@ def _step_vs_cpu(model, cpu, o, d, cpu_render_s: float, label: str,
     model.zero_grad(set_to_none=True)
 
 
-def _train_state(model, device):
-    """The train steps' optimizer, Adam(5e-3), and their generator."""
+def _train_state(model, device, lr: float = 5e-3):
+    """The train steps' optimizer, Adam(lr), and their generator."""
     import torch
 
-    return (torch.optim.Adam(model.parameters(), lr=5e-3),
+    return (torch.optim.Adam(model.parameters(), lr=lr),
             torch.Generator(device=device).manual_seed(9))
 
 
 def _train_step(model, opt, gen, o, d, it: int, extra=None, loss_fn=None,
-                lifecycle: bool = True):
+                lifecycle: bool = True, gated: bool = False):
     """Train step `it` (1, 2, ...): lifecycle (the production step's; the
     bench's `main_train` steps of kind nerf and neus run none), loss,
-    backward, Adam. Returns the loss, detached."""
-    if lifecycle:
+    backward, Adam. `gated`: the lifecycle of examples/
+    train_forest_street.py:140-147, `training_before_per_step` alone,
+    every `lifecycle_update_every` steps (every step when the model has a
+    stepwise schedule). Returns the loss, detached."""
+    every = 1 if not gated or model.has_stepwise_schedules() else \
+        model.lifecycle_update_every
+    if lifecycle and it % every == 0:
         model.training_before_per_step(it, gen)
     opt.zero_grad(set_to_none=True)
     loss = (loss_fn or _step_loss)(model, o, d, extra, generator=gen)
     loss.backward()
     opt.step()
-    if lifecycle:
+    if lifecycle and not gated:
         model.training_after_per_step(it, gen)
     return loss.detach()
 
 
 def _train(model, o, d, smi: str, label: str, per_step: dict,
            per_update: dict, extra=None, loss_fn=None,
-           lifecycle: bool = True) -> dict:
+           lifecycle: bool = True, lr: float = 5e-3,
+           gated: bool = False) -> dict:
     """A train step: warm-up, then N_STEPS timed steps that cross an
     occupancy update (with the lifecycle); each step must launch exactly
     `per_step`, plus `per_update` at an update. Returns the timed steps'
@@ -672,14 +706,14 @@ def _train(model, o, d, smi: str, label: str, per_step: dict,
     import torch
     from nr3d_lib_tpu_torch.ops import _build
 
-    opt, gen = _train_state(model, o.device)
+    opt, gen = _train_state(model, o.device, lr)
     its = iter(range(1, 10 ** 6))
     losses = []
 
     def step():
         it = next(its)
         losses.append(_train_step(model, opt, gen, o, d, it, extra, loss_fn,
-                                  lifecycle))
+                                  lifecycle, gated))
         return it
 
     for _ in range(N_WARMUP_STEPS):
@@ -723,7 +757,7 @@ def _train(model, o, d, smi: str, label: str, per_step: dict,
     return launches
 
 
-def _record_step(model, o, d, it: int, module, names) -> dict:
+def _record_step(model, o, d, it: int, module, names, loss_fn=None) -> dict:
     """One train step's loss and backward at iteration `it` (no optimizer
     step) with the wrappers `names` of `module` wrapped, so the inputs
     that each receives inside the step are kept: {name: its arguments by
@@ -749,7 +783,7 @@ def _record_step(model, o, d, it: int, module, names) -> dict:
         setattr(module, name, keeper(name))
     try:
         model.training_before_per_step(it, gen)
-        _step_loss(model, o, d, generator=gen).backward()
+        (loss_fn or _step_loss)(model, o, d, generator=gen).backward()
     finally:
         for name in names:
             setattr(module, name, orig[name])
@@ -1465,6 +1499,162 @@ def _forest_kernel_phases(forest, o, d, kernels) -> None:
                                                for r in launches],
                     bound_ms_by_launch_render=[r["bound"][0]
                                                for r in launches])
+
+
+def _forest_train_kernel_phases(model, o, d, kernels) -> None:
+    """The forest forms of B7 and B9 (`brick_bwd_b`, `brick_bwd2_b`) on the
+    inputs that one forest train step (it = 1, no optimizer step) hands
+    each launch: held against their plain versions
+    (`brick_encode_bwd_xla_batched`, `brick_nablas_bwd_xla_batched`) in
+    the step's form (no dL/dx: x comes from the no-grad march) and with
+    dL/dx; timed in ray order and on the same points permuted, where
+    dL/dx and B9's dL/dg_up must be the same bits; their atomics counted
+    before and after the warps' aggregation (on the global slot)."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import lotd_brick as B
+
+    src = "nr3d_lib_tpu_torch/csrc/brick.cu"
+    rep = "nr3d_lib_tpu/ops/lotd_brick.py"
+    rec = _record_step(model, o, d, 1, B, ("_bwd_cuda", "_bwd2_cuda"),
+                       loss_fn=_forest_loss)
+    dev = o.device
+    with torch.no_grad():
+        # ------------------------------------------------ B7 forest
+        a = rec["_bwd_cuda"]
+        x, g, meta, table, bidx = (a["x"], a["g"], a["meta"], a["table"],
+                                   a["bidx"])
+        _require(bidx is not None and not a["need_dx"] and
+                 a["corners"] is None, "brick_bwd_b: the step's B7 is not "
+                 "the forest form without dL/dx")
+        n, L = x.shape[0], meta.n_levels
+        blocks = table.shape[0] // meta.total_rows
+        tab_bytes = table.numel() * 4
+        dx_p, dtab_p = B.brick_encode_bwd_xla_batched(x, table, g, meta,
+                                                      bidx, True)
+        _, dtab_k = B._bwd_cuda(x, g, meta, need_dx=False, table=table,
+                                bidx=bidx)
+        dx_k, dtab_k2 = B._bwd_cuda(x, g, meta, need_dx=True, table=table,
+                                    bidx=bidx)
+        err = _check(f"brick_bwd_b (B7, forest), {blocks} blocks of "
+                     f"{meta.total_rows} rows", n, [
+                         ("dL/dtable", max(_err(dtab_k, dtab_p),
+                                           _err(dtab_k2, dtab_p)),
+                          1e-6 + 1e-5 * float(dtab_p.abs().max()),
+                          "sums by atomics in an order that changes from "
+                          "run to run"),
+                         ("dL/dx", _err(dx_k, dx_p),
+                          1e-4 + 1e-4 * float(dx_p.abs().max()),
+                          "sums over corners, features and levels scaled "
+                          "by res-2")])
+        perm = torch.randperm(n, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(19))
+        xp, gp, bp = (v[perm].contiguous() for v in (x, g, bidx))
+        dx_perm, _ = B._bwd_cuda(xp, gp, meta, need_dx=True, table=table,
+                                 bidx=bp)
+        _require(torch.equal(dx_perm, dx_k[perm]), "brick_bwd_b: a point's "
+                 "dL/dx depends on its place in the batch")
+        ms = _time_ms(lambda: B._bwd_cuda(x, g, meta, need_dx=False,
+                                          table=table, bidx=bidx))
+        ms_perm = _time_ms(lambda: B._bwd_cuda(xp, gp, meta, need_dx=False,
+                                               table=table, bidx=bp))
+        ms_dx = _time_ms(lambda: B._bwd_cuda(x, g, meta, need_dx=True,
+                                             table=table, bidx=bidx))
+        plain_ms = _time_ms(lambda: B.brick_encode_bwd_xla_batched(
+            x, table, g, meta, bidx, False), iters=5)
+        plain_dx = _time_ms(lambda: B.brick_encode_bwd_xla_batched(
+            x, table, g, meta, bidx, True), iters=5)
+        naive = n * L * 8
+        groups = sum(B.brick_atomic_groups(x, meta, bidx))
+        groups_perm = sum(B.brick_atomic_groups(xp, meta, bp))
+        # x, bidx and g in, the zeroed dL/dtable out; with dL/dx also the
+        # table in and dx out. Operations as B7's: 44 a (point, level),
+        # 140 with dL/dx
+        bound = _bound(n * (12 + 4 + 8 * L) + tab_bytes, n * L * 44)
+        bound_dx = _bound(n * (12 + 4 + 8 * L + 12) + 2 * tab_bytes,
+                          n * L * 140)
+        print(f"[brick_bwd_b (B7, forest)] {n:,} points x {L} levels, "
+              f"bidx < 0 at {int((bidx < 0).sum()):,}; need_dx false (the "
+              f"step's form): kernel {ms:.4f} ms (permuted {ms_perm:.4f} ms)"
+              f" | plain {plain_ms:.4f} ms | bound {bound[0]:.4f} ms "
+              f"({bound[1]}); need_dx true: kernel {ms_dx:.4f} ms | plain "
+              f"{plain_dx:.4f} ms | bound {bound_dx[0]:.4f} ms "
+              f"({bound_dx[1]}) | library: none | float2 atomics {groups:,}"
+              f" of {naive:,} after the warps' aggregation ({groups_perm:,}"
+              f" permuted)")
+        _kernel_row(kernels, name="brick_bwd_b (B7, forest)",
+                    key="brick_bwd_b", path="forest_train_4096", source=src,
+                    replaces=f"{rep}:636", err=err, ms=ms, plain_ms=plain_ms,
+                    bound=bound, n_points=n, levels=L, blocks=blocks,
+                    ms_need_dx=ms_dx, plain_ms_need_dx=plain_dx,
+                    bound_ms_need_dx=bound_dx[0], ms_permuted=ms_perm,
+                    atomics_naive=naive, atomic_groups=groups,
+                    atomic_groups_permuted=groups_perm)
+
+        # ------------------------------------------------ B9 forest
+        a = rec["_bwd2_cuda"]
+        g_up, x, table, gg, meta, bidx = (a["g_up"], a["x"], a["table"],
+                                          a["gg"], a["meta"], a["bidx"])
+        _require(bidx is not None and not a["need_dx"], "brick_bwd2_b: the "
+                 "step's B9 is not the forest form without dL/dx")
+        n, L = x.shape[0], meta.n_levels
+        dg_p, dx_p, dt_p = B.brick_nablas_bwd_xla_batched(g_up, x, table, gg,
+                                                          meta, bidx)
+        dg_k, none_dx, dt_k = B._bwd2_cuda(g_up, x, table, gg, meta,
+                                           need_dx=False, bidx=bidx)
+        dg_k2, dx_k, dt_k2 = B._bwd2_cuda(g_up, x, table, gg, meta,
+                                          bidx=bidx)
+        _require(none_dx is None and torch.equal(dg_k, dg_k2),
+                 "brick_bwd2_b: need_dx changed dL/dg_up or wrote dL/dx")
+        err = _check(f"brick_bwd2_b (B9, forest), {blocks} blocks", n, [
+            ("dL/dg_up", _err(dg_k, dg_p),
+             1e-4 + 1e-4 * float(dg_p.abs().max()),
+             "sums over corners scaled by res-2 in another order"),
+            ("dL/dx", _err(dx_k, dx_p), 1e-4 + 1e-4 * float(dx_p.abs().max()),
+             "sums over corners scaled by (res-2)^2 in another order"),
+            ("dL/dtable", max(_err(dt_k, dt_p), _err(dt_k2, dt_p)),
+             1e-6 + 1e-5 * float(dt_p.abs().max()),
+             "atomics, order changes from run to run")])
+        perm = torch.randperm(n, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(20))
+        xp, gp, ggp, bp = (v[perm].contiguous()
+                           for v in (x, g_up, gg, bidx))
+        dg_perm, dx_perm, _ = B._bwd2_cuda(gp, xp, table, ggp, meta, bidx=bp)
+        _require(torch.equal(dg_perm, dg_k[perm]) and
+                 torch.equal(dx_perm, dx_k[perm]),
+                 "brick_bwd2_b: a point's dL/dg_up or dL/dx depends on its "
+                 "place in the batch")
+        ms = _time_ms(lambda: B._bwd2_cuda(g_up, x, table, gg, meta,
+                                           need_dx=False, bidx=bidx))
+        ms_perm = _time_ms(lambda: B._bwd2_cuda(gp, xp, table, ggp, meta,
+                                                need_dx=False, bidx=bp))
+        ms_dx = _time_ms(lambda: B._bwd2_cuda(g_up, x, table, gg, meta,
+                                              bidx=bidx))
+        plain_ms = _time_ms(lambda: B.brick_nablas_bwd_xla_batched(
+            g_up, x, table, gg, meta, bidx), iters=5)
+        naive = n * L * 8
+        groups = sum(B.brick_atomic_groups(x, meta, bidx))
+        groups_perm = sum(B.brick_atomic_groups(xp, meta, bp))
+        # g_up, x, bidx, gg in, dL/dg_up out, the table in and the zeroed
+        # dL/dtable out; operations as B9's: 170, 370 with dL/dx
+        io = n * (8 * L + 12 + 4 + 12 + 8 * L) + 2 * tab_bytes
+        bound = _bound(io, n * L * 170)
+        bound_dx = _bound(io + n * 12, n * L * 370)
+        print(f"[brick_bwd2_b (B9, forest)] {n:,} points x {L} levels; "
+              f"need_dx false (the step's form): kernel {ms:.4f} ms "
+              f"(permuted {ms_perm:.4f} ms) | bound {bound[0]:.4f} ms "
+              f"({bound[1]}); need_dx true: kernel {ms_dx:.4f} ms | bound "
+              f"{bound_dx[0]:.4f} ms ({bound_dx[1]}); plain (all three "
+              f"gradients) {plain_ms:.4f} ms | library: none | float2 "
+              f"atomics {groups:,} of {naive:,} after the warps' "
+              f"aggregation ({groups_perm:,} permuted)")
+        _kernel_row(kernels, name="brick_bwd2_b (B9, forest)",
+                    key="brick_bwd2_b", path="forest_train_4096", source=src,
+                    replaces=f"{rep}:1077", err=err, ms=ms,
+                    plain_ms=plain_ms, bound=bound, n_points=n, levels=L,
+                    blocks=blocks, ms_need_dx=ms_dx,
+                    bound_ms_need_dx=bound_dx[0], ms_permuted=ms_perm,
+                    atomics_naive=naive, atomic_groups=groups,
+                    atomic_groups_permuted=groups_perm)
 
 
 def _permuto4_kernel_phases(model, o, d, ts, kernels) -> None:
@@ -2412,6 +2602,24 @@ def main() -> int:
         "brick_fwd_b": 5, "brick_dydx_b": 1}, "forest_serve_8192", smi,
         cpu_rays=n_cpu)
     paths["forest_serve_8192"] = (launches, N_RENDERS)
+
+    # ---- A11: the forest NeuS train step (B6 to B9 with bidx), as
+    # examples/train_forest_street.py:119-147 at the serving model's width
+    ftrain = LoTDForestNeuSModel(**FOREST_CFG, seed=0)
+    _seed_weights(ftrain, ftrain.field.implicit_surface.encoding, 26)
+    ftrain.populate()
+    oft, dft = (torch.from_numpy(a).to(dev)
+                for a in _rays(N_RAYS, seed=1, radius=2.5))
+    ftrain_cpu = _cpu_twin(ftrain, LoTDForestNeuSModel, FOREST_CFG)
+    _forest_train_kernel_phases(ftrain, oft, dft, kernels)
+    _step_vs_cpu(ftrain, ftrain_cpu, oft, dft, _cpu_seconds(
+        lambda oo, dd: _forest_loss(ftrain_cpu, oo, dd), oft, dft),
+        "forest_train_4096", loss=_forest_loss)
+    paths["forest_train_4096"] = (_train(
+        ftrain, oft, dft, smi, "forest_train_4096",
+        {"brick_fwd_b": 5, "brick_dydx_b": 1, "brick_bwd_b": 1,
+         "brick_bwd2_b": 1}, {"brick_fwd_b": 1}, loss_fn=_forest_loss,
+        lr=1e-2, gated=True), N_STEPS)
 
     # ------------------------- path C: the dynamic (x,t) permuto NeuS
     dyn_cpu = _cpu_twin(dyn, DynamicPermutoNeuSModel, DYN_CFG)

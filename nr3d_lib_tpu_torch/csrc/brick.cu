@@ -5,16 +5,19 @@
 // (via `_brick_encode_pallas`, and with want_g via `_brick_encode_pallas_g`),
 // `_bwd_kernel_v4` (via `_brick_bwd_pallas_v4`; the frozen-x form is
 // need_dx=false), `_dydx_kernel_v3` (via `_brick_dydx_pallas`) and
-// `_bwd2_kernel_v3` (via `_brick_bwd2_pallas`). B6 and B8 also take the
+// `_bwd2_kernel_v3` (via `_brick_bwd2_pallas`). All four also take the
 // forest's per-point block index (`bidx`, the JAX `_offset_rows` applied
-// in `_brick_encode_pallas_impl` and `_brick_dydx_pallas`): block b owns
-// rows [b total_rows, (b+1) total_rows) of a [B total_rows, 128] table,
-// and bidx < 0 reads block 0 (the callers zero those points). The offset
-// is added where each warp locates its level's row, in 64-bit: a 4096-
-// block forest of 23,005 rows a block has 94 M rows, and row * 64
-// overflows int32 past 2^25 rows. With bidx null the kernels are the
-// instances they were before it existed (a template flag), so their
-// outputs keep their bits.
+// in `_brick_encode_pallas_impl`, `_brick_bwd_pallas_impl`,
+// `_brick_dydx_pallas` and `_brick_bwd2_pallas`): block b owns rows
+// [b total_rows, (b+1) total_rows) of a [B total_rows, 128] table, and
+// bidx < 0 reads block 0 (the callers zero those points' values, so their
+// gradients land in block 0 as zeros). The offset is added where each
+// warp locates its level's row, in 64-bit: a 4096-block forest of 23,005
+// rows a block has 94 M rows, and row * 64 overflows int32 past 2^25
+// rows. The backwards' warps sum lanes on that whole 64-bit slot, so two
+// lanes at one block-local slot of two blocks issue two atomics. With
+// bidx null the kernels are the instances they were before it existed (a
+// template flag), so their outputs keep their bits.
 //
 // Table layout: f32 [rows, 128], lane = vertex*2 + f, read here as 64
 // float2 per 512-byte brick row. Each (point, level) reads its 8 corners,
@@ -152,6 +155,19 @@ __device__ __forceinline__ long long block_row(const int* __restrict__ bidx,
   return (b * block_rows + c.row) * 64 + c.vert0;
 }
 
+// The corner (0,0,0) slot that B7 and B9 scatter from: with bidx (B) the
+// forest's 64-bit `block_row`, else the int slot of the null-bidx
+// instances as they were before the forest form.
+template <bool B>
+__device__ __forceinline__ auto slot0(const int* __restrict__ bidx,
+                                      long long p, long long block_rows,
+                                      const Located& c) {
+  if constexpr (B)
+    return block_row(bidx, p, block_rows, c);
+  else
+    return c.row * 64 + c.vert0;
+}
+
 // The run of consecutive points of B6-B9: one warp's width at each level
 constexpr int BRICK_POINTS = 32;
 
@@ -239,11 +255,16 @@ __global__ void brick_fwd_kernel(const float* __restrict__ x,
 // [L, 32, 3] there, so one thread a coordinate sums the levels in level
 // order and the block writes dL/dx once: no memset, no dx atomics, the
 // same bits in any order of the points. The index math is B6's, so a
-// point on a cell boundary scatters into the row the forward read.
+// point on a cell boundary scatters into the row the forward read. The
+// forest form (B) scatters into each point's block, keyed by the 64-bit
+// slot (`slot0`), and reads dL/dx's corner values from the table there.
+template <bool B>
 __global__ void brick_bwd_kernel(const float* __restrict__ x,
                                  const float2* __restrict__ g,
                                  const float2* __restrict__ corners,
                                  const float2* __restrict__ table,
+                                 const int* __restrict__ bidx,
+                                 long long block_rows,
                                  const __grid_constant__ BrickMeta meta,
                                  float2* __restrict__ dtab,
                                  float* __restrict__ dx, long long n) {
@@ -263,7 +284,7 @@ __global__ void brick_bwd_kernel(const float* __restrict__ x,
     const BrickLevel& lv = meta.lv[l];
     const Located c = locate(xp, lv);
     const float2 gv = gs[i * L + l];
-    const int base = c.row * 64 + c.vert0;
+    const auto base = slot0<B>(bidx, p0 + i, block_rows, c);
     float s[3][2];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -272,7 +293,7 @@ __global__ void brick_bwd_kernel(const float* __restrict__ x,
     }
     float2 v[8];
     if (dx != nullptr) {
-      if (corners != nullptr) {
+      if (!B && corners != nullptr) {
         const float4* cp =
             reinterpret_cast<const float4*>(corners) + ((p0 + i) * L + l) * 4;
 #pragma unroll
@@ -388,11 +409,15 @@ __global__ void brick_dydx_kernel(const float2* __restrict__ g_up,
 // a run of BRICK_POINTS consecutive points at all L levels (blockDim =
 // 32 L), warp l the run at level l. g_up's [32, L] slots in shared memory
 // are overwritten by dL/dg_up (each thread reads its own slot first); e,
-// the level's dL/dx before its (res-2), goes to [L, 32, 3] there.
+// the level's dL/dx before its (res-2), goes to [L, 32, 3] there. The
+// forest form (B) reads and scatters at each point's block, as B7's.
+template <bool B>
 __global__ void brick_bwd2_kernel(const float2* __restrict__ g_up,
                                   const float* __restrict__ x,
                                   const float2* __restrict__ table,
                                   const float* __restrict__ gg,
+                                  const int* __restrict__ bidx,
+                                  long long block_rows,
                                   const __grid_constant__ BrickMeta meta,
                                   float2* __restrict__ dgup,
                                   float2* __restrict__ dtab,
@@ -418,7 +443,7 @@ __global__ void brick_bwd2_kernel(const float2* __restrict__ g_up,
     const BrickLevel& lv = meta.lv[l];
     const Located c = locate(xp, lv);
     const float2 g = gs[i * L + l];
-    const int base = c.row * 64 + c.vert0;
+    const auto base = slot0<B>(bidx, p0 + i, block_rows, c);
     float s[3][2], D[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -515,21 +540,35 @@ int brick_fwd(const void* x, const void* table, const void* bidx,
 }
 
 // x [n,3] f32, g [n,2L] f32, corners [n,L,8,2] f32 (16-byte aligned) or
-// null, table [rows,128] f32 or null, dtab [rows,128] f32 (zeroed here),
-// dx [n,3] f32 or null (written, not accumulated). dx needs the corners or
-// the table.
+// null, table [rows,128] f32 or null ([n_tables rows,128] with bidx),
+// bidx [n] int32 or null, n_tables the table's blocks (1 without bidx),
+// dtab [n_tables rows,128] f32 (zeroed here), dx [n,3] f32 or null
+// (written, not accumulated). dx needs the corners or the table; not both
+// bidx and corners (the forest form has no want_g).
 int brick_bwd(const void* x, const void* g, const void* corners,
-              const void* table, BrickMeta meta, void* dtab, void* dx,
-              long long n, void* stream) {
+              const void* table, const void* bidx, long long n_tables,
+              BrickMeta meta, void* dtab, void* dx, long long n,
+              void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if ((bidx != nullptr && corners != nullptr) || n_tables < 1 ||
+      (bidx == nullptr && n_tables != 1))
+    return (int)cudaErrorInvalidValue;
   if (meta.n_levels > 0)
-    cudaMemsetAsync(dtab, 0, (size_t)total_rows(meta) * 128 * sizeof(float),
-                    st);
+    cudaMemsetAsync(
+        dtab, 0, (size_t)n_tables * total_rows(meta) * 128 * sizeof(float),
+        st);
   if (n > 0 && meta.n_levels > 0) {
-    brick_bwd_kernel<<<n_blocks(n, BRICK_POINTS), 32 * meta.n_levels, 0,
-                       st>>>(
-        (const float*)x, (const float2*)g, (const float2*)corners,
-        (const float2*)table, meta, (float2*)dtab, (float*)dx, n);
+    const unsigned blocks = n_blocks(n, BRICK_POINTS);
+    if (bidx != nullptr)
+      brick_bwd_kernel<true><<<blocks, 32 * meta.n_levels, 0, st>>>(
+          (const float*)x, (const float2*)g, nullptr, (const float2*)table,
+          (const int*)bidx, total_rows(meta), meta, (float2*)dtab,
+          (float*)dx, n);
+    else
+      brick_bwd_kernel<false><<<blocks, 32 * meta.n_levels, 0, st>>>(
+          (const float*)x, (const float2*)g, (const float2*)corners,
+          (const float2*)table, nullptr, 0, meta, (float2*)dtab, (float*)dx,
+          n);
   } else if (n > 0 && dx != nullptr) {  // no level: dx is 0
     cudaMemsetAsync(dx, 0, sizeof(float) * n * 3, st);
   }
@@ -559,20 +598,33 @@ int brick_dydx(const void* g_up, const void* x, const void* table,
   return (int)cudaGetLastError();
 }
 
-// g_up [n,2L] f32, x [n,3] f32, table [rows,128] f32, gg [n,3] f32,
-// dgup [n,2L] f32, dtab [rows,128] f32 (zeroed here), dx [n,3] f32 or null.
+// g_up [n,2L] f32, x [n,3] f32, table [rows,128] f32 ([n_tables rows,128]
+// with bidx), gg [n,3] f32, bidx [n] int32 or null, n_tables the table's
+// blocks (1 without bidx), dgup [n,2L] f32, dtab [n_tables rows,128] f32
+// (zeroed here), dx [n,3] f32 or null.
 int brick_bwd2(const void* g_up, const void* x, const void* table,
-               const void* gg, BrickMeta meta, void* dgup, void* dtab,
-               void* dx, long long n, void* stream) {
+               const void* gg, const void* bidx, long long n_tables,
+               BrickMeta meta, void* dgup, void* dtab, void* dx, long long n,
+               void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (n_tables < 1 || (bidx == nullptr && n_tables != 1))
+    return (int)cudaErrorInvalidValue;
   if (meta.n_levels > 0)
-    cudaMemsetAsync(dtab, 0, (size_t)total_rows(meta) * 128 * sizeof(float),
-                    st);
+    cudaMemsetAsync(
+        dtab, 0, (size_t)n_tables * total_rows(meta) * 128 * sizeof(float),
+        st);
   if (n > 0 && meta.n_levels > 0) {
-    brick_bwd2_kernel<<<n_blocks(n, BRICK_POINTS), 32 * meta.n_levels, 0,
-                        st>>>(
-        (const float2*)g_up, (const float*)x, (const float2*)table,
-        (const float*)gg, meta, (float2*)dgup, (float2*)dtab, (float*)dx, n);
+    const unsigned blocks = n_blocks(n, BRICK_POINTS);
+    if (bidx != nullptr)
+      brick_bwd2_kernel<true><<<blocks, 32 * meta.n_levels, 0, st>>>(
+          (const float2*)g_up, (const float*)x, (const float2*)table,
+          (const float*)gg, (const int*)bidx, total_rows(meta), meta,
+          (float2*)dgup, (float2*)dtab, (float*)dx, n);
+    else
+      brick_bwd2_kernel<false><<<blocks, 32 * meta.n_levels, 0, st>>>(
+          (const float2*)g_up, (const float*)x, (const float2*)table,
+          (const float*)gg, nullptr, 0, meta, (float2*)dgup, (float2*)dtab,
+          (float*)dx, n);
   } else if (n > 0 && dx != nullptr) {  // no level: dx is 0
     cudaMemsetAsync(dx, 0, sizeof(float) * n * 3, st);
   }

@@ -36,8 +36,11 @@ __device__ __forceinline__ void atomic_add2(float2* dst, float2 v) {
 // point; all of them call this with the same `active`). The lanes with
 // the same key sum their v first, pairwise in a tree over their ranks
 // (ceil(log2 group) rounds of shuffles), and the lowest lane of the group
-// issues one atomic.
-__device__ __forceinline__ void warp_add2(float2* dst, int key, float2 v,
+// issues one atomic. The key is an int, or a long long where the slots
+// pass 2^31 (the forest's tables of many blocks): lanes meet on the whole
+// key, so two lanes at one block-local slot of two blocks stay apart.
+template <typename Key>
+__device__ __forceinline__ void warp_add2(float2* dst, Key key, float2 v,
                                           unsigned active) {
   const unsigned peers = __match_any_sync(active, key);
   const unsigned lane = threadIdx.x & 31u;

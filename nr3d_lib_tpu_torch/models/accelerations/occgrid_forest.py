@@ -73,6 +73,20 @@ class OccGridAccelForest(nn.Module):
         if it % self.update_every == 0:
             self.occ.step_update(generator, self._wrap_query(val_query_fn))
 
+    def collect_samples(self, x_world: torch.Tensor,
+                        vals: torch.Tensor) -> None:
+        """Scatter-max |vals| of world points into their blocks' grids
+        (points outside every occupied block are dropped)."""
+        bidx = self.space.block_of_points(x_world)
+        x_local = self.space.normalize_coords(x_world, bidx)
+        self.occ.collect_samples(bidx, x_local, vals)
+
+    def debug_stats(self) -> dict:
+        """The occupied share of all cells and their count."""
+        occ = self.occ.occ()
+        return {"occ_ratio": float(torch.mean(occ.to(torch.float32))),
+                "n_occupied": int(torch.sum(occ))}
+
     # ------------------------------------------------------------- queries
     def query(self, x_world: torch.Tensor) -> torch.Tensor:
         """Occupancy bit of each world point: block occupied ∧ cell

@@ -8,9 +8,11 @@ Each block's LoTD parameters are a row of one [n_trees, n_params] table,
 the `bidx` of the forest encode (B6 with a block row offset) and nablas
 (B8 with it), and block-local coordinates come from
 `ForestBlockSpace.normalize_coords`. Only the brick backend is ported
-(the classic LoTD waits with ROADMAP.md A9). The encode's and nablas'
-backwards belong to the forest train step (A11): a gradient through them
-raises, so the model serves renders.
+(the classic LoTD waits with ROADMAP.md A9). The model trains: on CUDA
+the encode's and nablas' backwards are B7 and B9 with the block row
+offset, on the CPU plain autograd; gradients reach `flattened_params`
+through `_build_tables` (the dense levels' gather has an index-add
+backward, the JAX `materialize_dense_brick_table` vjp).
 """
 
 from __future__ import annotations

@@ -53,6 +53,16 @@ class ModelMixin:
         return int(getattr(getattr(self, "accel", None), "update_every", 1)
                    or 1)
 
+    def has_stepwise_schedules(self) -> bool:
+        """True if any submodule carries a schedule that advances every
+        iteration (an `annealer`). A trainer that gates
+        `training_before_per_step` to `lifecycle_update_every` would
+        coarsen such a schedule into jumps, so it runs the hook every step
+        then (the occupancy update stays gated: `accel.step` does nothing
+        off its interval)."""
+        mods = self.modules() if isinstance(self, nn.Module) else [self]
+        return any(getattr(m, "annealer", None) is not None for m in mods)
+
     def ray_test(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
                  near=None, far=None) -> Dict:
         return self.space.ray_test(rays_o, rays_d, near=near, far=far)

@@ -11,8 +11,9 @@ occupied blocks' coordinates and the culling hierarchy are rebuilt from
 `occupied` whenever it is populated or loaded (`load_state_dict` of the
 space or of any module that holds it).
 
-`populate_from_mesh` and `populate_from_pinhole_cameras` are not ported
-yet (ROADMAP.md A11).
+The populates that sample (`populate_from_mesh`,
+`populate_from_pinhole_cameras`) draw from numpy's `default_rng(seed)` in
+the JAX version's order, so they mark the same blocks.
 """
 
 from __future__ import annotations
@@ -124,6 +125,61 @@ class ForestBlockSpace(nn.Module):
             occ = ndimage.binary_dilation(occ, iterations=dilate)
         self.occupied.copy_(torch.from_numpy(occ))
         self._rebuild_slots()
+
+    def populate_from_waypoints(self, waypoints, extend_units: int = 1
+                                ) -> None:
+        """Occupy the blocks along a trajectory [N,3] and their neighbours
+        within `extend_units` blocks."""
+        pts = np.asarray(waypoints)
+        offs = np.arange(-extend_units, extend_units + 1)
+        grid = np.stack(np.meshgrid(offs, offs, offs, indexing="ij"), -1
+                        ).reshape(-1, 3) * self.block_size
+        self.populate_from_points((pts[:, None, :] + grid[None]
+                                   ).reshape(-1, 3))
+
+    def populate_from_mesh(self, verts, faces, samples_per_area: float = 64.0,
+                           dilate: int = 0, seed: int = 0) -> None:
+        """Occupy the blocks that a triangle mesh's surface crosses:
+        area-weighted samples of the faces (`samples_per_area` a block
+        face's area, at most 2 M) and every vertex."""
+        verts = np.asarray(verts, np.float64)
+        faces = np.asarray(faces, np.int64)
+        a, b, c = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+        area = 0.5 * np.linalg.norm(np.cross(b - a, c - a), axis=-1)
+        n_total = int(max(1, samples_per_area * area.sum() /
+                          max(self.block_size ** 2, 1e-12)))
+        n_total = min(n_total, 2_000_000)
+        rng = np.random.default_rng(seed)
+        tri = rng.choice(len(faces), n_total, p=area / area.sum())
+        u, v = rng.random(n_total), rng.random(n_total)
+        flip = u + v > 1.0
+        u[flip], v[flip] = 1.0 - u[flip], 1.0 - v[flip]
+        pts = a[tri] + u[:, None] * (b - a)[tri] + v[:, None] * (c - a)[tri]
+        self.populate_from_points(np.concatenate([pts, verts], 0),
+                                  dilate=dilate)
+
+    def populate_from_pinhole_cameras(self, c2ws, intrs, hw, near: float,
+                                      far: float,
+                                      n_samples_per_cam: int = 4096,
+                                      dilate: int = 0, seed: int = 0) -> None:
+        """Occupy the blocks inside the union of pinhole view frusta:
+        c2ws [C,4,4] (or [C,3,4]) camera to world, intrs [C,3,3], hw (H,
+        W); each frustum sampled uniformly in pixels and in disparity
+        between near and far."""
+        c2ws = np.asarray(c2ws, np.float64)
+        intrs = np.asarray(intrs, np.float64)
+        h, w = hw
+        rng = np.random.default_rng(seed)
+        all_pts = []
+        for c2w, k in zip(c2ws, intrs):
+            uv = rng.random((n_samples_per_cam, 2)) * np.asarray([w, h])
+            z = 1.0 / (1.0 / near + rng.random(n_samples_per_cam)
+                       * (1.0 / far - 1.0 / near))
+            xc = (uv[:, 0] - k[0, 2]) / k[0, 0] * z
+            yc = (uv[:, 1] - k[1, 2]) / k[1, 1] * z
+            p_cam = np.stack([xc, yc, z], -1)
+            all_pts.append(p_cam @ c2w[:3, :3].T + c2w[:3, 3])
+        self.populate_from_points(np.concatenate(all_pts, 0), dilate=dilate)
 
     # ------------------------------------------------------------- mapping
     @property

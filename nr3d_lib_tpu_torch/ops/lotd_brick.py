@@ -23,11 +23,13 @@ differentiable. The plain backwards `brick_encode_bwd_xla` and
 `brick_nablas_bwd_xla` are for tests and for holding the kernels against.
 
 The forest (per-block tables, `brick_encode_batched` and
-`brick_nablas_batched`) runs B6 and B8 with a block row offset `bidx`
-(launches counted as `brick_fwd_b` and `brick_dydx_b`); their plain
-versions are `brick_encode_xla_batched` and `brick_nablas_xla_batched`.
-Their backwards belong to the forest train step (ROADMAP.md A11) and
-raise.
+`brick_nablas_batched`) runs the same four kernels with a block row
+offset `bidx` (launches counted as `brick_fwd_b`, `brick_bwd_b`,
+`brick_dydx_b` and `brick_bwd2_b`) through `_BrickEncodeBatched` and
+`_BrickNablasBatched`; their plain versions are
+`brick_encode_xla_batched`, `brick_encode_bwd_xla_batched`,
+`brick_nablas_xla_batched` and `brick_nablas_bwd_xla_batched`. On the
+CPU both take plain autograd, to second order.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ __all__ = ["BrickLevel", "BrickMeta", "make_brick_meta",
            "brick_encode_bwd_xla", "brick_nablas_xla", "brick_nablas_bwd_xla",
            "brick_atomic_groups", "make_forest_meta",
            "brick_encode_xla_batched", "brick_nablas_xla_batched",
+           "brick_encode_bwd_xla_batched", "brick_nablas_bwd_xla_batched",
            "brick_encode_batched", "brick_nablas_batched",
            "HASH_PRIMES", "BRICK_W", "LANES", "MAX_LEVELS"]
 
@@ -219,6 +222,7 @@ def _level_corners(x: torch.Tensor, t_flat: torch.Tensor, level,
 
 
 def brick_atomic_groups(x: torch.Tensor, meta: BrickMeta,
+                        bidx: Optional[torch.Tensor] = None,
                         warp: int = 32) -> List[int]:
     """Per level, the table-gradient atomics that B7 (`brick_bwd`) and B9
     (`brick_bwd2`) each issue at the points x [N, 3] in their order, and
@@ -227,18 +231,23 @@ def brick_atomic_groups(x: torch.Tensor, meta: BrickMeta,
     warp takes `warp` consecutive points at one level, and corner by
     corner its lanes that add to one slot (row·64 + vertex, in both
     layouts) sum first, so one atomic per distinct (warp, corner, slot);
-    one lane alone issues N·8 a level."""
+    one lane alone issues N·8 a level. With `bidx` [N] the forest forms:
+    the slot is global, in the point's block max(bidx, 0)."""
     bits = _corner_bits(x.device)
     corner_v = (bits[:, 0] * BRICK_W + bits[:, 1]) * BRICK_W + bits[:, 2]
-    n_slots = meta.total_rows * 64
     with torch.no_grad():
         wid = torch.arange(x.shape[0], device=x.device)[:, None] // warp
+        group = (wid * 8 + torch.arange(8, device=x.device)).reshape(-1)
+        add = None if bidx is None else _block_rows(bidx, meta)
         out = []
         for level in meta.levels:
             row, lane0, _ = _level_rows_and_lanes(x, level)
-            slot = row[:, None] * 64 + lane0[:, None] // N_FEAT + corner_v
-            key = (wid * 8 + torch.arange(8, device=x.device)) * n_slots + slot
-            out.append(int(torch.unique(key).numel()))
+            if add is not None:
+                row = row + add
+            slot = (row[:, None] * 64 + lane0[:, None] // N_FEAT +
+                    corner_v).reshape(-1)
+            n_slots = int(slot.max()) + 1 if slot.numel() else 1
+            out.append(int(torch.unique(group * n_slots + slot).numel()))
         return out
 
 
@@ -409,9 +418,9 @@ def _lib():
     vp, n = _build.VP, ctypes.c_longlong
     return _build.load("brick", {
         "brick_fwd": [vp, vp, vp, _Meta, vp, vp, n, vp],
-        "brick_bwd": [vp, vp, vp, vp, _Meta, vp, vp, n, vp],
+        "brick_bwd": [vp, vp, vp, vp, vp, n, _Meta, vp, vp, n, vp],
         "brick_dydx": [vp, vp, vp, vp, _Meta, vp, n, vp],
-        "brick_bwd2": [vp, vp, vp, vp, _Meta, vp, vp, vp, n, vp]})
+        "brick_bwd2": [vp, vp, vp, vp, vp, n, _Meta, vp, vp, vp, n, vp]})
 
 
 def _fwd_cuda(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta,
@@ -436,27 +445,47 @@ def _fwd_cuda(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta,
     return (y, corners) if want_g else y
 
 
+def _n_tables(table: Optional[torch.Tensor], meta: BrickMeta,
+              bidx: Optional[torch.Tensor], what: str) -> int:
+    """The blocks of a forest table (1 without bidx; the forest form needs
+    the table, which sizes dL/dtable)."""
+    if bidx is None:
+        return 1
+    if table is None:
+        raise ValueError(f"{what}: the forest form (bidx) needs the table")
+    return table.shape[0] // meta.total_rows
+
+
 def _bwd_cuda(x: torch.Tensor, g: torch.Tensor, meta: BrickMeta, *,
               need_dx: bool, corners: Optional[torch.Tensor] = None,
-              table: Optional[torch.Tensor] = None):
+              table: Optional[torch.Tensor] = None,
+              bidx: Optional[torch.Tensor] = None):
     """B7 → (dL/dx [N,3] or None, dL/dtable [rows,128]). dL/dx reads the
     corner values from `corners` (the want_g forward's) or else from the
     table; it is each point's own level sum, the same bits in any order of
-    the points."""
+    the points. With `bidx` [N] int32 the forest form: dL/dtable [B·
+    total_rows, 128] is sized from `table` (required), dL/dx reads the
+    table (no corners). Counted as `brick_bwd` or `brick_bwd_b`."""
     if need_dx and corners is None and table is None:
         raise ValueError("brick_bwd: dL/dx needs the forward's corners or "
                          "the table")
+    if bidx is not None and corners is not None:
+        raise ValueError("brick_bwd: the forest form takes no corners")
+    n_tab = _n_tables(table, meta, bidx, "brick_bwd")
     x, g = aligned(x), aligned(g)
     table = None if table is None else aligned(table)
     corners = None if corners is None else aligned(corners)
-    dtab = torch.empty((meta.total_rows, LANES), device=x.device,
+    bidx = None if bidx is None else bidx.contiguous()
+    dtab = torch.empty((n_tab * meta.total_rows, LANES), device=x.device,
                        dtype=torch.float32)
     dx = torch.empty_like(x) if need_dx else None
     err = _lib().brick_bwd(x.data_ptr(), g.data_ptr(), ptr(corners),
-                           ptr(table), c_meta(meta), dtab.data_ptr(),
-                           ptr(dx), x.shape[0], _build.stream_ptr(x.device))
-    _build.check(err, "brick_bwd")
-    _build.LAUNCHES["brick_bwd"] += 1
+                           ptr(table), ptr(bidx), n_tab, c_meta(meta),
+                           dtab.data_ptr(), ptr(dx), x.shape[0],
+                           _build.stream_ptr(x.device))
+    name = "brick_bwd" if bidx is None else "brick_bwd_b"
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
     return dx, dtab
 
 
@@ -479,19 +508,25 @@ def _dydx_cuda(g_up: torch.Tensor, x: torch.Tensor, table: torch.Tensor,
 
 
 def _bwd2_cuda(g_up: torch.Tensor, x: torch.Tensor, table: torch.Tensor,
-               gg: torch.Tensor, meta: BrickMeta, need_dx: bool = True):
-    """B9 → (dL/dg_up [N,2L], dL/dx [N,3] or None, dL/dtable [rows,128])."""
+               gg: torch.Tensor, meta: BrickMeta, need_dx: bool = True,
+               bidx: Optional[torch.Tensor] = None):
+    """B9 → (dL/dg_up [N,2L], dL/dx [N,3] or None, dL/dtable [rows,128]);
+    with `bidx` [N] int32 the forest form over a [B·total_rows, 128] table
+    (dL/dtable that shape). Counted as `brick_bwd2` or `brick_bwd2_b`."""
+    n_tab = _n_tables(table, meta, bidx, "brick_bwd2")
     g_up, x, table, gg = (aligned(t) for t in (g_up, x, table, gg))
+    bidx = None if bidx is None else bidx.contiguous()
     dgup = torch.empty_like(g_up)
-    dtab = torch.empty((meta.total_rows, LANES), device=x.device,
+    dtab = torch.empty((n_tab * meta.total_rows, LANES), device=x.device,
                        dtype=torch.float32)
     dx = torch.empty_like(x) if need_dx else None
     err = _lib().brick_bwd2(g_up.data_ptr(), x.data_ptr(), table.data_ptr(),
-                            gg.data_ptr(), c_meta(meta), dgup.data_ptr(),
-                            dtab.data_ptr(), ptr(dx), x.shape[0],
-                            _build.stream_ptr(x.device))
-    _build.check(err, "brick_bwd2")
-    _build.LAUNCHES["brick_bwd2"] += 1
+                            gg.data_ptr(), ptr(bidx), n_tab, c_meta(meta),
+                            dgup.data_ptr(), dtab.data_ptr(), ptr(dx),
+                            x.shape[0], _build.stream_ptr(x.device))
+    name = "brick_bwd2" if bidx is None else "brick_bwd2_b"
+    _build.check(err, name)
+    _build.LAUNCHES[name] += 1
     return dgup, dx, dtab
 
 
@@ -616,6 +651,27 @@ def brick_nablas_xla_batched(g_up: torch.Tensor, x: torch.Tensor,
                          _block_rows(bidx, meta))
 
 
+def brick_encode_bwd_xla_batched(x: torch.Tensor, table: torch.Tensor,
+                                 g: torch.Tensor, meta: BrickMeta,
+                                 bidx: torch.Tensor, need_dx: bool = True):
+    """Plain PyTorch version of the forest form of B7: the vjp of
+    `brick_encode_xla_batched` → (dL/dx [N,3] or None, dL/dtable
+    [B·total_rows, 128])."""
+    return _vjp(lambda xx, tt: brick_encode_xla_batched(xx, tt, meta, bidx),
+                (x, table), (need_dx, True), g)
+
+
+def brick_nablas_bwd_xla_batched(g_up: torch.Tensor, x: torch.Tensor,
+                                 table: torch.Tensor, gg: torch.Tensor,
+                                 meta: BrickMeta, bidx: torch.Tensor):
+    """Plain PyTorch version of the forest form of B9: the vjp of
+    `brick_nablas_xla_batched` → (dL/dg_up [N,2L], dL/dx [N,3], dL/dtable
+    [B·total_rows, 128])."""
+    return _vjp(lambda a, b, c: brick_nablas_xla_batched(a, b, c, meta,
+                                                         bidx),
+                (g_up, x, table), (True, True, True), gg)
+
+
 def _check_batched(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta,
                    bidx: torch.Tensor, what: str) -> None:
     """Shapes, types and devices the forest forms take; raises otherwise
@@ -637,45 +693,45 @@ def _check_batched(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta,
                          f"{tuple(bidx.shape)} {bidx.dtype} {bidx.device}")
 
 
-def _encode_batched(x, table, meta, bidx):
-    if x.device.type == "cpu":
-        return brick_encode_xla_batched(x, table, meta, bidx)
-    return _fwd_cuda(x, table, meta, bidx=bidx)
-
-
-def _nablas_batched(g_up, x, table, meta, bidx):
-    if x.device.type == "cpu":
-        return brick_nablas_xla_batched(g_up, x, table, meta, bidx)
-    return _dydx_cuda(g_up, x, table, meta, bidx=bidx)
-
-
-_FOREST_BWD = ("the forest encode's backward (B7 and B9 with a block row "
-               "offset) belongs to the forest train step, which is not "
-               "ported yet (ROADMAP.md A11)")
-
-
 class _BrickEncodeBatched(torch.autograd.Function):
-    """The forest form of B6; its backward is the forest train step's."""
+    """The forest forms of B6 (forward) and B7 (backward); dL/dx is
+    computed only when x needs it, from the table at each point's
+    block."""
 
     @staticmethod
     def forward(ctx, x, table, meta, bidx):
-        return _encode_batched(x, table, meta, bidx)
+        ctx.meta = meta
+        ctx.save_for_backward(x, table, bidx)
+        return _fwd_cuda(x, table, meta, bidx=bidx)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, g):
-        raise NotImplementedError(_FOREST_BWD)
+        x, table, bidx = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dx, dtab = _bwd_cuda(x, g, ctx.meta, need_dx=need[0], table=table,
+                             bidx=bidx)
+        return dx, (dtab if need[1] else None), None, None
 
 
 class _BrickNablasBatched(torch.autograd.Function):
-    """The forest form of B8; its backward is the forest train step's."""
+    """The forest forms of B8 (forward) and B9 (backward)."""
 
     @staticmethod
     def forward(ctx, g_up, x, table, meta, bidx):
-        return _nablas_batched(g_up, x, table, meta, bidx)
+        ctx.meta = meta
+        ctx.save_for_backward(g_up, x, table, bidx)
+        return _dydx_cuda(g_up, x, table, meta, bidx=bidx)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, gg):
-        raise NotImplementedError(_FOREST_BWD)
+        g_up, x, table, bidx = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dgup, dx, dtab = _bwd2_cuda(g_up, x, table, gg, ctx.meta,
+                                    need_dx=need[1], bidx=bidx)
+        return (dgup if need[0] else None, dx,
+                dtab if need[2] else None, None, None)
 
 
 def brick_encode_batched(x: torch.Tensor, table: torch.Tensor,
@@ -683,28 +739,34 @@ def brick_encode_batched(x: torch.Tensor, table: torch.Tensor,
                          ) -> torch.Tensor:
     """Per-block brick encode (the forest): x [N,3] in [0,1], table
     [B·total_rows, 128], bidx [N] int32 → [N, 2L]. One row gather per
-    (point, level) whatever the block count. CPU tensor → plain version;
-    CUDA tensor → the `brick_fwd` kernel with its block row offset
-    (counted as `brick_fwd_b`). A gradient through it raises (A11)."""
+    (point, level) whatever the block count. CPU tensor → plain version
+    (autograd to any order); CUDA tensor → the `brick_fwd` kernel with its
+    block row offset (counted as `brick_fwd_b`), with B7's forest form as
+    its backward when a gradient is needed (`brick_bwd_b`)."""
     _check_batched(x, table, meta, bidx, "brick_encode_batched")
+    if x.device.type == "cpu":
+        return brick_encode_xla_batched(x, table, meta, bidx)
     if wants_grad(x, table):
         return _BrickEncodeBatched.apply(x, table, meta, bidx)
-    return _encode_batched(x, table, meta, bidx)
+    return _fwd_cuda(x, table, meta, bidx=bidx)
 
 
 def brick_nablas_batched(g_up: torch.Tensor, x: torch.Tensor,
                          table: torch.Tensor, meta: BrickMeta,
                          bidx: torch.Tensor) -> torch.Tensor:
     """Per-block nablas J_enc(x)ᵀ·g_up [N,3] (the forest). CPU tensor →
-    plain version; CUDA tensor → the `brick_dydx` kernel with its block
-    row offset (counted as `brick_dydx_b`). A gradient through it raises
-    (A11)."""
+    plain version (autograd to any order); CUDA tensor → the `brick_dydx`
+    kernel with its block row offset (counted as `brick_dydx_b`), with
+    B9's forest form as its backward when a gradient is needed
+    (`brick_bwd2_b`)."""
     _check_batched(x, table, meta, bidx, "brick_nablas_batched")
     if g_up.shape != (x.shape[0], N_FEAT * meta.n_levels) or \
             g_up.dtype != torch.float32 or g_up.device != x.device:
         raise ValueError(f"brick_nablas_batched: g_up must be [N, "
                          f"{N_FEAT * meta.n_levels}] float32 on {x.device},"
                          f" got {tuple(g_up.shape)} {g_up.dtype}")
+    if x.device.type == "cpu":
+        return brick_nablas_xla_batched(g_up, x, table, meta, bidx)
     if wants_grad(g_up, x, table):
         return _BrickNablasBatched.apply(g_up, x, table, meta, bidx)
-    return _nablas_batched(g_up, x, table, meta, bidx)
+    return _dydx_cuda(g_up, x, table, meta, bidx=bidx)

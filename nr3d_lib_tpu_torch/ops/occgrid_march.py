@@ -19,7 +19,7 @@ from nr3d_lib_tpu_torch.graphics import _scan
 from nr3d_lib_tpu_torch.ops.gather1d import gather_rows_lanes
 
 __all__ = ["march_steps", "occgrid_query_axes", "occgrid_query",
-           "occgrid_march_dense"]
+           "occgrid_march_dense", "occgrid_march_batched_dense"]
 
 
 def march_steps(near: torch.Tensor, far: torch.Tensor, n_steps: int,
@@ -96,4 +96,31 @@ def occgrid_march_dense(occ: torch.Tensor, rays_o: torch.Tensor,
                                   max_step_size, u)
     xs = [rays_o[:, None, a] + rays_d[:, None, a] * t for a in range(3)]
     occ_hit = occgrid_query_axes(occ, *xs)
+    return t, dt, in_range & occ_hit
+
+
+def occgrid_march_batched_dense(occ: torch.Tensor, bidx: torch.Tensor,
+                                rays_o: torch.Tensor, rays_d: torch.Tensor,
+                                near: torch.Tensor, far: torch.Tensor, *,
+                                n_steps: int, step_size: float,
+                                dt_gamma: float = 0.0,
+                                max_step_size: Optional[float] = None,
+                                u: Optional[torch.Tensor] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The batched march: occ [B, r0, r1, r2], bidx [R] picks each ray's
+    grid (bidx < 0: no sample is occupied) → (t, dt, mask) [R, S]. The
+    grids are read as one [B·r0·r1, r2] table through
+    `gather_rows_lanes` (B5 for a CUDA grid, as the JAX version on the
+    TPU; a plain take on the CPU)."""
+    t, dt, in_range = march_steps(near, far, n_steps, step_size, dt_gamma,
+                                  max_step_size, u)
+    shp = occ.shape[1:]
+    xs = [rays_o[:, None, a] + rays_d[:, None, a] * t for a in range(3)]
+    row, i2, inb = grid_rows_lanes(shp, *xs)
+    b = torch.clamp(bidx, min=0).to(row.dtype)[:, None]
+    vals = gather_rows_lanes(
+        occ.reshape(-1, shp[2]).to(torch.float32),
+        b * (shp[0] * shp[1]) + row, i2) > 0.5
+    occ_hit = vals & inb & (bidx >= 0)[:, None]
     return t, dt, in_range & occ_hit

@@ -103,15 +103,28 @@ def test_brick_nablas_batched_matches_jax_vjp():
 
 
 def test_batched_backwards_raise_and_bad_arguments():
-    _, tmeta, x, table, bidx, g = _batched_inputs(40, 3, 3)
+    """The batched encode's and nablas' gradients (plain autograd on CPU
+    tensors; they raised before the forest train step was ported)
+    against JAX's, dL/dtable within 1e-6 and the nablas' within 1e-6 of
+    their largest entry; bad arguments still raise."""
+    jmeta, tmeta, x, table, bidx, g = _batched_inputs(40, 3, 3)
     tab = _t(table).requires_grad_(True)
     y = TB.brick_encode_batched(_t(x), tab, tmeta, _t(bidx))
-    with pytest.raises(NotImplementedError, match="A11"):
-        y.sum().backward()
-    n = TB.brick_nablas_batched(_t(g).requires_grad_(True), _t(x), tab,
-                                tmeta, _t(bidx))
-    with pytest.raises(NotImplementedError, match="A11"):
-        n.sum().backward()
+    (dt,) = torch.autograd.grad((y * _t(g)).sum(), tab)
+    _, vjp = jax.vjp(lambda tt: JB.brick_encode_xla_batched(
+        jnp.asarray(x), tt, jmeta, jnp.asarray(bidx)), jnp.asarray(table))
+    np.testing.assert_allclose(dt.numpy(), np.asarray(vjp(jnp.asarray(g))[0]),
+                               rtol=0, atol=1e-6)
+    gu = _t(g).requires_grad_(True)
+    n = TB.brick_nablas_batched(gu, _t(x), tab, tmeta, _t(bidx))
+    got = torch.autograd.grad(n.sum(), (gu, tab))
+    want = jax.grad(lambda a, b: jnp.sum(JB.brick_nablas_batched(
+        a, jnp.asarray(x), b, jmeta, jnp.asarray(bidx))), argnums=(0, 1))(
+        jnp.asarray(g), jnp.asarray(table))
+    for a, b in zip(got, want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-6 * np.abs(b).max() + 1e-6)
     with pytest.raises(ValueError, match="bidx"):
         TB.brick_encode_batched(_t(x), _t(table), tmeta,
                                 _t(bidx.astype(np.int64)))

@@ -45,10 +45,14 @@ no level, as the JAX reference does); B5 at every length mod 4, on
 misaligned views and clamped indices, exactly. The backward entries of
 B7, B9, B11/B12 and B15 (and B8) at a meta with no level, through their
 C entries: dL/dx zeroed, the table gradient's rows untouched. The forest
-forms of B6 and B8 (a block row offset `bidx`) against their plain
-versions at random blocks, −1 included (1e-5 and 1e-4, as B6 and B8),
-with bidx 0 on one block bitwise the null-bidx entries, and on a block
-whose rows start past 2^25 rows of the table (the 64-bit offset). The
+forms of B6, B7, B8 and B9 (a block row offset `bidx`) against their
+plain versions at random blocks, −1 included (tolerances as the
+null-bidx forms'), with bidx 0 on one block bitwise the null-bidx
+entries (the table gradients within the atomics' tolerance), and on a
+block whose rows start past 2^25 rows of the table (the 64-bit offset);
+B7's and B9's forest forms also along rays and permuted (dL/dx and
+dL/dg_up the same bits) and on a warp whose lanes share one block-local
+slot in four blocks (the warps' sums keep the blocks apart). The
 search's shortcuts are checked over all 2^32 inputs: its division by d+1
 bitwise against x / b, its modulus exactly.
 """
@@ -1893,14 +1897,17 @@ def _zero_level_entry(entry: str, x: torch.Tensor) -> torch.Tensor:
     table = torch.zeros((4, 256), device=dev)
     empty = torch.empty((n, 0), device=dev)
     gg = torch.zeros((n, 3), device=dev)
+    bidx = torch.zeros((n,), dtype=torch.int32, device=dev)
     st = _build.stream_ptr(dev)
     p = (x.data_ptr(), empty.data_ptr(), table.data_ptr(), dtab.data_ptr(),
-         dx.data_ptr(), gg.data_ptr())
-    xp, gp, tp, dtp, dxp, ggp = p
+         dx.data_ptr(), gg.data_ptr(), bidx.data_ptr())
+    xp, gp, tp, dtp, dxp, ggp, bp = p
     args = {
-        "brick_bwd": (xp, gp, None, tp, meta, dtp, dxp, n, st),
+        "brick_bwd": (xp, gp, None, tp, None, 1, meta, dtp, dxp, n, st),
+        "brick_bwd_b": (xp, gp, None, tp, bp, 2, meta, dtp, dxp, n, st),
         "brick4_bwd": (xp, gp, None, tp, meta, dtp, dxp, n, st),
-        "brick_bwd2": (gp, xp, tp, ggp, meta, gp, dtp, dxp, n, st),
+        "brick_bwd2": (gp, xp, tp, ggp, None, 1, meta, gp, dtp, dxp, n, st),
+        "brick_bwd2_b": (gp, xp, tp, ggp, bp, 2, meta, gp, dtp, dxp, n, st),
         "brick4_bwd2": (gp, xp, tp, ggp, meta, gp, dtp, dxp, n, st),
         "brick_dydx": (gp, xp, tp, None, meta, dxp, n, st),
         "brick4_dydx": (gp, xp, tp, meta, dxp, n, st),
@@ -1908,17 +1915,19 @@ def _zero_level_entry(entry: str, x: torch.Tensor) -> torch.Tensor:
         "permuto_bwd": (xp, gp, tp, meta, dtp, dxp, n, st),
         "permuto4_bwd": (xp, gp, tp, meta, dtp, dxp, n, st),
     }[entry]
-    assert getattr(lib, entry)(*args) == 0
+    assert getattr(lib, entry.removesuffix("_b"))(*args) == 0
     torch.cuda.synchronize()
     assert torch.isnan(dtab).all()
     return dx
 
 
-@pytest.mark.parametrize("entry", ["brick_bwd", "brick_bwd2", "brick_dydx",
+@pytest.mark.parametrize("entry", ["brick_bwd", "brick_bwd_b", "brick_bwd2",
+                                   "brick_bwd2_b", "brick_dydx",
                                    "permuto_bwd", "permuto4_bwd"])
 @pytest.mark.parametrize("n", [1, 100_000])
 def test_backward_entries_at_zero_levels(cuda, entry, n):
-    """B7, B9 (and B8), B11/B12 and B15 at a meta with no level, through
+    """B7, B9 (both also in their forest forms, `_b`: a bidx and a table of
+    two blocks) (and B8), B11/B12 and B15 at a meta with no level, through
     their C entries: no read of the level before the meta's first (the
     table gradient's memset is skipped: the rows it would have sized
     keep their NaNs) and dL/dx zeroed, not left unwritten. The wrappers
@@ -1999,6 +2008,182 @@ def test_brick_fwd_b_rows_beyond_int32_slots(cuda):
     del table
     _close(y, B.brick_encode_xla(x, small, meta), 1e-5)
     _close(dx, B.brick_nablas_xla(g, x, small, meta), 1e-4)
+
+
+# ------------------------- B7 and B9 with a block row offset (the forest)
+@pytest.mark.parametrize("meta_name,n", F2_CASES)
+@pytest.mark.parametrize("need_dx", [False, True])
+def test_brick_bwd_b_and_bwd2_b_match_plain(cuda, meta_name, n, need_dx):
+    """The forest forms of B7 and B9 (`brick_bwd_b`, `brick_bwd2_b`) at
+    random block indices, −1 included (block 0): dL/dtable over the
+    whole [5·total_rows, 128] table within 1e-5 of its largest entry
+    (atomics), dL/dx and dL/dg_up within 1e-4, against
+    `brick_encode_bwd_xla_batched` and `brick_nablas_bwd_xla_batched`;
+    one launch counted a call under the forest keys; and through the
+    wrappers' autograd (x frozen, as on the forest train step)."""
+    meta, x, table, g, bidx = _forest_inputs(cuda, meta_name, n, 5, 51)
+    gg = torch.randn(n, 3, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(52))
+    before = dict(_build.LAUNCHES)
+    dx, dtab = B._bwd_cuda(x, g, meta, need_dx=need_dx, table=table,
+                           bidx=bidx)
+    dg2, dx2, dtab2 = B._bwd2_cuda(g, x, table, gg, meta, need_dx=need_dx,
+                                   bidx=bidx)
+    torch.cuda.synchronize()
+    for key in ("brick_bwd_b", "brick_bwd2_b"):
+        assert _build.LAUNCHES[key] == before.get(key, 0) + 1
+    for key in ("brick_bwd", "brick_bwd2"):
+        assert _build.LAUNCHES[key] == before.get(key, 0)
+    assert dtab.shape == dtab2.shape == table.shape
+    dx_p, dtab_p = B.brick_encode_bwd_xla_batched(x, table, g, meta, bidx,
+                                                  need_dx)
+    _close(dtab, dtab_p, 1e-5)
+    dg_p, dx2_p, dtab2_p = B.brick_nablas_bwd_xla_batched(g, x, table, gg,
+                                                          meta, bidx)
+    _close(dg2, dg_p, 1e-4)
+    _close(dtab2, dtab2_p, 1e-5)
+    if need_dx:
+        _close(dx, dx_p, 1e-4)
+        _close(dx2, dx2_p, 1e-4)
+    else:
+        assert dx is None and dx2 is None
+    # the wrappers: B6/B7 and B8/B9 forest forms under autograd
+    tab = table.clone().requires_grad_(True)
+    gu = g.clone().requires_grad_(True)
+    y = B.brick_encode_batched(x, tab, meta, bidx)
+    nab = B.brick_nablas_batched(gu, x, tab, meta, bidx)
+    t_grad, g_grad = torch.autograd.grad(
+        (y * g).sum() + (nab * gg).sum(), (tab, gu))
+    _close(t_grad, dtab_p + dtab2_p, 1e-5)
+    _close(g_grad, dg_p, 1e-4)
+
+
+@pytest.mark.parametrize("n", [33, 1000, 96 * 1001])
+def test_brick_bwd_b_ray_and_permuted_order(cuda, n):
+    """B7's and B9's forest forms on points along rays (each ray's points
+    in one block, as the forest's samples) and on the same points
+    permuted: dL/dx (B7 reading the table) and B9's dL/dg_up and dL/dx
+    the same bits in both orders and in two runs; dL/dtable within the
+    atomics' tolerance of each other."""
+    meta, x, table, g, _ = _forest_inputs(cuda, "dense_hash", n, 7, 53)
+    x, _ = torch.sort(x, 0)
+    bidx = (torch.arange(n, device=cuda, dtype=torch.int32) // 96) % 7
+    gg = torch.randn(n, 3, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(54))
+    perm = torch.randperm(n, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(55))
+    outs = []
+    for xx, gx, gy, bb in ((x, g, gg, bidx),
+                           tuple(t[perm].contiguous()
+                                 for t in (x, g, gg, bidx))):
+        runs = []
+        for _ in range(2):
+            dx, dtab = B._bwd_cuda(xx, gx, meta, need_dx=True, table=table,
+                                   bidx=bb)
+            dg2, dx2, dtab2 = B._bwd2_cuda(gx, xx, table, gy, meta, bidx=bb)
+            runs.append((dx, dg2, dx2, dtab, dtab2))
+        for a, b in zip(runs[0][:3], runs[1][:3]):
+            assert torch.equal(a, b)
+        outs.append(runs[0])
+    (dx, dg2, dx2, dtab, dtab2), (pdx, pdg2, pdx2, pdtab, pdtab2) = outs
+    assert torch.equal(pdx, dx[perm])
+    assert torch.equal(pdg2, dg2[perm])
+    assert torch.equal(pdx2, dx2[perm])
+    _close(pdtab, dtab, 1e-5)
+    _close(pdtab2, dtab2, 1e-5)
+
+
+def test_brick_bwd_b_warp_shares_local_slot_across_blocks(cuda):
+    """One warp's 32 lanes at one point, so one block-local slot at every
+    level, in 4 blocks by lane (bidx = lane % 4): the warps' sums must
+    keep the blocks apart (they key on the 64-bit global slot), so each
+    block's dL/dtable holds its own 8 lanes' sum, as the plain version
+    gives; summed on the block-local slot, all 32 would land in one
+    block."""
+    meta, x, table, g, _ = _forest_inputs(cuda, "dense_hash", 32, 4, 56)
+    x = x[:1].expand(32, 3).contiguous()
+    bidx = torch.arange(32, device=cuda, dtype=torch.int32) % 4
+    gg = torch.randn(32, 3, device=cuda)
+    _, dtab = B._bwd_cuda(x, g, meta, need_dx=False, table=table, bidx=bidx)
+    _, _, dtab2 = B._bwd2_cuda(g, x, table, gg, meta, need_dx=False,
+                               bidx=bidx)
+    _, dtab_p = B.brick_encode_bwd_xla_batched(x, table, g, meta, bidx,
+                                               False)
+    _, _, dtab2_p = B.brick_nablas_bwd_xla_batched(g, x, table, gg, meta,
+                                                   bidx)
+    _close(dtab, dtab_p, 1e-5)
+    _close(dtab2, dtab2_p, 1e-5)
+    rows = meta.total_rows
+    for blk in range(4):
+        assert dtab[blk * rows:(blk + 1) * rows].abs().sum() > 0
+    assert B.brick_atomic_groups(x, meta, bidx) == [4 * 8] * meta.n_levels
+    assert B.brick_atomic_groups(x, meta) == [8] * meta.n_levels
+
+
+def test_brick_bwd_b_one_block_matches_null_bidx(cuda):
+    """Every bidx 0 on a one-block table: B7's dL/dx (from the table) and
+    B9's dL/dg_up and dL/dx the bits of the null-bidx entries, dL/dtable
+    within the atomics' tolerance; the entries refuse bidx with corners
+    and, without bidx, a table of more than one block."""
+    meta, x, table, g, gg = _f2_inputs(cuda, "eight_levels", 100_000, 57)
+    zero = torch.zeros(x.shape[0], dtype=torch.int32, device=cuda)
+    dx_b, dtab_b = B._bwd_cuda(x, g, meta, need_dx=True, table=table,
+                               bidx=zero)
+    dx_n, dtab_n = B._bwd_cuda(x, g, meta, need_dx=True, table=table)
+    assert torch.equal(dx_b, dx_n)
+    _close(dtab_b, dtab_n, 1e-5)
+    got = B._bwd2_cuda(g, x, table, gg, meta, bidx=zero)
+    want = B._bwd2_cuda(g, x, table, gg, meta)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _close(got[2], want[2], 1e-5)
+    corners = B._fwd_cuda(x, table, meta, want_g=True)[1]
+    st, cm, n = _build.stream_ptr(cuda), B.c_meta(meta), x.shape[0]
+    dx = torch.empty_like(x)
+    assert B._lib().brick_bwd(
+        x.data_ptr(), g.data_ptr(), corners.data_ptr(), table.data_ptr(),
+        zero.data_ptr(), 1, cm, dtab_b.data_ptr(), dx.data_ptr(), n,
+        st) != 0
+    assert B._lib().brick_bwd(
+        x.data_ptr(), g.data_ptr(), None, table.data_ptr(), None, 2, cm,
+        dtab_b.data_ptr(), dx.data_ptr(), n, st) != 0
+    assert B._lib().brick_bwd2(
+        g.data_ptr(), x.data_ptr(), table.data_ptr(), gg.data_ptr(), None,
+        2, cm, g.data_ptr(), dtab_b.data_ptr(), dx.data_ptr(), n, st) != 0
+    with pytest.raises(ValueError, match="corners"):
+        B._bwd_cuda(x, g, meta, need_dx=True, corners=corners, table=table,
+                    bidx=zero)
+
+
+def test_brick_bwd_b_rows_beyond_int32_slots(cuda):
+    """A block whose rows start past 2^25 rows of the forest table (past
+    2^31 float2 slots): B7's and B9's forest forms scatter into that
+    block alone, equal to the null-bidx plain versions on the block
+    alone, and leave every row before it zero (the 64-bit slot; the
+    memset covers all blocks)."""
+    meta, x, small, g, gg = _f2_inputs(cuda, "dense_hash", 4096, 58)
+    b = (1 << 25) // meta.total_rows + 2
+    rows = meta.total_rows
+    assert b * rows * 64 >= 1 << 31
+    table = torch.empty(((b + 1) * rows, 128), device=cuda)
+    table[b * rows:] = small
+    bidx = torch.full((x.shape[0],), b, dtype=torch.int32, device=cuda)
+    dx, dtab = B._bwd_cuda(x, g, meta, need_dx=True, table=table, bidx=bidx)
+    assert dtab.shape == table.shape
+    assert not bool(dtab[:b * rows].count_nonzero())
+    got = dtab[b * rows:].clone()
+    del dtab
+    dx_p, dtab_p = B.brick_encode_bwd_xla(x, small, g, meta, True)
+    _close(got, dtab_p, 1e-5)
+    _close(dx, dx_p, 1e-4)
+    dg2, dx2, dtab2 = B._bwd2_cuda(g, x, table, gg, meta, bidx=bidx)
+    del table
+    assert not bool(dtab2[:b * rows].count_nonzero())
+    got2 = dtab2[b * rows:].clone()
+    del dtab2
+    dg_p, dx2_p, dtab2_p = B.brick_nablas_bwd_xla(g, x, small, gg, meta)
+    _close(got2, dtab2_p, 1e-5)
+    _close(dg2, dg_p, 1e-4)
+    _close(dx2, dx2_p, 1e-4)
 
 
 # ---------------------------- B5: every tail, views, clamps, shapes
