@@ -151,6 +151,40 @@
      of pixels within 1e-4 on rgb, alpha and depth); one train step (MSE
      to a seeded target, quats normalized in the loss) against the CPU
      port; 2 warm-up and 20 timed steps of Adam(1e-3) (1 B17 + 1 B18 each).
+   - `neus_obj_w4_train_2048`, examples/train_neus_object.py --w4 at its
+     own width (F=4 brick lod_res [16, 64], decoder W 64, radiance D 2 W
+     64, learned inv_s from 64, accel 32³ with 96 steps of 2/48, query
+     `march_occ_multi_upsample` with factors [1, 4] and 12 importance
+     samples): `pretrain_sdf_sphere(radius 0.5, 300 iterations)`, then
+     one step (MSE(rgb, |d|) + 0.03·the mean eikonal over every slab
+     sample, the global norm clipped to 5 as optax does, Adam(3e-3), the
+     lifecycle every `lifecycle_update_every` steps) against the CPU
+     port, 2 warm-up and 20 timed steps on 2048 rays (4 B1, 1 each of B2,
+     B3, B4, B5 per step, +1 B1 at each occupancy update).
+   - `neus_obj_w4_serve_2048` and `neus_obj_f2_serve_2048`: the example's
+     unperturbed validation render of the pretrained F=4 model and of its
+     --brick variant (F=2, lod_res [16, 32, 64, 128], D/D/H/H): 10 renders
+     of 2048 rays (1 B5, 4 B1 or B6 — the full slab, two rounds, the
+     final query —, 1 B3 or B8 per render).
+   - `neus_sphere_trace_serve_2048`: the pretrained F=4 model in
+     `sphere_trace` (16 band and 8 tail samples, hit threshold 5e-4, at
+     most 64 iterations, seeded from the accel's grid): 10 renders (1 B5,
+     iterations + 2 B1, 1 B3 per render); prints the iterations and the
+     hit share.
+   - `nerf_f2_mup_serve_8192`: path A's model in
+     `march_occ_multi_upsample_compressed` (0.25, 32 fine samples, no
+     coarse ones): 10 renders of 8192 rays (2 B6, 1 B5 per render).
+   - `dyn_permuto_xla_serve_4096` and `dyn_permuto_xla_train_4096`:
+     `DynamicPermutoNeuSModel` at its default field, the classic 4D
+     lattice (res [8 … 128], 2 features, 2^17 entries a level: plain
+     PyTorch, as JAX computes it in XLA; no kernel launches), otherwise
+     path D's settings: 10 renders, one step against the CPU port, 2
+     warm-up and 20 timed steps.
+   - Field phase, classic lattice: `PermutoSDF` and `PermutoNeRF` at the
+     JAX defaults (res [8 … 128], 2^17) on the same 393,216 points: the
+     autograd nablas, an eikonal step through their second order (peak
+     memory printed), a density step; held against the CPU port on the
+     first 65,536 points; no kernel launches.
    Each path prints ms per call (median, quartiles), Krays/s (path E: fps
    and Mpix/s), peak memory and a device-time profile by kernel.
 5. A `{"kernels": [...]}` JSON line, then the card's name and power limit,
@@ -263,6 +297,42 @@ NEUS_COARSE_CFG = dict(
     ray_query_cfg={"query_mode": "coarse_multi_upsample", "n_coarse": 64})
 # the forest: bench_render.py:257-292 (`main_forest`): 64 blocks of 0.5,
 # per-block F=2 brick tables, segmented marching
+# examples/train_neus_object.py: the NeuS object model (--w4, and its
+# --brick variant), 2048 rays a step, query march_occ_multi_upsample
+N_RAYS_OBJ = 2048
+OBJ_LR, OBJ_CLIP, OBJ_EIKONAL = 3e-3, 5.0, 0.03
+
+
+def _obj_cfg(lotd_cfg: dict, query: dict = None) -> dict:
+    """examples/train_neus_object.py:90-110."""
+    return dict(
+        field_cfg={"surface_cfg": {
+            "encoding_cfg": {"lotd_cfg": lotd_cfg, "backend": "brick"},
+            "decoder_cfg": {"D": 1, "W": 64}},
+            "radiance_cfg": {"D": 2, "W": 64},
+            "var_ctrl_cfg": {"type": "learned", "init_val": 64.0}},
+        accel_cfg={"resolution": 32, "max_steps_per_ray": 96,
+                   "step_size": 2 / 48},
+        ray_query_cfg=query or {"query_mode": "march_occ_multi_upsample",
+                                "upsample_inv_s_factors": [1.0, 4.0],
+                                "n_importance": 12})
+
+
+OBJ_W4_CFG = _obj_cfg({"lod_res": [16, 64], "lod_n_feats": 4,
+                       "lod_types": ["Dense", "Hash"],
+                       "hashmap_size": 2 ** 16})
+OBJ_F2_CFG = _obj_cfg({"lod_res": [16, 32, 64, 128], "lod_n_feats": 2,
+                       "lod_types": ["Dense", "Dense", "Hash", "Hash"],
+                       "hashmap_size": 2 ** 16})
+# the same F=4 model in sphere_trace at the JAX defaults
+TRACE_CFG = dict(OBJ_W4_CFG, ray_query_cfg={"query_mode": "sphere_trace"})
+# DynamicPermutoNeuSModel at its default field (the classic 4D lattice,
+# models/fields_dynamic.py defaults), otherwise path D's settings
+DYN_XLA_CFG = dict(
+    field_cfg={"surface_cfg": {"decoder_cfg": {"D": 1, "W": 64}},
+               "radiance_cfg": {"D": 2, "W": 64}},
+    n_time_keys=8)
+N_FIELD_CPU = 65_536      # the classic field phase's CPU comparison
 N_RAYS_FOREST = 8192
 FOREST_CFG = dict(
     space_cfg={"resolution": (4, 4, 4), "origin": (-1.0, -1.0, -1.0),
@@ -557,6 +627,18 @@ def _forest_loss(model, o, d, extra=None, draw=None, generator=None):
         0.01 * eik
 
 
+def _obj_loss(model, o, d, extra=None, draw=None, generator=None):
+    """examples/train_neus_object.py:117-123 with target |d|: MSE(rgb) +
+    0.03 · the mean of (‖nablas‖ − 1)² over every slab sample."""
+    import torch
+
+    rendered, vb = model.ray_query(model.ray_test(o, d), draw=draw,
+                                   generator=generator)
+    eik = torch.mean((torch.linalg.norm(vb["nablas"], dim=-1) - 1.0) ** 2)
+    return torch.mean((rendered["rgb_volume"] - torch.abs(d)) ** 2) + \
+        OBJ_EIKONAL * eik
+
+
 def _kernel_row(kernels, *, name, key, path, source, replaces, err, ms,
                 plain_ms, bound, library_ms=None, **extra) -> None:
     kernels.append(dict(name=name, route="cuda", source=source,
@@ -620,12 +702,12 @@ def _step_vs_cpu(model, cpu, o, d, cpu_render_s: float, label: str,
     from nr3d_lib_tpu_torch.bridge import to_jax_paths
     from nr3d_lib_tpu_torch.graphics.raysample import uniform_draw
 
-    n = N_RAYS
-    while n > 256 and 3.0 * cpu_render_s * n / N_RAYS > CPU_STEP_BUDGET_S:
+    n_all = n = o.shape[0]
+    while n > 256 and 3.0 * cpu_render_s * n / n_all > CPU_STEP_BUDGET_S:
         n //= 2
-    if n < N_RAYS:
-        print(f"[{label} step vs cpu] cut to {n} of {N_RAYS} rays: the CPU "
-              f"render of {N_RAYS} rays took {cpu_render_s:.1f} s")
+    if n < n_all:
+        print(f"[{label} step vs cpu] cut to {n} of {n_all} rays: the CPU "
+              f"render of {n_all} rays took {cpu_render_s:.1f} s")
     draws, base = [], uniform_draw(
         torch.Generator(device=o.device).manual_seed(8))
 
@@ -675,13 +757,16 @@ def _train_state(model, device, lr: float = 5e-3):
 
 
 def _train_step(model, opt, gen, o, d, it: int, extra=None, loss_fn=None,
-                lifecycle: bool = True, gated: bool = False):
+                lifecycle: bool = True, gated: bool = False,
+                clip: float = None):
     """Train step `it` (1, 2, ...): lifecycle (the production step's; the
     bench's `main_train` steps of kind nerf and neus run none), loss,
     backward, Adam. `gated`: the lifecycle of examples/
     train_forest_street.py:140-147, `training_before_per_step` alone,
     every `lifecycle_update_every` steps (every step when the model has a
-    stepwise schedule). Returns the loss, detached."""
+    stepwise schedule). `clip`: the gradients' global norm clipped to it
+    before Adam, as `optax.clip_by_global_norm` does. Returns the loss,
+    detached."""
     every = 1 if not gated or model.has_stepwise_schedules() else \
         model.lifecycle_update_every
     if lifecycle and it % every == 0:
@@ -689,6 +774,10 @@ def _train_step(model, opt, gen, o, d, it: int, extra=None, loss_fn=None,
     opt.zero_grad(set_to_none=True)
     loss = (loss_fn or _step_loss)(model, o, d, extra, generator=gen)
     loss.backward()
+    if clip is not None:
+        from nr3d_lib_tpu_torch.models.utils import clip_by_global_norm_
+
+        clip_by_global_norm_(model.parameters(), clip)
     opt.step()
     if lifecycle and not gated:
         model.training_after_per_step(it, gen)
@@ -698,7 +787,7 @@ def _train_step(model, opt, gen, o, d, it: int, extra=None, loss_fn=None,
 def _train(model, o, d, smi: str, label: str, per_step: dict,
            per_update: dict, extra=None, loss_fn=None,
            lifecycle: bool = True, lr: float = 5e-3,
-           gated: bool = False) -> dict:
+           gated: bool = False, clip: float = None) -> dict:
     """A train step: warm-up, then N_STEPS timed steps that cross an
     occupancy update (with the lifecycle); each step must launch exactly
     `per_step`, plus `per_update` at an update. Returns the timed steps'
@@ -713,7 +802,7 @@ def _train(model, o, d, smi: str, label: str, per_step: dict,
     def step():
         it = next(its)
         losses.append(_train_step(model, opt, gen, o, d, it, extra, loss_fn,
-                                  lifecycle, gated))
+                                  lifecycle, gated, clip))
         return it
 
     for _ in range(N_WARMUP_STEPS):
@@ -2077,6 +2166,210 @@ def _field_phase(sdf, nerf, sdf_cpu, nerf_cpu, o, d, paths, smi) -> None:
     paths["field nerf step"] = (launches, 1)
 
 
+def _pretrained(cls, cfg, dev, label: str):
+    """The example's model: `pretrain_sdf_sphere(radius 0.5, 300
+    iterations)` from its own init (seeded draws), then populate."""
+    import torch
+    from nr3d_lib_tpu_torch.models.fields.sdf import pretrain_sdf_sphere
+
+    m = cls(**cfg, seed=0)
+    t0 = time.perf_counter()
+    loss = pretrain_sdf_sphere(m.field.implicit_surface,
+                               torch.Generator(dev).manual_seed(0),
+                               radius=0.5, n_iters=300)
+    m.populate()
+    torch.cuda.synchronize()
+    occ = float(m.accel.occ.occ().float().mean())
+    print(f"[{label} pretrain] pretrain_sdf_sphere(radius 0.5, 300 "
+          f"iterations of 2048 points): last loss {loss:.3e}, "
+          f"{time.perf_counter() - t0:.1f} s with populate; occupied "
+          f"share of the {tuple(m.accel.occ.occ().shape)} grid {occ:.4f}")
+    _require(np.isfinite(loss) and loss < 1e-2, "the sphere pretrain did "
+             "not fit")
+    return m
+
+
+def _object_paths(dev, smi: str, paths: dict) -> None:
+    """examples/train_neus_object.py on the card: the F=4 model pretrained
+    to a sphere, served in its default mode and in sphere_trace, and
+    trained as the example trains it; the --brick (F=2) variant served."""
+    import torch
+    from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel
+
+    o, d = (torch.from_numpy(a).to(dev) for a in _rays(N_RAYS_OBJ, seed=2))
+
+    # ------------------------------ F=2 (--brick): the validation render
+    f2 = _pretrained(LoTDNeuSModel, OBJ_F2_CFG, dev, "neus_obj_f2")
+    launches, _ = _serve(f2, _cpu_twin(f2, LoTDNeuSModel, OBJ_F2_CFG), o, d,
+                         {"brick_fwd": 4, "brick_dydx": 1, "gather1d": 1},
+                         "neus_obj_f2_serve_2048", smi)
+    paths["neus_obj_f2_serve_2048"] = (launches, N_RENDERS)
+    del f2
+
+    # ------------------------------ F=4 (--w4): render, trace, train
+    w4 = _pretrained(LoTDNeuSModel, OBJ_W4_CFG, dev, "neus_obj_w4")
+    cpu = _cpu_twin(w4, LoTDNeuSModel, OBJ_W4_CFG)
+    launches, _ = _serve(w4, cpu, o, d, {"brick4_fwd": 4, "brick4_dydx": 1,
+                                         "gather1d": 1},
+                         "neus_obj_w4_serve_2048", smi)
+    paths["neus_obj_w4_serve_2048"] = (launches, N_RENDERS)
+
+    w4.ray_query_cfg = dict(TRACE_CFG["ray_query_cfg"])
+    with torch.no_grad():
+        _, vb = w4.ray_query(w4.ray_test(o, d))
+    iters = int(vb["trace_iters"])
+    hit = float(vb["hit"][vb["ray_mask"]].float().mean())
+    print(f"[neus_sphere_trace_serve_2048] the trace ran {iters} of at most "
+          f"64 iterations (a live-ray test every 8); hit share {hit:.4f} "
+          f"of the {int(vb['ray_mask'].sum())} rays that meet the box")
+    _require(hit > 0.5, "the sphere trace hits too few rays")
+    launches, _ = _serve(w4, cpu, o, d, {"brick4_fwd": iters + 2,
+                                         "brick4_dydx": 1, "gather1d": 1},
+                         "neus_sphere_trace_serve_2048", smi)
+    paths["neus_sphere_trace_serve_2048"] = (launches, N_RENDERS)
+
+    w4.ray_query_cfg = dict(OBJ_W4_CFG["ray_query_cfg"])
+    cpu.ray_query_cfg = dict(OBJ_W4_CFG["ray_query_cfg"])
+    _step_vs_cpu(w4, cpu, o, d, _cpu_seconds(
+        lambda oo, dd: _obj_loss(cpu, oo, dd), o, d),
+        "neus_obj_w4_train_2048", loss=_obj_loss)
+    paths["neus_obj_w4_train_2048"] = (_train(
+        w4, o, d, smi, "neus_obj_w4_train_2048",
+        {"brick4_fwd": 4, "brick4_dydx": 1, "gather1d": 1, "brick4_bwd": 1,
+         "brick4_bwd2": 1}, {"brick4_fwd": 1}, loss_fn=_obj_loss,
+        lr=OBJ_LR, gated=True, clip=OBJ_CLIP), N_STEPS)
+
+
+def _dyn_xla_paths(dev, o, d, ts_extra, smi: str, paths: dict) -> None:
+    """`DynamicPermutoNeuSModel` at its default field, the classic 4D
+    lattice (plain PyTorch: no kernel launches), served and trained as
+    path D."""
+    import torch
+    from nr3d_lib_tpu_torch.models.model_families import \
+        DynamicPermutoNeuSModel
+
+    m = DynamicPermutoNeuSModel(**DYN_XLA_CFG, seed=0)
+    bank = m.field.implicit_surface.bank
+    _require(bank.backend == "xla", "the default field is not the classic "
+             "lattice")
+    _seed_weights(m, bank, 27)
+    m.populate()
+    cpu = _cpu_twin(m, DynamicPermutoNeuSModel, DYN_XLA_CFG)
+    print(f"[dyn_permuto_xla] classic lattice: {bank.meta.n_levels} levels "
+          f"of {bank.meta.hashmap_sizes[0]} entries x "
+          f"{bank.meta.level_n_feats[0]} features, d = {bank.meta.n_dims}")
+    cpu_s = _cpu_seconds(lambda oo, dd: cpu.ray_query(
+        _tested(cpu, oo, dd, ts_extra)), o, d, n_try=256)
+    n_cpu = N_RAYS
+    while n_cpu > 256 and cpu_s * n_cpu / N_RAYS > CPU_STEP_BUDGET_S:
+        n_cpu //= 2
+    launches, _ = _serve(m, cpu, o, d, {}, "dyn_permuto_xla_serve_4096", smi,
+                         extra=ts_extra, cpu_rays=n_cpu)
+    paths["dyn_permuto_xla_serve_4096"] = (launches, N_RENDERS)
+    _step_vs_cpu(m, cpu, o, d, cpu_s, "dyn_permuto_xla_train_4096", ts_extra)
+    paths["dyn_permuto_xla_train_4096"] = (_train(
+        m, o, d, smi, "dyn_permuto_xla_train_4096", {}, {}, ts_extra),
+        N_STEPS)
+
+
+def _field_phase_classic(o, d, dev, paths: dict, smi: str) -> None:
+    """`PermutoSDF` and `PermutoNeRF` at the JAX defaults, the classic
+    lattice (res [8 … 128], 2^17 entries a level), on the field phase's
+    393,216 points: the autograd nablas, an eikonal step through their
+    second order, a density step; each timed, with its peak memory, and
+    held against the CPU port on the first N_FIELD_CPU points. No kernel
+    of the port launches."""
+    import torch
+    from nr3d_lib_tpu_torch.models.fields.nerf import PermutoNeRF
+    from nr3d_lib_tpu_torch.models.fields.sdf import PermutoSDF
+    from nr3d_lib_tpu_torch.ops import _build
+
+    x = _ray_points(o, d, 96, seed=29) * 2.0 - 1.0
+    n = x.shape[0]
+    xc = x[:N_FIELD_CPU].cpu()
+    pairs = []
+    for cls, seed in ((PermutoSDF, 30), (PermutoNeRF, 31)):
+        f = cls(seed=0, device=dev)
+        _require(f.bank.backend == "xla", "the default bank is not classic")
+        p = f.bank.flattened_params
+        with torch.no_grad():
+            p.copy_(torch.from_numpy(np.random.default_rng(seed).uniform(
+                -0.1, 0.1, tuple(p.shape)).astype(np.float32)))
+        fc = cls(seed=0, device="cpu")
+        fc.load_state_dict({k: v.cpu() for k, v in f.state_dict().items()})
+        pairs.append((f, fc))
+    (sdf, sdf_cpu), (nerf, nerf_cpu) = pairs
+    meta = sdf.bank.meta
+    print(f"[field classic] PermutoSDF / PermutoNeRF, the classic lattice: "
+          f"{meta.n_levels} levels of {meta.hashmap_sizes[0]} entries, "
+          f"{n} points, on {smi}")
+
+    def eik_loss(m, xx):
+        out = m.forward_sdf_nablas(xx)
+        nrm = torch.linalg.norm(out["nablas"], dim=-1)
+        return torch.mean(out["sdf"] ** 2) + 0.1 * torch.mean((nrm - 1.0) ** 2)
+
+    def nerf_loss(m, xx):
+        out = m.forward_density(xx)
+        return torch.mean(out["sigma"]) + torch.mean(out["h"] ** 2)
+
+    def step(m, fn, xx):
+        m.zero_grad(set_to_none=True)
+        fn(m, xx).backward()
+
+    def grads_vs_cpu(m, mc, fn, what):
+        step(m, fn, x[:N_FIELD_CPU])
+        step(mc, fn, xc)
+        errs = {k: float(torch.linalg.norm(a.grad.cpu() - b.grad) /
+                         max(float(torch.linalg.norm(b.grad)), 1e-12))
+                for (k, a), b in zip(m.named_parameters(), mc.parameters())
+                if b.grad is not None}
+        _require("bank.flattened_params" in errs, f"{what}: no table grad")
+        print(f"[{what}] {N_FIELD_CPU} points: gradients vs the CPU port, "
+              f"relative L2 per tensor (tolerance 1e-3: the table's "
+              f"gradient sums by atomics on the card): " + ", ".join(
+                  f"{k} {e:.2e}" for k, e in errs.items()))
+        _require(max(errs.values()) <= 1e-3, f"{what}: gradients disagree")
+        m.zero_grad(set_to_none=True)
+
+    def timed(what, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        fn()
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        ms = _time_ms(fn, iters=5, warmup=1)
+        print(f"[{what}] {n} points: {ms:.3f} ms device time per call, "
+              f"peak memory {peak:.1f} MiB; launches {launches}")
+        _require(launches == {}, f"{what}: the classic lattice launched a "
+                 f"kernel of the port")
+        paths[what] = (launches, 1)
+
+    # ------------------------------------- the autograd nablas, no_grad
+    with torch.no_grad():
+        out = sdf.forward_sdf_nablas(x)
+        ref = sdf_cpu.forward_sdf_nablas(xc)
+        parts = []
+        for k in ("sdf", "h", "nablas"):
+            _require(bool(torch.isfinite(out[k]).all()), f"{k} not finite")
+            parts.append((k, _err(out[k][:N_FIELD_CPU].cpu(), ref[k]),
+                          1e-5 + 1e-4 * float(ref[k].abs().max()),
+                          "the decoder's matmuls and the lattice sums in "
+                          "another order"))
+        _check("field classic sdf nablas vs cpu", N_FIELD_CPU, parts)
+    with torch.no_grad():
+        timed("field classic sdf nablas",
+              lambda: sdf.forward_sdf_nablas(x))
+    # ------------------ the eikonal step through the nablas' 2nd order
+    grads_vs_cpu(sdf, sdf_cpu, eik_loss, "field classic sdf eikonal step")
+    timed("field classic sdf eikonal step", lambda: step(sdf, eik_loss, x))
+    # ---------------------------------------------- the density step
+    grads_vs_cpu(nerf, nerf_cpu, nerf_loss, "field classic nerf step")
+    timed("field classic nerf step", lambda: step(nerf, nerf_loss, x))
+
+
 def _gs_params(n: int, seed: int) -> dict:
     """bench.py:404-411's scene from numpy: means U[-1,1], scales
     U[0.002,0.02], unit quats, opacities U[0.3,0.9], colours U[0,1]."""
@@ -2621,6 +2914,15 @@ def main() -> int:
          "brick_bwd2_b": 1}, {"brick_fwd_b": 1}, loss_fn=_forest_loss,
         lr=1e-2, gated=True), N_STEPS)
 
+    # ---- examples/train_neus_object.py: the default NeuS mode, the
+    # sphere trace, the example's train step; the NeRF multi-upsample
+    _object_paths(dev, smi, paths)
+    nerf.ray_query_cfg = {"query_mode": "march_occ_multi_upsample_compressed"}
+    launches, _ = _serve(nerf, nerf_cpu, o8, d8, {"brick_fwd": 2,
+                                                  "gather1d": 1},
+                         "nerf_f2_mup_serve_8192", smi)
+    paths["nerf_f2_mup_serve_8192"] = (launches, N_RENDERS)
+
     # ------------------------- path C: the dynamic (x,t) permuto NeuS
     dyn_cpu = _cpu_twin(dyn, DynamicPermutoNeuSModel, DYN_CFG)
     launches, cpu_s = _serve(dyn, dyn_cpu, o, d, {
@@ -2661,6 +2963,10 @@ def main() -> int:
         pathd, o, d, smi, "pathd", {"permuto_fwd": 4, "permuto_bwd": 1,
                                     "permuto_dydx": 1}, {"permuto_fwd": 1},
         ts_extra), N_STEPS)
+
+    # ------------- the classic permutohedral lattice (plain PyTorch)
+    _field_phase_classic(o, d, dev, paths, smi)
+    _dyn_xla_paths(dev, o, d, ts_extra, smi, paths)
 
     # ------------------------- path E: 3D Gaussian splatting (B17, B18)
     gs_params = _gs_params(GS_N, seed=21)

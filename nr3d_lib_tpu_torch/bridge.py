@@ -11,7 +11,11 @@ path maps to the dotted `state_dict` key of the same name:
     [in, out] exactly as JAX does and computes `h @ w + b`, so no
     transpose;
   * `field/var_ctrl/ln_s`, `space/aabb`, `accel/occ/val_grid` and
-    `accel/occ/it`.
+    `accel/occ/it`;
+  * the permuto banks' `bank/flattened_params` ([rows, 128·F/2] on the
+    cell backend, the classic lattice's flat [n_params]) and the MLL's
+    `lattice_layers/i/encoding/flattened_params`, `.../decoder/ws/0`
+    and `.../zero`, by the same rule.
 
 A forest model (`LoTDForestNeuSModel`) comes across with
 `forest_from_jax_state`: its encoding's `flattened_params` is [n_trees,

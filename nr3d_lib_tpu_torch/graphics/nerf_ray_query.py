@@ -1,6 +1,8 @@
 """NeRF ray-query strategies (port of nr3d_lib_tpu/graphics/nerf_ray_query.py
 `_composite`, `nerf_ray_query_march_occ`,
-`nerf_ray_query_march_occ_compressed` and `nerf_ray_query_fixed`).
+`nerf_ray_query_march_occ_compressed`,
+`nerf_ray_query_march_occ_multi_upsample_compressed` and
+`nerf_ray_query_fixed`).
 
 Dense [R, S] sample slabs with validity masks: padding never contributes
 (its alpha is forced to 0). The compressed mode compacts the marched slab
@@ -10,7 +12,8 @@ the transmittance before the radiance query.
 Randomness: a `draw` callable (`graphics.raysample`) hands the march its
 [R, S] uniforms, the draw the JAX version takes from `perturb_key`; None
 marches at the step midpoints. The fixed query draws its stratified
-jitter the same way.
+jitter the same way, and the multi-upsample query its coarse jitter and
+its CDF quantiles after the march's.
 """
 
 from __future__ import annotations
@@ -22,10 +25,13 @@ import torch
 from nr3d_lib_tpu_torch.graphics import _scan
 from nr3d_lib_tpu_torch.graphics import pack_ops as po
 from nr3d_lib_tpu_torch.graphics.nerf import ray_alpha_to_vw, tau_to_alpha
-from nr3d_lib_tpu_torch.graphics.raysample import (Draw,
+from nr3d_lib_tpu_torch.graphics.neus_ray_query import _sort_tvs
+from nr3d_lib_tpu_torch.graphics.raysample import (CDF_EPS, Draw,
+                                                   batch_sample_cdf,
                                                    batch_sample_step_linear)
 
 __all__ = ["nerf_ray_query_march_occ", "nerf_ray_query_march_occ_compressed",
+           "nerf_ray_query_march_occ_multi_upsample_compressed",
            "nerf_ray_query_fixed"]
 
 Out = Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
@@ -110,13 +116,25 @@ def nerf_ray_query_march_occ_compressed(
     alpha1 = torch.where(valid1, tau_to_alpha(sigma * dt1),
                          torch.zeros_like(sigma))
 
-    # compaction 2: early termination before the radiance net
+    return _radiance_compressed(model, o_n, d_n, rays_d, t1, alpha1,
+                                den["h"].reshape(r, b1, -1), valid1,
+                                ray_mask, early_stop_eps,
+                                max(int(b1 * radiance_compression_factor),
+                                    1), with_rgb)
+
+
+def _radiance_compressed(model, o_n, d_n, rays_d, t1, alpha1, h1, valid1,
+                         ray_mask, early_stop_eps: float, b2: int,
+                         with_rgb: bool) -> Out:
+    """Compaction 2 and the composite: keep each ray's samples ahead of
+    transmittance early_stop_eps (at most b2), query the radiance there
+    only, and composite; the volume buffer also holds the packed view."""
+    r = t1.shape[0]
     trans = _scan.cumprod(torch.cat(
         [torch.ones_like(alpha1[:, :1]), 1.0 - alpha1[:, :-1]], -1), -1)
     keep2 = valid1 & (alpha1 > 0) & (trans > early_stop_eps)
-    b2 = max(int(b1 * radiance_compression_factor), 1)
     (t2, alpha2, h2), valid2 = po.dense_to_budgeted(
-        [t1, alpha1, den["h"].reshape(r, b1, -1)], keep2, b2)
+        [t1, alpha1, h1], keep2, b2)
     alpha2 = torch.where(valid2, alpha2, torch.zeros_like(alpha2))
 
     vw = ray_alpha_to_vw(alpha2)
@@ -144,6 +162,81 @@ def nerf_ray_query_march_occ_compressed(
                      "t": t2, "alpha": alpha2, "vw": vw, "valid": valid2,
                      "n_compact": torch.sum(valid2)}
     return rendered, volume_buffer
+
+
+def nerf_ray_query_march_occ_multi_upsample_compressed(
+        model, accel, space, ray_tested: Dict, *,
+        compression_factor: float = 0.25, n_fine: int = 32,
+        n_coarse: int = 0, early_stop_eps: float = 1e-4,
+        radiance_compression_factor: float = 0.5, with_rgb: bool = True,
+        draw: Optional[Draw] = None) -> Out:
+    """Occupancy-marched NeRF query with an inverse-CDF upsample round
+    between the march and the compaction:
+      1. march, compact to B1 = compression_factor × S samples a ray,
+         with `n_coarse` > 0 uniform coarse samples joined to them;
+      2. the density at the B1 candidates under no_grad → a per-ray CDF
+         of their alphas → `n_fine` fine depths;
+      3. merge-sort fine and candidate depths, take dt to the next one (the
+         last to far), query the density again, compact on the
+         transmittance (radiance_compression_factor of the merged count)
+         before the radiance query.
+    `draw` hands out the march's [R, S] uniforms, then the coarse
+    samples' [R, n_coarse] (JAX draws these from the march's key again;
+    the port draws them afresh, ROADMAP.md §C), then the CDF quantiles
+    [R, n_fine] in [eps, 1−eps). None renders unperturbed."""
+    rays_o, rays_d = ray_tested["rays_o"], ray_tested["rays_d"]
+    near, far, ray_mask = ray_tested["near"], ray_tested["far"], \
+        ray_tested["mask"]
+    o_n, d_n = space.normalize_rays(rays_o, rays_d)
+    t, _, smask = _march(accel, o_n, d_n, near, far, draw)
+    r, s = t.shape
+    smask = smask & ray_mask[:, None]
+
+    # compaction 1: occupancy (per-ray budget), + the optional coarse union
+    b1 = max(int(s * compression_factor), 1)
+    (t1,), valid1 = po.dense_to_budgeted([t], smask, b1)
+    if n_coarse > 0:
+        u = None if draw is None else draw((r, n_coarse), 0.0, 1.0)
+        t_c, _ = batch_sample_step_linear(near, far, n_coarse, u)
+        t1 = torch.cat([t1, t_c], -1)
+        valid1 = torch.cat([valid1, ray_mask[:, None].expand_as(t_c)], -1)
+        b1 = b1 + n_coarse
+    t1, valid1 = _sort_tvs(t1, valid1, far)
+
+    def density_at(tq):
+        x = o_n[:, None, :] + d_n[:, None, :] * tq[..., None]
+        return model.forward_density(x.reshape(-1, 3))
+
+    # the upsample round: no gradient reaches the sample placement
+    with torch.no_grad():
+        sigma_u = density_at(t1)["sigma"].reshape(r, b1)
+        dt_u = torch.clamp(torch.diff(t1, dim=-1, append=far[:, None]),
+                           min=0.0)
+        alpha_u = torch.where(valid1, tau_to_alpha(sigma_u * dt_u),
+                              torch.zeros_like(sigma_u))
+        cdf = _scan.cumsum(alpha_u, -1)
+        cdf = cdf / torch.clamp(cdf[:, -1:], min=1e-5)
+        u = None if draw is None else \
+            draw((r, n_fine), CDF_EPS, 1.0 - CDF_EPS)
+        t_fine = batch_sample_cdf(t1, cdf, n_fine, u)             # [R, F]
+        t_fine = torch.clamp(t_fine, near[:, None], far[:, None])
+
+    # merge fine + candidates, re-difference, the final density
+    t_all, valid_all = _sort_tvs(
+        torch.cat([t1, t_fine], -1),
+        torch.cat([valid1, ray_mask[:, None].expand_as(t_fine)], -1), far)
+    n_all = b1 + n_fine
+    dt_all = torch.clamp(torch.diff(t_all, dim=-1, append=far[:, None]),
+                         min=0.0)
+    den = density_at(t_all)
+    sigma = den["sigma"].reshape(r, n_all)
+    alpha1 = torch.where(valid_all, tau_to_alpha(sigma * dt_all),
+                         torch.zeros_like(sigma))
+    return _radiance_compressed(model, o_n, d_n, rays_d, t_all, alpha1,
+                                den["h"].reshape(r, n_all, -1), valid_all,
+                                ray_mask, early_stop_eps,
+                                max(int(n_all * radiance_compression_factor),
+                                    1), with_rgb)
 
 
 def nerf_ray_query_fixed(model, space, ray_tested: Dict, *,

@@ -117,10 +117,9 @@ class LoTDNeRF(nn.Module):
 
 
 class PermutoNeRF(nn.Module):
-    """Permutohedral-encoded NeRF: a 3D cell-permuto table → small density
-    decoder → radiance head, the permuto counterpart of `LoTDNeRF`. Only
-    the cell backend is ported (`PermutoParams` raises for the classic
-    lattice)."""
+    """Permutohedral-encoded NeRF: a 3D permuto table (the classic lattice
+    by default, or the cell layout) → small density decoder → radiance
+    head, the permuto counterpart of `LoTDNeRF`."""
 
     def __init__(self, *, permuto_cfg: Optional[dict] = None,
                  density_decoder_cfg: Optional[dict] = None,
@@ -131,11 +130,12 @@ class PermutoNeRF(nn.Module):
             PermutoParams
 
         cfg = dict(permuto_cfg or {})
-        # the classic lattice's log2_hashmap_size waits with that backend
         cfg.setdefault("res_list", [8.0, 16.0, 32.0, 64.0, 128.0])
         cfg.setdefault("n_feats", 2)
+        cfg.setdefault("log2_hashmap_size", 17)
         self.bank = PermutoParams(
             3, cfg["res_list"], n_feats=cfg["n_feats"],
+            log2_hashmap_size=cfg["log2_hashmap_size"],
             backend=cfg.get("backend", "xla"),
             hashmap_rows=cfg.get("hashmap_rows", 4096), seed=seed,
             device=device)

@@ -1,9 +1,10 @@
 """SDF fields (port of nr3d_lib_tpu/models/fields/sdf.py `LoTDSDF`, brick
-backend, and `PermutoSDF`, cell backend)."""
+backend, `PermutoSDF`, classic and cell lattices, and
+`pretrain_sdf_sphere`)."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -13,7 +14,29 @@ from nr3d_lib_tpu_torch.models.blocks import MLP
 from nr3d_lib_tpu_torch.models.grid_encodings.lotd import get_lotd_encoding
 from nr3d_lib_tpu_torch.models.grid_encodings.permuto import PermutoParams
 
-__all__ = ["LoTDSDF", "PermutoSDF"]
+__all__ = ["LoTDSDF", "PermutoSDF", "pretrain_sdf_sphere",
+           "autograd_nablas"]
+
+
+def autograd_nablas(fn: Callable[[torch.Tensor], Tuple[torch.Tensor,
+                                                       torch.Tensor]],
+                    x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sdf, h, ∂sdf/∂x) of `fn(x) → (sdf, h)` by one autograd pass, the
+    JAX package's generic nablas (`jax.vjp` of the field). With gradients
+    on, the nablas keep their graph (`create_graph`), so an eikonal loss
+    differentiates through them to second order; under `no_grad` the
+    pass runs inside `enable_grad` and everything comes back detached."""
+    graph = torch.is_grad_enabled()
+    with torch.enable_grad():
+        xr = x if (graph and x.requires_grad) else \
+            x.detach().requires_grad_(True)
+        sdf, h = fn(xr)
+        (nablas,) = torch.autograd.grad(sdf, xr, torch.ones_like(sdf),
+                                        create_graph=graph)
+    if not graph:
+        sdf, h = sdf.detach(), h.detach()
+    return sdf, h, nablas
 
 
 class LoTDSDF(nn.Module):
@@ -68,21 +91,22 @@ class LoTDSDF(nn.Module):
 
 
 class PermutoSDF(nn.Module):
-    """Static permutohedral-encoded SDF: a 3D cell-permuto table, a small
-    decoder over [x, features], and an optional sphere residual
-    (|x| − radius_init added to the sdf). Only the cell backend is ported
-    (`PermutoParams` raises for the classic lattice)."""
+    """Static permutohedral-encoded SDF: a 3D permuto table (the classic
+    lattice by default, or the cell layout), a small decoder over [x,
+    features], and an optional sphere residual (|x| − radius_init added
+    to the sdf)."""
 
     def __init__(self, *, permuto_cfg: Optional[dict] = None,
                  decoder_cfg: Optional[dict] = None, n_geo_feat: int = 15,
                  radius_init: float = 0.0, seed: int = 0, device=None):
         super().__init__()
         cfg = dict(permuto_cfg or {})
-        # the classic lattice's log2_hashmap_size waits with that backend
         cfg.setdefault("res_list", [8.0, 16.0, 32.0, 64.0, 128.0])
         cfg.setdefault("n_feats", 2)
+        cfg.setdefault("log2_hashmap_size", 17)
         self.bank = PermutoParams(
             3, cfg["res_list"], n_feats=cfg["n_feats"],
+            log2_hashmap_size=cfg["log2_hashmap_size"],
             backend=cfg.get("backend", "xla"),
             hashmap_rows=cfg.get("hashmap_rows", 4096), seed=seed,
             device=device)
@@ -108,9 +132,16 @@ class PermutoSDF(nn.Module):
         return {"sdf": sdf, "h": h}
 
     def forward_sdf_nablas(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """(sdf, h, nablas=∂sdf/∂x), split as in the JAX cell path: the
-        decoder term by `torch.func.vjp`, the encoding term by the bank's
-        nablas (B13 for F=2, B16 for F=4), times 0.5 for x → x·0.5+0.5."""
+        """(sdf, h, nablas=∂sdf/∂x). The classic lattice: by autograd
+        through the whole field (`autograd_nablas`, JAX's generic branch).
+        The cell layout: split as in the JAX cell path, the decoder term
+        by `torch.func.vjp`, the encoding term by the bank's nablas (B13
+        for F=2, B16 for F=4), times 0.5 for x → x·0.5+0.5."""
+        if self.bank.backend != "cell":
+            sdf, h, nablas = autograd_nablas(
+                lambda xx: self._dec(xx, self.bank.encode(xx * 0.5 + 0.5)),
+                x)
+            return {"sdf": sdf, "h": h, "nablas": nablas}
         batch = x.shape[:-1]
         xf = x.reshape(-1, 3)
         x01 = xf * 0.5 + 0.5
@@ -124,3 +155,33 @@ class PermutoSDF(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.forward_sdf(x)["sdf"]
+
+
+def pretrain_sdf_sphere(model: nn.Module,
+                        generator: Optional[torch.Generator] = None, *,
+                        radius: float = 0.5, n_iters: int = 500,
+                        n_pts: int = 2048, lr: float = 1e-3,
+                        draw=None) -> float:
+    """Fit the SDF `model` (x → sdf) to the sphere |x| − radius before
+    scene training: Adam(lr) on the mean squared error at one draw of
+    [n_pts, 3] uniform points in [−1, 1]³ a step. `draw` (a
+    `graphics.raysample.Draw`) hands in the points' uniforms, as the
+    tests hand in the JAX package's; otherwise `generator` (or a
+    generator seeded with 0) draws them on the model's device. Returns
+    the last step's loss."""
+    from nr3d_lib_tpu_torch.graphics.raysample import uniform_draw
+
+    if draw is None:
+        dev = next(model.parameters()).device
+        draw = uniform_draw(generator if generator is not None else
+                            torch.Generator(dev).manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    loss = torch.tensor(float("inf"))
+    for _ in range(n_iters):
+        x = draw((n_pts, 3), -1.0, 1.0)
+        target = torch.linalg.norm(x, dim=-1) - radius
+        opt.zero_grad(set_to_none=True)
+        loss = torch.mean((model(x) - target) ** 2)
+        loss.backward()
+        opt.step()
+    return float(loss.detach())

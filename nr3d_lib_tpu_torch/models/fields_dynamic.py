@@ -15,6 +15,7 @@ from torch.func import vjp
 from nr3d_lib_tpu_torch.models.blocks import MLP
 from nr3d_lib_tpu_torch.models.fields.nerf import RadianceNet
 from nr3d_lib_tpu_torch.models.fields.neus import get_neus_var_ctrl
+from nr3d_lib_tpu_torch.models.fields.sdf import autograd_nablas
 from nr3d_lib_tpu_torch.models.grid_encodings.permuto import PermutoParams
 
 __all__ = ["DynamicPermutoConcatSDF", "DynamicPermutoConcatNeuS"]
@@ -29,7 +30,8 @@ def _ts_column(ts, x: torch.Tensor) -> torch.Tensor:
 
 
 class DynamicPermutoConcatSDF(nn.Module):
-    """SDF over (x, t) through a 4D permutohedral table."""
+    """SDF over (x, t) through a 4D permutohedral table (the classic
+    lattice by default, or the cell layout)."""
 
     def __init__(self, *, permuto_cfg: Optional[dict] = None,
                  decoder_cfg: Optional[dict] = None, n_geo_feat: int = 15,
@@ -37,11 +39,12 @@ class DynamicPermutoConcatSDF(nn.Module):
         super().__init__()
         self.radius_init = float(radius_init)
         cfg = dict(permuto_cfg or {})
-        # the classic lattice's log2_hashmap_size waits with that backend
         cfg.setdefault("res_list", [8.0, 16.0, 32.0, 64.0, 128.0])
         cfg.setdefault("n_feats", 2)
+        cfg.setdefault("log2_hashmap_size", 17)
         self.bank = PermutoParams(
             4, cfg["res_list"], n_feats=cfg["n_feats"],
+            log2_hashmap_size=cfg["log2_hashmap_size"],
             backend=cfg.get("backend", "xla"),
             hashmap_rows=cfg.get("hashmap_rows", 4096), seed=seed,
             device=device)
@@ -73,11 +76,18 @@ class DynamicPermutoConcatSDF(nn.Module):
 
     def forward_sdf_nablas(self, x: torch.Tensor, ts
                            ) -> Dict[str, torch.Tensor]:
-        """(sdf, h, nablas=∂sdf/∂x), split as in the JAX cell path: the
-        decoder term by `torch.func.vjp`, the (x,t) encoding term by the
-        bank's nablas (B13 for F=2, B16 for F=4), of which the spatial
+        """(sdf, h, nablas=∂sdf/∂x) at fixed t. The classic lattice: by
+        autograd through the whole field in x (`autograd_nablas`, JAX's
+        generic branch). The cell layout: split as in the JAX cell path,
+        the decoder term by `torch.func.vjp`, the (x,t) encoding term by
+        the bank's nablas (B13 for F=2, B16 for F=4), of which the spatial
         nablas are the first 3 of the 4 lattice-input gradients, times 0.5
         for x → x·0.5+0.5."""
+        if self.bank.backend != "cell":
+            sdf, h, nablas = autograd_nablas(
+                lambda xx: self._dec(xx, self.bank.encode(self._inp(xx, ts))),
+                x)
+            return {"sdf": sdf, "h": h, "nablas": nablas}
         inp = self._inp(x, ts)
         h_enc = self.bank.encode(inp)
         (sdf, h), dec_vjp = vjp(self._dec, x, h_enc)

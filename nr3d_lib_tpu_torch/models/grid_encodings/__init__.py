@@ -1,1 +1,10 @@
-"""Grid encodings of the port."""
+"""Grid encodings of the port: the brick LoTD and the permutohedral
+lattices, and their shared helpers."""
+
+from nr3d_lib_tpu_torch.models.grid_encodings.utils import (  # noqa: F401
+    get_multires_decoder, gridsample1d, trilinear_interp)
+from nr3d_lib_tpu_torch.ops.permuto import (  # noqa: F401
+    PermutoEncMeta, make_permuto_meta, permuto_encode,
+    permuto_enc_fwd_dydx, permuto_enc_bwd_dydx)
+from nr3d_lib_tpu_torch.models.grid_encodings.permuto.permuto_encoding import (  # noqa: F401,E501
+    PermutoEncoding)

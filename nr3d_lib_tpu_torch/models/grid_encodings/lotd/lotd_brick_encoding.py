@@ -95,13 +95,17 @@ class LoTDBrickEncoding(nn.Module):
                 frozen_x: bool = False) -> torch.Tensor:
         """x in [-1,1] → [N, n_feats·L] (kernel space is [0,1]).
         `frozen_x=True`: positions carry no gradient (plain radiance-field
-        training), so the backward computes dL/dtable only."""
-        if ho:
-            raise NotImplementedError(
-                "the higher-order brick encode (ho=True) is not ported yet "
-                "(ROADMAP.md A8b); the nablas path is differentiable twice")
+        training), so the backward computes dL/dtable only. `ho=True`: the
+        encode differentiable to any order, the plain formulation on any
+        device (`brick_encode_ho` at F=2, `brick4_encode_xla` at F=4), as
+        the JAX package runs its XLA formulation for it on the TPU too;
+        the brick fields take the split nablas instead."""
         x01 = x * 0.5 + 0.5
         table = self._build_table()
+        if ho:
+            if self.n_feats == 4:
+                return B4.brick4_encode_xla(x01, table, self.meta)
+            return B.brick_encode_ho(x01, table, self.meta)
         if self.n_feats == 4:
             return B4.brick4_encode(x01.detach() if frozen_x else x01, table,
                                     self.meta)

@@ -3,11 +3,13 @@ nr3d_lib_tpu/models/model_base.py `ModelMixin`, `LoTDNeuSModel`,
 `LoTDNeRFModel`).
 
 A renderable model owns (field net, space, accel) and dispatches
-`ray_query` to the strategy function of its query mode. Ported modes: the
-NeuS `march_occ_multi_upsample_compressed` and `coarse_multi_upsample`,
-the NeRF `march_occ` and `march_occ_compressed`; the others raise (the
-NeRF's fixed query is a plain function, `graphics.nerf_ray_query.
-nerf_ray_query_fixed`, as in JAX).
+`ray_query` to the strategy function of its query mode: the NeuS
+`march_occ_multi_upsample` (the default), `march_occ_multi_upsample_
+compressed`, `coarse_multi_upsample` and `sphere_trace`; the NeRF
+`march_occ` (the default), `march_occ_compressed` and
+`march_occ_multi_upsample_compressed`. An unknown mode raises ValueError,
+as in JAX. (The NeRF's fixed query is a plain function, `graphics.
+nerf_ray_query.nerf_ray_query_fixed`, as in JAX.)
 
 Randomness: `jax.random` keys become a `torch.Generator` (`ray_query`'s
 `generator`, `training_before_per_step`'s), or a `draw` callable through
@@ -136,26 +138,26 @@ class LoTDNeuSModel(nn.Module, ModelMixin):
         """Render the tested rays. A `generator` (or a `draw` callable,
         which takes precedence) perturbs the samples, as for training;
         neither renders unperturbed."""
+        from nr3d_lib_tpu_torch.graphics import neus_ray_query as Q
+        from nr3d_lib_tpu_torch.graphics import neus_ray_query_variants as V
+
         cfg = dict(self.ray_query_cfg)
         mode = cfg.pop("query_mode", "march_occ_multi_upsample")
         if draw is None and generator is not None:
             draw = uniform_draw(generator)
-        if mode == "march_occ_multi_upsample_compressed":
-            from nr3d_lib_tpu_torch.graphics.neus_ray_query_variants import (
-                neus_ray_query_march_occ_multi_upsample_compressed)
-
-            return neus_ray_query_march_occ_multi_upsample_compressed(
-                self, self.accel, self.space, ray_tested, with_rgb=with_rgb,
-                draw=draw, **cfg)
         if mode == "coarse_multi_upsample":
-            from nr3d_lib_tpu_torch.graphics.neus_ray_query import (
-                neus_ray_query_coarse_multi_upsample)
-
-            return neus_ray_query_coarse_multi_upsample(
+            return Q.neus_ray_query_coarse_multi_upsample(
                 self, self.space, ray_tested, with_rgb=with_rgb, draw=draw,
                 **cfg)
-        raise NotImplementedError(
-            f"query_mode {mode!r} is not ported yet (ROADMAP.md A8b)")
+        fn = {"march_occ_multi_upsample":
+              Q.neus_ray_query_march_occ_multi_upsample,
+              "march_occ_multi_upsample_compressed":
+              V.neus_ray_query_march_occ_multi_upsample_compressed,
+              "sphere_trace": Q.neus_ray_query_sphere_trace}.get(mode)
+        if fn is None:
+            raise ValueError(f"Unknown query_mode: {mode}")
+        return fn(self, self.accel, self.space, ray_tested,
+                  with_rgb=with_rgb, draw=draw, **cfg)
 
 
 class LoTDNeRFModel(nn.Module, ModelMixin):
@@ -209,8 +211,8 @@ class LoTDNeRFModel(nn.Module, ModelMixin):
                   with_rgb: bool = True, draw: Optional[Draw] = None
                   ) -> Tuple[Dict, Dict]:
         """Render the tested rays. A `generator` (or a `draw` callable,
-        which takes precedence) jitters the march; neither marches at the
-        step midpoints."""
+        which takes precedence) perturbs the samples, as for training;
+        neither renders unperturbed."""
         from nr3d_lib_tpu_torch.graphics import nerf_ray_query as Q
 
         cfg = dict(self.ray_query_cfg)
@@ -218,10 +220,11 @@ class LoTDNeRFModel(nn.Module, ModelMixin):
         if draw is None and generator is not None:
             draw = uniform_draw(generator)
         fn = {"march_occ": Q.nerf_ray_query_march_occ,
-              "march_occ_compressed": Q.nerf_ray_query_march_occ_compressed
+              "march_occ_compressed": Q.nerf_ray_query_march_occ_compressed,
+              "march_occ_multi_upsample_compressed":
+              Q.nerf_ray_query_march_occ_multi_upsample_compressed
               }.get(mode)
         if fn is None:
-            raise NotImplementedError(
-                f"query_mode {mode!r} is not ported yet (ROADMAP.md A8b)")
+            raise ValueError(f"Unknown query_mode: {mode}")
         return fn(self, self.accel, self.space, ray_tested,
                   with_rgb=with_rgb, draw=draw, **cfg)

@@ -49,7 +49,7 @@ from nr3d_lib_tpu_torch.ops import _build
 __all__ = ["BrickLevel", "BrickMeta", "make_brick_meta",
            "vertex_grid_to_brick_rows", "materialize_dense_brick_table",
            "brick_encode", "brick_encode_frozen_x", "brick_nablas",
-           "brick_encode_xla", "brick_corner_values_xla",
+           "brick_encode_ho", "brick_bwd_dydx", "brick_encode_xla", "brick_corner_values_xla",
            "brick_encode_bwd_xla", "brick_nablas_xla", "brick_nablas_bwd_xla",
            "brick_atomic_groups", "make_forest_meta",
            "brick_encode_xla_batched", "brick_nablas_xla_batched",
@@ -616,6 +616,35 @@ def brick_nablas(g_up: torch.Tensor, x: torch.Tensor, table: torch.Tensor,
     if wants_grad(g_up, x, table):
         return _BrickNablas.apply(g_up, x, table, meta)
     return _dydx_cuda(g_up, x, table, meta)
+
+
+def brick_encode_ho(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta
+                    ) -> torch.Tensor:
+    """The encode differentiable to any order: the plain formulation on
+    any device, as the JAX package runs its XLA formulation for this on
+    the TPU too (the kernel pair B6/B7 is first-order)."""
+    return brick_encode_xla(x, table, meta)
+
+
+def brick_bwd_dydx(g_up: torch.Tensor, x: torch.Tensor, table: torch.Tensor,
+                   meta: BrickMeta) -> torch.Tensor:
+    """dL/dx = J_enc(x)ᵀ·g_up alone, not differentiable: on a CUDA tensor
+    B7 (`brick_bwd`) with dL/dx asked for, its table gradient discarded;
+    on a CPU tensor the plain vjp. Counted as `brick_bwd`."""
+    if x.device.type == "cpu":
+        return _vjp(lambda xx, tt: brick_encode_xla(xx, tt, meta),
+                    (x, table), (True, False), g_up)[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"brick_bwd_dydx: unsupported device {x.device}")
+    check_cuda_args(x, table, meta, LANES, "brick_bwd_dydx", g_up)
+    if g_up.shape != (x.shape[0], N_FEAT * meta.n_levels) or \
+            g_up.dtype != torch.float32:
+        raise ValueError(f"brick_bwd_dydx: g_up must be [N, "
+                         f"{N_FEAT * meta.n_levels}] float32, got "
+                         f"{tuple(g_up.shape)} {g_up.dtype}")
+    dx, _ = _bwd_cuda(x.detach(), g_up.detach(), meta, need_dx=True,
+                      table=table.detach())
+    return dx
 
 
 # ----------------------------------------------------------- forest/batched

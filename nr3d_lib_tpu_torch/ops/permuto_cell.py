@@ -2,9 +2,9 @@
 layouts, and the F=2 cell encoding: forward (B10), its backward (B11, B12)
 and nablas (B13).
 
-Port of nr3d_lib_tpu/ops/permuto_cell.py (and of `_simplex_parts` in
-nr3d_lib_tpu/ops/permuto.py, kept here as a private helper: the port
-imports nothing of the JAX package). A point's simplex in the
+Port of nr3d_lib_tpu/ops/permuto_cell.py; the simplex search
+`_simplex_parts` it shares with the classic lattice lives in
+`ops/permuto.py`, as in the JAX package. A point's simplex in the
 permutohedral lattice is found by elevating it onto the sum-zero
 hyperplane, rounding to the nearest remainder-0 point and ranking the
 differential. The cell layout hashes that remainder-0 base point (the
@@ -59,6 +59,8 @@ from torch.autograd.function import once_differentiable
 from nr3d_lib_tpu_torch.ops import _build
 from nr3d_lib_tpu_torch.ops.lotd_brick import (HASH_PRIMES, _vjp, aligned,
                                                ptr, wants_grad)
+from nr3d_lib_tpu_torch.ops.permuto import (_mul_u32, _simplex_parts,
+                                            f32_scalars, hyperplane_scales)
 
 __all__ = ["PermutoCellLevel", "PermutoCellMeta", "make_permuto_cell_meta",
            "hyperplane_scales", "f32_scalars", "c_meta", "fastmod_constants",
@@ -166,83 +168,6 @@ def make_permuto_cell_meta(n_dims: int,
         levels.append(PermutoCellLevel(scale, rows, off, box_lo, box_dims))
         off += rows
     return PermutoCellMeta(n_dims, tuple(levels))
-
-
-# ---------------------------------------------------------- lattice math
-def hyperplane_scales(d: int) -> np.ndarray:
-    """sf [d] float32: the elevation's per-axis factors, an f32 array of
-    1/√((i+1)(i+2)) times the f32 of (d+1)·√(2/3), as JAX computes them."""
-    inv_std = np.float32((d + 1) * math.sqrt(2.0 / 3.0))
-    base = np.asarray([1.0 / math.sqrt((i + 1) * (i + 2)) for i in range(d)],
-                      np.float32)
-    return (base * inv_std).astype(np.float32)
-
-
-def f32_scalars(values) -> List[float]:
-    """Python floats holding float32 values: a tensor times one of them
-    rounds once in float32, as a product with a float32 tensor does, and
-    needs no host-to-device copy (which would synchronize the stream)."""
-    return [float(v) for v in np.asarray(values, np.float32)]
-
-
-def _simplex_parts(x: torch.Tensor, d: int):
-    """x [N, d] (already scaled) → (rem0 [N,d+1] float, rank [N,d+1]
-    int64, bary [N,d+1]): the enclosing simplex's remainder-0 base point,
-    the rank permutation picking which of the cell's (d+1)! simplices
-    holds x, and the barycentric weights of its d+1 vertices.
-    Differentiable in x through the barycentric weights."""
-    n = x.shape[0]
-    dp1 = d + 1
-    cf = [x[:, a] * s for a, s in enumerate(f32_scalars(
-        hyperplane_scales(d)))]
-    # elevated[i] = Σ_{j≥i} cf_j − i·cf_{i−1}, the sums taken from the last
-    rev = [None] * d
-    rev[d - 1] = cf[d - 1]
-    for i in range(d - 2, -1, -1):
-        rev[i] = rev[i + 1] + cf[i]
-    zero = torch.zeros(n, dtype=x.dtype, device=x.device)
-    elev = torch.stack([rev[0]] + [(rev[i] if i < d else zero)
-                                   - i * cf[i - 1]
-                                   for i in range(1, dp1)], -1)
-
-    # nearest remainder-0 point: round each coordinate to a multiple of d+1
-    e = elev.detach()
-    v = e / dp1
-    up = torch.ceil(v) * dp1
-    down = torch.floor(v) * dp1
-    rem0 = torch.where(up - e < e - down, up, down)
-    sum_ = torch.round(rem0.sum(-1) / dp1).to(torch.int64)          # [N]
-
-    # rank the differential; ties break by index
-    diff = e - rem0
-    ii = torch.arange(dp1, device=x.device)
-    gt = diff[:, :, None] < diff[:, None, :]
-    tie = (diff[:, :, None] == diff[:, None, :]) & (ii[:, None] > ii[None, :])
-    rank = (gt | tie).sum(-1) + sum_[:, None]
-
-    # fix points whose remainder sum is not 0
-    low, high = rank < 0, rank > d
-    rank = torch.where(low, rank + dp1, torch.where(high, rank - dp1, rank))
-    rem0 = rem0 + low.to(x.dtype) * dp1 - high.to(x.dtype) * dp1
-
-    # barycentric weights: bary_k = vdiff[rank = d−k] − vdiff[rank = d+1−k],
-    # bary_0 = vdiff[rank = d] + 1 − vdiff[rank = 0] (one-hot sums, as JAX)
-    vdiff = (elev - rem0) / dp1                                      # [N,d+1]
-    j = torch.arange(dp1 + 1, device=x.device)
-    oh = ((d - rank)[..., None] == j).to(x.dtype) - \
-        ((dp1 - rank)[..., None] == j).to(x.dtype)            # [N,d+1,d+2]
-    bary_full = torch.sum(oh * vdiff[..., None], 1)                 # [N, d+2]
-    b0 = bary_full[:, 0] + 1.0 + bary_full[:, dp1]
-    bary = torch.cat([b0[:, None], bary_full[:, 1:dp1]], -1)
-    return rem0, rank, bary
-
-
-def _mul_u32(a: torch.Tensor, prime: int) -> torch.Tensor:
-    """(a · prime) mod 2^32 for int64 a ∈ [0, 2^32), without overflowing
-    int64 (split into 16-bit halves)."""
-    lo = (a & 0xFFFF) * prime
-    hi = (((a >> 16) * prime) & 0xFFFF) << 16
-    return (lo + hi) & _U32
 
 
 def _level_rows_lanes_bary(x: torch.Tensor, level: PermutoCellLevel,

@@ -247,8 +247,11 @@ def test_encoding_module_matches_jax():
     yf = te(xr, frozen_x=True)
     np.testing.assert_array_equal(yf.detach().numpy(), yt.detach().numpy())
     assert torch.autograd.grad(yf.sum(), xr, allow_unused=True)[0] is None
-    with pytest.raises(NotImplementedError, match="A8b"):
-        te(xt, ho=True)
+    # ho: the any-order plain encode, JAX's `brick_encode_ho` (on the CPU
+    # the same plain version as the default route, so the same bits)
+    yh = te(xt, ho=True)
+    np.testing.assert_array_equal(yh.detach().numpy(), yt.detach().numpy())
+    _close(yh, je(jnp.asarray(x), ho=True), 1e-6)
     with pytest.raises(ValueError, match="n_feats"):
         tget(3, **{**cfg, "lotd_cfg": {**cfg["lotd_cfg"], "lod_n_feats": 3}},
              device="cpu")

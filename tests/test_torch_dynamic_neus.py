@@ -423,12 +423,15 @@ def test_port_step_loss_falls(models4):
 
 
 # -------------------------------------------------- what is not ported
-def test_unported_configurations_raise():
+def test_bank_configurations():
+    """The classic lattice (the JAX default) builds at d = 4; the cell
+    bank's any-order encode exists for CPU tensors only."""
     from nr3d_lib_tpu_torch.models.grid_encodings.permuto import \
         PermutoParams
 
-    with pytest.raises(NotImplementedError, match="A10c"):
-        PermutoParams(4, [4.0], backend="xla", device="cpu")
+    xla = PermutoParams(4, [4.0], backend="xla", device="cpu")
+    assert xla.flattened_params.shape == (2 ** 18 * 2,)
+    assert xla.encode(torch.rand(5, 4)).shape == (5, 2)
     bank = PermutoParams(4, [4.0], backend="cell", n_feats=4, device="cpu")
     y = bank.encode(torch.rand(5, 4), ho=True)
     assert y.shape == (5, 4)

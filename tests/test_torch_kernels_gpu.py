@@ -54,7 +54,11 @@ B7's and B9's forest forms also along rays and permuted (dL/dx and
 dL/dg_up the same bits) and on a warp whose lanes share one block-local
 slot in four blocks (the warps' sums keep the blocks apart). The
 search's shortcuts are checked over all 2^32 inputs: its division by d+1
-bitwise against x / b, its modulus exactly.
+bitwise against x / b, its modulus exactly. Two paths that launch no new
+kernel: the classic permutohedral lattice (plain PyTorch) on the card
+against its CPU result (keys and hash indices exact, values and first
+and second order within 1e-5 of the largest entry), and the sphere
+trace's fixed-count loop against its early exit (t and status bitwise).
 """
 
 import numpy as np
@@ -2225,3 +2229,122 @@ def test_gather1d_keeps_nd_shape(cuda):
     want = G.gather_rows_lanes_plain(values, row, lane)
     assert torch.equal(out, want)
     assert out[0, 0, 0] == values[0, 0] and out[0, 0, 1] == values[-1, -1]
+
+
+# ------------------------------------------- the classic permuto lattice
+@pytest.mark.parametrize("d,res", [(3, [2.0, 8.0, 24.0, 64.0]),
+                                   (4, [8.0, 16.0, 32.0, 64.0, 128.0])],
+                         ids=["3d", "4d_default"])
+def test_classic_lattice_cuda_matches_cpu(cuda, d, res):
+    """The classic lattice is plain PyTorch on any device (the JAX package
+    computes it in XLA): on CUDA the simplex keys and hash indices are the
+    CPU's bits, the values, dL/dx, dL/dtable and the table gradient of the
+    nablas' squared norm (second order) within 1e-5 of each one's largest
+    entry (the table gradients are sums by atomics on the card); no kernel
+    of the port launches."""
+    from nr3d_lib_tpu_torch.ops import permuto as P
+
+    meta = P.make_permuto_meta(d, res, 2, 17)
+    rng = np.random.default_rng(d)
+    n = 100_000
+    x = rng.uniform(0.0, 1.0, (n, d)).astype(np.float32)
+    x[:64] = np.round(x[:64] * 8.0) / 8.0
+    params = rng.uniform(-0.1, 0.1, meta.n_params).astype(np.float32)
+    g = rng.standard_normal((n, meta.out_features)).astype(np.float32)
+    scaled = x * np.float32(res[-1])
+    kc, _ = P._simplex(torch.from_numpy(scaled), d)
+    kg, _ = P._simplex(torch.from_numpy(scaled).to(cuda), d)
+    assert torch.equal(kg.cpu(), kc)
+    assert torch.equal(P._hash_keys(kg, 2 ** 17).cpu(),
+                       P._hash_keys(kc, 2 ** 17))
+
+    def run(dev):
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        pt = torch.from_numpy(params).to(dev).requires_grad_(True)
+        y = P.permuto_encode(xt, pt, meta)
+        dx, dp = torch.autograd.grad(y, (xt, pt), torch.from_numpy(g).to(dev),
+                                     create_graph=True)
+        (d2p,) = torch.autograd.grad((dx ** 2).sum(), pt)
+        return [t.detach().cpu() for t in (y, dx, dp, d2p)]
+
+    before = dict(_build.LAUNCHES)
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == before
+    for name, a, b in zip(("y", "dx", "dtable", "d2table"), got, run("cpu")):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()),
+                                   msg=name)
+
+
+def test_sphere_trace_fixed_count_matches_early_exit(cuda):
+    """The trace on the card, seeded from an occupancy grid (B5): the loop
+    that tests for a live ray before every iteration (JAX's early exit),
+    every 8 iterations, and never (all max_iters) give the same t and
+    status bit for bit. An analytic sphere, where every ray ends before
+    max_iters, so the early exit stops first; then a pretrained F=4 brick
+    NeuS, where each iteration and the final query launch B1 once and
+    the seeding B5 once (its grazing rays keep the loop to max_iters)."""
+    from nr3d_lib_tpu_torch.graphics.sphere_trace import sphere_trace
+    from nr3d_lib_tpu_torch.models.fields.sdf import pretrain_sdf_sphere
+    from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel
+
+    rng = np.random.default_rng(3)
+    o = rng.normal(size=(4096, 3))
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * 2.0
+    d = -o / 2.0 + rng.normal(size=(4096, 3)) * 0.05
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    d[:64] = -d[:64]                     # 64 rays leave the box: OUT
+    res = 32
+    centers = (np.stack(np.meshgrid(*([np.arange(res)] * 3),
+                                    indexing="ij"), -1) + 0.5) / res * 2 - 1
+    occ = torch.from_numpy(
+        np.abs(np.linalg.norm(centers, axis=-1) - 0.5) < 0.2).to(cuda)
+
+    def traces(o_n, d_n, near, far, sdf, occ_grid, per_iter):
+        outs = {}
+        with torch.no_grad():
+            for k in (1, 8, 0):
+                before = dict(_build.LAUNCHES)
+                outs[k] = sphere_trace(o_n, d_n, near, far, sdf,
+                                       occ_grid=occ_grid, check_every=k)
+                torch.cuda.synchronize()
+                got = {n: _build.LAUNCHES[n] - before.get(n, 0)
+                       for n in _build.LAUNCHES
+                       if _build.LAUNCHES[n] != before.get(n, 0)}
+                want = {"gather1d": 1}
+                if per_iter:
+                    want[per_iter] = outs[k]["iters"] + 1
+                assert got == want, (k, got)
+        n = outs[1]["iters"]
+        assert outs[0]["iters"] == 64
+        assert outs[8]["iters"] == min(-(-n // 8) * 8, 64)
+        assert float(outs[1]["hit"].float().mean()) > 0.5
+        assert int((outs[1]["status"] == 2).sum()) >= 64
+        for k in (8, 0):
+            assert torch.equal(outs[k]["t"], outs[1]["t"])
+            assert torch.equal(outs[k]["status"], outs[1]["status"])
+        return n
+
+    o_t = torch.from_numpy(o.astype(np.float32)).to(cuda)
+    d_t = torch.from_numpy(d.astype(np.float32)).to(cuda)
+    near = torch.zeros(4096, device=cuda)
+    far = torch.full((4096,), 4.0, device=cuda)
+    n = traces(o_t, d_t, near, far,
+               lambda x: torch.linalg.norm(x, dim=-1) - 0.5, occ, None)
+    assert 0 < n < 64
+
+    model = LoTDNeuSModel(field_cfg={"surface_cfg": {"encoding_cfg": {
+        "lotd_cfg": {"lod_res": [16, 64], "lod_n_feats": 4,
+                     "lod_types": ["Dense", "Hash"]}, "backend": "brick"},
+        "decoder_cfg": {"D": 1, "W": 64}}},
+        accel_cfg={"resolution": 32}, device=cuda)
+    pretrain_sdf_sphere(model.field.implicit_surface,
+                        torch.Generator(cuda).manual_seed(0), radius=0.5,
+                        n_iters=200)
+    model.populate()
+    rt = model.ray_test(o_t, d_t)
+    o_n, d_n = model.space.normalize_rays(rt["rays_o"], rt["rays_d"])
+    traces(o_n, d_n, rt["near"], rt["far"],
+           lambda x: model.forward_sdf(x)["sdf"], model.accel.occ.occ(),
+           "brick4_fwd")

@@ -187,9 +187,17 @@ def test_training_hooks_and_modes(models):
     tm3 = TorchModel(**_cfg(mode, n_feats), device="cpu")
     tm3.populate()
     assert bool((tm3.accel.occ.val_grid == 1.0).all())
+    # the third NeRF mode renders on the same weights (its parity is in
+    # test_torch_query_modes.py); an unknown mode raises as in JAX
     tm4 = TorchModel(**{**_cfg(mode, n_feats), "ray_query_cfg": {
         "query_mode": "march_occ_multi_upsample_compressed"}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8b"):
+    tm4.load_state_dict(tm.state_dict())
+    o, d = (torch.from_numpy(a) for a in _rays(16, 30))
+    with torch.no_grad():
+        r4, _ = tm4.ray_query(tm4.ray_test(o, d))
+    assert all(bool(torch.isfinite(v).all()) for v in r4.values())
+    tm4.ray_query_cfg = {"query_mode": "bogus"}
+    with pytest.raises(ValueError, match="Unknown query_mode: bogus"):
         tm4.ray_query({})
 
 

@@ -231,7 +231,7 @@ def test_populate_matches_jax(models):
                                rtol=1e-4, atol=1e-6)
 
 
-def test_entry_points_default_to_cuda_and_reject_unported_modes(models):
+def test_entry_points_default_to_cuda_and_render_sphere_trace(models):
     _, tm, _ = models
     cfg = _cfg(tm.field.implicit_surface.encoding.n_feats)
     if torch.cuda.is_available():
@@ -239,7 +239,16 @@ def test_entry_points_default_to_cuda_and_reject_unported_modes(models):
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TorchModel(**cfg)
+    # sphere_trace renders on the same weights (its parity is in
+    # test_torch_query_modes.py); an unknown mode raises as in JAX
     tm2 = TorchModel(**{**cfg, "ray_query_cfg": {"query_mode": "sphere_trace"}},
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    tm2.load_state_dict(tm.state_dict())
+    o, d = (torch.from_numpy(a) for a in _rays(16, 30))
+    with torch.no_grad():
+        r2, vb2 = tm2.ray_query(tm2.ray_test(o, d))
+    assert all(bool(torch.isfinite(v).all()) for v in r2.values())
+    assert "depth_surface" in r2 and 0 < vb2["trace_iters"] <= 64
+    tm2.ray_query_cfg = {"query_mode": "bogus"}
+    with pytest.raises(ValueError, match="Unknown query_mode: bogus"):
         tm2.ray_query({})

@@ -193,8 +193,12 @@ def test_field_gradients_match_jax(fields):
     assert float(np.abs(got[key]).max()) > 0
 
 
-def test_unported_backend_raises():
-    with pytest.raises(NotImplementedError, match="A10c"):
-        TSDF(permuto_cfg={"backend": "xla"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10c"):
-        TNeRF(device="cpu")
+def test_classic_backend_builds():
+    """The JAX default, the classic lattice, builds: a flat table of
+    5 levels × 2^17 rows × 2 features (parity in
+    test_torch_permuto_lattice.py)."""
+    for f in (TSDF(permuto_cfg={"backend": "xla"}, device="cpu"),
+              TNeRF(device="cpu")):
+        assert f.bank.backend == "xla"
+        assert f.bank.flattened_params.shape == (5 * 2 ** 17 * 2,)
+        assert f.bank.out_features == 10

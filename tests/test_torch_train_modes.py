@@ -267,10 +267,20 @@ def test_neus_coarse_step_matches_jax(neus):
     assert tm.field.var_ctrl.ln_s.grad.abs() > 0
 
 
-def test_other_neus_modes_still_raise(neus):
+def test_other_neus_modes_render(neus):
+    """The other NeuS modes render on the coarse model's weights, and the
+    default mode with no ray_query_cfg is `march_occ_multi_upsample`
+    (their parity is in test_torch_query_modes.py); an unknown mode raises
+    as in JAX."""
     _, tm = neus
-    tm2 = TorchNeuS(**{**NEUS, "ray_query_cfg": {"query_mode":
-                                                 "sphere_trace"}},
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="A8b"):
+    o, d = (torch.from_numpy(a) for a in _rays(16, 31))
+    for query in ({"query_mode": "sphere_trace"}, {}):
+        tm2 = TorchNeuS(**{**NEUS, "ray_query_cfg": query}, device="cpu")
+        tm2.load_state_dict(tm.state_dict())
+        with torch.no_grad():
+            r2, vb2 = tm2.ray_query(tm2.ray_test(o, d))
+        assert all(bool(torch.isfinite(v).all()) for v in r2.values())
+        assert ("trace_iters" in vb2) == bool(query)
+    tm2.ray_query_cfg = {"query_mode": "bogus"}
+    with pytest.raises(ValueError, match="Unknown query_mode: bogus"):
         tm2.ray_query({})
