@@ -185,6 +185,23 @@
      autograd nablas, an eikonal step through their second order (peak
      memory printed), a density step; held against the CPU port on the
      first 65,536 points; no kernel launches.
+   - The three example trainers at their default flags, on the classic
+     LoTD (no `backend` key; `ops/lotd.py`, plain PyTorch, as JAX
+     computes it in XLA). `neus_obj_xla_serve_2048` and
+     `neus_obj_xla_train_2048`: examples/train_neus_object.py (classic
+     F=2 [16, 32, 64, 128], D/D/H/H, 2^16; otherwise as
+     `neus_obj_w4_train_2048`): the sphere pretrain, 10 renders (1 B5,
+     no brick kernel), one step against the CPU port, 2 warm-up and 20
+     timed steps (1 B5 a step). `nerf_xla_fixed_serve_2048` and
+     `nerf_xla_fixed_train_2048`: examples/train_nerf_synthetic.py
+     ([16, 32, 64], D/D/H, 2^14; `nerf_ray_query_fixed` at 64 samples,
+     Adam(5e-3); no launches). `forest_xla_serve_2048` and
+     `forest_xla_train_1024`: examples/train_forest_street.py (6×1×1
+     blocks of 1.0, [8, 16, 32] all Dense, decoder W 64, radiance D 1 W
+     64; `segments` marching, 8 × 24, 128 steps, 8 importance samples;
+     the example's street cameras; Adam(1e-2); no launches). Each
+     render's CPU comparison keeps the rays the CPU port renders within
+     CPU_RENDER_BUDGET_S.
    Each path prints ms per call (median, quartiles), Krays/s (path E: fps
    and Mpix/s), peak memory and a device-time profile by kernel.
 5. A `{"kernels": [...]}` JSON line, then the card's name and power limit,
@@ -303,11 +320,16 @@ N_RAYS_OBJ = 2048
 OBJ_LR, OBJ_CLIP, OBJ_EIKONAL = 3e-3, 5.0, 0.03
 
 
-def _obj_cfg(lotd_cfg: dict, query: dict = None) -> dict:
-    """examples/train_neus_object.py:90-110."""
+def _obj_cfg(lotd_cfg: dict, query: dict = None,
+             backend: str = "brick") -> dict:
+    """examples/train_neus_object.py:90-110 (`backend=None`: no backend
+    key, the example's default, the classic LoTD)."""
+    enc = {"lotd_cfg": lotd_cfg}
+    if backend is not None:
+        enc["backend"] = backend
     return dict(
         field_cfg={"surface_cfg": {
-            "encoding_cfg": {"lotd_cfg": lotd_cfg, "backend": "brick"},
+            "encoding_cfg": enc,
             "decoder_cfg": {"D": 1, "W": 64}},
             "radiance_cfg": {"D": 2, "W": 64},
             "var_ctrl_cfg": {"type": "learned", "init_val": 64.0}},
@@ -324,6 +346,33 @@ OBJ_W4_CFG = _obj_cfg({"lod_res": [16, 64], "lod_n_feats": 4,
 OBJ_F2_CFG = _obj_cfg({"lod_res": [16, 32, 64, 128], "lod_n_feats": 2,
                        "lod_types": ["Dense", "Dense", "Hash", "Hash"],
                        "hashmap_size": 2 ** 16})
+# the three example trainers at their default flags: the classic LoTD
+# (no `backend` key), plain PyTorch. examples/train_neus_object.py:90-92
+OBJ_XLA_CFG = _obj_cfg(OBJ_F2_CFG["field_cfg"]["surface_cfg"]
+                       ["encoding_cfg"]["lotd_cfg"], backend=None)
+# examples/train_nerf_synthetic.py:58-74: rendered and trained by
+# nerf_ray_query_fixed at 64 samples a ray, Adam(5e-3), no lifecycle
+NERF_XLA_CFG = dict(field_cfg={
+    "encoding_cfg": {"lotd_cfg": {"lod_res": [16, 32, 64], "lod_n_feats": 2,
+                                  "lod_types": ["Dense", "Dense", "Hash"],
+                                  "hashmap_size": 2 ** 14}},
+    "density_decoder_cfg": {"D": 1, "W": 64},
+    "radiance_cfg": {"D": 2, "W": 64}})
+NERF_XLA_LR = 5e-3
+# examples/train_forest_street.py:52-62: a 6-block street, all-Dense
+# levels, segments marching; 1024 rays a step, Adam(1e-2)
+FOREST_XLA_CFG = dict(
+    space_cfg={"resolution": (6, 1, 1), "origin": (-3.0, -0.5, -0.5),
+               "block_size": 1.0},
+    field_cfg={"surface_cfg": {
+        "lotd_cfg": {"lod_res": [8, 16, 32], "lod_n_feats": 2,
+                     "lod_types": ["Dense", "Dense", "Dense"]},
+        "decoder_cfg": {"D": 1, "W": 64}},
+        "radiance_cfg": {"D": 1, "W": 64}},
+    n_march_steps=128, march_mode="segments", max_segments=8,
+    steps_per_segment=24, n_importance=8)
+N_RAYS_FOREST_TRAIN = 1024
+CPU_RENDER_BUDGET_S = 20.0  # the classic renders' CPU comparisons
 # the same F=4 model in sphere_trace at the JAX defaults
 TRACE_CFG = dict(OBJ_W4_CFG, ray_query_cfg={"query_mode": "sphere_trace"})
 # DynamicPermutoNeuSModel at its default field (the classic 4D lattice,
@@ -2240,6 +2289,135 @@ def _object_paths(dev, smi: str, paths: dict) -> None:
         lr=OBJ_LR, gated=True, clip=OBJ_CLIP), N_STEPS)
 
 
+def _street_rays(n: int, seed: int):
+    """examples/train_forest_street.py `sample_rays` from numpy: cameras
+    hovering over the street, looking down the corridor."""
+    rng = np.random.default_rng(seed)
+    eye_x = rng.uniform(-2.8, 2.8, n)
+    o = np.stack([eye_x, rng.uniform(0.2, 0.45, n),
+                  rng.uniform(-0.45, 0.45, n)], -1)
+    tgt = np.stack([eye_x + rng.normal(size=n) * 1.5, np.full(n, -0.25),
+                    rng.normal(size=n) * 0.3], -1)
+    d = tgt - o
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+class _FixedQuery:
+    """examples/train_nerf_synthetic.py's render, `nerf_ray_query_fixed`
+    at N_SAMPLES_FIXED samples a ray, as a model's ray query."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def ray_test(self, o, d):
+        return self.model.ray_test(o, d)
+
+    def ray_query(self, ray_tested, draw=None, generator=None):
+        from nr3d_lib_tpu_torch.graphics.nerf_ray_query import \
+            nerf_ray_query_fixed
+
+        return nerf_ray_query_fixed(self.model, self.model.space, ray_tested,
+                                    n_samples=N_SAMPLES_FIXED, draw=draw)
+
+
+def _cpu_rays(cpu_fn, o, d) -> int:
+    """The rays of a classic render's CPU comparison: all of them, or the
+    first half, quarter, ... that the CPU port renders within
+    CPU_RENDER_BUDGET_S (estimated from 256 rays)."""
+    cpu_s = _cpu_seconds(cpu_fn, o, d, n_try=256)
+    n = o.shape[0]
+    while n > 256 and cpu_s * n / o.shape[0] > CPU_RENDER_BUDGET_S:
+        n //= 2
+    return n
+
+
+def _classic_lotd_paths(dev, smi: str, paths: dict) -> None:
+    """The three example trainers at their default flags, on the classic
+    LoTD (plain PyTorch): the object NeuS pretrained to a sphere, served
+    in march_occ_multi_upsample (1 B5 a render, no brick kernel) and
+    trained as the example trains it (1 B5 a step); the NeRF served and
+    trained through nerf_ray_query_fixed; the street forest served and
+    trained. Each against its CPU twin."""
+    import torch
+    from nr3d_lib_tpu_torch.models.fields_forest import LoTDForestNeuSModel
+    from nr3d_lib_tpu_torch.models.grid_encodings.lotd import LoTDEncoding
+    from nr3d_lib_tpu_torch.models.model_base import (LoTDNeRFModel,
+                                                      LoTDNeuSModel)
+
+    o, d = (torch.from_numpy(a) for a in _rays(N_RAYS_OBJ, seed=2))
+    o, d = o.to(dev), d.to(dev)
+
+    # ------------------- examples/train_neus_object.py (default flags)
+    neus = _pretrained(LoTDNeuSModel, OBJ_XLA_CFG, dev, "neus_obj_xla")
+    enc = neus.field.implicit_surface.encoding
+    _require(isinstance(enc, LoTDEncoding), "the object NeuS's default "
+             "encoding is not the classic LoTD")
+    print(f"[neus_obj_xla] classic LoTD: res {list(enc.meta.level_res)}, "
+          f"sizes {list(enc.meta.level_sizes)}, {enc.meta.n_params} "
+          f"parameters")
+    cpu = _cpu_twin(neus, LoTDNeuSModel, OBJ_XLA_CFG)
+    n_cpu = _cpu_rays(lambda oo, dd: cpu.ray_query(cpu.ray_test(oo, dd)),
+                      o, d)
+    launches, _ = _serve(neus, cpu, o, d, {"gather1d": 1},
+                         "neus_obj_xla_serve_2048", smi, cpu_rays=n_cpu)
+    paths["neus_obj_xla_serve_2048"] = (launches, N_RENDERS)
+    _step_vs_cpu(neus, cpu, o, d, _cpu_seconds(
+        lambda oo, dd: _obj_loss(cpu, oo, dd), o, d, n_try=256),
+        "neus_obj_xla_train_2048", loss=_obj_loss)
+    paths["neus_obj_xla_train_2048"] = (_train(
+        neus, o, d, smi, "neus_obj_xla_train_2048", {"gather1d": 1}, {},
+        loss_fn=_obj_loss, lr=OBJ_LR, gated=True, clip=OBJ_CLIP), N_STEPS)
+    del neus, cpu
+
+    # ------------------ examples/train_nerf_synthetic.py (default flags)
+    nerf = LoTDNeRFModel(**NERF_XLA_CFG, seed=0)
+    _require(isinstance(nerf.field.encoding, LoTDEncoding), "the NeRF's "
+             "default encoding is not the classic LoTD")
+    _seed_weights(nerf, nerf.field.encoding, 28)
+    nerf.populate()
+    cpu = _cpu_twin(nerf, LoTDNeRFModel, NERF_XLA_CFG)
+    fixed, fixed_cpu = _FixedQuery(nerf), _FixedQuery(cpu)
+    n_cpu = _cpu_rays(lambda oo, dd: fixed_cpu.ray_query(
+        fixed_cpu.ray_test(oo, dd)), o, d)
+    launches, _ = _serve(fixed, fixed_cpu, o, d, {},
+                         "nerf_xla_fixed_serve_2048", smi, cpu_rays=n_cpu)
+    paths["nerf_xla_fixed_serve_2048"] = (launches, N_RENDERS)
+    _step_vs_cpu(nerf, cpu, o, d, _cpu_seconds(
+        lambda oo, dd: _fixed_loss(cpu, oo, dd), o, d, n_try=256),
+        "nerf_xla_fixed_train_2048", loss=_fixed_loss)
+    paths["nerf_xla_fixed_train_2048"] = (_train(
+        nerf, o, d, smi, "nerf_xla_fixed_train_2048", {}, {},
+        loss_fn=_fixed_loss, lifecycle=False, lr=NERF_XLA_LR), N_STEPS)
+    del nerf, cpu, fixed, fixed_cpu
+
+    # ---------------- examples/train_forest_street.py (default flags)
+    forest = LoTDForestNeuSModel(**FOREST_XLA_CFG, seed=0)
+    enc = forest.field.implicit_surface.encoding
+    _require(enc.backend == "xla", "the forest's default encoding is not "
+             "the classic LoTD")
+    _seed_weights(forest, enc, 29)
+    forest.populate()
+    print(f"[forest_xla] classic LoTD over {enc.n_trees} blocks: "
+          f"{tuple(enc.flattened_params.shape)} parameters")
+    cpu = _cpu_twin(forest, LoTDForestNeuSModel, FOREST_XLA_CFG)
+    of, df = (torch.from_numpy(a).to(dev)
+              for a in _street_rays(N_RAYS_OBJ, seed=3))
+    n_cpu = _cpu_rays(lambda oo, dd: cpu.ray_query(cpu.ray_test(oo, dd)),
+                      of, df)
+    launches, _ = _serve(forest, cpu, of, df, {}, "forest_xla_serve_2048",
+                         smi, cpu_rays=n_cpu)
+    paths["forest_xla_serve_2048"] = (launches, N_RENDERS)
+    ot, dt = (torch.from_numpy(a).to(dev)
+              for a in _street_rays(N_RAYS_FOREST_TRAIN, seed=4))
+    _step_vs_cpu(forest, cpu, ot, dt, _cpu_seconds(
+        lambda oo, dd: _forest_loss(cpu, oo, dd), ot, dt, n_try=256),
+        "forest_xla_train_1024", loss=_forest_loss)
+    paths["forest_xla_train_1024"] = (_train(
+        forest, ot, dt, smi, "forest_xla_train_1024", {}, {},
+        loss_fn=_forest_loss, lr=1e-2, gated=True), N_STEPS)
+
+
 def _dyn_xla_paths(dev, o, d, ts_extra, smi: str, paths: dict) -> None:
     """`DynamicPermutoNeuSModel` at its default field, the classic 4D
     lattice (plain PyTorch: no kernel launches), served and trained as
@@ -2917,6 +3095,9 @@ def main() -> int:
     # ---- examples/train_neus_object.py: the default NeuS mode, the
     # sphere trace, the example's train step; the NeRF multi-upsample
     _object_paths(dev, smi, paths)
+    # ---- the three example trainers at their default flags: the
+    # classic LoTD (no backend key), plain PyTorch
+    _classic_lotd_paths(dev, smi, paths)
     nerf.ray_query_cfg = {"query_mode": "march_occ_multi_upsample_compressed"}
     launches, _ = _serve(nerf, nerf_cpu, o8, d8, {"brick_fwd": 2,
                                                   "gather1d": 1},

@@ -5,8 +5,9 @@ with "/" (for example `field/implicit_surface/decoder/ws/0`), so the port
 never imports JAX. The port's module tree mirrors the nnx names, so each
 path maps to the dotted `state_dict` key of the same name:
 
-  * `.../encoding/flattened_params` — the brick encoding's flat parameter
-    vector, in the same layout;
+  * `.../encoding/flattened_params` — the classic LoTD encoding's flat
+    [n_params] vector (`ops/lotd.py` layout) or the brick encoding's, in
+    the same layout;
   * decoder and radiance `ws/i`, `bs/i` — the port stores `ws[i]` as
     [in, out] exactly as JAX does and computes `h @ w + b`, so no
     transpose;
@@ -17,9 +18,16 @@ path maps to the dotted `state_dict` key of the same name:
     `lattice_layers/i/encoding/flattened_params`, `.../decoder/ws/0`
     and `.../zero`, by the same rule.
 
+The LoTD growers (`lotd_growers.py`) keep the JAX names too: the
+Flatten grower's `mlp/ws/i`, the FiLM layers' and `_ModConv`'s `w` (as
+[in, out], applied as `h @ w`, so no transpose), `b`, `wz`, `bz`, the FMM
+grower's `trunk/i/...`, `heads/i/...`, `pseudo/<level>` and `shared`,
+the conv grower's `const` and `blocks/i/...`, the shared grower's `base`,
+and the mixed grower's `growers/i/...`.
+
 A forest model (`LoTDForestNeuSModel`) comes across with
 `forest_from_jax_state`: its encoding's `flattened_params` is [n_trees,
-n_params]; the JAX state lists the shared block space under
+n_params] on either backend, passed through as it is; the JAX state lists the shared block space under
 `accel/space/`, and of it only `occupied`, `origin` and `block_idx` come
 across (the port rebuilds the slots, the block coordinates and the
 culling levels from `occupied` when the state is loaded); the accel's EMA

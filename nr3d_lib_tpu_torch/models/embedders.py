@@ -1,13 +1,16 @@
-"""Direction embedders (port of nr3d_lib_tpu/models/embedders.py: the
-spherical-harmonics basis and the spherical branch of `get_embedder`)."""
+"""Direction and position embedders (port of nr3d_lib_tpu/models/
+embedders.py): identity, the spherical-harmonics basis and the
+sinusoidal (frequency) encoding with its annealed window."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
-__all__ = ["sh_encode", "SHEncoder", "get_embedder"]
+__all__ = ["sh_encode", "freq_encode", "annealed_freq_encode",
+           "get_embedder", "SHEncoder", "FreqEncoder"]
 
 
 def sh_encode(dirs: torch.Tensor, degree: int = 4) -> torch.Tensor:
@@ -38,6 +41,38 @@ def sh_encode(dirs: torch.Tensor, degree: int = 4) -> torch.Tensor:
     return torch.stack(out, -1)
 
 
+def freq_encode(x: torch.Tensor, n_frequencies: int = 6,
+                include_input: bool = True) -> torch.Tensor:
+    """[sin, cos](2^i·x), per input dimension [sin(f0..fF) | cos(f0..fF)];
+    `include_input` puts x first."""
+    freqs = 2.0 ** torch.arange(n_frequencies, dtype=x.dtype,
+                                device=x.device)
+    xb = x[..., None] * freqs                                     # [..., D, F]
+    enc = torch.cat([torch.sin(xb), torch.cos(xb)], -1)           # [..., D, 2F]
+    enc = enc.reshape(*x.shape[:-1], -1)
+    if include_input:
+        enc = torch.cat([x, enc], -1)
+    return enc
+
+
+def annealed_freq_encode(x: torch.Tensor, n_frequencies: int, alpha,
+                         include_input: bool = True) -> torch.Tensor:
+    """The coarse-to-fine windowed frequencies (the BARF/Nerfies window),
+    alpha ∈ [0, F]: band i is weighted ½(1 − cos(π·clip(alpha − i, 0,
+    1)))."""
+    enc = freq_encode(x, n_frequencies, include_input=False)
+    d = x.shape[-1]
+    bands = torch.arange(n_frequencies, dtype=x.dtype, device=x.device)
+    w = torch.clamp(torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
+                    - bands, 0.0, 1.0)
+    w = 0.5 * (1.0 - torch.cos(math.pi * w))                     # [F]
+    w_full = torch.cat([w, w]).repeat(d)
+    enc = enc * w_full
+    if include_input:
+        enc = torch.cat([x, enc], -1)
+    return enc
+
+
 class SHEncoder:
     def __init__(self, degree: int = 4, input_dim: int = 3):
         if input_dim != 3:
@@ -50,11 +85,40 @@ class SHEncoder:
         return sh_encode(dirs, self.degree)
 
 
+class FreqEncoder:
+    """Module-style wrapper of `freq_encode` (`annealed`: the window of
+    `annealed_freq_encode` when called with an alpha)."""
+
+    def __init__(self, input_dim: int = 3, n_frequencies: int = 6,
+                 include_input: bool = True, annealed: bool = False):
+        self.input_dim = input_dim
+        self.n_frequencies = n_frequencies
+        self.include_input = include_input
+        self.annealed = annealed
+        self.in_features = input_dim
+        self.out_features = input_dim * 2 * n_frequencies + \
+            (input_dim if include_input else 0)
+
+    def __call__(self, x: torch.Tensor, alpha=None) -> torch.Tensor:
+        if self.annealed and alpha is not None:
+            return annealed_freq_encode(x, self.n_frequencies, alpha,
+                                        self.include_input)
+        return freq_encode(x, self.n_frequencies, self.include_input)
+
+
 def get_embedder(embed_cfg: Optional[dict] = None, input_dim: int = 3):
     """Embedder factory → (fn, out_features)."""
     cfg = dict(embed_cfg or {})
     etype = cfg.pop("type", "identity").lower()
+    if etype in ("identity", "none"):
+        return (lambda x: x), input_dim
     if etype in ("spherical", "sh", "spherical_harmonics"):
         enc = SHEncoder(degree=cfg.get("degree", 4), input_dim=input_dim)
         return enc, enc.out_features
-    raise NotImplementedError(f"embedder {etype!r} is not ported yet")
+    if etype in ("sinusoidal", "freq", "frequency"):
+        enc = FreqEncoder(input_dim=input_dim,
+                          n_frequencies=cfg.get("n_frequencies", 6),
+                          include_input=cfg.get("include_input", True),
+                          annealed=cfg.get("annealed", False))
+        return enc, enc.out_features
+    raise ValueError(f"Unknown embedder type: {etype}")

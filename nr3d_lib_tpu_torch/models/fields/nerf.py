@@ -71,27 +71,28 @@ class RadianceNet(nn.Module):
 
 
 class LoTDNeRF(nn.Module):
-    """LoTD-encoded NeRF: brick grid encoding → small density decoder →
-    radiance head. Module names mirror the JAX package's (`encoding`,
-    `decoder`, `radiance/mlp`), so the state bridge maps them unchanged."""
+    """LoTD-encoded NeRF: grid encoding (classic, or brick) → small
+    density decoder → radiance head. Module names mirror the JAX
+    package's (`encoding`, `decoder`, `radiance/mlp`), so the state bridge
+    maps them unchanged."""
 
     def __init__(self, *, encoding_cfg: Optional[dict] = None,
                  density_decoder_cfg: Optional[dict] = None,
                  radiance_cfg: Optional[dict] = None,
                  n_geo_feat: int = 15, seed: int = 0, device=None):
         super().__init__()
+        from nr3d_lib_tpu_torch.models.fields.sdf import DEFAULT_LOTD_CFG
         from nr3d_lib_tpu_torch.models.grid_encodings.lotd import \
             get_lotd_encoding
 
         enc_cfg = dict(encoding_cfg or {})
-        if "lotd_cfg" not in enc_cfg:
-            raise ValueError("encoding_cfg needs a lotd_cfg (the JAX "
-                             "default is the unported XLA backend)")
+        enc_cfg.setdefault("lotd_cfg", DEFAULT_LOTD_CFG)
         self.encoding = get_lotd_encoding(3, **enc_cfg, seed=seed,
                                           device=device)
         # NeRF density never differentiates w.r.t. positions (no eikonal),
         # so the brick backward computes dL/dtable only; frozen_x=False
-        # keeps the position gradient (pose refinement).
+        # keeps the position gradient (pose refinement). The classic
+        # encoding keeps it always (plain autograd), as in JAX.
         self._frozen_x = (enc_cfg.get("backend", "xla") == "brick"
                           and bool(enc_cfg.get("frozen_x", True)))
         self.n_geo_feat = n_geo_feat
@@ -106,7 +107,8 @@ class LoTDNeRF(nn.Module):
 
     def forward_density(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """x in [-1,1] → {sigma, h}."""
-        h = self.decoder(self.encoding(x, frozen_x=self._frozen_x))
+        h = self.decoder(self.encoding(x, frozen_x=True) if self._frozen_x
+                         else self.encoding(x))
         return {"sigma": trunc_exp(h[..., 0]), "h": h[..., 1:]}
 
     def forward(self, x: torch.Tensor, v: Optional[torch.Tensor] = None

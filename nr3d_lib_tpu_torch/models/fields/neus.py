@@ -1,6 +1,6 @@
 """NeuS field: SDF net + radiance net + inv_s (port of
-nr3d_lib_tpu/models/fields/neus.py `LearnedVar`, `LoTDNeuS` and
-`PermutoNeuS`)."""
+nr3d_lib_tpu/models/fields/neus.py `LearnedVar`, `ScheduledVar`,
+`LoTDNeuS` and `PermutoNeuS`)."""
 
 from __future__ import annotations
 
@@ -10,10 +10,12 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from nr3d_lib_tpu_torch.models.annealers import get_annealer
 from nr3d_lib_tpu_torch.models.fields.nerf import RadianceNet
 from nr3d_lib_tpu_torch.models.fields.sdf import LoTDSDF, PermutoSDF
 
-__all__ = ["LearnedVar", "get_neus_var_ctrl", "LoTDNeuS", "PermutoNeuS"]
+__all__ = ["LearnedVar", "ScheduledVar", "get_neus_var_ctrl", "LoTDNeuS",
+           "PermutoNeuS"]
 
 
 class LearnedVar(nn.Module):
@@ -32,11 +34,31 @@ class LearnedVar(nn.Module):
         """A learned inv_s has no schedule."""
 
 
+class ScheduledVar(nn.Module):
+    """inv_s follows an annealer's schedule (`get_annealer(**anneal_cfg)`),
+    kept in the buffer `cur` (the JAX variable of the same name), set by
+    `set_iter`."""
+
+    def __init__(self, device=None, **anneal_cfg):
+        super().__init__()
+        self.annealer = get_annealer(**anneal_cfg)
+        self.register_buffer("cur", torch.tensor(
+            float(self.annealer(0)), dtype=torch.float32, device=device))
+
+    def inv_s(self) -> torch.Tensor:
+        return self.cur
+
+    def set_iter(self, it: int) -> None:
+        self.cur.fill_(float(self.annealer(it)))
+
+
 def get_neus_var_ctrl(type: str = "learned", device=None, **kwargs):
     t = type.lower()
     if t in ("learned", "single"):
         return LearnedVar(**kwargs, device=device)
-    raise NotImplementedError(f"var ctrl {type!r} is not ported yet")
+    if t in ("scheduled", "manual"):
+        return ScheduledVar(**kwargs, device=device)
+    raise ValueError(f"Unknown var ctrl: {type}")
 
 
 class _NeuSBase(nn.Module):

@@ -1,6 +1,6 @@
-"""SDF fields (port of nr3d_lib_tpu/models/fields/sdf.py `LoTDSDF`, brick
-backend, `PermutoSDF`, classic and cell lattices, and
-`pretrain_sdf_sphere`)."""
+"""SDF fields (port of nr3d_lib_tpu/models/fields/sdf.py `LoTDSDF`, on
+the classic and brick backends, `PermutoSDF`, classic and cell lattices,
+and `pretrain_sdf_sphere`)."""
 
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from nr3d_lib_tpu_torch.models.grid_encodings.lotd import get_lotd_encoding
 from nr3d_lib_tpu_torch.models.grid_encodings.permuto import PermutoParams
 
 __all__ = ["LoTDSDF", "PermutoSDF", "pretrain_sdf_sphere",
-           "autograd_nablas"]
+           "autograd_nablas", "DEFAULT_LOTD_CFG"]
 
 
 def autograd_nablas(fn: Callable[[torch.Tensor], Tuple[torch.Tensor,
@@ -39,19 +39,26 @@ def autograd_nablas(fn: Callable[[torch.Tensor], Tuple[torch.Tensor,
     return sdf, h, nablas
 
 
+# the JAX fields' default encoding (fields/sdf.py:37-42, nerf.py:147-151)
+DEFAULT_LOTD_CFG = {"lod_res": [16, 32, 64, 128], "lod_n_feats": 2,
+                    "lod_types": ["Dense", "Dense", "Hash", "Hash"],
+                    "hashmap_size": 2 ** 15}
+
+
 class LoTDSDF(nn.Module):
-    """LoTD encoding + small decoder → (sdf, geometry feature)."""
+    """LoTD encoding + small decoder → (sdf, geometry feature). The
+    encoding is the classic LoTD unless `encoding_cfg` asks for the brick
+    backend."""
 
     def __init__(self, *, encoding_cfg: Optional[dict] = None,
                  decoder_cfg: Optional[dict] = None, n_geo_feat: int = 15,
                  seed: int = 0, device=None):
         super().__init__()
         enc_cfg = dict(encoding_cfg or {})
-        if "lotd_cfg" not in enc_cfg:
-            raise ValueError("encoding_cfg needs a lotd_cfg (the JAX "
-                             "default is the unported XLA backend)")
+        enc_cfg.setdefault("lotd_cfg", DEFAULT_LOTD_CFG)
         self.encoding = get_lotd_encoding(3, **enc_cfg, seed=seed,
                                           device=device)
+        self._enc_is_brick = enc_cfg.get("backend", "xla") == "brick"
         dec_cfg = dict(decoder_cfg or {})
         dec_cfg.setdefault("D", 1)
         dec_cfg.setdefault("W", 64)
@@ -70,12 +77,19 @@ class LoTDSDF(nn.Module):
         return {"sdf": sdf, "h": h}
 
     def forward_sdf_nablas(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """(sdf, h, nablas=∂sdf/∂x), split as in the JAX brick path:
-        nablas = ∂sdf/∂x_direct + J_encᵀ·∂sdf/∂h_enc, the decoder term by
-        `torch.func.vjp` (works under `no_grad`; under outer autograd its
-        outputs stay differentiable, so an eikonal loss reaches the decoder
-        weights), the encoding term by the encoding's nablas kernel (B8
-        for F=2, B3 for F=4; their backwards are B9 and B4)."""
+        """(sdf, h, nablas=∂sdf/∂x). The classic encoding: by autograd
+        through the whole field (`autograd_nablas`, JAX's generic
+        `jax.vjp` branch). The brick backend: split as in the JAX brick
+        path, nablas = ∂sdf/∂x_direct + J_encᵀ·∂sdf/∂h_enc, the decoder
+        term by `torch.func.vjp` (works under `no_grad`; under outer
+        autograd its outputs stay differentiable, so an eikonal loss
+        reaches the decoder weights), the encoding term by the encoding's
+        nablas kernel (B8 for F=2, B3 for F=4; their backwards are B9 and
+        B4)."""
+        if not self._enc_is_brick:
+            sdf, h, nablas = autograd_nablas(
+                lambda xx: self._dec(xx, self.encoding(xx)), x)
+            return {"sdf": sdf, "h": h, "nablas": nablas}
         batch = x.shape[:-1]
         xf = x.reshape(-1, 3)
         h_enc = self.encoding(xf)

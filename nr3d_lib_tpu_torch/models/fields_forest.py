@@ -4,15 +4,18 @@ of nr3d_lib_tpu/models/fields_forest.py `LoTDForestEncoding`,
 `LoTDForestNeuSModel`).
 
 Each block's LoTD parameters are a row of one [n_trees, n_params] table,
-`flattened_params`, in the JAX package's layout; a sample's block slot is
-the `bidx` of the forest encode (B6 with a block row offset) and nablas
-(B8 with it), and block-local coordinates come from
-`ForestBlockSpace.normalize_coords`. Only the brick backend is ported
-(the classic LoTD waits with ROADMAP.md A9). The model trains: on CUDA
-the encode's and nablas' backwards are B7 and B9 with the block row
-offset, on the CPU plain autograd; gradients reach `flattened_params`
-through `_build_tables` (the dense levels' gather has an index-add
-backward, the JAX `materialize_dense_brick_table` vjp).
+`flattened_params`, in the JAX package's layout, and block-local
+coordinates come from `ForestBlockSpace.normalize_coords`. On the classic
+backend (the default) a sample's block slot is the `bidx` of the classic
+`lotd_encode` over the [n_trees, n_params] table, and the nablas come by
+autograd through the whole field (the JAX generic `jax.vjp` branch). On
+the brick backend it is the `bidx` of the forest encode (B6 with a block
+row offset) and nablas (B8 with it). The model trains: on CUDA the brick
+encode's and nablas' backwards are B7 and B9 with the block row offset,
+on the CPU and on the classic backend plain autograd; brick gradients
+reach `flattened_params` through `_build_tables` (the dense levels'
+gather has an index-add backward, the JAX `materialize_dense_brick_table`
+vjp).
 """
 
 from __future__ import annotations
@@ -36,8 +39,10 @@ from nr3d_lib_tpu_torch.models.accelerations.occgrid_forest import \
 from nr3d_lib_tpu_torch.models.blocks import MLP
 from nr3d_lib_tpu_torch.models.fields.nerf import RadianceNet, trunc_exp
 from nr3d_lib_tpu_torch.models.fields.neus import get_neus_var_ctrl
+from nr3d_lib_tpu_torch.models.fields.sdf import autograd_nablas
 from nr3d_lib_tpu_torch.models.model_base import ModelMixin
 from nr3d_lib_tpu_torch.models.spatial.forest import ForestBlockSpace
+from nr3d_lib_tpu_torch.ops import lotd as _lotd
 from nr3d_lib_tpu_torch.ops import lotd_brick as B
 
 __all__ = ["LoTDForestEncoding", "LoTDForestSDF", "LoTDForestNeuS",
@@ -51,8 +56,9 @@ def _hold(module: nn.Module, name: str, other: nn.Module) -> None:
 
 
 class LoTDForestEncoding(nn.Module):
-    """Per-block F=2 brick tables over one shared meta. Dense levels keep
-    canonical per-block vertex grids (C0-tied within a block)."""
+    """Per-block LoTD parameters over one shared meta: classic LoTD tables
+    (the default), or F=2 brick tables whose dense levels keep canonical
+    per-block vertex grids (C0-tied within a block)."""
 
     def __init__(self, n_trees: int, *, lotd_cfg: Optional[dict] = None,
                  seed: int = 0, device=None):
@@ -63,16 +69,23 @@ class LoTDForestEncoding(nn.Module):
         cfg.setdefault("lod_types", ["Dense", "Dense", "Hash"])
         cfg.setdefault("hashmap_size", 2 ** 12)
         self.backend = cfg.pop("backend", "xla")
+        self.n_trees = int(n_trees)
+        gen = torch.Generator().manual_seed(seed)
         if self.backend != "brick":
-            raise NotImplementedError(
-                f"LoTD backend {self.backend!r} is not ported yet "
-                f"(ROADMAP.md A9)")
+            self.meta = _lotd.generate_meta(
+                3, cfg["lod_res"], cfg["lod_n_feats"], cfg["lod_types"],
+                hashmap_size=cfg.get("hashmap_size"))
+            self.out_features = self.meta.out_features
+            init = torch.rand((self.n_trees, self.meta.n_params),
+                              generator=gen)
+            self.flattened_params = nn.Parameter(
+                ((init * 2.0 - 1.0) * 1e-4).to(device))
+            return
         if cfg["lod_n_feats"] != 2:
             raise ValueError("the forest's brick backend takes lod_n_feats 2")
         types = cfg["lod_types"]
         if isinstance(types, str):
             types = [types] * len(cfg["lod_res"])
-        self.n_trees = int(n_trees)
         self.meta_brick = B.make_forest_meta(B.make_brick_meta(
             cfg["lod_res"], types,
             hashmap_rows=max(1, int(cfg["hashmap_size"]) // 64)))
@@ -85,7 +98,6 @@ class LoTDForestEncoding(nn.Module):
                 self.register_buffer(f"_dense_idx{i}", torch.as_tensor(
                     B.vertex_grid_to_brick_rows(lv).astype(np.int64),
                     device=device), persistent=False)
-        gen = torch.Generator().manual_seed(seed)
         init = torch.rand((self.n_trees, self._param_offsets[-1]),
                           generator=gen)
         self.flattened_params = nn.Parameter(
@@ -107,6 +119,10 @@ class LoTDForestEncoding(nn.Module):
                 ) -> torch.Tensor:
         """x_local in [-1,1] per block, bidx [N] int32; bidx < 0 → zero
         features."""
+        if self.backend != "brick":
+            return _lotd.lotd_encode(x_local * 0.5 + 0.5,
+                                     self.flattened_params, self.meta,
+                                     bidx=bidx)
         y = B.brick_encode_batched(x_local * 0.5 + 0.5, self._build_tables(),
                                    self.meta_brick, bidx)
         return torch.where(bidx[..., None] >= 0, y, torch.zeros_like(y))
@@ -148,17 +164,26 @@ class LoTDForestSDF(nn.Module):
         out = self.decoder(torch.cat([x_local, h_enc], -1))
         return out[..., 0], out[..., 1:]
 
-    def forward_sdf(self, x_world: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _sdf_h(self, x_world: torch.Tensor):
         x_local, bidx = self._local(x_world)
-        sdf, h = self._dec(x_local, self.encoding(x_local, bidx))
+        return self._dec(x_local, self.encoding(x_local, bidx))
+
+    def forward_sdf(self, x_world: torch.Tensor) -> Dict[str, torch.Tensor]:
+        sdf, h = self._sdf_h(x_world)
         return {"sdf": sdf, "h": h}
 
     def forward_sdf_nablas(self, x_world: torch.Tensor
                            ) -> Dict[str, torch.Tensor]:
-        """(sdf, h, nablas) in the split form of the JAX brick path: the
-        decoder's term by `torch.func.vjp` (autograd, in any grad mode),
-        the encoding's through the forest nablas (B8 with its block row
-        offset), then × 2/block_size for d x_local / d x_world."""
+        """(sdf, h, nablas). The classic backend: by autograd through the
+        whole field, the block mapping included (`autograd_nablas`, the
+        JAX generic branch). The brick backend: the split form of the JAX
+        brick path, the decoder's term by `torch.func.vjp` (autograd, in
+        any grad mode), the encoding's through the forest nablas (B8 with
+        its block row offset), then × 2/block_size for d x_local / d
+        x_world."""
+        if self.encoding.backend != "brick":
+            sdf, h, nablas = autograd_nablas(self._sdf_h, x_world)
+            return {"sdf": sdf, "h": h, "nablas": nablas}
         x_local, bidx = self._local(x_world)
         h_enc = self.encoding(x_local, bidx)
         (sdf, h), dec_vjp = vjp(self._dec, x_local, h_enc)

@@ -507,7 +507,15 @@ def test_forest_nerf_density_matches_jax(spaces):
 
 
 def test_forest_xla_backend_raises():
+    """The classic backend (the JAX default) builds now that the classic
+    LoTD is ported (its parity is in test_torch_lotd_fields.py); what
+    still raises is the brick backend at lod_n_feats 4."""
     cfg = _forest_cfg("fixed")
     cfg["field_cfg"]["surface_cfg"]["lotd_cfg"] = {"lod_res": [8, 16]}
-    with pytest.raises(NotImplementedError, match="A9"):
+    enc = TorchForest(**cfg, device="cpu").field.implicit_surface.encoding
+    assert enc.backend == "xla"
+    assert enc.flattened_params.shape == (8, enc.meta.n_params)
+    cfg["field_cfg"]["surface_cfg"]["lotd_cfg"] = {
+        "lod_res": [8, 16], "lod_n_feats": 4, "backend": "brick"}
+    with pytest.raises(ValueError, match="lod_n_feats 2"):
         TorchForest(**cfg, device="cpu")

@@ -41,8 +41,22 @@ def _imported_roots(path: Path):
 def test_sources_are_found():
     names = {p.name for p in SOURCES}
     assert {"lotd_brick.py", "lotd_brick4.py", "model_base.py",
-            "nerf_ray_query.py", "chip_smoke.py", "chip_ab.py"} <= names
+            "nerf_ray_query.py", "chip_smoke.py", "chip_ab.py",
+            "lotd.py", "lotd_encoding.py", "lotd_cfg.py", "lotd_helpers.py",
+            "lotd_growers.py"} <= names
     assert len(SOURCES) > 30
+
+
+def test_the_port_keeps_its_own_numpy_modules():
+    """The JAX package's numpy-only modules (its LoTD auto-config and the
+    annealers) have their own copies in the port, which import nothing but
+    the standard library and numpy."""
+    for rel in ("models/grid_encodings/lotd/lotd_cfg.py",
+                "models/annealers.py"):
+        path = REPO / "nr3d_lib_tpu_torch" / rel
+        roots = {m for _, m in _imported_roots(path)}
+        assert roots <= {"__future__", "math", "typing", "numpy"}, (rel,
+                                                                     roots)
 
 
 @pytest.mark.parametrize("path", SOURCES,
