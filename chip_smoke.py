@@ -202,6 +202,34 @@
      the example's street cameras; Adam(1e-2); no launches). Each
      render's CPU comparison keeps the rays the CPU port renders within
      CPU_RENDER_BUDGET_S.
+   - The last three example trainers at their default flags (A12), 2048
+     rays each, the examples' ray distributions from numpy, tables seeded
+     in ±0.1. `emernerf_serve_2048` and `emernerf_train_2048`:
+     examples/train_dynamic_scene.py's `EmerNeRFModel` (static classic
+     LoTD [16, 32, 64] D/D/H at 2^15, dynamic classic 4D lattice [8, 16,
+     32] at 2^15, temporal aggregation, a 16³ static grid and 8 time-keyed
+     dynamic grids, 64 march steps; `populate`, then both grids' values
+     drawn around the threshold, so each is part empty and B5's lookups
+     matter): 10 renders (2 B5 each:
+     the static grid, the any-time union of the dynamic grids), one step
+     of the example's loss (MSE to |d| + 1e-3·dynamic sparsity + 1e-4
+     each of flow smoothness, flow cycle and shadow; Adam(4e-3), the
+     lifecycle every step) against the CPU port, 2 warm-up and 20 timed
+     steps (2 B5 a step, none at the occupancy updates). `gen_shapes_*`
+     (examples/train_generative_shapes.py: `GenerativePermutoNeuSModel
+     Batched`, 4 instances, latent_dim 4, the classic 7D lattice [8 … 64]
+     at 2^15, 32 coarse + 2 × 8 samples) and `cond_dyn_*`
+     (train_conditional_dynamic.py: `DynamicGenerativeNeuSModel`, the
+     classic 8D lattice [8, 16, 32]): 10 renders, one step (MSE to |d| +
+     0.03·eikonal + 1e-4·the latents' mean square, the global norm
+     clipped to 5, Adam(3e-3)) against the CPU port, 22 steps; no kernel
+     launches. `gen_cell_serve_2048`: the generative model with
+     `backend: cell` at latent_dim 2 (d = 5): 10 renders (4 B10 + 1 B13
+     each). B5 is also held against its plain take at the EmerNeRF
+     render's 131,072 lookups a grid, and B10 and B13 against their plain
+     versions at the cell model's final query of 98,304 5D points (added
+     to their rows: `*_emernerf_*`, `*_gen5`). The steps' CPU comparisons
+     keep the rays that fit CPU_STEP_BUDGET_A12_S.
    Each path prints ms per call (median, quartiles), Krays/s (path E: fps
    and Mpix/s), peak memory and a device-time profile by kernel.
 5. A `{"kernels": [...]}` JSON line, then the card's name and power limit,
@@ -394,6 +422,50 @@ FOREST_CFG = dict(
         "radiance_cfg": {"D": 2, "W": 64}},
     n_march_steps=128, march_mode="segments", max_segments=8,
     steps_per_segment=16)
+
+# A12, the last three example trainers at their default flags (2048 rays
+# a step each). examples/train_dynamic_scene.py:98-110: EmerNeRF, the
+# static classic LoTD and the dynamic classic 4D lattice, Adam(4e-3)
+EMER_CFG = dict(
+    field_cfg={"static_cfg": {"lotd_cfg": {
+        "lod_res": [16, 32, 64], "lod_n_feats": 2,
+        "lod_types": ["Dense", "Dense", "Hash"], "hashmap_size": 2 ** 15}},
+        "dynamic_permuto_cfg": {"res_list": [8.0, 16.0, 32.0], "n_feats": 2,
+                                "log2_hashmap_size": 15}},
+    accel_cfg={"resolution": (16, 16, 16)}, n_time_keys=8, n_march_steps=64)
+EMER_LR = 4e-3
+N_INSTANCES = 4
+GEN_LR, GEN_CLIP, GEN_EIKONAL, GEN_PRIOR = 3e-3, 5.0, 0.03, 1e-4
+CPU_STEP_BUDGET_A12_S = 20.0  # the A12 steps' CPU comparisons
+
+
+def _gen_cfg(permuto_cfg: dict, latent_dim: int = 4) -> dict:
+    """examples/train_generative_shapes.py:93-103 and
+    train_conditional_dynamic.py:91-102: 4 instances, latents N(0, 0.1²),
+    decoder W 64, radiance D 2 W 64, inv_s from 64, 32 coarse samples and
+    two upsample rounds of 8."""
+    return dict(n_instances=N_INSTANCES, latent_dim=latent_dim,
+                latent_std=0.1,
+                field_cfg={"surface_cfg": {"permuto_cfg": permuto_cfg,
+                                           "decoder_cfg": {"D": 1, "W": 64}},
+                           "radiance_cfg": {"D": 2, "W": 64},
+                           "var_ctrl_cfg": {"type": "learned",
+                                            "init_val": 64.0}},
+                ray_query_cfg={"n_coarse": 32,
+                               "upsample_inv_s_factors": [1.0, 4.0],
+                               "n_importance": 8})
+
+
+# the classic 7D lattice (3 + latent_dim 4), [8, 16, 32, 64] at 2^15
+GEN_CFG = _gen_cfg({"res_list": [8.0, 16.0, 32.0, 64.0], "n_feats": 2,
+                    "log2_hashmap_size": 15})
+# the classic 8D lattice (3 + 4 + t), [8, 16, 32] at 2^15
+COND_DYN_CFG = _gen_cfg({"res_list": [8.0, 16.0, 32.0], "n_feats": 2,
+                         "log2_hashmap_size": 15})
+# GEN_CFG on the F=2 cell layout at latent_dim 2 (d = 5, the most the
+# cell row packs): B10 and B13
+GEN_CELL_CFG = _gen_cfg({"res_list": [8.0, 16.0, 32.0, 64.0], "n_feats": 2,
+                         "backend": "cell"}, latent_dim=2)
 
 
 def _smi() -> str:
@@ -688,6 +760,34 @@ def _obj_loss(model, o, d, extra=None, draw=None, generator=None):
         OBJ_EIKONAL * eik
 
 
+def _emer_loss(model, o, d, extra=None, draw=None, generator=None):
+    """examples/train_dynamic_scene.py:116-124 with target |d|: MSE(rgb) +
+    1e-3·the dynamic density's sparsity + 1e-4 each of the flow's
+    smoothness and cycle residual and the shadow penalty."""
+    import torch
+
+    rendered, vb = model.ray_query(_tested(model, o, d, extra), draw=draw,
+                                   generator=generator)
+    return torch.mean((rendered["rgb_volume"] - torch.abs(d)) ** 2) + \
+        1e-3 * vb["reg_dynamic_sparsity"] + 1e-4 * (
+            vb["reg_flow_smooth"] + vb["reg_flow_cycle"] + vb["reg_shadow"])
+
+
+def _gen_loss(model, o, d, extra=None, draw=None, generator=None):
+    """examples/train_generative_shapes.py:112-121 (and
+    train_conditional_dynamic.py's) with target |d|: MSE(rgb) + 0.03·the
+    mean eikonal over every slab sample + 1e-4·the latents' mean square."""
+    import torch
+
+    rendered, vb = model.ray_query(_tested(model, o, d, extra), draw=draw,
+                                   generator=generator)
+    eik = torch.mean((torch.linalg.norm(vb["nablas"], dim=-1) - 1.0) ** 2)
+    z = model.autodecoder.get_latent(torch.arange(model.n_instances,
+                                                  device=o.device))
+    return torch.mean((rendered["rgb_volume"] - torch.abs(d)) ** 2) + \
+        GEN_EIKONAL * eik + GEN_PRIOR * torch.mean(z ** 2)
+
+
 def _kernel_row(kernels, *, name, key, path, source, replaces, err, ms,
                 plain_ms, bound, library_ms=None, **extra) -> None:
     kernels.append(dict(name=name, route="cuda", source=source,
@@ -742,17 +842,18 @@ def _autograd_nablas(model, x01, prefix: str) -> dict:
 
 
 def _step_vs_cpu(model, cpu, o, d, cpu_render_s: float, label: str,
-                 extra=None, loss=None) -> None:
+                 extra=None, loss=None,
+                 budget_s: float = CPU_STEP_BUDGET_S) -> None:
     """One step's loss and gradients on the card against the CPU port from
     the same weights and uniforms: the card's draws are recorded and
     replayed on the CPU. The ray count is cut when the CPU step, estimated
-    as 3× the CPU render of all rays, would exceed CPU_STEP_BUDGET_S."""
+    as 3× the CPU render of all rays, would exceed `budget_s`."""
     import torch
     from nr3d_lib_tpu_torch.bridge import to_jax_paths
     from nr3d_lib_tpu_torch.graphics.raysample import uniform_draw
 
     n_all = n = o.shape[0]
-    while n > 256 and 3.0 * cpu_render_s * n / n_all > CPU_STEP_BUDGET_S:
+    while n > 256 and 3.0 * cpu_render_s * n / n_all > budget_s:
         n //= 2
     if n < n_all:
         print(f"[{label} step vs cpu] cut to {n} of {n_all} rays: the CPU "
@@ -2450,6 +2551,291 @@ def _dyn_xla_paths(dev, o, d, ts_extra, smi: str, paths: dict) -> None:
         N_STEPS)
 
 
+def _scene_rays(n: int, seed: int):
+    """examples/train_dynamic_scene.py `sample_rays` from numpy: origins
+    at radius 2 above the floor, aimed into ±0.3, ts in [-1, 1)."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3))
+    o[:, 1] = np.abs(o[:, 1]) * 0.5 + 0.2
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * 2.0
+    d = rng.uniform(-0.3, 0.3, (n, 3)) - o
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return (o.astype(np.float32), d.astype(np.float32),
+            rng.uniform(-1.0, 1.0, n).astype(np.float32))
+
+
+def _shape_rays(n: int, seed: int):
+    """examples/train_generative_shapes.py (and train_conditional_dynamic.
+    py) `sample_rays` from numpy: origins at radius 2 aimed into ±0.2, an
+    instance a ray, ts in [-1, 1)."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3))
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * 2.0
+    d = rng.uniform(-0.2, 0.2, (n, 3)) - o
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return (o.astype(np.float32), d.astype(np.float32),
+            rng.integers(0, N_INSTANCES, n).astype(np.int32),
+            rng.uniform(-1.0, 1.0, n).astype(np.float32))
+
+
+def _seed_tables(tables, seed: int) -> None:
+    """Table values in ±0.1 (the init is ±1e-4) from a numpy seed."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in tables:
+            p.copy_(torch.from_numpy(rng.uniform(
+                -0.1, 0.1, tuple(p.shape)).astype(np.float32)))
+
+
+def _row(kernels, key: str) -> dict:
+    return next(k for k in kernels if k["key"] == key)
+
+
+def _seed_emer_occupancy(model) -> tuple:
+    """After `populate`, occupancy values drawn around the threshold: the
+    static grid's in [0, 2·thre), each time key's in [0, 1.2·thre). With
+    the seeded weights every σ at a cell centre is near 1, so `populate`
+    leaves both grids full, and a B5 that wrote ones or read the wrong
+    cells would pass the lookups' and the render's comparisons. Returns
+    the occupied shares of the static grid and of the any-time union,
+    each required within (0.05, 0.95)."""
+    import torch
+
+    rng = np.random.default_rng(36)
+    st, dyn = model.accel.static, model.accel.dynamic.occ
+    with torch.no_grad():
+        st.val_grid.copy_(torch.from_numpy(rng.uniform(
+            0, 2 * st.occ_thre, tuple(st.val_grid.shape)).astype(np.float32)))
+        dyn.val_grid.copy_(torch.from_numpy(rng.uniform(
+            0, 1.2 * dyn.occ_thre, tuple(dyn.val_grid.shape)
+        ).astype(np.float32)))
+    shares = (float(st.occ().float().mean()),
+              float(torch.any(dyn.occ(), 0).float().mean()))
+    for what, share in zip(("static", "any-time union"), shares):
+        _require(0.05 < share < 0.95, f"emernerf: the seeded {what} grid "
+                 f"is {share:.4f} occupied, not part empty")
+    return shares
+
+
+def _emer_b5_phase(model, o, d, kernels) -> None:
+    """B5 at the EmerNeRF render's two lookups — 2048 rays × 64 march
+    candidates into the static grid and into the any-time union of the
+    dynamic grids, each [16·16, 16] — against the plain take, exactly;
+    added to B5's row."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import gather1d as G
+    from nr3d_lib_tpu_torch.ops import occgrid_march as OM
+
+    s = model.n_march_steps
+    rt = model.ray_test(o, d)
+    o_n, d_n = model.space.normalize_rays(o, d)
+    t, _, _ = OM.march_steps(rt["near"], rt["far"], s, 2.0 / s)
+    shp = model.accel.static.resolution
+    xs = [o_n[:, None, a] + d_n[:, None, a] * t for a in range(3)]
+    row, lane, _ = OM.grid_rows_lanes(shp, *xs)
+    row, lane = row.reshape(-1).contiguous(), lane.reshape(-1).contiguous()
+    rl, ll = row.long(), lane.long()
+    n = row.numel()
+    out, errs = {}, []
+    with torch.no_grad():
+        for what, grid in (("static", model.accel.static.occ()),
+                           ("dynamic", torch.any(
+                               model.accel.dynamic.occ.occ(), 0))):
+            values = grid.reshape(shp[0] * shp[1], shp[2]).to(torch.float32)
+            errs.append(_check(f"B5 gather1d, EmerNeRF {what} grid "
+                         f"{tuple(values.shape)}", n, [(
+                             "values", _err(G.gather_rows_lanes(values, row,
+                                                                lane),
+                                            G.gather_rows_lanes_plain(
+                                                values, row, lane)),
+                             0.0, "a copy")]))
+            ms = _time_ms(lambda: G.gather_rows_lanes(values, row, lane))
+            plain_ms = _time_ms(
+                lambda: G.gather_rows_lanes_plain(values, row, lane))
+            library_ms = _time_ms(lambda: values[rl, ll])
+            bound = _bound(n * 12 + values.numel() * 4, 0)
+            print(f"[B5 gather1d, EmerNeRF {what} grid] {n:,} lookups: "
+                  f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+                  f"values[row, lane] {library_ms:.4f} ms | bound "
+                  f"{bound[0]:.4f} ms ({bound[1]})")
+            out.update({f"ms_emernerf_{what}": ms,
+                        f"plain_ms_emernerf_{what}": plain_ms,
+                        f"library_ms_emernerf_{what}": library_ms,
+                        f"bound_ms_emernerf_{what}": bound[0]})
+    row_ = _row(kernels, "gather1d")
+    row_.update(out, n_emernerf=n,
+                max_abs_err=max([row_["max_abs_err"]] + errs))
+
+
+def _gen_cell_kernel_phase(model, o, d, bidx, kernels) -> None:
+    """B10 and B13 at the d = 5 generative cell field's final query —
+    2048 rays × 48 samples of [x, tanh(z)] with each ray's latent — against
+    their plain versions; added to their rows (suffix `_gen5`)."""
+    import torch
+    from nr3d_lib_tpu_torch.ops import permuto_cell as PC
+
+    surf = model.field.implicit_surface
+    bank = surf.bank
+    meta, table = bank.meta, bank.flattened_params.detach()
+    n_per_ray = 32 + 2 * 8
+    with torch.no_grad():
+        z = model._latents()[torch.clamp(bidx, min=0).long()]
+        zz = torch.tanh(z * surf.z_scale) * 0.5 + 0.5
+        x = torch.cat([_ray_points(o, d, n_per_ray, seed=34),
+                       torch.repeat_interleave(zz, n_per_ray, 0)],
+                      -1).contiguous()
+        n, L, dim = x.shape[0], meta.n_levels, meta.n_dims
+        table_bytes = table.numel() * 4
+        label = f"generative cell field, N={n}, d={dim}, L={L}, " \
+            f"{meta.total_rows} rows"
+        y_p = PC.permuto_cell_encode_xla(x, table, meta)
+        err_f = _check(f"B10 permuto_fwd, {label}", n, [(
+            "y", _err(PC.permuto_cell_encode(x, table, meta), y_p),
+            1e-5 + 1e-5 * float(y_p.abs().max()),
+            f"{dim + 1} weighted vertices summed in another order")])
+        ms_f = _time_ms(lambda: PC._fwd_cuda(x, table, meta))
+        plain_f = _time_ms(lambda: PC.permuto_cell_encode_xla(
+            x, table, meta), iters=5)
+        bound_f = _bound(n * (4 * dim + 8 * L) + table_bytes,
+                         n * L * (_simplex_ops(dim) + 4 * (dim + 1)))
+        g = torch.randn(n, 2 * L, device=x.device, generator=torch.Generator(
+            device=x.device).manual_seed(35))
+        n_p = PC.permuto_cell_nablas_xla(g, x, table, meta)
+        err_d = _check(f"B13 permuto_dydx, {label}", n, [(
+            "nablas", _err(PC.permuto_cell_nablas(g, x, table, meta), n_p),
+            1e-4 + 1e-4 * float(n_p.abs().max()),
+            f"sums over {dim + 1} vertices × 2 feats × {L} levels through "
+            f"the elevation Jacobian, in another order")])
+        ms_d = _time_ms(lambda: PC._dydx_cuda(g, x, table, meta))
+        plain_d = _time_ms(lambda: PC.permuto_cell_nablas_xla(
+            g, x, table, meta), iters=5)
+        bound_d = _b13_bound(n, dim, L, table_bytes)
+    for key, name, ms, plain, bound, err in (
+            ("permuto_fwd", "B10", ms_f, plain_f, bound_f, err_f),
+            ("permuto_dydx", "B13", ms_d, plain_d, bound_d, err_d)):
+        print(f"[{name} at the generative cell field] kernel {ms:.4f} ms | "
+              f"plain {plain:.4f} ms | bound {bound[0]:.4f} ms ({bound[1]})"
+              f" | library: none")
+        r = _row(kernels, key)
+        r.update(ms_gen5=ms, plain_ms_gen5=plain, bound_ms_gen5=bound[0],
+                 n_gen5=n, max_abs_err=max(r["max_abs_err"], err))
+
+
+def _a12_paths(dev, smi: str, paths: dict, kernels) -> None:
+    """The last three example trainers at their default flags (A12):
+    EmerNeRF (examples/train_dynamic_scene.py: 2 B5 a render and a step,
+    none at an occupancy update), the generative shapes
+    (train_generative_shapes.py, the classic 7D lattice) and the
+    conditional dynamic shapes (train_conditional_dynamic.py, the
+    classic 8D lattice), both without kernel launches; then the generative
+    model on the cell layout at d = 5 (4 B10 + 1 B13 a render). Each
+    against its CPU twin on the rays it renders within
+    CPU_RENDER_BUDGET_S, its step on those within CPU_STEP_BUDGET_A12_S."""
+    import torch
+    from nr3d_lib_tpu_torch.models.model_families import (
+        DynamicGenerativeNeuSModel, EmerNeRFModel,
+        GenerativePermutoNeuSModelBatched)
+
+    def on_dev(*arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    # ---------------- examples/train_dynamic_scene.py (default flags)
+    emer = EmerNeRFModel(**EMER_CFG, seed=0)
+    f = emer.field
+    _seed_tables([f.static_encoding.flattened_params,
+                  f.dyn_bank.flattened_params], 30)
+    t0 = time.perf_counter()
+    emer.populate()
+    torch.cuda.synchronize()
+    populate_ms = (time.perf_counter() - t0) * 1e3
+    full = (float(emer.accel.static.occ().float().mean()),
+            float(emer.accel.dynamic.occ.occ().float().mean()))
+    seeded = _seed_emer_occupancy(emer)
+    print(f"[emernerf] static classic LoTD res "
+          f"{list(f.static_encoding.meta.level_res)}, "
+          f"{f.static_encoding.meta.n_params} parameters; dynamic classic "
+          f"lattice d = {f.dyn_bank.meta.n_dims}, "
+          f"{f.dyn_bank.meta.n_levels} levels of "
+          f"{f.dyn_bank.meta.hashmap_sizes[0]}; populate {populate_ms:.1f} "
+          f"ms; occupied share after populate: static {full[0]:.4f}, "
+          f"dynamic {full[1]:.4f}; seeded: static {seeded[0]:.4f}, "
+          f"any-time union {seeded[1]:.4f}")
+    o, d, ts = on_dev(*_scene_rays(N_RAYS_OBJ, seed=5))
+    extra = {"ts": ts}
+    _emer_b5_phase(emer, o, d, kernels)
+    cpu = _cpu_twin(emer, EmerNeRFModel, EMER_CFG)
+    n_cpu = _cpu_rays(lambda oo, dd: cpu.ray_query(_tested(cpu, oo, dd,
+                                                           extra)), o, d)
+    launches, _ = _serve(emer, cpu, o, d, {"gather1d": 2},
+                         "emernerf_serve_2048", smi, extra=extra,
+                         cpu_rays=n_cpu)
+    paths["emernerf_serve_2048"] = (launches, N_RENDERS)
+    _step_vs_cpu(emer, cpu, o, d, _cpu_seconds(
+        lambda oo, dd: _emer_loss(cpu, oo, dd, extra), o, d, n_try=256),
+        "emernerf_train_2048", extra, loss=_emer_loss,
+        budget_s=CPU_STEP_BUDGET_A12_S)
+    paths["emernerf_train_2048"] = (_train(
+        emer, o, d, smi, "emernerf_train_2048", {"gather1d": 2}, {}, extra,
+        loss_fn=_emer_loss, lr=EMER_LR, gated=True), N_STEPS)
+    union = torch.any(emer.accel.dynamic.occ.occ(), 0)
+    print(f"[emernerf] occupied share after the steps' dynamic updates: "
+          f"static {float(emer.accel.static.occ().float().mean()):.4f}, "
+          f"any-time union {float(union.float().mean()):.4f}")
+    del emer, cpu
+
+    # ---- train_generative_shapes.py and train_conditional_dynamic.py
+    o, d, bidx, ts = on_dev(*_shape_rays(N_RAYS_OBJ, seed=6))
+    for label, cls, cfg, seed, extra in (
+            ("gen_shapes", GenerativePermutoNeuSModelBatched, GEN_CFG, 31,
+             {"bidx": bidx}),
+            ("cond_dyn", DynamicGenerativeNeuSModel, COND_DYN_CFG, 32,
+             {"bidx": bidx, "ts": ts})):
+        m = cls(**cfg, seed=0)
+        bank = m.field.implicit_surface.bank
+        _require(bank.backend == "xla", f"{label}: the default field is not "
+                 f"the classic lattice")
+        _seed_weights(m, bank, seed)
+        print(f"[{label}] classic lattice d = {bank.meta.n_dims}, "
+              f"{bank.meta.n_levels} levels of {bank.meta.hashmap_sizes[0]} "
+              f"entries, {N_INSTANCES} instances of latent_dim "
+              f"{m.autodecoder.latent_dim}")
+        cpu = _cpu_twin(m, cls, cfg)
+        n_cpu = _cpu_rays(lambda oo, dd: cpu.ray_query(_tested(
+            cpu, oo, dd, extra)), o, d)
+        launches, _ = _serve(m, cpu, o, d, {}, f"{label}_serve_2048", smi,
+                             extra=extra, cpu_rays=n_cpu)
+        paths[f"{label}_serve_2048"] = (launches, N_RENDERS)
+        _step_vs_cpu(m, cpu, o, d, _cpu_seconds(
+            lambda oo, dd: _gen_loss(cpu, oo, dd, extra), o, d, n_try=256),
+            f"{label}_train_2048", extra, loss=_gen_loss,
+            budget_s=CPU_STEP_BUDGET_A12_S)
+        paths[f"{label}_train_2048"] = (_train(
+            m, o, d, smi, f"{label}_train_2048", {}, {}, extra,
+            loss_fn=_gen_loss, lr=GEN_LR, gated=True, clip=GEN_CLIP),
+            N_STEPS)
+        del m, cpu
+
+    # ------------- the generative model on the cell layout (d = 5)
+    m = GenerativePermutoNeuSModelBatched(**GEN_CELL_CFG, seed=0)
+    bank = m.field.implicit_surface.bank
+    _require(bank.backend == "cell" and bank.meta.n_dims == 5,
+             "gen_cell: not the d = 5 cell layout")
+    _seed_weights(m, bank, 33)
+    print(f"[gen_cell] F=2 cell layout d = 5: {bank.meta.n_levels} levels, "
+          f"{bank.meta.total_rows} rows")
+    _gen_cell_kernel_phase(m, o, d, bidx, kernels)
+    cpu = _cpu_twin(m, GenerativePermutoNeuSModelBatched, GEN_CELL_CFG)
+    extra = {"bidx": bidx}
+    n_cpu = _cpu_rays(lambda oo, dd: cpu.ray_query(_tested(cpu, oo, dd,
+                                                           extra)), o, d)
+    launches, _ = _serve(m, cpu, o, d, {"permuto_fwd": 4, "permuto_dydx": 1},
+                         "gen_cell_serve_2048", smi, extra=extra,
+                         cpu_rays=n_cpu)
+    paths["gen_cell_serve_2048"] = (launches, N_RENDERS)
+
+
 def _field_phase_classic(o, d, dev, paths: dict, smi: str) -> None:
     """`PermutoSDF` and `PermutoNeRF` at the JAX defaults, the classic
     lattice (res [8 … 128], 2^17 entries a level), on the field phase's
@@ -3148,6 +3534,8 @@ def main() -> int:
     # ------------- the classic permutohedral lattice (plain PyTorch)
     _field_phase_classic(o, d, dev, paths, smi)
     _dyn_xla_paths(dev, o, d, ts_extra, smi, paths)
+    # ---- A12: EmerNeRF, the generative and conditional dynamic shapes
+    _a12_paths(dev, smi, paths, kernels)
 
     # ------------------------- path E: 3D Gaussian splatting (B17, B18)
     gs_params = _gs_params(GS_N, seed=21)

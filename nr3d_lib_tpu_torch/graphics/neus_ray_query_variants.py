@@ -4,7 +4,10 @@ neus_ray_query_variants.py): the compressed query
 then compact each ray to its surviving samples before the RGB/nablas
 query, which then touches ~compression_factor × fewer samples) and the
 time-conditioned query (`neus_ray_query_dynamic`: linear coarse samples +
-upsample, every query carrying the ray's timestamp).
+upsample, every query carrying the ray's timestamp), and the latent-conditioned batched
+queries (`neus_ray_query_batched`: each ray renders its instance bidx,
+with the per-ray latent or, `per_instance_z`, the instance table and
+bidx; `neus_ray_query_batched_dynamic`: latent and timestamp per ray).
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from nr3d_lib_tpu_torch.graphics.raysample import (Draw,
                                                    batch_sample_step_linear)
 
 __all__ = ["neus_ray_query_march_occ_multi_upsample_compressed",
-           "neus_ray_query_dynamic"]
+           "neus_ray_query_dynamic", "neus_ray_query_batched",
+           "neus_ray_query_batched_dynamic"]
 
 _BIG_SDF = 1e4
 
@@ -173,3 +177,130 @@ def neus_ray_query_dynamic(model, space, ray_tested: Dict, ts: torch.Tensor,
                                              torch.zeros_like(rgb))
     return rendered, {"t": t, "alpha": alpha, "vw": vw,
                       "nablas": out["nablas"].reshape(r, s, 3)}
+
+
+def _normalize_batched(space, rays_o, rays_d, bidx):
+    """A batched space (one with `n_batch`) normalizes each ray by its
+    instance's box; any other space by its one box."""
+    if getattr(space, "n_batch", None):
+        return space.normalize_rays(rays_o, rays_d, bidx)
+    return space.normalize_rays(rays_o, rays_d)
+
+
+def _batched_composite(out: Dict, t: torch.Tensor, valid: torch.Tensor,
+                       ray_mask: torch.Tensor, bidx: torch.Tensor, inv_s,
+                       with_rgb: bool) -> Tuple[Dict, Dict]:
+    """The NeuS volume composite of a batched query's final slab; slots of
+    invalid samples, masked rays and rays with bidx < 0 get alpha 0."""
+    r, s = t.shape
+    sdf = torch.where(valid, out["sdf"].reshape(r, s),
+                      torch.full_like(t, _BIG_SDF))
+    alpha = neus_ray_sdf_to_alpha(sdf, inv_s, append_cdf_1=True)
+    alpha = torch.where(valid & ray_mask[:, None] & (bidx >= 0)[:, None],
+                        alpha, torch.zeros_like(alpha))
+    vw = ray_alpha_to_vw(alpha)
+    acc = torch.sum(vw, -1)
+    zero_r = torch.zeros_like(acc)
+    depth = torch.sum(vw * t, -1) / torch.clamp(acc, min=1e-10)
+    rendered = {"mask_volume": torch.where(ray_mask, acc, zero_r),
+                "depth_volume": torch.where(ray_mask, depth, zero_r)}
+    if with_rgb:
+        rgb = torch.sum(vw[..., None] * out["rgb"].reshape(r, s, 3), -2)
+        rendered["rgb_volume"] = torch.where(ray_mask[:, None], rgb,
+                                             torch.zeros_like(rgb))
+    vb = {"t": t, "alpha": alpha, "vw": vw}
+    if out.get("nablas") is not None:
+        vb["nablas"] = out["nablas"].reshape(r, s, 3)
+    return rendered, vb
+
+
+def neus_ray_query_batched(model, space, ray_tested: Dict, z: torch.Tensor,
+                           bidx: torch.Tensor, *, n_coarse: int = 64,
+                           upsample_inv_s_factors: Sequence[float] = (1.0,
+                                                                      4.0),
+                           n_importance: int = 16,
+                           upsample_inv_s: float = 64.0,
+                           per_instance_z: bool = False,
+                           with_rgb: bool = True, draw: Optional[Draw] = None
+                           ) -> Tuple[Dict, Dict]:
+    """Latent-conditioned batched query: z [B, z_dim] the instance table,
+    bidx [R] each ray's instance (clamped at 0 for the lookup; a ray with
+    bidx < 0 renders empty), so rays of several instances render in one
+    pass. The field is called as (x, v, z_rep) with the ray's latent per
+    point, or with `per_instance_z` as (x, v, z, bidx_rep): the style
+    family grows its parameters once per instance, not per point.
+    ``draw`` perturbs the samples as in `neus_ray_query_dynamic`."""
+    rays_o, rays_d = ray_tested["rays_o"], ray_tested["rays_d"]
+    near, far, ray_mask = ray_tested["near"], ray_tested["far"], \
+        ray_tested["mask"]
+    o_n, d_n = _normalize_batched(space, rays_o, rays_d, bidx)
+    r = rays_o.shape[0]
+    u = None if draw is None else draw((r, n_coarse), 0.0, 1.0)
+    t, _ = batch_sample_step_linear(near, far, n_coarse, u)
+    valid = torch.ones_like(t, dtype=torch.bool)
+    b0 = torch.clamp(bidx, min=0).to(torch.int64)
+    z_per_ray = z[b0]                                        # [R, z_dim]
+
+    def sdf_fn_flat(x):
+        n = x.shape[0] // r
+        if per_instance_z:
+            return model.implicit_surface.forward_sdf(
+                x, z, torch.repeat_interleave(b0, n))["sdf"]
+        return model.implicit_surface.forward_sdf(
+            x, torch.repeat_interleave(z_per_ray, n, 0))["sdf"]
+
+    t, valid = _upsample_rounds(sdf_fn_flat, o_n, d_n, t, valid, far,
+                                upsample_inv_s, upsample_inv_s_factors,
+                                n_importance, draw)
+    s = t.shape[1]
+    x = (o_n[:, None, :] + d_n[:, None, :] * t[..., None]).reshape(r * s, 3)
+    v = rays_d[:, None, :].expand(r, s, 3).reshape(r * s, 3)
+    if per_instance_z:
+        out = model(x, v, z, torch.repeat_interleave(b0, s),
+                    with_rgb=with_rgb)
+    else:
+        out = model(x, v, torch.repeat_interleave(z_per_ray, s, 0),
+                    with_rgb=with_rgb)
+    return _batched_composite(out, t, valid, ray_mask, bidx,
+                              model.forward_inv_s(), with_rgb)
+
+
+def neus_ray_query_batched_dynamic(model, space, ray_tested: Dict,
+                                   z: torch.Tensor, bidx: torch.Tensor,
+                                   ts: torch.Tensor, *, n_coarse: int = 64,
+                                   upsample_inv_s_factors: Sequence[float] = (
+                                       1.0, 4.0),
+                                   n_importance: int = 16,
+                                   upsample_inv_s: float = 64.0,
+                                   with_rgb: bool = True,
+                                   draw: Optional[Draw] = None
+                                   ) -> Tuple[Dict, Dict]:
+    """Latent- and time-conditioned batched query: z [B, z_dim], bidx [R]
+    each ray's instance, ts [R] each ray's timestamp; the field is called
+    as (x, v, z_rep, ts_rep). ``draw`` as in `neus_ray_query_batched`."""
+    rays_o, rays_d = ray_tested["rays_o"], ray_tested["rays_d"]
+    near, far, ray_mask = ray_tested["near"], ray_tested["far"], \
+        ray_tested["mask"]
+    o_n, d_n = _normalize_batched(space, rays_o, rays_d, bidx)
+    r = rays_o.shape[0]
+    u = None if draw is None else draw((r, n_coarse), 0.0, 1.0)
+    t, _ = batch_sample_step_linear(near, far, n_coarse, u)
+    valid = torch.ones_like(t, dtype=torch.bool)
+    z_per_ray = z[torch.clamp(bidx, min=0).to(torch.int64)]
+
+    def sdf_fn_flat(x):
+        n = x.shape[0] // r
+        return model.implicit_surface.forward_sdf(
+            x, torch.repeat_interleave(z_per_ray, n, 0),
+            torch.repeat_interleave(ts, n))["sdf"]
+
+    t, valid = _upsample_rounds(sdf_fn_flat, o_n, d_n, t, valid, far,
+                                upsample_inv_s, upsample_inv_s_factors,
+                                n_importance, draw)
+    s = t.shape[1]
+    x = (o_n[:, None, :] + d_n[:, None, :] * t[..., None]).reshape(r * s, 3)
+    v = rays_d[:, None, :].expand(r, s, 3).reshape(r * s, 3)
+    out = model(x, v, torch.repeat_interleave(z_per_ray, s, 0),
+                torch.repeat_interleave(ts, s), with_rgb=with_rgb)
+    return _batched_composite(out, t, valid, ray_mask, bidx,
+                              model.forward_inv_s(), with_rgb)

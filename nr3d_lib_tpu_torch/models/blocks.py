@@ -87,6 +87,12 @@ class MLP(nn.Module):
         self.ws = nn.ParameterList(ws)
         self.bs = nn.ParameterList(bs)
 
+    def get_weight_reg(self, norm_type: float = 2.0) -> torch.Tensor:
+        """Each layer's weight norm (sum |w|^p)^(1/p), stacked [n_layers]:
+        trainers sum these as a decay loss."""
+        return torch.stack([torch.sum(torch.abs(w) ** norm_type)
+                            ** (1.0 / norm_type) for w in self.ws])
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x
         n = len(self.ws)

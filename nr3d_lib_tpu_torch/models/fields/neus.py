@@ -98,6 +98,26 @@ class _NeuSBase(nn.Module):
         return out
 
 
+class ConditionedNeuS(_NeuSBase):
+    """A NeuS field whose surface takes conditions after x (a latent, a
+    timestamp, an instance index): each forward hands `*cond` on to the
+    surface."""
+
+    def forward_sdf(self, x: torch.Tensor, *cond) -> Dict[str, torch.Tensor]:
+        return self.implicit_surface.forward_sdf(x, *cond)
+
+    def forward_sdf_nablas(self, x: torch.Tensor, *cond
+                           ) -> Dict[str, torch.Tensor]:
+        return self.implicit_surface.forward_sdf_nablas(x, *cond)
+
+    def forward(self, x: torch.Tensor, v: Optional[torch.Tensor], *cond,
+                with_rgb: bool = True) -> Dict[str, torch.Tensor]:
+        out = self.implicit_surface.forward_sdf_nablas(x, *cond)
+        if with_rgb:
+            out["rgb"] = self.radiance(x, v, out["nablas"], out["h"])
+        return out
+
+
 class LoTDNeuS(_NeuSBase):
     """LoTD-encoded NeuS."""
 

@@ -15,7 +15,7 @@ from nr3d_lib_tpu_torch.models.grid_encodings.lotd import get_lotd_encoding
 from nr3d_lib_tpu_torch.models.grid_encodings.permuto import PermutoParams
 
 __all__ = ["LoTDSDF", "PermutoSDF", "pretrain_sdf_sphere",
-           "autograd_nablas", "DEFAULT_LOTD_CFG"]
+           "autograd_nablas", "SphereResidualDecoder", "DEFAULT_LOTD_CFG"]
 
 
 def autograd_nablas(fn: Callable[[torch.Tensor], Tuple[torch.Tensor,
@@ -37,6 +37,52 @@ def autograd_nablas(fn: Callable[[torch.Tensor], Tuple[torch.Tensor,
     if not graph:
         sdf, h = sdf.detach(), h.detach()
     return sdf, h, nablas
+
+
+class SphereResidualDecoder(nn.Module):
+    """The permutohedral concat fields' shared part (the dynamic (x, t)
+    SDF, the generative [x, z] and [x, z, t] ones): the decoder over [x,
+    h] with the geometric init (the sphere residual |x| − radius_init
+    added to the SDF, so every instance starts as a valid surface), and
+    the nablas of an encoding input built from x. The subclass owns
+    `bank`."""
+
+    def _init_decoder(self, n_enc: int, decoder_cfg: Optional[dict],
+                      n_geo_feat: int, radius_init: float, seed: int,
+                      device) -> None:
+        self.radius_init = float(radius_init)
+        dec = dict(decoder_cfg or {})
+        dec.setdefault("D", 1)
+        dec.setdefault("W", 64)
+        self.decoder = MLP(n_enc + 3, 1 + n_geo_feat, **dec, seed=seed + 1,
+                           device=device)
+        self.n_geo_feat = n_geo_feat
+
+    def _dec(self, x: torch.Tensor, h_enc: torch.Tensor):
+        out = self.decoder(torch.cat([x, h_enc], -1))
+        sdf = out[..., 0]
+        if self.radius_init > 0:
+            sdf = sdf + (torch.linalg.norm(x, dim=-1) - self.radius_init)
+        return sdf, out[..., 1:]
+
+    def _sdf_nablas(self, x: torch.Tensor, inp_of) -> Dict[str, torch.Tensor]:
+        """(sdf, h, ∂sdf/∂x) with the encoding input `inp_of(x)`. The
+        classic lattice: autograd through the whole field in x (JAX's
+        generic `jax.vjp` branch). The cell layout: the decoder term by
+        `torch.func.vjp`, the encoding term by the bank's nablas (B13),
+        whose first 3 lattice-input gradients are the spatial ones, times
+        0.5 for x → x·0.5 + 0.5 (JAX's cell branch; B13 or B16 on the
+        card)."""
+        if self.bank.backend != "cell":
+            sdf, h, nablas = autograd_nablas(
+                lambda xx: self._dec(xx, self.bank.encode(inp_of(xx))), x)
+            return {"sdf": sdf, "h": h, "nablas": nablas}
+        inp = inp_of(x)
+        h_enc = self.bank.encode(inp)
+        (sdf, h), dec_vjp = vjp(self._dec, x, h_enc)
+        gx, gh = dec_vjp((torch.ones_like(sdf), torch.zeros_like(h)))
+        nablas = gx + 0.5 * self.bank.nablas(gh, inp)[..., :3]
+        return {"sdf": sdf, "h": h, "nablas": nablas}
 
 
 # the JAX fields' default encoding (fields/sdf.py:37-42, nerf.py:147-151)

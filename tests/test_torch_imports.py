@@ -43,7 +43,10 @@ def test_sources_are_found():
     assert {"lotd_brick.py", "lotd_brick4.py", "model_base.py",
             "nerf_ray_query.py", "chip_smoke.py", "chip_ab.py",
             "lotd.py", "lotd_encoding.py", "lotd_cfg.py", "lotd_helpers.py",
-            "lotd_growers.py"} <= names
+            "lotd_growers.py", "embeddings.py", "autodecoder.py",
+            "fields_conditional.py", "fields_conditional_dynamic.py",
+            "fields_distant.py", "batched.py", "occgrid_batched.py",
+            "model_families.py", "neus_ray_query_variants.py"} <= names
     assert len(SOURCES) > 30
 
 

@@ -19,8 +19,9 @@ weighted vertices in another order (1e-5); B15's table gradient is a sum
 by atomics (1e-5 relative to the largest entry), its dL/dx and B16 sum
 through the elevation Jacobian and the lattice scale (1e-4). The F=2 cell
 permuto kernels (B10–B13) run on the dynamic NeuS field's default 4D meta
-(five hashed levels) and the 3D bench lattice (a dense level of 1985
-rows, seven hashed), with the same tolerances as their F=4 counterparts.
+(five hashed levels), the 3D bench lattice (a dense level of 1985
+rows, seven hashed) and the generative field's 5D meta (latent_dim 2),
+with the same tolerances as their F=4 counterparts.
 The gaussian blend (B17, B18) runs at T ∈ {1, 7, 1024} tiles, K ∈ {1, 32,
 256} slots and tile ∈ {8, 16}: B17 within 1e-5 of each output's largest
 entry (sums over the slots in another order), B18 within 1e-4 of each
@@ -59,6 +60,11 @@ kernel: the classic permutohedral lattice (plain PyTorch) on the card
 against its CPU result (keys and hash indices exact, values and first
 and second order within 1e-5 of the largest entry), and the sphere
 trace's fixed-count loop against its early exit (t and status bitwise).
+Two model paths of the conditional and dynamic families: the EmerNeRF
+render's two B5 lookups (the static grid, the any-time union of the
+dynamic grids) bitwise against the plain take, two launches a render;
+the d = 5 generative cell field's B10 and B13 (the nablas of its split
+form) against the CPU route, 4 B10 + 1 B13 a render.
 """
 
 import numpy as np
@@ -604,7 +610,9 @@ def test_dynamic_step_and_render_go_through_the_kernels(cuda):
 
 # ---------------------------------------------- F=2 cell permuto (B10-B13)
 PC_METAS = {"pathd4d": (4, [8.0, 16.0, 32.0, 64.0, 128.0], 4096),
-            "bench3d": (3, [16.0 * 2 ** (0.5 * i) for i in range(8)], 4096)}
+            "bench3d": (3, [16.0 * 2 ** (0.5 * i) for i in range(8)], 4096),
+            # the generative field's cell layout at latent_dim 2
+            "gen5d": (5, [8.0, 16.0, 32.0, 64.0], 4096)}
 PC_CASES = [(m, n) for m in sorted(PC_METAS) for n in (1, 255, 100_000)]
 
 
@@ -2348,3 +2356,127 @@ def test_sphere_trace_fixed_count_matches_early_exit(cuda):
     traces(o_n, d_n, rt["near"], rt["far"],
            lambda x: model.forward_sdf(x)["sdf"], model.accel.occ.occ(),
            "brick4_fwd")
+
+
+# ----------------------- the conditional and dynamic families' paths
+def test_emernerf_render_b5_lookups_match_plain(cuda):
+    """examples/train_dynamic_scene.py's EmerNeRF: the render's two
+    occupancy lookups through B5, bitwise the plain take, and exactly two
+    launches a render."""
+    from nr3d_lib_tpu_torch.models.model_families import EmerNeRFModel
+    from nr3d_lib_tpu_torch.ops import occgrid_march as OM
+
+    model = EmerNeRFModel(field_cfg={"static_cfg": {"lotd_cfg": {
+        "lod_res": [16, 32, 64], "lod_n_feats": 2,
+        "lod_types": ["Dense", "Dense", "Hash"], "hashmap_size": 2 ** 15}},
+        "dynamic_permuto_cfg": {"res_list": [8.0, 16.0, 32.0],
+                                "log2_hashmap_size": 15}},
+        accel_cfg={"resolution": (16, 16, 16)}, n_time_keys=8,
+        n_march_steps=64, device=cuda)
+    rng = np.random.default_rng(40)
+    with torch.no_grad():
+        model.accel.static.val_grid.copy_(torch.from_numpy(
+            rng.uniform(size=(16,) * 3).astype(np.float32) * 0.02))
+        model.accel.dynamic.occ.val_grid.copy_(torch.from_numpy(
+            rng.uniform(size=(8, 16, 16, 16)).astype(np.float32) * 0.012))
+    o = rng.normal(size=(2048, 3))
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * 2.0
+    d = rng.uniform(-0.3, 0.3, (2048, 3)) - o
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (o, d))
+    rt = model.ray_test(o, d)
+    rt["ts"] = torch.from_numpy(rng.uniform(-1, 1, 2048).astype(
+        np.float32)).to(cuda)
+    o_n, d_n = model.space.normalize_rays(o, d)
+    t, _, _ = OM.march_steps(rt["near"], rt["far"], 64, 2.0 / 64)
+    xs = [o_n[:, None, a] + d_n[:, None, a] * t for a in range(3)]
+    row, lane, _ = OM.grid_rows_lanes((16, 16, 16), *xs)
+    for grid in (model.accel.static.occ(),
+                 torch.any(model.accel.dynamic.occ.occ(), 0)):
+        values = grid.reshape(256, 16).to(torch.float32)
+        assert 0.05 < float(values.mean()) < 0.95
+        assert torch.equal(G.gather_rows_lanes(values, row, lane),
+                           G.gather_rows_lanes_plain(values, row, lane))
+    _build.LAUNCHES.clear()
+    with torch.no_grad():
+        rendered, _ = model.ray_query(rt)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"gather1d": 2}
+    assert bool(torch.isfinite(rendered["rgb_volume"]).all())
+
+
+def test_generative_cell_path_matches_cpu_route(cuda):
+    """The d = 5 generative field on the cell layout. On the lattice inputs
+    the field builds on the card ([x, tanh(z)], 50,000 points): B10 and
+    B13 against their plain versions on those same inputs (1e-5, 1e-4 of
+    the largest entry). The field's split nablas against the CPU route's
+    given the card's lattice inputs: within 1e-4 of the largest entry at
+    every point. Against the CPU route from x and z alone: the same
+    wherever the two devices build the same lattice input bits (at least
+    half of the points; 73% on an H100, whose tanh rounds the latent an
+    ulp away from the CPU's on the rest). There a point near a simplex
+    face may change simplex, and the piecewise-linear gradient jumps, so
+    99.9% of the points are required. 4 B10 + 1 B13 a render of the
+    batched model."""
+    from nr3d_lib_tpu_torch.models.model_families import \
+        GenerativePermutoNeuSModelBatched
+
+    cfg = dict(n_instances=4, latent_dim=2, latent_std=0.1, field_cfg={
+        "surface_cfg": {"permuto_cfg": {"res_list": [8.0, 16.0, 32.0, 64.0],
+                                        "backend": "cell"},
+                        "decoder_cfg": {"D": 1, "W": 64}},
+        "radiance_cfg": {"D": 2, "W": 64}},
+        ray_query_cfg={"n_coarse": 32, "upsample_inv_s_factors": [1.0, 4.0],
+                       "n_importance": 8})
+    model = GenerativePermutoNeuSModelBatched(**cfg, device=cuda)
+    cpu = GenerativePermutoNeuSModelBatched(**cfg, device="cpu")
+    rng = np.random.default_rng(41)
+    with torch.no_grad():
+        p = model.field.implicit_surface.bank.flattened_params
+        p.copy_(torch.from_numpy(rng.uniform(-0.1, 0.1, tuple(p.shape))
+                                 .astype(np.float32)))
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    x = torch.from_numpy(rng.uniform(-1, 1, (50_000, 3)).astype(np.float32))
+    z = torch.from_numpy(rng.normal(0, 0.3, (50_000, 2)).astype(np.float32))
+    surf, surf_cpu = model.field.implicit_surface, cpu.field.implicit_surface
+    bank, meta = surf.bank, surf.bank.meta
+    table = bank.flattened_params.detach()
+    with torch.no_grad():
+        inp = surf._inp(x.to(cuda), z.to(cuda))
+        g = torch.randn(50_000, 2 * meta.n_levels, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(42))
+        _build.LAUNCHES.clear()
+        y, nab = bank.encode(inp), bank.nablas(g, inp)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"permuto_fwd": 1, "permuto_dydx": 1}
+        _close(y, PC.permuto_cell_encode_xla(inp, table, meta), 1e-5)
+        _close(nab, PC.permuto_cell_nablas_xla(g, inp, table, meta), 1e-4)
+        got = surf.forward_sdf_nablas(x.to(cuda), z.to(cuda))
+        want = surf_cpu.forward_sdf_nablas(x, z)
+        zz = inp[:, 3:].cpu()
+        want_card_inp = surf_cpu._sdf_nablas(
+            x, lambda xx: torch.cat([xx * 0.5 + 0.5, zz], -1))
+        same = (inp.cpu() == surf_cpu._inp(x, z)).all(-1)
+    for k in ("sdf", "h", "nablas"):
+        _close(got[k].cpu(), want_card_inp[k], 1e-4)
+    share_same = float(same.float().mean())
+    print(f"points whose lattice inputs have the same bits on both "
+          f"devices: {share_same:.6f}")
+    assert share_same >= 0.5, share_same
+    ok = torch.ones(50_000, dtype=torch.bool)
+    for k in ("sdf", "h", "nablas"):
+        a = got[k].cpu().reshape(50_000, -1)
+        b = want[k].reshape(50_000, -1)
+        tol = 1e-4 * float(b.abs().max()) + 1e-7
+        ok &= ((a - b).abs() <= tol).all(-1)
+    assert bool(ok[same].all())
+    assert float(ok.float().mean()) >= 0.999
+    o = torch.from_numpy(rng.normal(size=(1024, 3)).astype(np.float32))
+    o = o / o.norm(dim=-1, keepdim=True) * 2.0
+    rt = model.ray_test(o.to(cuda), (-o / 2.0).to(cuda))
+    rt["bidx"] = torch.from_numpy(rng.integers(0, 4, 1024)).to(cuda)
+    _build.LAUNCHES.clear()
+    with torch.no_grad():
+        model.ray_query(rt)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"permuto_fwd": 4, "permuto_dydx": 1}
