@@ -232,6 +232,20 @@
      keep the rays that fit CPU_STEP_BUDGET_A12_S.
    Each path prints ms per call (median, quartiles), Krays/s (path E: fps
    and Mpix/s), peak memory and a device-time profile by kernel.
+   - The six example trainers as programs (`examples_torch/`,
+     `TRAINER_RUNS`): each through its `main([...])` at its default
+     model, rays and evaluation sizes with `--iters` cut (300 for the
+     NeuS object and the NeRF, 200 for the rest), then the NeuS object
+     under `--w4` and the forest under `--brick` for 20. Each run must
+     write every file the JAX script writes, raise its held-out PSNR
+     above the untrained model's, end with a mean loss over its last 5
+     steps below its first 5's, and launch its kernels (B5 wherever the
+     path queries occupancy; B1–B4 under `--w4`; the forest forms of
+     B6–B9 under `--brick`); a run resumed from a checkpoint at step k
+     (model, Adam, the run's generator) takes steps k and k+1 with the
+     uninterrupted run's losses within 1e-5 relative. One `[trainer …]`
+     line each: iterations, seconds, ms/iter, PSNR (and chamfer), peak
+     memory, the card.
 5. A `{"kernels": [...]}` JSON line, then the card's name and power limit,
    then the last line `{"ok": true, "device": {...}}`.
 
@@ -244,6 +258,7 @@ device is present or when the port's package is not beside it.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -3251,6 +3266,121 @@ def _gs_train(params: dict, cam, gt, smi: str, paths: dict) -> None:
     paths["gs train step"] = (launches, N_STEPS)
 
 
+# the example trainers as programs (examples_torch/): each at its default
+# model, ray count and evaluation sizes, --iters cut to fit the run; the
+# NeuS object under --w4 and the forest under --brick for a few steps, so
+# that the trainer path runs B1-B5 and the forest forms of B6-B9. (name,
+# flags, what a run must launch at least once, resume step k)
+TRAINER_RUNS = (
+    ("train_neus_object", ["--iters", "300"], ("gather1d",), 15),
+    ("train_nerf_synthetic", ["--iters", "300"], ("gather1d",), 15),
+    ("train_forest_street", ["--iters", "200"], (), 15),
+    ("train_dynamic_scene", ["--iters", "200"], ("gather1d",), 15),
+    ("train_generative_shapes", ["--iters", "200"], (), 15),
+    ("train_conditional_dynamic", ["--iters", "200"], (), 15),
+    ("train_neus_object", ["--w4", "--iters", "20", "--mesh_res", "64"],
+     ("brick4_fwd", "brick4_bwd", "brick4_dydx", "brick4_bwd2", "gather1d"),
+     3),
+    ("train_forest_street", ["--brick", "--iters", "20"],
+     ("brick_fwd_b", "brick_bwd_b", "brick_dydx_b", "brick_bwd2_b"), 3),
+)
+RESUME_RTOL = 1e-5
+
+
+def _trainer_phase(dev, smi: str, paths: dict) -> None:
+    """Run each example trainer through its `main([...])` on the card and
+    check what it wrote, that the held-out PSNR rose above the untrained
+    model's, that the loss fell (the mean of the last five steps below the
+    first five's), the launches, and that a run resumed from a checkpoint
+    at step k takes steps k and k+1 with the uninterrupted run's losses
+    (within RESUME_RTOL relative: the backward kernels' float atomics are
+    not bitwise between runs)."""
+    import importlib
+    import tempfile
+    import torch
+    from examples_torch.common import resume_losses
+    from nr3d_lib_tpu_torch.ops import _build
+
+    for name, flags, kernels_used, k in TRAINER_RUNS:
+        mod = importlib.import_module(f"examples_torch.{name}")
+        label = " ".join([name] + [f for f in flags if f.startswith("--w")
+                                   or f == "--brick"])
+        with tempfile.TemporaryDirectory() as out:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            res = mod.main(flags + ["--out", out])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+            missing = [f for f in mod.OUTPUTS
+                       if not os.path.isfile(os.path.join(out, f))]
+            straight, resumed = resume_losses(
+                lambda: mod.setup(mod.parse(flags)), k,
+                os.path.join(out, "resume"))
+        iters = len(res["losses"])
+        first5 = float(np.mean(res["losses"][:5]))
+        last5 = float(np.mean(res["losses"][-5:]))
+        cham = res.get("chamfer")
+        print(f"[trainer {label}] {iters} iters, {res['train_s']:.1f} s of "
+              f"training, {wall:.1f} s in all, {res['ms_per_iter']:.1f} "
+              f"ms/iter | val PSNR {res['psnr']:.2f} dB (untrained "
+              f"{res['psnr_init']:.2f})"
+              + (f", chamfer {cham:.3e}" if cham is not None else "")
+              + f" | loss, mean of the first / last 5 steps {first5:.5f} / "
+              f"{last5:.5f} | peak memory {peak_mib:.1f} MiB | launches "
+              f"{launches} | {smi}")
+        rel = [abs(a - b) / max(abs(a), 1e-12)
+               for a, b in zip(straight, resumed)]
+        print(f"[trainer {label}] resume at step {k}: losses of steps {k}, "
+              f"{k + 1} uninterrupted {straight}, resumed {resumed}, "
+              f"relative {max(rel):.2e} (tolerance {RESUME_RTOL:.0e})")
+        _require(not missing, f"{label}: missing outputs {missing}")
+        _require(np.isfinite(res["psnr"]) and res["psnr"] > res["psnr_init"],
+                 f"{label}: the PSNR did not rise")
+        _require(all(np.isfinite(res["losses"])) and last5 < first5,
+                 f"{label}: the loss did not fall")
+        _require(cham is None or np.isfinite(cham), f"{label}: chamfer")
+        for kname in kernels_used:
+            _require(launches.get(kname, 0) > 0,
+                     f"{label}: {kname} was not launched")
+        _require(max(rel) <= RESUME_RTOL, f"{label}: the resumed run's "
+                 f"losses differ")
+        if "--brick" in flags:
+            _street_brick_vs_cpu(mod, flags, label)
+        paths[f"trainer {label}"] = (launches, iters)
+
+
+def _street_brick_vs_cpu(mod, flags, label: str, warm: int = 10) -> None:
+    """The forest forms of B6-B9 at the street's shapes (6 blocks, the
+    trainer's ray count and segment march), which the kernel phases hold
+    only on FOREST_CFG: the trainer's model after `warm` steps, one step's
+    loss and gradients on rays of the street's law against the CPU port
+    from the same state, and that this card step launched all four."""
+    import torch
+    from examples_torch.common import generator
+    from nr3d_lib_tpu_torch.ops import _build
+
+    tr = mod.setup(mod.parse(flags))
+    for it in range(warm):
+        tr.step(it)
+    cpu = mod.setup(mod.parse(flags + ["--cpu"])).model
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         tr.model.state_dict().items()})
+    b = tr.sample(tr.rays, generator(tr.model.device, 99))
+    _build.LAUNCHES.clear()
+    _step_vs_cpu(tr.model, cpu, b["o"], b["d"], _cpu_seconds(
+        lambda oo, dd: _forest_loss(cpu, oo, dd), b["o"], b["d"]),
+        f"trainer {label}", loss=_forest_loss)
+    launched = dict(_build.LAUNCHES)
+    for kname in ("brick_fwd_b", "brick_bwd_b", "brick_dydx_b",
+                  "brick_bwd2_b"):
+        _require(launched.get(kname, 0) > 0, f"{label}: the step held "
+                 f"against the CPU did not launch {kname}")
+
+
 def _seed_occupancy(model) -> None:
     """A seeded 15% occupancy grid (experiments/bench_render.py seeds the
     same share, so the compressed paths have real sparsity)."""
@@ -3548,6 +3678,9 @@ def main() -> int:
                       gs_cam, smi, paths)
     _gs_step_vs_cpu(gs_params, gs_cam, gs_gt, cpu_s)
     _gs_train(gs_params, gs_cam, gs_gt, smi, paths)
+
+    # ------------- the example trainers as programs (examples_torch/)
+    _trainer_phase(dev, smi, paths)
 
     for kd in kernels:
         key = kd.pop("key")

@@ -1,7 +1,7 @@
 """OccGridAccel — occupancy acceleration for a single space (port of
 nr3d_lib_tpu/models/accelerations/occgrid_accel.py: `init`, `step` and
 `ray_march`; `collect_samples` and the `use_ema=False` getter grid wait in
-ROADMAP.md)."""
+ROADMAP.md A7c)."""
 
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ class OccGridAccel(nn.Module):
         super().__init__()
         if not use_ema:
             raise NotImplementedError("the use_ema=False occupancy getter is "
-                                      "not ported yet (ROADMAP.md A7)")
+                                      "not ported yet (ROADMAP.md A7c)")
         self.occ = OccGridEma(resolution, occ_thre=occ_thre,
                               ema_decay=ema_decay, device=device)
         self.update_every = int(update_every)

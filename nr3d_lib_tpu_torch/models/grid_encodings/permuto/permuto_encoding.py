@@ -81,9 +81,8 @@ class PermutoParams(nn.Module):
         backend: on a CUDA tensor the forward kernel (B10 or B14), with
         the backward kernel (B11/B12 or B15) as its backward (`frozen_x`:
         dL/dtable only). `ho=True` asks for the any-order plain
-        formulation, which the JAX package routes to XLA; on the cell
-        backend it exists for CPU tensors only (the CUDA route
-        differentiates the nablas through `nablas`)."""
+        formulation, which the JAX package routes to XLA: plain PyTorch on
+        the tensor's own device, as the brick encoding's `ho`."""
         p = self.flattened_params
         batch = inp.shape[:-1]
         flat = inp.reshape(-1, inp.shape[-1])
@@ -92,10 +91,6 @@ class PermutoParams(nn.Module):
             return y.reshape(*batch, y.shape[-1])
         plain, enc, enc_frozen, _ = _OPS[self.n_feats]
         if ho:
-            if flat.device.type != "cpu":
-                raise NotImplementedError(
-                    "encode(ho=True) is the plain formulation: on CUDA, "
-                    "differentiate the nablas through PermutoParams.nablas")
             y = plain(flat, p, self.meta)
         elif frozen_x:
             y = enc_frozen(flat, p, self.meta)

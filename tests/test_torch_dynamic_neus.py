@@ -425,7 +425,8 @@ def test_port_step_loss_falls(models4):
 # -------------------------------------------------- what is not ported
 def test_bank_configurations():
     """The classic lattice (the JAX default) builds at d = 4; the cell
-    bank's any-order encode exists for CPU tensors only."""
+    bank's any-order encode is plain PyTorch on the tensor's own device
+    (here `meta`: no CPU route is taken)."""
     from nr3d_lib_tpu_torch.models.grid_encodings.permuto import \
         PermutoParams
 
@@ -435,8 +436,9 @@ def test_bank_configurations():
     bank = PermutoParams(4, [4.0], backend="cell", n_feats=4, device="cpu")
     y = bank.encode(torch.rand(5, 4), ho=True)
     assert y.shape == (5, 4)
-    with pytest.raises(NotImplementedError, match="nablas"):
-        bank.encode(torch.rand(5, 4, device="meta"), ho=True)
+    meta = PermutoParams(4, [4.0], backend="cell", n_feats=4, device="meta")
+    y = meta.encode(torch.rand(5, 4, device="meta"), ho=True)
+    assert y.shape == (5, 4) and y.device.type == "meta"
 
 
 def test_f2_cell_bank_builds():

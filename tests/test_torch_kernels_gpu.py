@@ -64,7 +64,14 @@ Two model paths of the conditional and dynamic families: the EmerNeRF
 render's two B5 lookups (the static grid, the any-time union of the
 dynamic grids) bitwise against the plain take, two launches a render;
 the d = 5 generative cell field's B10 and B13 (the nablas of its split
-form) against the CPU route, 4 B10 + 1 B13 a render.
+form) against the CPU route, 4 B10 + 1 B13 a render. The cell banks'
+any-order encode (`ho=True`, plain PyTorch on the card, no launch)
+against the CPU route: values within 1e-5, the input gradient and a
+second-order gradient (dL/dtable of a loss on the input gradient) within
+1e-4 of the largest entry. The program layer at a small size against the CPU route:
+`chamfer_distance` (1e-6 relative), `extract_mesh` of a NeuS pretrained
+to a sphere (the same faces, vertices within 1e-4) and `render_turntable`
+(at least 99% of the pixels equal, the rest within one 8-bit level).
 """
 
 import numpy as np
@@ -2480,3 +2487,95 @@ def test_generative_cell_path_matches_cpu_route(cuda):
         model.ray_query(rt)
     torch.cuda.synchronize()
     assert dict(_build.LAUNCHES) == {"permuto_fwd": 4, "permuto_dydx": 1}
+
+
+@pytest.mark.parametrize("n_feats", [2, 4], ids=["F2", "F4"])
+def test_cell_encode_ho_cuda_matches_cpu(cuda, n_feats):
+    from nr3d_lib_tpu_torch.models.grid_encodings.permuto import \
+        PermutoParams
+
+    kw = dict(n_feats=n_feats, backend="cell", hashmap_rows=2048)
+    bank = PermutoParams(4, [4.0, 11.0, 23.0], **kw, device=cuda)
+    cpu = PermutoParams(4, [4.0, 11.0, 23.0], **kw, device="cpu")
+    rng = np.random.default_rng(51)
+    table = rng.uniform(-0.1, 0.1, tuple(cpu.flattened_params.shape))
+    x_np = rng.uniform(0.0, 1.0, (4096, 4)).astype(np.float32)
+    w_np = rng.normal(size=(4096, cpu.out_features)).astype(np.float32)
+    outs = []
+    for m, dev in ((bank, cuda), (cpu, torch.device("cpu"))):
+        with torch.no_grad():
+            m.flattened_params.copy_(torch.from_numpy(
+                table.astype(np.float32)))
+        x = torch.from_numpy(x_np).to(dev).requires_grad_(True)
+        _build.LAUNCHES.clear()
+        y = m.encode(x, ho=True)
+        (gx,) = torch.autograd.grad((y * torch.from_numpy(w_np).to(dev))
+                                    .sum(), x, create_graph=True)
+        (gt,) = torch.autograd.grad((gx ** 2).sum(), m.flattened_params)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert not dict(_build.LAUNCHES)
+        outs.append([t.detach().cpu() for t in (y, gx, gt)])
+    _close(outs[0][0], outs[1][0], 1e-5)
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        _close(a, b, 1e-4)
+
+
+def test_chamfer_cuda_matches_cpu(cuda):
+    from nr3d_lib_tpu_torch.maths.knn import chamfer_distance, knn_points
+
+    rng = np.random.default_rng(52)
+    x = torch.from_numpy(rng.normal(size=(5000, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(4000, 3)).astype(np.float32))
+    for squared in (True, False):
+        got = chamfer_distance(x.to(cuda), y.to(cuda), squared=squared)
+        want = chamfer_distance(x, y, squared=squared)
+        for a, b in zip(got, want):
+            assert abs(float(a) - float(b)) <= 1e-6 * abs(float(b))
+    d_g, i_g = knn_points(x.to(cuda), y.to(cuda), 4)
+    d_c, i_c = knn_points(x, y, 4)
+    assert float((i_g.cpu() == i_c).float().mean()) >= 0.999
+    _close(d_g.cpu(), d_c, 1e-5)
+
+
+def _sphere_neus(dev):
+    """A small classic-LoTD NeuS pretrained on the CPU to the sphere of
+    radius 0.5, and its twin on the card."""
+    from nr3d_lib_tpu_torch.models.fields.sdf import pretrain_sdf_sphere
+    from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel
+
+    cfg = dict(field_cfg={"surface_cfg": {
+        "encoding_cfg": {"lotd_cfg": {"lod_res": [8, 16, 32],
+                                      "lod_n_feats": 2,
+                                      "lod_types": ["Dense", "Dense", "Hash"],
+                                      "hashmap_size": 2 ** 12}},
+        "decoder_cfg": {"D": 1, "W": 32}},
+        "radiance_cfg": {"D": 2, "W": 32},
+        "var_ctrl_cfg": {"type": "learned", "init_val": 64.0}},
+        accel_cfg={"resolution": 16, "max_steps_per_ray": 64,
+                   "step_size": 2 / 32})
+    cpu = LoTDNeuSModel(**cfg, device="cpu")
+    pretrain_sdf_sphere(cpu.field.implicit_surface, torch.Generator(
+        ).manual_seed(0), radius=0.5, n_iters=300)
+    cpu.populate()
+    m = LoTDNeuSModel(**cfg, device=dev)
+    m.load_state_dict(cpu.state_dict())
+    return m, cpu
+
+
+def test_extract_mesh_and_turntable_cuda_match_cpu(cuda):
+    from nr3d_lib_tpu_torch.graphics.trianglemesh import extract_mesh
+    from nr3d_lib_tpu_torch.gui import render_turntable
+
+    m, cpu = _sphere_neus(cuda)
+    (vg, fg), (vc, fc) = [
+        extract_mesh(lambda x, mm=mm: mm.forward_sdf(x)["sdf"],
+                     resolution=40, device=mm.device) for mm in (m, cpu)]
+    assert len(fc) > 100
+    np.testing.assert_array_equal(fg, fc)
+    np.testing.assert_allclose(vg, vc, rtol=0, atol=1e-4)
+    frames = [np.stack(render_turntable(mm, n_frames=2, radius=2.5,
+                                        hw=(48, 48))) for mm in (m, cpu)]
+    diff = np.abs(frames[0].astype(np.int32) - frames[1].astype(np.int32))
+    assert float((diff == 0).mean()) >= 0.99
+    assert int(diff.max()) <= 1
