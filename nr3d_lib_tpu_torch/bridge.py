@@ -25,6 +25,10 @@ grower's `trunk/i/...`, `heads/i/...`, `pseudo/<level>` and `shared`,
 the conv grower's `const` and `blocks/i/...`, the shared grower's `base`,
 and the mixed grower's `growers/i/...`.
 
+Booleans (the getter grid's `accel/occ/occ_grid`) and bfloat16 arrays
+(parameters with `param_dtype=bfloat16`; numpy holds them as the
+`bfloat16` extension dtype) come across in their own dtypes.
+
 A forest model (`LoTDForestNeuSModel`) comes across with
 `forest_from_jax_state`: its encoding's `flattened_params` is [n_trees,
 n_params] on either backend, passed through as it is; the JAX state lists the shared block space under
@@ -63,7 +67,12 @@ def from_jax_state(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         arr = np.asarray(value)
         if arr.dtype == np.float64:
             raise ValueError(f"{path}: float64 state; the model is float32")
-        out[path.replace("/", ".")] = torch.from_numpy(arr.copy())
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(arr.view(np.int16).copy()).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr.copy())
+        out[path.replace("/", ".")] = t
     return out
 
 

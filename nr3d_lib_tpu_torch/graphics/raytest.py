@@ -1,5 +1,5 @@
-"""Ray–box intersection (port of nr3d_lib_tpu/graphics/raytest.py
-`ray_box_intersection`)."""
+"""Ray–primitive intersection tests (port of
+nr3d_lib_tpu/graphics/raytest.py)."""
 
 from __future__ import annotations
 
@@ -7,7 +7,29 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["ray_box_intersection"]
+__all__ = ["ray_sphere_intersection", "ray_box_intersection",
+           "ray_box_intersection_fast"]
+
+
+def ray_sphere_intersection(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                            radius: float = 1.0, center=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Ray–sphere: (near, far, hit); near is clamped at 0 (a ray that
+    starts inside), and rays without a hit ahead get near = far = 0."""
+    o = rays_o if center is None else rays_o - torch.as_tensor(
+        center, dtype=rays_o.dtype, device=rays_o.device)
+    b = torch.sum(o * rays_d, -1)
+    c = torch.sum(o * o, -1) - radius * radius
+    a = torch.sum(rays_d * rays_d, -1)
+    disc = b * b - a * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    near = (-b - sq) / a
+    far = (-b + sq) / a
+    hit = (disc > 0) & (far > 0)
+    zero = torch.zeros_like(near)
+    return (torch.where(hit, torch.clamp(near, min=0.0), zero),
+            torch.where(hit, far, zero), hit)
 
 
 def ray_box_intersection(rays_o: torch.Tensor, rays_d: torch.Tensor,
@@ -30,3 +52,7 @@ def ray_box_intersection(rays_o: torch.Tensor, rays_d: torch.Tensor,
     hit = near < far
     zero = torch.zeros_like(near)
     return torch.where(hit, near, zero), torch.where(hit, far, zero), hit
+
+
+# the JAX package's alias of the reference's "fast" variant
+ray_box_intersection_fast = ray_box_intersection

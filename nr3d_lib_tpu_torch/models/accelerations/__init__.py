@@ -2,7 +2,8 @@
 nr3d_lib_tpu/models/accelerations/__init__.py, with the `get_accel`
 factory)."""
 
-from nr3d_lib_tpu_torch.models.accelerations.occgrid import OccGridEma, cell_centers  # noqa: F401,E501
+from nr3d_lib_tpu_torch.models.accelerations.occgrid import (  # noqa: F401
+    OccGridEma, OccGridGetter, cell_centers)
 from nr3d_lib_tpu_torch.models.accelerations.occgrid_accel import OccGridAccel  # noqa: F401,E501
 from nr3d_lib_tpu_torch.models.accelerations.occgrid_batched import (  # noqa: F401,E501
     OccGridAccelBatched, OccGridAccelBatchedDynamic, OccGridAccelDynamic,

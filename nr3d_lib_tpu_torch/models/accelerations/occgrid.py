@@ -1,6 +1,7 @@
-"""Occupancy-grid state: EMA-decayed value grid → binary occupancy (port of
-nr3d_lib_tpu/models/accelerations/occgrid.py `OccGridEma`: `occ`,
-`init_from_net`, `step_update`; `cell_centers`, `sample_cells_uniform`).
+"""Occupancy-grid state (port of nr3d_lib_tpu/models/accelerations/
+occgrid.py): `OccGridEma`, the EMA-decayed value grid thresholded to a
+binary occupancy, and `OccGridGetter`, a binary grid re-queried whole at
+every update; `cell_centers`, `sample_cells_uniform`.
 
 The periodic update is split in two so that a test can feed the JAX
 package's cells and points to the second half: `sample_update_cells` draws
@@ -16,7 +17,10 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["OccGridEma", "cell_centers", "sample_cells_uniform"]
+from nr3d_lib_tpu_torch.ops.occgrid_march import occgrid_query
+
+__all__ = ["OccGridEma", "OccGridGetter", "cell_centers",
+           "sample_cells_uniform"]
 
 
 def cell_centers(resolution: Sequence[int], dtype=torch.float32,
@@ -67,15 +71,41 @@ class OccGridEma(nn.Module):
     def occ(self) -> torch.Tensor:
         return self.val_grid > self.occ_thre
 
+    def occupancy_ratio(self) -> torch.Tensor:
+        """The occupied share of the cells, a 0-d float32 tensor."""
+        return self.occ().to(torch.float32).mean()
+
+    def query(self, x: torch.Tensor) -> torch.Tensor:
+        """Occupancy at normalized positions x ∈ [-1,1]^3 (B5 on a CUDA
+        grid); out-of-range positions are unoccupied."""
+        return occgrid_query(self.occ(), x)
+
     def init_from_net(self, query_fn: Callable[[torch.Tensor], torch.Tensor],
                       chunk: int = 2 ** 16) -> None:
         """Initialize the values from a field query at the cell centers.
         Updates the buffer in place."""
         centers = cell_centers(self.resolution, self.val_grid.dtype,
                                self.val_grid.device)
-        vals = torch.cat([query_fn(centers[s:s + chunk]).reshape(-1)
-                          for s in range(0, centers.shape[0], chunk)])
+        vals = _chunked_query(query_fn, centers, chunk)
         self.val_grid.copy_(vals.reshape(self.resolution))
+
+    @torch.no_grad()
+    def collect_samples(self, x: torch.Tensor, vals: torch.Tensor) -> None:
+        """Scatter-max |vals| of training-time queries at normalized
+        positions x [..., 3] into their cells; positions outside the grid
+        contribute nothing (−inf). The max does not depend on the order
+        of the points. In place."""
+        res = self.resolution
+        x = x.reshape(-1, 3)
+        idx = torch.stack([torch.floor((x[:, a] + 1.0) * 0.5 * float(res[a]))
+                           .to(torch.int64) for a in range(3)], -1)
+        hi = torch.as_tensor(res, device=idx.device)
+        inb = ((idx >= 0) & (idx < hi)).all(-1)
+        idx = torch.minimum(idx.clamp(min=0), hi - 1)
+        vals = torch.where(inb, torch.abs(vals.reshape(-1)).to(
+            self.val_grid.dtype), float("-inf"))
+        flat = (idx[:, 0] * res[1] + idx[:, 1]) * res[2] + idx[:, 2]
+        self.val_grid.view(-1).scatter_reduce_(0, flat, vals, reduce="amax")
 
     def sample_update_cells(self, generator: torch.Generator,
                             n_samples: Optional[int] = None
@@ -119,3 +149,54 @@ class OccGridEma(nn.Module):
         and occupied cells so that live cells never decay away."""
         self.apply_update(*self.sample_update_cells(generator, n_samples),
                           query_fn)
+
+    def try_shrink(self) -> torch.Tensor:
+        """The tight normalized box [2, 3] (min, max) of the occupied
+        cells. With no cell occupied, each axis reads (1, −1)."""
+        occ = self.occ()
+        out = []
+        for d in range(3):
+            axes = tuple(i for i in range(3) if i != d)
+            any_d = occ.any(dim=axes[1]).any(dim=axes[0])
+            r = self.resolution[d]
+            idxs = torch.arange(r, device=occ.device)
+            lo = torch.where(any_d, idxs, r).amin()
+            hi = torch.where(any_d, idxs, -1).amax() + 1
+            out.append(torch.stack([lo, hi]).to(torch.float32) / r * 2 - 1)
+        return torch.stack(out).T
+
+
+class OccGridGetter(nn.Module):
+    """A binary occupancy grid without EMA: each update re-queries every
+    cell centre and thresholds |value|. State: the bool buffer
+    ``occ_grid`` (all occupied at construction)."""
+
+    def __init__(self, resolution=(64, 64, 64), occ_thre: float = 0.01,
+                 device=None):
+        super().__init__()
+        if np.isscalar(resolution):
+            resolution = (int(resolution),) * 3
+        self.resolution = tuple(int(r) for r in resolution)
+        self.occ_thre = float(occ_thre)
+        self.register_buffer("occ_grid", torch.ones(
+            self.resolution, dtype=torch.bool, device=device))
+
+    def occ(self) -> torch.Tensor:
+        return self.occ_grid
+
+    @torch.no_grad()
+    def update(self, query_fn: Callable[[torch.Tensor], torch.Tensor],
+               chunk: int = 2 ** 16) -> None:
+        """Re-query every cell centre in chunks of `chunk` points; a cell
+        is occupied where |value| > occ_thre. In place."""
+        centers = cell_centers(self.resolution, torch.float32,
+                               self.occ_grid.device)
+        vals = _chunked_query(query_fn, centers, chunk)
+        self.occ_grid.copy_(torch.abs(vals).reshape(self.resolution)
+                            > self.occ_thre)
+
+
+def _chunked_query(query_fn, pts: torch.Tensor, chunk: int) -> torch.Tensor:
+    """query_fn over pts [n, 3] in chunks of at most `chunk` → [n]."""
+    return torch.cat([query_fn(pts[s:s + chunk]).reshape(-1)
+                      for s in range(0, pts.shape[0], chunk)])

@@ -1,5 +1,5 @@
 """NeRF field nets (port of nr3d_lib_tpu/models/fields/nerf.py `trunc_exp`,
-`RadianceNet`, `LoTDNeRF`, `PermutoNeRF`)."""
+`RadianceNet`, `MlpNeRF`, `LoTDNeRF`, `PermutoNeRF`)."""
 
 from __future__ import annotations
 
@@ -8,10 +8,11 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from nr3d_lib_tpu_torch.device import resolve_device
 from nr3d_lib_tpu_torch.models.blocks import MLP
 from nr3d_lib_tpu_torch.models.embedders import get_embedder
 
-__all__ = ["trunc_exp", "RadianceNet", "LoTDNeRF", "PermutoNeRF"]
+__all__ = ["trunc_exp", "RadianceNet", "MlpNeRF", "LoTDNeRF", "PermutoNeRF"]
 
 
 class _TruncExp(torch.autograd.Function):
@@ -68,6 +69,39 @@ class RadianceNet(nn.Module):
         if h_extra is not None:
             feats.append(h_extra)
         return self.mlp(torch.cat(feats, -1))
+
+
+class MlpNeRF(nn.Module):
+    """Classic embedded-MLP NeRF: frequency-embedded x (6 frequencies by
+    default) → an MLP (D layers of W, a skip) → (σ by trunc_exp, h) →
+    radiance head. `device=None` means CUDA (raises without a card);
+    tests pass `device="cpu"`."""
+
+    def __init__(self, *, pos_embed_cfg: Optional[dict] = None,
+                 D: int = 4, W: int = 128, skips=(2,),
+                 n_geo_feat: int = 16,
+                 radiance_cfg: Optional[dict] = None, seed: int = 0,
+                 device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.embed_fn, pos_dim = get_embedder(
+            pos_embed_cfg or {"type": "sinusoidal", "n_frequencies": 6}, 3)
+        self.n_geo_feat = n_geo_feat
+        self.sigma_mlp = MLP(pos_dim, 1 + n_geo_feat, D=D, W=W, skips=skips,
+                             seed=seed, device=device)
+        self.radiance = RadianceNet(n_extra_feat=n_geo_feat,
+                                    **(radiance_cfg or {}), seed=seed + 1,
+                                    device=device)
+
+    def forward_density(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        h = self.sigma_mlp(self.embed_fn(x))
+        return {"sigma": trunc_exp(h[..., 0]), "h": h[..., 1:]}
+
+    def forward(self, x: torch.Tensor, v: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        out = self.forward_density(x)
+        out["rgb"] = self.radiance(x, v, None, out["h"])
+        return out
 
 
 class LoTDNeRF(nn.Module):

@@ -1,6 +1,6 @@
 """NeuS field: SDF net + radiance net + inv_s (port of
 nr3d_lib_tpu/models/fields/neus.py `LearnedVar`, `ScheduledVar`,
-`LoTDNeuS` and `PermutoNeuS`)."""
+`LoTDNeuS`, `PermutoNeuS` and `MlpNeuS`)."""
 
 from __future__ import annotations
 
@@ -10,12 +10,13 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from nr3d_lib_tpu_torch.device import resolve_device
 from nr3d_lib_tpu_torch.models.annealers import get_annealer
 from nr3d_lib_tpu_torch.models.fields.nerf import RadianceNet
-from nr3d_lib_tpu_torch.models.fields.sdf import LoTDSDF, PermutoSDF
+from nr3d_lib_tpu_torch.models.fields.sdf import MlpSDF, LoTDSDF, PermutoSDF
 
 __all__ = ["LearnedVar", "ScheduledVar", "get_neus_var_ctrl", "LoTDNeuS",
-           "PermutoNeuS"]
+           "PermutoNeuS", "MlpNeuS"]
 
 
 class LearnedVar(nn.Module):
@@ -140,4 +141,18 @@ class PermutoNeuS(_NeuSBase):
                  device=None):
         super().__init__(PermutoSDF(**(surface_cfg or {}), seed=seed,
                                     device=device),
+                         radiance_cfg, var_ctrl_cfg, seed, device)
+
+
+class MlpNeuS(_NeuSBase):
+    """Geometric-init MLP NeuS: an `MlpSDF` surface. `device=None` means
+    CUDA (raises without a card); tests pass `device="cpu"`."""
+
+    def __init__(self, *, surface_cfg: Optional[dict] = None,
+                 radiance_cfg: Optional[dict] = None,
+                 var_ctrl_cfg: Optional[dict] = None, seed: int = 0,
+                 device=None):
+        device = resolve_device(device)
+        super().__init__(MlpSDF(**(surface_cfg or {}), seed=seed,
+                                device=device),
                          radiance_cfg, var_ctrl_cfg, seed, device)

@@ -1,6 +1,6 @@
 """SDF fields (port of nr3d_lib_tpu/models/fields/sdf.py `LoTDSDF`, on
 the classic and brick backends, `PermutoSDF`, classic and cell lattices,
-and `pretrain_sdf_sphere`)."""
+`MlpSDF` and `pretrain_sdf_sphere`)."""
 
 from __future__ import annotations
 
@@ -10,11 +10,13 @@ import torch
 from torch import nn
 from torch.func import vjp
 
+from nr3d_lib_tpu_torch.device import resolve_device
 from nr3d_lib_tpu_torch.models.blocks import MLP
+from nr3d_lib_tpu_torch.models.embedders import get_embedder
 from nr3d_lib_tpu_torch.models.grid_encodings.lotd import get_lotd_encoding
 from nr3d_lib_tpu_torch.models.grid_encodings.permuto import PermutoParams
 
-__all__ = ["LoTDSDF", "PermutoSDF", "pretrain_sdf_sphere",
+__all__ = ["LoTDSDF", "PermutoSDF", "MlpSDF", "pretrain_sdf_sphere",
            "autograd_nablas", "SphereResidualDecoder", "DEFAULT_LOTD_CFG"]
 
 
@@ -215,6 +217,45 @@ class PermutoSDF(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.forward_sdf(x)["sdf"]
+
+
+class MlpSDF(nn.Module):
+    """Geometric-init MLP SDF: an embedded input (identity by default)
+    through an MLP (D layers of W, a skip, softplus β = 100) whose init
+    makes sdf ≈ |x| − radius_init. `device=None` means CUDA (raises
+    without a card); tests pass `device="cpu"`."""
+
+    def __init__(self, *, pos_embed_cfg: Optional[dict] = None,
+                 D: int = 8, W: int = 256, skips=(4,),
+                 n_geo_feat: int = 15, radius_init: float = 0.5,
+                 seed: int = 0, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.embed_fn, pos_dim = get_embedder(
+            pos_embed_cfg or {"type": "identity"}, 3)
+        self.mlp = MLP(pos_dim, 1 + n_geo_feat, D=D, W=W, skips=skips,
+                       activation="softplus", geometric_init=True,
+                       radius_init=radius_init, seed=seed, device=device)
+        self.n_geo_feat = n_geo_feat
+
+    def _sdf_h(self, x: torch.Tensor):
+        out = self.mlp(self.embed_fn(x))
+        return out[..., 0], out[..., 1:]
+
+    def forward_sdf(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        sdf, h = self._sdf_h(x)
+        return {"sdf": sdf, "h": h}
+
+    def forward_sdf_nablas(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """(sdf, h, nablas=∂sdf/∂x) by autograd through the MLP, second
+        order under gradients (`autograd_nablas`). The JAX method raises
+        here (its generic branch passes `ho=` to an `_sdf_h` without
+        it); this is the `jax.vjp` of its `forward_sdf`."""
+        sdf, h, nablas = autograd_nablas(self._sdf_h, x)
+        return {"sdf": sdf, "h": h, "nablas": nablas}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._sdf_h(x)[0]
 
 
 def pretrain_sdf_sphere(model: nn.Module,

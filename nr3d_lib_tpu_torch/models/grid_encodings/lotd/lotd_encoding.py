@@ -5,6 +5,9 @@ It owns the flat parameter vector `flattened_params` [n_params] in the
 JAX package's layout (so the state bridge copies it as it is), maps
 inputs in [-1,1] to the encoding's [0,1], and applies the progressive
 `max_level` mask and the anneal window of its `MultiresAnnealer`.
+`param_dtype` is the parameters' dtype; the forward casts them to
+`compute_dtype` (float32 by default; with bfloat16 the features come out
+in bfloat16, as in JAX). A dtype is a `torch.dtype` or its name.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from torch import nn
 
 from nr3d_lib_tpu_torch.models.annealers import MultiresAnnealer
+from nr3d_lib_tpu_torch.models.blocks import as_dtype
 from nr3d_lib_tpu_torch.ops import lotd as _lotd
 
 __all__ = ["LoTDEncoding"]
@@ -27,6 +31,7 @@ class LoTDEncoding(nn.Module):
                  lotd_auto_compute_cfg: Optional[dict] = None,
                  anneal_cfg: Optional[dict] = None,
                  param_init_cfg: Optional[dict] = None,
+                 compute_dtype=torch.float32, param_dtype=torch.float32,
                  seed: int = 42, aabb=None, device=None):
         super().__init__()
         if lotd_auto_compute_cfg is not None:
@@ -47,6 +52,7 @@ class LoTDEncoding(nn.Module):
             use_smooth_step=lotd_cfg.get("use_smooth_step", False))
         self.in_features = input_ch
         self.out_features = self.meta.out_features
+        self.compute_dtype = as_dtype(compute_dtype)
 
         # small random init, uniform in ±bound or normal with std
         cfg = dict(param_init_cfg or {})
@@ -58,7 +64,8 @@ class LoTDEncoding(nn.Module):
         else:
             p0 = (torch.rand(self.meta.n_params, generator=gen) * 2.0
                   - 1.0) * scale
-        self.flattened_params = nn.Parameter(p0.to(device))
+        self.flattened_params = nn.Parameter(p0.to(
+            device=device, dtype=as_dtype(param_dtype)))
 
         self.annealer = MultiresAnnealer(self.meta.n_levels, **anneal_cfg) \
             if anneal_cfg else None
@@ -74,11 +81,14 @@ class LoTDEncoding(nn.Module):
                 w, device=self.flattened_params.device)
 
     # ------------------------------------------------------------- forward
+    def _params(self) -> torch.Tensor:
+        return self.flattened_params.to(self.compute_dtype)
+
     def forward(self, x: torch.Tensor, max_level: Optional[int] = None
                 ) -> torch.Tensor:
         """x in [-1,1] → [N, out_features]."""
         ml = max_level if max_level is not None else self.max_level
-        return _lotd.lotd_encode(x * 0.5 + 0.5, self.flattened_params,
+        return _lotd.lotd_encode(x * 0.5 + 0.5, self._params(),
                                  self.meta, max_level=ml,
                                  level_weights=self.level_weights)
 
@@ -87,7 +97,7 @@ class LoTDEncoding(nn.Module):
         """(features, dy/dx in the [-1,1] input frame: × 0.5 for the
         x·0.5 + 0.5 map)."""
         ml = max_level if max_level is not None else self.max_level
-        y, dydx = _lotd.lotd_fwd_dydx(x * 0.5 + 0.5, self.flattened_params,
+        y, dydx = _lotd.lotd_fwd_dydx(x * 0.5 + 0.5, self._params(),
                                       self.meta, max_level=ml,
                                       level_weights=self.level_weights)
         return y, dydx * 0.5

@@ -36,6 +36,18 @@ class AABBSpace(nn.Module):
     def radius3d(self) -> torch.Tensor:
         return (self.aabb[1] - self.aabb[0]) * 0.5
 
+    @property
+    def scale(self) -> torch.Tensor:
+        return self.radius3d
+
+    def normalize_coords(self, x: torch.Tensor) -> torch.Tensor:
+        """World → [-1, 1]."""
+        return (x - self.center) / self.radius3d
+
+    def unnormalize_coords(self, x: torch.Tensor) -> torch.Tensor:
+        """[-1, 1] → world."""
+        return x * self.radius3d + self.center
+
     def normalize_rays(self, rays_o: torch.Tensor, rays_d: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """World rays → normalized-space rays (dir NOT re-normalized so t is
@@ -43,15 +55,33 @@ class AABBSpace(nn.Module):
         return (rays_o - self.center) / self.radius3d, rays_d / self.radius3d
 
     def ray_test(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
-                 near: Optional[float] = None, far: Optional[float] = None
-                 ) -> Dict[str, torch.Tensor]:
-        """Slab test against the box; full-size arrays plus a hit mask."""
+                 near: Optional[float] = None, far: Optional[float] = None,
+                 return_rays: bool = True) -> Dict[str, torch.Tensor]:
+        """Slab test against the box; full-size arrays plus a hit mask
+        (and the rays themselves with `return_rays`)."""
         t_near, t_far, hit = ray_box_intersection(
             rays_o, rays_d, self.aabb[0], self.aabb[1],
             t_min=near or 0.0, t_max=far or 1e10)
-        return {"near": t_near, "far": t_far, "mask": hit,
-                "num_rays": rays_o.shape[0], "rays_o": rays_o,
-                "rays_d": rays_d}
+        ret = {"near": t_near, "far": t_far, "mask": hit,
+               "num_rays": rays_o.shape[0]}
+        if return_rays:
+            ret["rays_o"] = rays_o
+            ret["rays_d"] = rays_d
+        return ret
+
+    @torch.no_grad()
+    def rescale_volume(self, new_aabb) -> None:
+        """Shrink or expand the box to new_aabb [2, 3], in place."""
+        self.aabb.copy_(torch.as_tensor(new_aabb, dtype=self.aabb.dtype))
+
+    def sample_pts_uniform(self, n_pts: int, generator: torch.Generator
+                           ) -> torch.Tensor:
+        """n_pts uniform points in the box [n_pts, 3], drawn by
+        `generator` on its device."""
+        u = torch.rand((n_pts, 3), generator=generator,
+                       device=generator.device, dtype=self.aabb.dtype)
+        lo, hi = self.aabb.to(u.device)
+        return lo + u * (hi - lo)
 
 
 class AABBDynamicSpace(AABBSpace):

@@ -2579,3 +2579,203 @@ def test_extract_mesh_and_turntable_cuda_match_cpu(cuda):
     diff = np.abs(frames[0].astype(np.int32) - frames[1].astype(np.int32))
     assert float((diff == 0).mean()) >= 0.99
     assert int(diff.max()) <= 1
+
+
+# ------------------------- the occupancy getter, the MLP fields, bf16
+def _getter_w4(dev):
+    """examples/train_neus_object.py --w4 at a small width with the
+    `use_ema=False` getter grid: pretrained on the card to the sphere of
+    radius 0.5 and populated there, and its CPU twin."""
+    from nr3d_lib_tpu_torch.models.fields.sdf import pretrain_sdf_sphere
+    from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel
+
+    cfg = dict(field_cfg={"surface_cfg": {
+        "encoding_cfg": {"lotd_cfg": {"lod_res": [16, 64], "lod_n_feats": 4,
+                                      "lod_types": ["Dense", "Hash"],
+                                      "hashmap_size": 2 ** 16},
+                         "backend": "brick"},
+        "decoder_cfg": {"D": 1, "W": 32}},
+        "radiance_cfg": {"D": 2, "W": 32},
+        "var_ctrl_cfg": {"type": "learned", "init_val": 64.0}},
+        accel_cfg={"resolution": 32, "max_steps_per_ray": 96,
+                   "step_size": 2 / 48, "use_ema": False},
+        ray_query_cfg={"query_mode": "march_occ_multi_upsample",
+                       "upsample_inv_s_factors": [1.0, 4.0],
+                       "n_importance": 12})
+    m = LoTDNeuSModel(**cfg, device=dev)
+    pretrain_sdf_sphere(m.field.implicit_surface,
+                        torch.Generator(dev).manual_seed(0), radius=0.5,
+                        n_iters=200)
+    m.populate()
+    cpu = LoTDNeuSModel(**cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    return m, cpu
+
+
+def test_getter_model_launches_and_render_match_cpu(cuda):
+    """The getter grid's update (1 B1 launch for the 32,768 cell centres),
+    the same grid as the CPU route's update except cells whose value lies
+    within 1e-5 of the threshold; `accel.query` through B5 bitwise the
+    CPU's; the render's launches (4 B1, 1 B3, 1 B5) and at least 99% of
+    its rays within 1e-4 of the CPU route."""
+    m, cpu = _getter_w4(cuda)
+    grid = m.accel.occ.occ_grid
+    assert grid.dtype == torch.bool and 0.02 < float(grid.float().mean()) < 0.9
+    _build.LAUNCHES.clear()
+    with torch.no_grad():
+        m.training_before_per_step(16)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"brick4_fwd": 1}
+    cpu.training_before_per_step(16)
+    from nr3d_lib_tpu_torch.models.accelerations.occgrid import cell_centers
+    with torch.no_grad():
+        v = cpu.query_occ_val(cell_centers((32, 32, 32))).reshape(32, 32, 32)
+    near = (v.abs() - 0.01).abs() < 1e-5
+    same = m.accel.occ.occ_grid.cpu() == cpu.accel.occ.occ_grid
+    assert bool((same | near).all())
+    cpu.accel.occ.occ_grid.copy_(m.accel.occ.occ_grid.cpu())
+    x = torch.from_numpy(np.random.default_rng(60).uniform(
+        -1.1, 1.1, (100_000, 3)).astype(np.float32))
+    _build.LAUNCHES.clear()
+    q = m.accel.query(x.to(cuda))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"gather1d": 1}
+    assert torch.equal(q.cpu(), cpu.accel.query(x))
+    assert m.accel.debug_stats() == cpu.accel.debug_stats()
+    assert m.accel.try_shrink() is None
+    rng = np.random.default_rng(61)
+    o = rng.normal(size=(1024, 3))
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * 2.0
+    d = -o / 2.0 + rng.normal(size=(1024, 3)) * 0.1
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (torch.from_numpy(a.astype(np.float32)) for a in (o, d))
+    _build.LAUNCHES.clear()
+    with torch.no_grad():
+        rg, _ = m.ray_query(m.ray_test(o.to(cuda), d.to(cuda)))
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"brick4_fwd": 4, "brick4_dydx": 1,
+                                         "gather1d": 1}
+        rc, _ = cpu.ray_query(cpu.ray_test(o, d))
+    assert float(rc["mask_volume"].mean()) > 0.1
+    ok = torch.ones(1024, dtype=torch.bool)
+    for k in ("rgb_volume", "depth_volume"):
+        ok &= (rg[k].cpu() - rc[k]).abs().reshape(1024, -1).amax(-1) <= 1e-4
+    assert float(ok.float().mean()) >= 0.99
+
+
+def test_ema_collect_samples_and_shrink_cuda_match_cpu(cuda):
+    """`OccGridEma.collect_samples` (a scatter-max, so order-free) and
+    `try_shrink` on the card bitwise the CPU's."""
+    from nr3d_lib_tpu_torch.models.accelerations import OccGridAccel
+
+    rng = np.random.default_rng(62)
+    vals = rng.uniform(0.0, 0.0105, (32, 32, 32)).astype(np.float32)
+    x = rng.uniform(-1.1, 1.1, (200_000, 3)).astype(np.float32)
+    v = rng.normal(scale=0.02, size=200_000).astype(np.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        a = OccGridAccel(resolution=32, device=dev)
+        a.occ.val_grid.copy_(torch.from_numpy(vals))
+        a.collect_samples(torch.from_numpy(x).to(dev),
+                          torch.from_numpy(v).to(dev))
+        out.append((a.occ.val_grid.cpu(), a.try_shrink().cpu(),
+                    float(a.occ.occupancy_ratio())))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    assert out[0][2] == out[1][2]
+
+
+@pytest.mark.parametrize("kind", ["mlp_neus", "mlp_nerf", "lipshitz"])
+def test_mlp_fields_cuda_match_cpu(cuda, kind):
+    """The MLP-only fields at JAX's defaults on 16,384 points, no kernel
+    of the port launched: values within 1e-5 + 1e-4 of the largest
+    entry, a loss's gradients (through the nablas' second order for the
+    NeuS) within 1e-3 relative L2 of the CPU route's."""
+    from nr3d_lib_tpu_torch.models.blocks import LipshitzMLP
+    from nr3d_lib_tpu_torch.models.fields import MlpNeRF, MlpNeuS
+
+    rng = np.random.default_rng(63)
+    x = torch.from_numpy(rng.uniform(-1, 1, (16384, 3)).astype(np.float32))
+    v = torch.nn.functional.normalize(torch.from_numpy(
+        rng.normal(size=(16384, 3)).astype(np.float32)), dim=-1)
+    make = {"mlp_neus": lambda dev: MlpNeuS(seed=0, device=dev),
+            "mlp_nerf": lambda dev: MlpNeRF(seed=0, device=dev),
+            "lipshitz": lambda dev: LipshitzMLP(3, 4, seed=0, device=dev)}
+    m, cpu = make[kind](cuda), make[kind]("cpu")
+    if kind == "lipshitz":
+        # off the init's clamp corner, where a last-ulp difference picks
+        # the other gradient (as tests/test_torch_mlp_fields.py does)
+        with torch.no_grad():
+            for i, c in enumerate(m.cs):
+                c.add_(-0.3 if i % 2 == 0 else 0.3)
+    cpu.load_state_dict({k: t.cpu() for k, t in m.state_dict().items()})
+
+    def outputs(mm, dev):
+        xx, vv = x.to(dev), v.to(dev)
+        if kind == "lipshitz":
+            y = mm(xx)
+            return {"y": y}, torch.mean(y ** 2)
+        out = mm(xx, vv)
+        loss = torch.mean(out["rgb"] ** 2)
+        if kind == "mlp_neus":
+            loss = loss + torch.mean((torch.linalg.norm(
+                out["nablas"], dim=-1) - 1.0) ** 2)
+        else:
+            loss = loss + torch.mean(out["sigma"])
+        return out, loss
+
+    _build.LAUNCHES.clear()
+    og, lg = outputs(m, cuda)
+    lg.backward()
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {}
+    oc, lc = outputs(cpu, torch.device("cpu"))
+    lc.backward()
+    for k in oc:
+        ref = oc[k].detach()
+        err = float((og[k].detach().cpu() - ref).abs().max())
+        assert err <= 1e-5 + 1e-4 * float(ref.abs().max()), k
+    lg, lc = float(lg.detach()), float(lc.detach())
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for (k, a), b in zip(m.named_parameters(), cpu.parameters()):
+        if b.grad is None:
+            continue
+        rel = float(torch.linalg.norm(a.grad.cpu() - b.grad) /
+                    max(float(torch.linalg.norm(b.grad)), 1e-12))
+        assert rel <= 1e-3, (k, rel)
+
+
+def test_lotd_sdf_bf16_cuda_matches_cpu(cuda):
+    """The classic-LoTD SDF with bf16 compute and parameters: bf16 sdf and
+    h, float32 nablas, as on the CPU; sdf and h within two bf16 steps
+    (2·2⁻⁸) of the largest entry and the nablas within four, on at least
+    99% of the points (the card's bf16 matmuls accumulate in another
+    order and round once more or less), no kernel of the port."""
+    from nr3d_lib_tpu_torch.models.fields.sdf import LoTDSDF
+
+    bf = {"compute_dtype": "bfloat16", "param_dtype": "bfloat16"}
+    cfg = dict(encoding_cfg={"lotd_cfg": {
+        "lod_res": [16, 32, 64, 128], "lod_n_feats": 2,
+        "lod_types": ["Dense", "Dense", "Hash", "Hash"],
+        "hashmap_size": 2 ** 16}, **bf}, decoder_cfg={"D": 1, "W": 64, **bf})
+    m = LoTDSDF(**cfg, device=cuda)
+    with torch.no_grad():
+        p = m.encoding.flattened_params
+        p.copy_(torch.from_numpy(np.random.default_rng(64).uniform(
+            -0.1, 0.1, tuple(p.shape)).astype(np.float32)))
+    cpu = LoTDSDF(**cfg, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in m.state_dict().items()})
+    x = torch.from_numpy(np.random.default_rng(65).uniform(
+        -1, 1, (65536, 3)).astype(np.float32))
+    _build.LAUNCHES.clear()
+    og = m.forward_sdf_nablas(x.to(cuda))
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {}
+    oc = cpu.forward_sdf_nablas(x)
+    for k, steps in (("sdf", 2), ("h", 2), ("nablas", 4)):
+        assert og[k].dtype == oc[k].dtype == (
+            torch.float32 if k == "nablas" else torch.bfloat16)
+        ref = oc[k].detach().float()
+        err = (og[k].detach().cpu().float() - ref).abs().reshape(65536, -1)
+        ok = err.amax(-1) <= steps * 2.0 ** -8 * float(ref.abs().max())
+        assert float(ok.float().mean()) >= 0.99, k

@@ -180,11 +180,35 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path):
 
 
 # ------------------------------------------------------------- state audit
+def _getter(cfg: dict) -> dict:
+    """The configuration with the `use_ema=False` getter grid (its state
+    is the bool `accel/occ/occ_grid`)."""
+    return dict(cfg, accel_cfg=dict(cfg.get("accel_cfg") or {},
+                                    use_ema=False))
+
+
+def _bf16(cfg: dict) -> dict:
+    """The classic-LoTD NeuS with bf16 parameters and compute in the
+    encoding and the SDF decoder (the dtype by name, which both packages
+    read)."""
+    bf = {"compute_dtype": "bfloat16", "param_dtype": "bfloat16"}
+    surf = cfg["field_cfg"]["surface_cfg"]
+    surf = dict(surf, encoding_cfg=dict(surf["encoding_cfg"], **bf),
+                decoder_cfg=dict(surf.get("decoder_cfg") or {}, **bf))
+    return dict(cfg, field_cfg=dict(cfg["field_cfg"], surface_cfg=surf))
+
+
 AUDIT = {
     "neus_object": (JNeuS, TNeuS, lambda: train_neus_object.model_cfg(
         train_neus_object.parse([])), from_jax_state),
     "neus_object_w4": (JNeuS, TNeuS, lambda: train_neus_object.model_cfg(
         train_neus_object.parse(["--w4"])), from_jax_state),
+    "neus_object_w4_getter": (JNeuS, TNeuS, lambda: _getter(
+        train_neus_object.model_cfg(train_neus_object.parse(["--w4"]))),
+        from_jax_state),
+    "neus_object_bf16": (JNeuS, TNeuS, lambda: _bf16(
+        train_neus_object.model_cfg(train_neus_object.parse([]))),
+        from_jax_state),
     "nerf_synthetic": (JNeRF, TNeRF, lambda: train_nerf_synthetic.model_cfg(
         train_nerf_synthetic.parse([])), from_jax_state),
     "forest_street": (JForest, TForest, lambda: train_forest_street.model_cfg(
@@ -214,6 +238,7 @@ def test_port_state_dict_carries_the_jax_state(name):
     assert set(got) == set(want)
     for k, v in want.items():
         assert tuple(got[k].shape) == tuple(v.shape), k
+        assert got[k].dtype == v.dtype, k
 
 
 # ------------------------------------------------------------------ resume

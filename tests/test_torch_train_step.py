@@ -34,6 +34,7 @@ from flax import nnx
 
 from nr3d_lib_tpu.models.model_base import LoTDNeuSModel as JaxModel
 from nr3d_lib_tpu_torch.bridge import from_jax_state, to_jax_paths
+from nr3d_lib_tpu_torch.models.accelerations import cell_centers
 from nr3d_lib_tpu_torch.models.loss.regularization import eikonal_loss
 from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel as TorchModel
 
@@ -281,10 +282,22 @@ def test_training_hooks(models):
     assert int(tm.accel.occ.it) == 1
     assert not torch.equal(tm.accel.occ.val_grid, before)
     tm.training_after_per_step(16)
+    # use_ema=False builds the getter grid: re-queried whole on the
+    # interval, untouched off it (its parity with JAX is held in
+    # test_torch_occgrid_leftovers.py)
     cfg = _cfg(n_feats)
-    with pytest.raises(NotImplementedError, match="use_ema=False"):
-        TorchModel(**{**cfg, "accel_cfg": {**cfg["accel_cfg"],
-                                           "use_ema": False}}, device="cpu")
+    tg = TorchModel(**{**cfg, "accel_cfg": {**cfg["accel_cfg"],
+                                            "use_ema": False}}, device="cpu")
+    sd = tm.state_dict()
+    sd.pop("accel.occ.val_grid"), sd.pop("accel.occ.it")
+    tg.load_state_dict({**sd, "accel.occ.occ_grid":
+                        tg.accel.occ.occ_grid.clone()}, strict=True)
+    tg.training_before_per_step(5, g)
+    assert bool(tg.accel.occ.occ_grid.all())
+    tg.training_before_per_step(16, g)
+    with torch.no_grad():
+        want = tg.query_occ_val(cell_centers((16, 16, 16))).abs() > 0.01
+    assert torch.equal(tg.accel.occ.occ_grid.reshape(-1), want)
 
 
 # ------------------------------------------------------ Adam and the bridge
