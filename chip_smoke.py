@@ -232,6 +232,32 @@
      keep the rays that fit CPU_STEP_BUDGET_A12_S.
    Each path prints ms per call (median, quartiles), Krays/s (path E: fps
    and Mpix/s), peak memory and a device-time profile by kernel.
+   - The ray, pack and maths layers (A14, `_a14_paths`), on the --w4
+     object model pretrained to the radius-0.5 sphere. `dmtet_w4_extract
+     _128` and `dmtet_w4_step_128`: `DMTet` at resolution 128 over the
+     box (2,097,152 vertices, 12,290,298 tets), the SDF the field's
+     `forward_sdf` at the base vertices (1 B1), a learned deformation
+     from zero; the extraction timed, `to_mesh`'s median radius within
+     0.02 of 0.5; one step of the JAX package's test loss (radius 0.4)
+     plus a deformation L2, Adam on the table and the deformation (1 B2
+     without dL/dx), its peak memory; the CPU route given the card's SDF
+     values: masks bitwise, triangles within 1e-5, the SDF's and the
+     deformation's gradients within 1e-4 relative L2.
+     `neus_obj_w4_pose_train_2048`: an `OpenCVCameraIntrinsics` camera
+     (400², seeded k1, k2, p1, p2) at radius 2, its pose a
+     `TransformExpSE3` ∘ `TransformRT` started 2° and 0.02 off; 2048
+     pixels lifted to rays, the target the render at the true pose; the
+     field frozen, Adam on (w, v, θ), step 1 against the CPU route (loss
+     1e-4 relative, gradients 1e-2 relative L2), 2 warm-up and 20 timed
+     steps (3 B1, 1 B1 want_g, 1 B2 and 1 B4 with dL/dx, 1 B3, 1 B5 a
+     step), the loss falling. `pack_maths`: every new `pack_ops` and
+     `raysample` function at the F=4 bench render's 4096 packs × 96
+     slots (ragged, empty packs, padding), card against CPU (integers,
+     masks and orders bitwise, floats within 1e-5 of the largest
+     entry); transform round trips on 1,048,576 rotations; the depth
+     completion of a 1280 × 1920 map at 5% bitwise; `dist_to_nn3_mean`
+     at path E's 500,000 means against a float64 brute force on 4,096
+     rows.
    - The six example trainers as programs (`examples_torch/`,
      `TRAINER_RUNS`): each through its `main([...])` at its default
      model, rays and evaluation sizes with `--iters` cut (300 for the
@@ -643,6 +669,40 @@ def _b16_bound(n: int, dim: int, L: int, table_bytes: int):
                   n * L * (_simplex_ops(dim) + 55 + 30))
 
 
+PROFILE_LEAD_S = 0.05
+PROFILE_PRIMERS = 8
+
+
+def _profiled(run, calls: int):
+    """A torch.profiler session (host and device activities) over `calls`
+    calls of `run`. A session at times loses the device events of its first
+    kernels (on an H100, the DMTet step's B1 when it came first; two
+    element-wise kernels in front of it another time), so each session
+    first launches PROFILE_PRIMERS device sleeps (`spin_kernel`, left out
+    of every count and breakdown), waits for them, and idles PROFILE_LEAD_S
+    on the host before the first call and after the last kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PRIMERS):
+            torch.cuda._sleep(20_000)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_LEAD_S)
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_LEAD_S)
+    return prof
+
+
+def _primer(key: str) -> bool:
+    """Whether a profiler key is one of `_profiled`'s device sleeps."""
+    return "spin_kernel" in key
+
+
 def _profile(run, wall_ms: float, what: str) -> None:
     """Device time by kernel over two calls of `run` (torch.profiler), and
     the share of one call's wall time `wall_ms` that the device is busy.
@@ -650,18 +710,12 @@ def _profile(run, wall_ms: float, what: str) -> None:
     row repeats the device time of the kernels it launched, and a user
     annotation (such as the optimizer step's) spans kernels already
     counted."""
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            run()
-        torch.cuda.synchronize()
+    prof = _profiled(run, 2)
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or \
+        if ev.device_type != DeviceType.CUDA or _primer(ev.key) or \
                 getattr(ev, "is_user_annotation", False):
             continue
         t = getattr(ev, "self_device_time_total",
@@ -3130,6 +3184,692 @@ def _a19_paths(dev, smi: str, paths: dict) -> None:
         loss_tol=BF16_LOSS_TOL, grad_tol=BF16_GRAD_TOL)
 
 
+DMTET_RES = 128          # examples/train_neus_object.py --mesh_res
+DMTET_DEFORM_L2 = 1e-3
+POSE_HW = 400
+POSE_LR = 2e-3
+N_PACKS, PACK_S = 4096, 96         # the F=4 bench render's buffer
+N_ROT = 1 << 20
+DEPTH_HW = (1280, 1920)            # a Waymo front camera
+KNN_CHUNK = 2048                   # a [2048, 500,000] block: 4.1 GB
+N_KNN_CHECK = 4096
+
+
+def _device_kernel_counts(run) -> dict:
+    """{kernel name: launches} of the port's kernels in one call of `run`,
+    read from torch.profiler's device events."""
+    from torch.autograd import DeviceType
+
+    prof = _profiled(run, 1)
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        name = ev.key.removeprefix("void ").split("(")[0].split("<")[0]
+        if name.startswith(("brick", "gather1d", "permuto", "gs_blend")):
+            out[name] = out.get(name, 0) + ev.count
+    return out
+
+
+def _need_dx_log(module, names):
+    """Wrap the backward wrappers `names` of `module` so that each call
+    appends (name, need_dx) to the returned list; `restore()` undoes it."""
+    log, saved = [], {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def inner(*a, **kw):
+            log.append((name, bool(kw.get("need_dx", True))))
+            return fn(*a, **kw)
+        return inner
+
+    for n in names:
+        setattr(module, n, wrap(n, saved[n]))
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+    return log, restore
+
+
+def _dmtet_loss(tv, m, deform):
+    """JAX's test loss (tests/test_mesh_gs_misc.py: Σ over the valid
+    corners of (|v| − 0.4)²) plus DMTET_DEFORM_L2·Σ deform²."""
+    import torch
+
+    r = torch.linalg.norm(tv, dim=-1)
+    return torch.sum(torch.where(m[..., None], (r - 0.4) ** 2,
+                                 torch.zeros_like(r))) + \
+        DMTET_DEFORM_L2 * torch.sum(deform ** 2)
+
+
+def _dmtet_phase(model, cpu, smi: str, paths: dict) -> None:
+    """DMTet at resolution 128 over the --w4 object SDF: the extraction
+    (1 B1 at 2,097,152 vertices) and one Adam step on the table and a
+    deformation (1 B2 without dL/dx: the grid's positions carry no
+    gradient), each against the CPU route given the card's SDF values."""
+    import torch
+    from nr3d_lib_tpu_torch.models.tetrahedral import DMTet
+    from nr3d_lib_tpu_torch.ops import _build
+    from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
+
+    dev = next(model.parameters()).device
+    surf = model.field.implicit_surface
+    snapshot = {k: v.clone() for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    dm = DMTet(resolution=DMTET_RES, device=dev)
+    torch.cuda.synchronize()
+    n_v, n_t = dm.base_verts.shape[0], dm.tets.shape[0]
+    print(f"[dmtet_w4] grid {DMTET_RES}³: {n_v} vertices, {n_t} tets, "
+          f"built on the card in {time.perf_counter() - t0:.2f} s")
+
+    def extract():
+        with torch.no_grad():
+            sdf = surf.forward_sdf(dm.base_verts)["sdf"]
+            return (sdf,) + tuple(dm(sdf))
+
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    sdf, tv, mask, bits = extract()
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    counts = _device_kernel_counts(extract)
+    ms = _time_ms(extract, iters=3, warmup=1)
+    t0 = time.perf_counter()
+    extract()
+    torch.cuda.synchronize()
+    _profile(extract, (time.perf_counter() - t0) * 1e3, "DMTet extraction")
+    t0 = time.perf_counter()
+    verts, faces = dm.to_mesh(tv, mask)
+    mesh_s = time.perf_counter() - t0
+    med = float(np.median(np.linalg.norm(verts, axis=-1)))
+    print(f"[dmtet_w4_extract_128] on {smi}: {ms:.3f} ms device time (the "
+          f"SDF at {n_v} vertices and the marching tets, CUDA events); "
+          f"{int(mask.sum())} valid triangles; to_mesh (host, numpy) "
+          f"{mesh_s:.2f} s: {len(verts)} vertices, {len(faces)} faces, "
+          f"median radius {med:.5f} (tolerance 0.02 of 0.5); launches "
+          f"{launches}, by the profiler {counts}")
+    _require(launches == {"brick4_fwd": 1} and
+             counts == {"brick4_fwd_kernel": 1},
+             "the extraction did not launch B1 once")
+    _require(abs(med - 0.5) <= 0.02, "the DMTet surface is not the sphere")
+    paths["dmtet_w4_extract_128"] = (launches, 1)
+
+    # the CPU model's SDF at the same vertices, and the CPU route of the
+    # marching tets from the card's SDF values
+    t0 = time.perf_counter()
+    cpu_dm = DMTet(resolution=DMTET_RES, device="cpu")
+    with torch.no_grad():
+        sdf_c = cpu.field.implicit_surface.forward_sdf(
+            cpu_dm.base_verts)["sdf"]
+    e_sdf = _err(sdf.cpu(), sdf_c)
+    s_cpu = sdf.detach().cpu().requires_grad_(True)
+    d_cpu = torch.zeros(n_v, 3, requires_grad=True)
+    tv_c, mask_c, bits_c = cpu_dm(s_cpu, d_cpu)
+    _dmtet_loss(tv_c, mask_c, d_cpu).backward()
+    cpu_s = time.perf_counter() - t0
+
+    # the step: one Adam step on the table and the deformation
+    deform = torch.zeros(n_v, 3, device=dev, requires_grad=True)
+    opt = torch.optim.Adam(list(surf.encoding.parameters()) + [deform],
+                           lr=1e-3)
+    log, restore = _need_dx_log(B4, ["_bwd_cuda"])
+    out = {}
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        s = surf.forward_sdf(dm.base_verts)["sdf"]
+        s.retain_grad()
+        tv_, m_, b_ = dm(s, deform)
+        loss = _dmtet_loss(tv_, m_, deform)
+        loss.backward()
+        opt.step()
+        out.update(sdf=s, tv=tv_, mask=m_, bits=b_, loss=loss.detach())
+
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.LAUNCHES.clear()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        step()
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms = ev[0].elapsed_time(ev[1])
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        need_dx = list(log)
+        g_sdf, g_def = out["sdf"].grad.cpu(), deform.grad.cpu()
+        tv_g, mask_g, bits_g = (out[k].detach().cpu()
+                                for k in ("tv", "mask", "bits"))
+        counts = _device_kernel_counts(step)
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        _profile(step, (time.perf_counter() - t0) * 1e3, "DMTet step")
+    finally:
+        restore()
+        model.load_state_dict(snapshot)
+
+    same_bits = torch.equal(bits_g, bits_c) and torch.equal(mask_g, mask_c)
+    e_tv = _err(tv_g, tv_c.detach())
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a - b) /
+                     max(float(torch.linalg.norm(b)), 1e-30))
+
+    r_sdf, r_def = rel(g_sdf, s_cpu.grad), rel(g_def, d_cpu.grad)
+    print(f"[dmtet_w4_step_128] on {smi}: one step (forward_sdf, the "
+          f"marching tets, loss {float(out['loss']):.6e}, backward, Adam) "
+          f"{step_ms:.3f} ms (CUDA events), peak memory {peak:.1f} MiB; "
+          f"launches {launches}, by the profiler {counts}, B2 need_dx "
+          f"{need_dx}")
+    print(f"[dmtet_w4 vs cpu] the CPU route ({cpu_s:.1f} s) given the "
+          f"card's SDF: SDF values max|card - cpu model| {e_sdf:.3e} "
+          f"(tolerance 1e-5); mask_bits and tri_mask bitwise: {same_bits}; "
+          f"tri_verts max|card - cpu| {e_tv:.3e} (tolerance 1e-5); "
+          f"gradients, relative L2: the SDF values {r_sdf:.3e}, the "
+          f"deformation {r_def:.3e} (tolerance 1e-4)")
+    _require(e_sdf <= 1e-5, "the card's and the CPU's SDF values disagree")
+    _require(same_bits and e_tv <= 1e-5, "DMTet's card and CPU routes "
+             "disagree")
+    _require(max(r_sdf, r_def) <= 1e-4, "DMTet's gradients disagree")
+    _require(launches == {"brick4_fwd": 1, "brick4_bwd": 1} and
+             need_dx == [("_bwd_cuda", False)] and
+             counts.get("brick4_fwd_kernel") == 1 and
+             counts.get("brick4_bwd_kernel") == 1,
+             "the DMTet step did not launch B1 and B2 (without dL/dx) once")
+    paths["dmtet_w4_step_128"] = (launches, 1)
+
+
+def _rot_err_deg(a, b) -> float:
+    """The angle of a·bᵀ for 3×3 rotations, in degrees."""
+    c = (float(np.trace(a @ b.T)) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def _pose_phase(model, cpu, smi: str, paths: dict) -> None:
+    """Pose refinement through the render: an OpenCV camera at radius 2,
+    its pose TransformExpSE3 ∘ TransformRT with the ExpSE3 started 2° and
+    0.02 off, 2048 pixels, the field frozen; Adam on (w, v, θ)."""
+    import torch
+    from nr3d_lib_tpu_torch.graphics.cameras import look_at
+    from nr3d_lib_tpu_torch.models.attributes import (
+        OpenCVCameraIntrinsics, TransformExpSE3, TransformRT)
+    from nr3d_lib_tpu_torch.ops import _build
+    from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
+
+    dev = next(model.parameters()).device
+    rng = np.random.default_rng(41)
+    f = 1.2 * POSE_HW            # the sphere fills ~30% of the image
+    dist = rng.uniform(-1.0, 1.0, 4) * np.asarray([2e-2, 1e-2, 5e-3, 5e-3])
+
+    def camera(device):
+        def t(x):
+            return torch.tensor(np.float32(x), device=device)
+        return OpenCVCameraIntrinsics(
+            t(f), t(f), t(POSE_HW / 2), t(POSE_HW / 2), POSE_HW, POSE_HW,
+            dist=torch.tensor(dist.astype(np.float32), device=device))
+
+    eye = rng.normal(size=3)
+    eye = eye / np.linalg.norm(eye) * 2.0
+    gt = TransformRT.from_mat4x4(look_at(eye, (0.0, 0.0, 0.0), device=dev))
+    axis = rng.normal(size=3)
+    axis = axis / np.linalg.norm(axis)
+    th0 = np.deg2rad(2.0)
+    vdir = rng.normal(size=3)
+    vdir = vdir / np.linalg.norm(vdir)
+    init = {"w": axis, "v": vdir * 0.02 / th0, "theta": th0}
+    pix = rng.choice(POSE_HW * POSE_HW, N_RAYS_OBJ, replace=False)
+    uv = np.stack([pix % POSE_HW, pix // POSE_HW], -1).astype(np.float32) \
+        + 0.5
+
+    def rays(intr, delta, rt, uv_):
+        c2w = delta.mat_4x4() @ rt.mat_4x4()
+        d = torch.einsum("ij,nj->ni", c2w[:3, :3], intr.lift(uv_))
+        d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        return c2w[:3, 3].expand(d.shape), d
+
+    def delta_of(device):
+        return TransformExpSE3(*(
+            torch.tensor(np.asarray(init[k], np.float32), device=device,
+                         requires_grad=True) for k in ("w", "v", "theta")))
+
+    def render(m, intr, delta, rt, uv_):
+        o, d = rays(intr, delta, rt, uv_)
+        return m.ray_query(m.ray_test(o, d))[0]["rgb_volume"]
+
+    intr, uv_g = camera(dev), torch.from_numpy(uv).to(dev)
+    ident = TransformExpSE3.identity(device=dev)
+    for m in (model, cpu):
+        for p in m.parameters():
+            p.requires_grad_(False)
+    try:
+        with torch.no_grad():
+            target = render(model, intr, ident, gt, uv_g)
+        hit = float((target.abs().sum(-1) > 1e-3).float().mean())
+
+        # step 1, card against the CPU route from the same pose
+        delta = delta_of(dev)
+        loss_g = torch.mean((render(model, intr, delta, gt, uv_g)
+                             - target) ** 2)
+        loss_g.backward()
+        t0 = time.perf_counter()
+        gt_c = TransformRT(gt.rot.detach().cpu(), gt.trans.detach().cpu())
+        delta_c = delta_of("cpu")
+        loss_c = torch.mean((render(cpu, camera("cpu"), delta_c, gt_c,
+                                    torch.from_numpy(uv)) - target.cpu())
+                            ** 2)
+        loss_c.backward()
+        cpu_s = time.perf_counter() - t0
+        rel_loss = abs(float(loss_g.detach()) - float(loss_c.detach())) / \
+            abs(float(loss_c.detach()))
+        errs = {k: float(torch.linalg.norm(a.grad.cpu() - b.grad) /
+                         max(float(torch.linalg.norm(b.grad)), 1e-30))
+                for k, a, b in zip(("w", "v", "theta"), delta.parameters(),
+                                   delta_c.parameters())}
+        print(f"[neus_obj_w4_pose step vs cpu] {N_RAYS_OBJ} rays ({hit:.4f} "
+              f"of them rendered, rgb > 1e-3), CPU step {cpu_s:.1f} s: loss "
+              f"card {float(loss_g.detach()):.7e} cpu "
+              f"{float(loss_c.detach()):.7e}, relative {rel_loss:.2e} "
+              f"(tolerance 1e-4); gradients, relative L2 (tolerance 1e-2): "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+        _require(rel_loss <= 1e-4, "pose step: card and CPU losses disagree")
+        _require(max(errs.values()) <= 1e-2,
+                 "pose step: card and CPU gradients disagree")
+        _require(hit > 0.1, "the pose camera sees too little of the object")
+
+        # the refinement: 2 warm-up and N_STEPS timed steps
+        delta = delta_of(dev)
+        opt = torch.optim.Adam(delta.parameters(), lr=POSE_LR)
+        losses, errs_at = [], []
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = torch.mean((render(model, intr, delta, gt, uv_g)
+                               - target) ** 2)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+
+        def pose_err():
+            with torch.no_grad():
+                a = (delta.mat_4x4() @ gt.mat_4x4()).cpu().numpy()
+                b = gt.mat_4x4().cpu().numpy()
+            return _rot_err_deg(a[:3, :3], b[:3, :3]), \
+                float(np.linalg.norm(a[:3, 3] - b[:3, 3]))
+
+        errs_at.append(pose_err())
+        for _ in range(N_WARMUP_STEPS):
+            step()
+        losses.clear()
+        log, restore = _need_dx_log(B4, ["_bwd_cuda", "_bwd2_cuda"])
+        try:
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            times = []
+            for _ in range(N_STEPS):
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            launches = dict(_build.LAUNCHES)
+            need_dx = list(log)
+            errs_at.append(pose_err())
+            counts = _device_kernel_counts(step)
+            _profile(step, statistics.median(times), "pose step")
+        finally:
+            restore()
+        ls = [float(x) for x in losses[:N_STEPS]]
+        med = statistics.median(times)
+        print(f"[neus_obj_w4_pose_train_2048] on {smi}: {med:.3f} ms a step "
+              f"(median of {N_STEPS}; quartiles "
+              f"{np.percentile(times, 25):.3f}/{np.percentile(times, 75):.3f}"
+              f"), loss {ls[0]:.6e} → {ls[N_STEPS - 1]:.6e} (the last 5's "
+              f"mean {np.mean(ls[N_STEPS - 5:N_STEPS]):.6e}); rotation error "
+              f"{errs_at[0][0]:.4f}° → {errs_at[1][0]:.4f}°, translation "
+              f"{errs_at[0][1]:.5f} → {errs_at[1][1]:.5f}; launches in "
+              f"{N_STEPS} steps {launches}; one more step by the profiler "
+              f"{counts}")
+        per = {k: v / N_STEPS for k, v in launches.items()}
+        dx_b2 = [dx for n, dx in need_dx if n == "_bwd_cuda"]
+        dx_b4 = [dx for n, dx in need_dx if n == "_bwd2_cuda"]
+        _require(np.mean(ls[N_STEPS - 5:N_STEPS]) < ls[0],
+                 "the pose refinement's loss did not fall")
+        _require(per.get("brick4_fwd_g", 0) >= 1 and
+                 per.get("brick4_bwd", 0) >= 1 and
+                 per.get("brick4_bwd2", 0) >= 1 and
+                 len(dx_b2) == len(dx_b4) == N_STEPS and all(dx_b2) and
+                 all(dx_b4) and counts.get("brick4_fwd_g_kernel", 0) >= 1 and
+                 counts.get("brick4_bwd_kernel", 0) >= 1 and
+                 counts.get("brick4_bwd2_kernel", 0) >= 1,
+                 "the pose step did not run B1 want_g, and B2 and B4 with "
+                 "dL/dx, each step")
+        paths["neus_obj_w4_pose_train_2048"] = (launches, N_STEPS)
+    finally:
+        for m in (model, cpu):
+            for p in m.parameters():
+                p.requires_grad_(True)
+
+
+def _pack_inputs(dev):
+    """The F=4 bench render's packed buffer: 4096 packs of 0 … 96 seeded
+    samples (a tenth of them empty), the padding at the end."""
+    import torch
+
+    rng = np.random.default_rng(42)
+    counts = rng.integers(0, PACK_S + 1, N_PACKS)
+    counts[rng.uniform(size=N_PACKS) < 0.1] = 0
+    cap = N_PACKS * PACK_S
+    n = int(counts.sum())
+    ridx = np.full(cap, N_PACKS, np.int32)
+    ridx[:n] = np.repeat(np.arange(N_PACKS), counts)
+    t = np.zeros(cap, np.float32)
+    t[:n] = np.concatenate([np.sort(rng.uniform(0.5, 4.0, c))
+                            for c in counts if c]).astype(np.float32)
+    w = rng.uniform(0, 1, cap).astype(np.float32)
+    cdf = np.zeros(cap, np.float32)
+    o = 0
+    for c in counts:
+        if c:
+            cw = np.cumsum(w[o:o + c])
+            cdf[o:o + c] = cw / cw[-1]
+            cdf[o] = 0.0
+        o += c
+    arr = dict(
+        counts=counts.astype(np.int32), ridx=ridx, t=t, cdf=cdf,
+        feats=rng.uniform(-1, 1, (cap, 3)).astype(np.float32),
+        ties=(rng.integers(0, 8, cap) * 0.25).astype(np.float32),
+        alpha=rng.uniform(0, 0.3, cap).astype(np.float32),
+        tau=rng.uniform(0, 0.5, cap).astype(np.float32),
+        pv=(rng.integers(-3, 4, N_PACKS) * 0.5).astype(np.float32),
+        start=rng.uniform(0, 2, N_PACKS).astype(np.float32),
+        step=rng.uniform(0.01, 0.05, N_PACKS).astype(np.float32),
+        near=rng.uniform(0.2, 1.0, N_PACKS).astype(np.float32),
+        far=rng.uniform(2.0, 4.0, N_PACKS).astype(np.float32),
+        mats=rng.uniform(-1, 1, (N_PACKS, 2, 3)).astype(np.float32),
+        u=rng.uniform(1e-8, 1 - 1e-8, cap).astype(np.float32),
+        jitter=rng.uniform(0, 1, (N_PACKS, PACK_S)).astype(np.float32),
+        dense_a=np.sort(rng.uniform(0, 4, (N_PACKS, PACK_S)), -1).astype(
+            np.float32),
+        dense_b=np.sort(rng.uniform(0, 4, (N_PACKS, 32)), -1).astype(
+            np.float32),
+        ids_a=np.sort(rng.choice(1 << 20, 200_000, replace=False)).astype(
+            np.int32),
+        ids_b=np.sort(rng.choice(1 << 20, 150_000, replace=False)).astype(
+            np.int32))
+    pad = np.iinfo(np.int32).max
+    arr["ids_a"] = np.concatenate([arr["ids_a"], np.full(1000, pad,
+                                                         np.int32)])
+    arr["ids_b"] = np.concatenate([arr["ids_b"], np.full(500, pad,
+                                                         np.int32)])
+    return {k: torch.from_numpy(v).to(dev) for k, v in arr.items()}
+
+
+def _pack_cases(P, R, a, dev):
+    """(name, outputs) of every new pack_ops and raysample function on the
+    inputs `a` (all on one device)."""
+    import torch
+
+    rid, n = a["ridx"], N_PACKS
+    cap = rid.shape[0]
+    seg_r = rid[::PACK_S][:2048]
+    seg_in = a["near"][:2048]
+    out = [
+        ("counts_from_ridx", P.counts_from_ridx(rid, n)),
+        ("ridx_from_counts", P.ridx_from_counts(a["counts"], cap)),
+        ("offsets_from_counts", P.offsets_from_counts(a["counts"])),
+        ("get_pack_infos_from_n", P.get_pack_infos_from_n(a["counts"])),
+        ("get_pack_infos_from_first", P.get_pack_infos_from_first(
+            P.offsets_from_counts(a["counts"]), cap)),
+        ("get_pack_infos_from_boundary", P.get_pack_infos_from_boundary(
+            P.mark_pack_boundaries(rid))),
+        ("get_pack_infos_from_batch", P.get_pack_infos_from_batch(
+            n, PACK_S, device=dev)),
+        ("interleave_arange_simple", P.interleave_arange_simple(
+            a["counts"], cap)),
+        ("interleave_linstep", P.interleave_linstep(
+            a["start"], a["counts"], a["step"], cap)),
+        ("interleave_arange", P.interleave_arange(
+            a["start"], a["start"] + a["step"] * a["counts"], a["step"],
+            cap)),
+        ("interleave_linspace", P.interleave_linspace(
+            a["start"], a["start"] + 1.0, a["counts"], cap)),
+        ("expand_pack_boundary", P.expand_pack_boundary(
+            P.mark_pack_boundaries(rid)[:8192], 4)),
+        ("octree_mark_consecutive_segments",
+         P.octree_mark_consecutive_segments(
+             (a["t"] * 4).to(torch.int32), rid)),
+    ]
+    for op in ("add", "sub", "mul", "div", "gt", "geq", "lt", "leq", "eq",
+               "neq"):
+        out.append((f"packed_{op}", getattr(P, f"packed_{op}")(
+            a["ties"], a["pv"], rid)))
+    out += [
+        ("packed_mean", P.packed_mean(a["feats"], rid, n)),
+        ("packed_max", P.packed_max(a["feats"], rid, n)),
+        ("packed_min", P.packed_min(a["feats"], rid, n)),
+        ("packed_cumsum", P.packed_cumsum(a["tau"], rid)),
+        ("packed_cumsum exclusive", P.packed_cumsum(a["tau"], rid, True)),
+        ("packed_diff", P.packed_diff(a["t"], rid, pack_last_fill=a["far"])),
+        ("packed_backward_diff", P.packed_backward_diff(
+            a["t"], rid, pack_first_fill=a["near"])),
+        ("packed_sort", P.packed_sort(a["ties"], rid, torch.arange(
+            cap, device=dev))),
+        ("packed_sort_inplace", P.packed_sort_inplace(a["ties"], rid)),
+        ("packed_searchsorted", P.packed_searchsorted(
+            a["t"], rid, a["u"] * 4.0, rid, n)),
+        ("packed_searchsorted_packed_vals",
+         P.packed_searchsorted_packed_vals(a["t"], rid, a["t"], rid, n,
+                                           side="left")),
+        ("packed_invert_cdf", P.packed_invert_cdf(a["t"], a["cdf"], rid,
+                                                  a["u"], rid, n)),
+        ("packed_tau_to_vw", P.packed_tau_to_vw(a["tau"], rid)),
+        ("packed_volume_render_compression",
+         P.packed_volume_render_compression(a["alpha"], rid, n)),
+        ("packed_to_dense", P.packed_to_dense(a["feats"], rid, n, PACK_S)),
+        ("packed_matmul", P.packed_matmul(a["feats"], a["mats"], rid)),
+        ("merge_two_batch", P.merge_two_batch(
+            a["dense_a"], a["dense_a"], a["dense_b"], a["dense_b"])),
+        ("merge_two_batch_a_includes_b", P.merge_two_batch_a_includes_b(
+            a["dense_a"], torch.arange(n, dtype=torch.int32, device=dev),
+            a["dense_b"][::2], torch.arange(0, n, 2, dtype=torch.int32,
+                                            device=dev), n)),
+        ("interleave_sample_step_wrt_depth_clamped",
+         P.interleave_sample_step_wrt_depth_clamped(
+             a["near"], a["far"], max_steps=PACK_S, dt_gamma=0.02,
+             min_step_size=0.01, max_step_size=0.1,
+             draw=lambda shape, lo, hi: a["jitter"])),
+        ("interleave_sample_step_wrt_depth_in_packed_segments",
+         P.interleave_sample_step_wrt_depth_in_packed_segments(
+             a["near"], a["far"], seg_in, seg_in + 1.0, seg_r, n,
+             steps_per_segment=PACK_S, dt_gamma=0.02, min_step_size=0.01,
+             max_step_size=0.1, draw=lambda shape, lo, hi:
+             a["jitter"][:2048])),
+        ("intersect1d_unique", P.intersect1d_unique(a["ids_a"], a["ids_b"],
+                                                    300_000)),
+        ("batch_sample_step_wrt_depth", R.batch_sample_step_wrt_depth(
+            a["near"], a["far"], PACK_S, u=a["jitter"])),
+        ("batch_sample_step_wrt_sqrt_depth",
+         R.batch_sample_step_wrt_sqrt_depth(a["near"], a["far"], PACK_S,
+                                            u=a["jitter"])),
+        ("packed_sample_cdf", R.packed_sample_cdf(a["t"], a["cdf"], rid, n,
+                                                  24)),
+    ]
+    for name in ("merge_two_packs_sorted_aligned",
+                 "try_merge_two_packs_sorted_aligned",
+                 "merge_two_packs_sorted",
+                 "merge_two_packs_sorted_a_includes_b"):
+        out.append((name, getattr(P, name)(
+            a["feats"][:, 0], a["ties"], rid, a["tau"], a["t"], rid, n)))
+    return out
+
+
+def _pack_maths_phase(dev, smi: str, paths: dict) -> None:
+    """Every new pack_ops and raysample function at the F=4 bench render's
+    buffer, card against CPU; transform round trips; the depth completion
+    of a Waymo-sized map; dist_to_nn3_mean at path E's means."""
+    import torch
+    from nr3d_lib_tpu_torch.graphics import pack_ops as P
+    from nr3d_lib_tpu_torch.graphics import raysample as R
+    from nr3d_lib_tpu_torch.maths import transforms as TR
+    from nr3d_lib_tpu_torch.maths.depth_completion import depth_completion
+    from nr3d_lib_tpu_torch.maths.knn import dist_to_nn3_mean
+    from nr3d_lib_tpu_torch.ops import _build
+
+    a = _pack_inputs(dev)
+    a_cpu = {k: v.cpu() for k, v in a.items()}
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    got = _pack_cases(P, R, a, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    want = _pack_cases(P, R, a_cpu, torch.device("cpu"))
+    n_float = n_exact = 0
+    worst = (0.0, "")
+    for (name, g), (_, w) in zip(got, want):
+        gs = g if isinstance(g, tuple) else (g,)
+        ws = w if isinstance(w, tuple) else (w,)
+        for i, (x, y) in enumerate(zip(gs, ws)):
+            x = x.cpu()
+            _require(x.shape == y.shape and x.dtype == y.dtype,
+                     f"pack_maths: {name}[{i}] shape or dtype")
+            if y.is_floating_point():
+                # the infinities (an empty pack's max or min) exactly
+                fin = torch.isfinite(y)
+                _require(torch.equal(torch.isfinite(x), fin) and
+                         torch.equal(x[~fin], y[~fin]),
+                         f"pack_maths: {name}[{i}]'s infinities")
+                e = float((x[fin] - y[fin]).abs().max()) / max(
+                    float(y[fin].abs().max()), 1e-30) if fin.any() else 0.0
+                worst = max(worst, (e, f"{name}[{i}]"))
+                _require(e <= 1e-5, f"pack_maths: {name}[{i}] differs "
+                         f"from the CPU route by {e:.3e} of its largest "
+                         f"entry")
+                n_float += 1
+            else:
+                _require(torch.equal(x, y), f"pack_maths: {name}[{i}] is "
+                         f"not the CPU route's bit for bit")
+                n_exact += 1
+    sort_key, _, sort_pay = got[[n for n, _ in got].index("packed_sort")][1]
+    ties = int((sort_key[1:] == sort_key[:-1]).sum())
+    print(f"[pack_maths] {len(got)} functions at {N_PACKS} packs × {PACK_S} "
+          f"slots ({int((a['counts'] == 0).sum())} empty packs, "
+          f"{int((a['ridx'] == N_PACKS).sum())} padding slots) on {smi}: "
+          f"{card_s:.2f} s on the card (first calls); {n_exact} integer, "
+          f"boolean, index or order outputs bitwise the CPU route's "
+          f"(packed_sort over {ties} tied neighbours); {n_float} float "
+          f"outputs, the worst {worst[1]} at {worst[0]:.3e} of its largest "
+          f"entry (tolerance 1e-5); launches {dict(_build.LAUNCHES)}")
+    _require(not _build.LAUNCHES, "pack_maths launched a kernel of the port")
+    del got, want, a, a_cpu
+
+    # transforms: round trips on 2^20 rotations, and card against CPU
+    rng = np.random.default_rng(43)
+    q = rng.normal(size=(N_ROT, 4))
+    q = torch.from_numpy((q / np.linalg.norm(q, axis=-1, keepdims=True)
+                          ).astype(np.float32))
+    aa = torch.from_numpy(rng.uniform(-1.5, 1.5, (N_ROT, 3)).astype(
+        np.float32))
+    # 6D vectors near rotations (a rotation's first two rows plus N(0,
+    # 0.05) noise): two random 3-vectors can be near parallel, where
+    # Gram–Schmidt divides by the small remainder and amplifies rounding
+    q6 = rng.normal(size=(N_ROT, 4))
+    q6 = torch.from_numpy((q6 / np.linalg.norm(q6, axis=-1, keepdims=True)
+                           ).astype(np.float32))
+    d6 = TR.matrix_to_rotation_6d(TR.quaternion_to_matrix(q6)) + \
+        torch.from_numpy(rng.normal(0, 0.05, (N_ROT, 6)).astype(np.float32))
+    res = {}
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        qq, a3, r6 = q.to(where), aa.to(where), d6.to(where)
+        m = TR.quaternion_to_matrix(qq)
+        back = TR.matrix_to_quaternion(m)
+        back = back * torch.sign(torch.sum(back * qq, -1, keepdim=True))
+        m6 = TR.rotation_6d_to_matrix(r6)
+        res[key] = dict(
+            quat=back, aa=TR.matrix_to_axis_angle(TR.axis_angle_to_matrix(
+                a3)), r6=TR.rotation_6d_to_matrix(
+                    TR.matrix_to_rotation_6d(m6)), m6=m6,
+            q_apply=TR.quaternion_apply(qq, a3))
+    g, c = res["card"], res["cpu"]
+    rt = {"quaternion": _err(g["quat"].cpu(), q),
+          "axis-angle": _err(g["aa"].cpu(), aa),
+          "6D": _err(g["r6"].cpu(), g["m6"].cpu())}
+    vs = {k: _err(g[k].cpu(), c[k]) for k in g}
+    print(f"[transforms] {N_ROT} rotations on {smi}: round trips, max "
+          f"error " + ", ".join(f"{k} {e:.3e}" for k, e in rt.items()) +
+          " (tolerance 1e-4); card against CPU, max " +
+          ", ".join(f"{k} {e:.3e}" for k, e in vs.items()) +
+          " (tolerance 1e-5)")
+    _require(max(rt.values()) <= 1e-4, "a rotation round trip")
+    _require(max(vs.values()) <= 1e-5, "transforms: card and CPU differ")
+    del res, g, c
+
+    # the depth completion of a Waymo front camera's map at 5%
+    h, w = DEPTH_HW
+    dmap = np.where(rng.uniform(size=(h, w)) < 0.05,
+                    rng.uniform(1.0, 80.0, (h, w)), 0.0).astype(np.float32)
+    dg = torch.from_numpy(dmap).to(dev)
+    out_g = depth_completion(dg)
+    ms = _time_ms(lambda: depth_completion(dg), iters=5, warmup=1)
+    t0 = time.perf_counter()
+    out_c = depth_completion(torch.from_numpy(dmap))
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(out_g.cpu(), out_c)
+    print(f"[depth_completion] {h} × {w} at 5% on {smi}: {ms:.3f} ms "
+          f"device time (CPU route {cpu_ms:.1f} ms host); bitwise the CPU "
+          f"route's: {same}; filled share "
+          f"{float((out_g > 0).float().mean()):.4f}")
+    _require(same, "depth_completion: card and CPU differ")
+
+    # dist_to_nn3_mean at path E's 500,000 means
+    means = torch.from_numpy(_gs_params(GS_N, seed=21)["means"]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    nn3 = dist_to_nn3_mean(means, chunk=KNN_CHUNK)
+    ev[1].record()
+    torch.cuda.synchronize()
+    knn_ms = ev[0].elapsed_time(ev[1])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    pts = means.cpu().double()
+    rows = torch.from_numpy(np.random.default_rng(44).choice(
+        GS_N, N_KNN_CHECK, replace=False))
+    brute = []
+    for s in range(0, N_KNN_CHECK, 256):
+        d2 = torch.cdist(pts[rows[s:s + 256]], pts) ** 2
+        brute.append(torch.topk(d2, 4, largest=False).values[:, 1:].mean(
+            -1))
+    brute = torch.cat(brute)
+    rel = float(((nn3.cpu()[rows].double() - brute).abs() /
+                 brute.clamp(min=1e-30)).max())
+    print(f"[dist_to_nn3_mean] {GS_N} means (path E's scene) on {smi}: "
+          f"{knn_ms:.3f} ms (CUDA events), chunk {KNN_CHUNK} rows (a "
+          f"[{KNN_CHUNK}, {GS_N}] distance block of "
+          f"{KNN_CHUNK * GS_N * 4 / 1e9:.1f} GB; the default 8192 would be "
+          f"{8192 * GS_N * 4 / 1e9:.1f} GB), peak memory {peak:.1f} MiB; "
+          f"{N_KNN_CHECK} rows against a float64 brute force: max relative "
+          f"{rel:.3e} (tolerance 1e-5)")
+    _require(rel <= 1e-5, "dist_to_nn3_mean disagrees with the brute force")
+    paths["pack_maths"] = ({}, 1)
+
+
+def _a14_paths(dev, smi: str, paths: dict) -> None:
+    """The ray, pack and maths layers (A14) where they meet the kernels:
+    DMTet over the --w4 object SDF, pose refinement through its render,
+    and the new pack_ops, raysample and maths functions at the render's
+    buffer sizes."""
+    from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel
+
+    w4 = _pretrained(LoTDNeuSModel, OBJ_W4_CFG, dev, "neus_obj_w4_a14")
+    cpu = _cpu_twin(w4, LoTDNeuSModel, OBJ_W4_CFG)
+    _dmtet_phase(w4, cpu, smi, paths)
+    _pose_phase(w4, cpu, smi, paths)
+    del w4, cpu
+    _pack_maths_phase(dev, smi, paths)
+
+
 def _field_phase_classic(o, d, dev, paths: dict, smi: str) -> None:
     """`PermutoSDF` and `PermutoNeRF` at the JAX defaults, the classic
     lattice (res [8 … 128], 2^17 entries a level), on the field phase's
@@ -3950,6 +4690,11 @@ def main() -> int:
     _a19_paths(dev, smi, paths)
     print(f"[time] the A7c/A19 phases: {time.perf_counter() - t_a19:.1f} s "
           f"on {smi}")
+    # ---- A14: DMTet, pose refinement, the pack and maths layers
+    t_a14 = time.perf_counter()
+    _a14_paths(dev, smi, paths)
+    print(f"[time] the A14 phases: {time.perf_counter() - t_a14:.1f} s on "
+          f"{smi}")
 
     # ------------------------- path E: 3D Gaussian splatting (B17, B18)
     gs_params = _gs_params(GS_N, seed=21)

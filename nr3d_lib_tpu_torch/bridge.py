@@ -37,6 +37,12 @@ across (the port rebuilds the slots, the block coordinates and the
 culling levels from `occupied` when the state is loaded); the accel's EMA
 grids are `accel/occ/val_grid`.
 
+An attribute (`models/attributes.py`: a rotation, a transform, camera
+intrinsics, a scale or a segment) crosses by its class name and its
+fields: `attribute_from_jax("TransformRT", {"rot": ..., "trans": ...})`,
+the arrays as numpy (the JAX attribute's leaves) and the image size as
+ints.
+
 Gaussian splatting keeps its parameters in a plain dictionary
 (experiments/bench_render.py `main_train_gaussian`: `means`, `scales`,
 `quats`, `opac`, `cols`); `gaussians_from_jax` makes them trainable
@@ -53,7 +59,7 @@ import torch
 from nr3d_lib_tpu_torch.device import resolve_device
 
 __all__ = ["from_jax_state", "forest_from_jax_state", "to_jax_paths",
-           "gaussians_from_jax", "GAUSSIAN_KEYS"]
+           "gaussians_from_jax", "GAUSSIAN_KEYS", "attribute_from_jax"]
 
 GAUSSIAN_KEYS = ("means", "scales", "quats", "opac", "cols")
 
@@ -127,3 +133,34 @@ def gaussians_from_jax(params: Mapping[str, np.ndarray],
         out[key] = torch.tensor(arr, dtype=torch.float32,
                                 device=dev).requires_grad_(True)
     return out
+
+
+def attribute_from_jax(name: str, fields: Mapping[str, object],
+                       device: Optional[Union[str, torch.device]] = None,
+                       requires_grad: bool = False):
+    """The port's attribute of class `name` (a name of
+    `models.attributes.__all__`) from the JAX attribute's fields: arrays
+    become float32 (or integer) tensors on `device` (the card unless "cpu"
+    is asked for), leaf tensors that need their gradients with
+    `requires_grad`; ints (the image size) and None pass as they are. A
+    float64 array raises ValueError, an unknown class KeyError, a missing
+    or unknown field TypeError."""
+    from nr3d_lib_tpu_torch.models import attributes
+
+    if name not in attributes.__all__ or not isinstance(
+            getattr(attributes, name), type):
+        raise KeyError(f"not an attribute class: {name}")
+    dev = resolve_device(device)
+    kw = {}
+    for key, value in fields.items():
+        if value is None or isinstance(value, int):
+            kw[key] = value
+            continue
+        arr = np.asarray(value)
+        if arr.dtype == np.float64:
+            raise ValueError(f"{name}.{key}: float64; attributes are "
+                             f"float32")
+        t = torch.tensor(arr, device=dev)
+        kw[key] = t.requires_grad_(True) if requires_grad and \
+            t.is_floating_point() else t
+    return getattr(attributes, name)(**kw)

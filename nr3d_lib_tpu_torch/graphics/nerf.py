@@ -1,8 +1,5 @@
 """Volume-render weights and compositing (port of
-nr3d_lib_tpu/graphics/nerf.py `tau_to_alpha`, `ray_alpha_to_vw`,
-`ray_tau_to_vw`, `packed_alpha_to_vw` and `ray_composite`;
-`packed_tau_to_vw` waits with the rest of `pack_ops` in ROADMAP.md
-A14)."""
+nr3d_lib_tpu/graphics/nerf.py; the packed forms are `pack_ops`')."""
 
 from __future__ import annotations
 
@@ -11,10 +8,11 @@ from typing import Dict, Optional
 import torch
 
 from nr3d_lib_tpu_torch.graphics import _scan
-from nr3d_lib_tpu_torch.graphics.pack_ops import packed_alpha_to_vw
+from nr3d_lib_tpu_torch.graphics.pack_ops import (packed_alpha_to_vw,
+                                                  packed_tau_to_vw)
 
 __all__ = ["tau_to_alpha", "ray_alpha_to_vw", "ray_tau_to_vw",
-           "packed_alpha_to_vw", "ray_composite"]
+           "packed_alpha_to_vw", "packed_tau_to_vw", "ray_composite"]
 
 
 def tau_to_alpha(tau: torch.Tensor) -> torch.Tensor:

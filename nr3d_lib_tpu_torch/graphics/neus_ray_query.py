@@ -19,7 +19,8 @@ from nr3d_lib_tpu_torch.graphics.nerf import ray_alpha_to_vw
 from nr3d_lib_tpu_torch.graphics.neus import neus_ray_sdf_to_alpha
 from nr3d_lib_tpu_torch.graphics.raysample import (CDF_EPS, Draw,
                                                    batch_sample_pdf,
-                                                   batch_sample_step_linear)
+                                                   batch_sample_step_linear,
+                                                   linspace_f32)
 
 __all__ = ["_upsample_rounds", "_final_composite",
            "neus_ray_query_coarse_multi_upsample",
@@ -177,21 +178,6 @@ def neus_ray_query_march_occ_multi_upsample(
                                 n_importance, draw)
     return _final_composite(model, o_n, d_n, rays_d, t, valid, ray_mask,
                             model.forward_inv_s(), with_rgb)
-
-
-def linspace_f32(start: float, stop: float, n: int,
-                 device=None) -> torch.Tensor:
-    """`jnp.linspace(start, stop, n)` by its own formula in float32 steps:
-    step_i = i / (n − 1), start·(1 − step_i) + stop·step_i, the last
-    entry `stop` exactly (`torch.linspace` rounds differently)."""
-    if n == 1:
-        return torch.tensor([start], dtype=torch.float32, device=device)
-    div = n - 1
-    step = torch.arange(div, dtype=torch.float32, device=device) / \
-        float(div)
-    a = torch.tensor(start, dtype=torch.float32, device=device)
-    b = torch.tensor(stop, dtype=torch.float32, device=device)
-    return torch.cat([a * (1.0 - step) + b * step, b[None]])
 
 
 def neus_ray_query_sphere_trace(

@@ -1,5 +1,5 @@
-"""Point-cloud IO (port of nr3d_lib_tpu/graphics/pointcloud.py `save_ply`,
-`load_ply`): ASCII PLY, xyz with optional 8-bit rgb."""
+"""Point-cloud IO (port of nr3d_lib_tpu/graphics/pointcloud.py): ASCII
+PLY, xyz with optional 8-bit rgb."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import numpy as np
 
 from nr3d_lib_tpu_torch.utils import to_numpy
 
-__all__ = ["save_ply", "load_ply"]
+__all__ = ["save_ply", "load_ply", "export_pcl_with_colors"]
 
 
 def save_ply(path: str, pts, colors=None) -> None:
@@ -53,3 +53,8 @@ def load_ply(path: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
     colors = data[:, 3:6].astype(np.uint8) \
         if has_color and data.shape[1] >= 6 else None
     return pts, colors
+
+
+def export_pcl_with_colors(path: str, pts, colors=None) -> None:
+    """`save_ply` of tensors or arrays (on any device)."""
+    save_ply(path, pts, colors)

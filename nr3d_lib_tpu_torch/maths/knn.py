@@ -1,5 +1,6 @@
 """K nearest neighbours and the chamfer distance (port of
-nr3d_lib_tpu/maths/knn.py `knn_points`, `knn_gather`, `chamfer_distance`).
+nr3d_lib_tpu/maths/knn.py `knn_points`, `knn_gather`, `chamfer_distance`,
+`dist_to_nn3_mean`).
 
 Plain PyTorch on the inputs' device, as the JAX package computes them in
 XLA: a chunk's squared distances by the `x·yᵀ` expansion pick
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["knn_points", "knn_gather", "chamfer_distance"]
+__all__ = ["knn_points", "knn_gather", "chamfer_distance", "dist_to_nn3_mean"]
 
 
 def _sq_dists(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -70,3 +71,13 @@ def chamfer_distance(x: torch.Tensor, y: torch.Tensor, *,
         dx = torch.sqrt(torch.clamp(dx, min=1e-12))
         dy = torch.sqrt(torch.clamp(dy, min=1e-12))
     return torch.mean(dx), torch.mean(dy)
+
+
+def dist_to_nn3_mean(pts: torch.Tensor, chunk: int = 8192) -> torch.Tensor:
+    """Mean squared distance of each point to its 3 nearest other points,
+    the 3D Gaussian splatting scale initializer: [N,3] → [N]. The nearest
+    of the 4 found is the point itself. `chunk` rows a distance block
+    ([chunk, N] floats): 8192 is the JAX version's; at N = 500,000 that
+    block is 16.4 GB, so a caller with large clouds passes fewer rows."""
+    d, _ = knn_points(pts, pts, 4, chunk=chunk)
+    return torch.mean(d[:, 1:4], dim=-1)

@@ -106,12 +106,12 @@ class LoTDBrickEncoding(nn.Module):
             if self.n_feats == 4:
                 return B4.brick4_encode_xla(x01, table, self.meta)
             return B.brick_encode_ho(x01, table, self.meta)
-        if self.n_feats == 4:
-            return B4.brick4_encode(x01.detach() if frozen_x else x01, table,
-                                    self.meta)
         if frozen_x:
-            return B.brick_encode_frozen_x(x01, table, self.meta)
-        return B.brick_encode(x01, table, self.meta)
+            frozen = B4.brick4_encode_frozen_x if self.n_feats == 4 else \
+                B.brick_encode_frozen_x
+            return frozen(x01, table, self.meta)
+        encode = B4.brick4_encode if self.n_feats == 4 else B.brick_encode
+        return encode(x01, table, self.meta)
 
     def nablas_path(self, x: torch.Tensor, g_up: torch.Tensor
                     ) -> torch.Tensor:

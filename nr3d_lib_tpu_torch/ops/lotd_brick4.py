@@ -39,7 +39,8 @@ from nr3d_lib_tpu_torch.ops.lotd_brick import (
     check_cuda_args, make_brick_meta, meta_struct, ptr,
     vertex_grid_to_brick_rows, wants_grad)
 
-__all__ = ["make_brick4_meta", "brick4_encode", "brick4_encode_xla",
+__all__ = ["make_brick4_meta", "brick4_encode", "brick4_encode_frozen_x",
+           "brick4_encode_xla",
            "brick4_corner_words_xla", "brick4_encode_bwd_xla",
            "brick4_nablas", "brick4_nablas_xla", "brick4_nablas_bwd_xla",
            "pack_table4", "dense_brick4_index", "materialize_dense_brick4"]
@@ -295,6 +296,14 @@ def brick4_encode(x: torch.Tensor, table: torch.Tensor, meta: BrickMeta
     if wants_grad(x, table):
         return _Brick4Encode.apply(x, table, meta, wants_grad(x))
     return _fwd_cuda(x, pack_table4(table), meta)
+
+
+def brick4_encode_frozen_x(x: torch.Tensor, table: torch.Tensor,
+                           meta: BrickMeta) -> torch.Tensor:
+    """`brick4_encode` for paths where positions carry no gradient (plain
+    radiance-field training, an SDF sampled on a fixed grid): x is taken
+    as a constant, so the backward (B2) computes dL/dtable only."""
+    return brick4_encode(x.detach(), table, meta)
 
 
 def brick4_nablas(g_up: torch.Tensor, x: torch.Tensor, table: torch.Tensor,

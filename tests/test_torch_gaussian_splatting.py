@@ -84,7 +84,7 @@ def _pt(arrs, grad=False):
 def test_transforms_match_jax():
     r = np.random.default_rng(0)
     q = r.normal(size=(64, 4)).astype(F32)
-    assert PT.__all__ == ["quaternion_to_matrix"]
+    assert PT.__all__ == JT.__all__             # all of them since A14
     _close(PT.quaternion_to_matrix(torch.from_numpy(q)),
            JT.quaternion_to_matrix(jnp.asarray(q)), atol=1e-6, rtol=1e-6,
            msg="quaternion_to_matrix")

@@ -72,6 +72,18 @@ second-order gradient (dL/dtable of a loss on the input gradient) within
 `chamfer_distance` (1e-6 relative), `extract_mesh` of a NeuS pretrained
 to a sphere (the same faces, vertices within 1e-4) and `render_turntable`
 (at least 99% of the pixels equal, the rest within one 8-bit level).
+The ray, pack and maths layers (ROADMAP A14): `brick4_encode_frozen_x`
+launches B1, then B2 without dL/dx (dL/dtable within the atomics'
+tolerance of the plain version's, no gradient for x); DMTet at resolution
+32 over a brick4 SDF against the CPU route given the card's SDF (masks
+bitwise, triangles within 1e-5, the SDF's and the deformation's gradients
+within 1e-4 relative L2); one pose-refinement step through the --w4
+NeuS render pretrained to the radius-0.5 sphere (an OpenCV camera,
+TransformExpSE3 ∘ TransformRT) against
+the CPU route (loss within 1e-4 relative, the gradients in (w, v, θ)
+within 1e-2 relative L2, B1 want_g and B2 and B4 with dL/dx launched);
+`packed_sort` on the card bitwise the CPU's on keys with many ties
+(stable).
 """
 
 import numpy as np
@@ -2779,3 +2791,166 @@ def test_lotd_sdf_bf16_cuda_matches_cpu(cuda):
         err = (og[k].detach().cpu().float() - ref).abs().reshape(65536, -1)
         ok = err.amax(-1) <= steps * 2.0 ** -8 * float(ref.abs().max())
         assert float(ok.float().mean()) >= 0.99, k
+
+
+# ------------------------------------- the ray, pack and maths layers (A14)
+def test_brick4_encode_frozen_x_launches_b2_without_dx(cuda):
+    meta, x, table = _inputs(cuda, 50_000, seed=23)
+    table.requires_grad_(True)
+    x.requires_grad_(True)
+    calls, saved = [], B4._bwd_cuda
+
+    def spy(*a, **kw):
+        calls.append(kw.get("need_dx"))
+        return saved(*a, **kw)
+
+    B4._bwd_cuda = spy
+    try:
+        _build.LAUNCHES.clear()
+        y = B4.brick4_encode_frozen_x(x, table, meta)
+        g = torch.randn_like(y)
+        (dtab,) = torch.autograd.grad(y, table, g)
+        torch.cuda.synchronize()
+    finally:
+        B4._bwd_cuda = saved
+    assert dict(_build.LAUNCHES) == {"brick4_fwd": 1, "brick4_bwd": 1}
+    assert calls == [False]
+    xc, tc = x.detach().cpu(), table.detach().cpu().requires_grad_(True)
+    (want,) = torch.autograd.grad(B4.brick4_encode_xla(xc, tc, meta), tc,
+                                  g.cpu())
+    torch.testing.assert_close(dtab.cpu(), want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_dmtet_cuda_matches_cpu(cuda):
+    from nr3d_lib_tpu_torch.models.fields.sdf import LoTDSDF
+    from nr3d_lib_tpu_torch.models.tetrahedral import DMTet
+
+    cfg = dict(encoding_cfg={"lotd_cfg": {
+        "lod_res": [16, 64], "lod_n_feats": 4, "lod_types": ["Dense", "Hash"],
+        "hashmap_size": 2 ** 16}, "backend": "brick"},
+        decoder_cfg={"D": 1, "W": 64})
+    m = LoTDSDF(**cfg, device=cuda)
+    with torch.no_grad():
+        p = m.encoding.flattened_params
+        p.copy_(torch.from_numpy(np.random.default_rng(66).uniform(
+            -0.1, 0.1, tuple(p.shape)).astype(np.float32)))
+    dm, dm_c = DMTet(32, device=cuda), DMTet(32, device="cpu")
+    _build.LAUNCHES.clear()
+    sdf = m.forward_sdf(dm.base_verts)["sdf"]
+    sdf = sdf - sdf.detach().median()
+    sdf.retain_grad()
+    deform = torch.zeros_like(dm.base_verts).normal_(0, 0.3)
+    deform.requires_grad_(True)
+    tv, mask, bits = dm(sdf, deform)
+
+    def loss(tv_, m_):
+        r = torch.linalg.norm(tv_, dim=-1)
+        return torch.sum(torch.where(m_[..., None], (r - 0.4) ** 2,
+                                     torch.zeros_like(r)))
+
+    loss(tv, mask).backward()
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"brick4_fwd": 1, "brick4_bwd": 1}
+    s_c = sdf.detach().cpu().requires_grad_(True)
+    d_c = deform.detach().cpu().requires_grad_(True)
+    tv_c, mask_c, bits_c = dm_c(s_c, d_c)
+    loss(tv_c, mask_c).backward()
+    assert torch.equal(bits.cpu(), bits_c) and torch.equal(mask.cpu(), mask_c)
+    assert 0 < int(mask.sum()) < mask.numel()
+    assert float((tv.detach().cpu() - tv_c.detach()).abs().max()) <= 1e-5
+    for a, b in ((sdf.grad, s_c.grad), (deform.grad, d_c.grad)):
+        rel = float(torch.linalg.norm(a.cpu() - b) / torch.linalg.norm(b))
+        assert rel <= 1e-4, rel
+
+
+def test_pose_refinement_step_cuda_matches_cpu(cuda):
+    from nr3d_lib_tpu_torch.graphics.cameras import look_at
+    from nr3d_lib_tpu_torch.models.attributes import (
+        OpenCVCameraIntrinsics, TransformExpSE3, TransformRT)
+    from nr3d_lib_tpu_torch.models.fields.sdf import pretrain_sdf_sphere
+    from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel
+
+    cfg = dict(
+        field_cfg={"surface_cfg": {"encoding_cfg": {"lotd_cfg": {
+            "lod_res": [16, 64], "lod_n_feats": 4,
+            "lod_types": ["Dense", "Hash"], "hashmap_size": 2 ** 16},
+            "backend": "brick"}, "decoder_cfg": {"D": 1, "W": 64}},
+            "radiance_cfg": {"D": 2, "W": 64}},
+        accel_cfg={"resolution": 32, "max_steps_per_ray": 96,
+                   "step_size": 2 / 48},
+        ray_query_cfg={"query_mode": "march_occ_multi_upsample",
+                       "upsample_inv_s_factors": [1.0, 4.0],
+                       "n_importance": 12})
+    m = LoTDNeuSModel(**cfg, seed=0, device=cuda)
+    pretrain_sdf_sphere(m.field.implicit_surface,
+                        torch.Generator(cuda).manual_seed(0), radius=0.5,
+                        n_iters=300)
+    m.populate()
+    cpu = LoTDNeuSModel(**cfg, seed=0, device="cpu")
+    cpu.load_state_dict({k: t.cpu() for k, t in m.state_dict().items()})
+    for mm in (m, cpu):
+        for p in mm.parameters():
+            p.requires_grad_(False)
+    rng = np.random.default_rng(69)
+    uv = np.stack([rng.uniform(0, 128, 512), rng.uniform(0, 128, 512)],
+                  -1).astype(np.float32)
+    c2w = look_at((0.6, 0.5, -1.85), (0.0, 0.0, 0.0), device="cpu")
+    rt_c = TransformRT.from_mat4x4(c2w)
+    init = {"w": np.asarray([0.6, 0.0, 0.8], np.float32),
+            "v": np.asarray([0.1, -0.2, 0.3], np.float32),
+            "theta": np.float32(0.02)}
+
+    def step(dev, mm):
+        def t(x):
+            return torch.tensor(np.float32(x), device=dev)
+        intr = OpenCVCameraIntrinsics(
+            t(150.0), t(155.0), t(64.0), t(62.0), 128, 128,
+            dist=torch.tensor([0.02, -0.01, 0.005, -0.003], device=dev))
+        delta = TransformExpSE3(*(torch.tensor(init[k], device=dev,
+                                               requires_grad=True)
+                                  for k in ("w", "v", "theta")))
+        rt = TransformRT(rt_c.rot.to(dev), rt_c.trans.to(dev))
+        pose = delta.mat_4x4() @ rt.mat_4x4()
+        d = torch.einsum("ij,nj->ni", pose[:3, :3],
+                         intr.lift(torch.from_numpy(uv).to(dev)))
+        d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        o = pose[:3, 3].expand(d.shape)
+        rgb = mm.ray_query(mm.ray_test(o, d))[0]["rgb_volume"]
+        loss = torch.mean((rgb - 0.5) ** 2)
+        loss.backward()
+        return loss.detach().cpu(), [q.grad.cpu().reshape(-1) for q in
+                                     delta.parameters()]
+
+    _build.LAUNCHES.clear()
+    lg, gg = step(cuda, m)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    lc, gc = step(torch.device("cpu"), cpu)
+    assert launches.get("brick4_fwd_g") == 1 and \
+        launches.get("brick4_bwd") == 1 and launches.get("brick4_bwd2") == 1
+    assert abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc))
+    got, want = torch.cat(gg), torch.cat(gc)
+    assert float(want.abs().max()) > 0
+    assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) \
+        <= 1e-2
+
+
+def test_packed_sort_stable_on_cuda(cuda):
+    from nr3d_lib_tpu_torch.graphics import pack_ops as P
+
+    rng = np.random.default_rng(70)
+    n = 393_216
+    ridx = torch.from_numpy(np.sort(rng.integers(0, 4097, n)).astype(
+        np.int32))
+    perm = torch.from_numpy(rng.permutation(n))
+    key = torch.from_numpy((rng.integers(0, 3, n) * 0.5).astype(np.float32))
+    args = (key, ridx[perm], torch.arange(n))
+    got = P.packed_sort(*(a.to(cuda) for a in args))
+    want = P.packed_sort(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    # within equal (ridx, key) the payload ascends: the sort is stable
+    k, r, pay = want
+    same = (k[1:] == k[:-1]) & (r[1:] == r[:-1])
+    assert int(same.sum()) > n // 2 and bool((pay[1:] > pay[:-1])[same].all())

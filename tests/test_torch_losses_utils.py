@@ -15,9 +15,12 @@ ROADMAP A19 against the JAX package on the CPU.
   scheduler type (and Adam with `clip_grad_norm`) against optax on the
   same gradients; `batchify_query`, `calc_grad_norm` (L2 and inf) and
   `clip_grad_norm`.
-* The public names: each of the slice's 17 port modules exports every
-  name of its JAX counterpart's `__all__` (`packed_tau_to_vw` waits in
-  ROADMAP A14), and the A7c classes have JAX's methods.
+* The public names: each of the 17 port modules of ROADMAP A7c/A19 and
+  the 12 of A14 (the ray, pack and maths layers) exports every name of
+  its JAX counterpart's `__all__`; the A7c classes have JAX's methods;
+  the names outside an `__all__` that A14 ports (the cameras' path and
+  interpolation helpers, `fisheye_undistort`, `maths`' package exports,
+  `brick4_encode_frozen_x`) exist in both.
 
 Inputs are float32 from a numpy seed (the conftest turns on x64 for
 JAX: every JAX input is float32). Tolerances: values within 1e-6 of the
@@ -443,9 +446,8 @@ def test_grad_norms_and_clip_match_jax():
         _close(got_list[0], want["a"])
 
 
-# ------------------------------------------ the slice's public names
-# (JAX module, port module, names the port leaves out): packed_tau_to_vw
-# is pack_ops' (ROADMAP A14)
+# ------------------------------------------ the public names
+# (module path in both packages, names the port leaves out)
 MODULES = [
     ("models.accelerations.occgrid", ()),
     ("models.accelerations.occgrid_accel", ()),
@@ -454,7 +456,7 @@ MODULES = [
     ("models.fields.sdf", ()),
     ("models.fields.neus", ()),
     ("models.fields.nerf", ()),
-    ("graphics.nerf", ("packed_tau_to_vw",)),
+    ("graphics.nerf", ()),
     ("graphics.neus", ()),
     ("graphics.raytest", ()),
     ("models.loss.regularization", ()),
@@ -464,6 +466,34 @@ MODULES = [
     ("models.loss.gem", ()),
     ("models.utils", ()),
     ("models.grid_encodings.lotd.lotd_encoding", ()),
+    # ROADMAP A14: the ray, pack and maths layers
+    ("graphics.pack_ops", ()),
+    ("graphics.raysample", ()),
+    ("graphics.cameras", ()),
+    ("graphics.pointcloud", ()),
+    ("models.attributes", ()),
+    ("models.tetrahedral", ()),
+    ("maths.transforms", ()),
+    ("maths.common", ()),
+    ("maths.slerp", ()),
+    ("maths.knn", ()),
+    ("maths.depth_completion", ()),
+    ("coordinates", ()),
+]
+# names outside an `__all__` (module, names)
+EXTRA_NAMES = [
+    ("graphics.cameras", ("fisheye_undistort", "smoothed_motion_interpolation",
+                          "path_small_circle", "path_spherical_spiral",
+                          "path_interpolation")),
+    ("maths", ("quaternion_to_matrix", "matrix_to_quaternion",
+               "axis_angle_to_matrix", "matrix_to_axis_angle",
+               "axis_angle_to_quaternion", "quaternion_to_axis_angle",
+               "rotation_6d_to_matrix", "matrix_to_rotation_6d",
+               "quaternion_multiply", "quaternion_invert",
+               "quaternion_apply", "slerp", "logistic_density",
+               "logistic_cdf", "normalize", "knn_points", "knn_gather",
+               "chamfer_distance", "dist_to_nn3_mean", "depth_completion")),
+    ("ops.lotd_brick4", ("brick4_encode_frozen_x",)),
 ]
 METHODS = {
     ("models.accelerations.occgrid", "OccGridEma"): (
@@ -497,3 +527,15 @@ def test_public_names_match_jax(name, left_out):
             for m in methods:
                 assert hasattr(getattr(jm, cls), m), (cls, m)
                 assert hasattr(getattr(tm, cls), m), (cls, m)
+
+
+@pytest.mark.parametrize("name, names", EXTRA_NAMES,
+                         ids=[m for m, _ in EXTRA_NAMES])
+def test_public_names_outside_all(name, names):
+    import importlib
+
+    jm = importlib.import_module(f"nr3d_lib_tpu.{name}")
+    tm = importlib.import_module(f"nr3d_lib_tpu_torch.{name}")
+    for n in names:
+        assert hasattr(jm, n), n
+        assert callable(getattr(tm, n, None)), n
