@@ -258,6 +258,32 @@
      completion of a 1280 × 1920 map at 5% bitwise; `dist_to_nn3_mean`
      at path E's 500,000 means against a float64 brute force on 4,096
      rows.
+   - Infra and multi-GPU (A15, `_a15_paths`). `ddp_w4_train_4096`: the
+     production F=4 step through `parallel.train.make_sharded_train_step`
+     on two gloo ranks that share the card (spawned after the build;
+     2048 rays each, each its own draws, the occupancy updates' draws
+     the same), a warm-up and 3 timed steps, held against one process on
+     the same halves whose Adam steps on the ranks' gradients (each
+     step's gradients within 1e-5 relative L2, the losses within 1e-6,
+     the parameters within 1e-4 after 5 steps, all before the first
+     occupancy update), the ranks' parameters and grids
+     the same bits through the update at it = 16; B1–B5 counted on rank
+     0; then the step on a mesh over an NCCL group of world size 1, where
+     it runs no collective, against a plain step (gradients within
+     1e-5).
+     `config_zoo`: each `examples/configs/*.yaml` through `load_config`
+     and `instantiate` on the card, a render of 4096 rays (512 of them
+     within 1e-4 of the CPU route on ≥ 99%), one Adam step; B1, B2, B5,
+     B6, B7, the forest forms and B14–B16 among their launches.
+     `chunked_w4`: `loop_chunks` over B1 at DMTet's 2,097,152 vertices
+     bitwise one call's (4 launches), `scan_chunks` over B2 within 1e-6
+     relative L2 (4 launches). `viewer_w4`: `InteractiveViewer` over the
+     --w4 model at 256², every layer's PNG read back bitwise its render,
+     the occupancy and AABB layers drawn, `color_depth` against the CPU
+     route. `profile_ckpt`: `Profiler(warmup=2, record_frames=5,
+     sync=True)` around the production step's stages; `save_sharded`/
+     `load_sharded` of the model's and Adam's state, the next step from
+     both the same bits.
    - The six example trainers as programs (`examples_torch/`,
      `TRAINER_RUNS`): each through its `main([...])` at its default
      model, rays and evaluation sizes with `--iters` cut (300 for the
@@ -3855,19 +3881,702 @@ def _pack_maths_phase(dev, smi: str, paths: dict) -> None:
     paths["pack_maths"] = ({}, 1)
 
 
-def _a14_paths(dev, smi: str, paths: dict) -> None:
+def _a14_paths(dev, smi: str, paths: dict):
     """The ray, pack and maths layers (A14) where they meet the kernels:
     DMTet over the --w4 object SDF, pose refinement through its render,
     and the new pack_ops, raysample and maths functions at the render's
-    buffer sizes."""
+    buffer sizes. Returns the --w4 model and its CPU twin (A15 reuses
+    them)."""
     from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel
 
     w4 = _pretrained(LoTDNeuSModel, OBJ_W4_CFG, dev, "neus_obj_w4_a14")
     cpu = _cpu_twin(w4, LoTDNeuSModel, OBJ_W4_CFG)
     _dmtet_phase(w4, cpu, smi, paths)
     _pose_phase(w4, cpu, smi, paths)
-    del w4, cpu
     _pack_maths_phase(dev, smi, paths)
+    return w4, cpu
+
+
+# ---------------------------------------------------------------- A15
+DDP_RANKS = 2
+DDP_STEPS = 3             # timed, after one warm-up step
+DDP_DRAW_SEED = 9         # + rank: a rank's sampling draws
+DDP_LC_SEED = 1000        # the occupancy updates' draws, the same on all ranks
+DDP_JOIN_S = 300.0
+ZOO_CPU_RAYS = 512
+CHUNK = 524_288
+VIEWER_HW = (256, 256)
+VIEWER_CPU_ROWS = 16      # the CPU route's share of the viewer's frame
+PROFILE_WARMUP, PROFILE_FRAMES = 2, 5
+
+
+def _ddp_model(dev):
+    """The production F=4 step's model as `main` seeds it (weights seed 1,
+    the seeded 15% occupancy)."""
+    from nr3d_lib_tpu_torch.models.model_base import LoTDNeuSModel
+
+    m = LoTDNeuSModel(**PROD_CFG, seed=0, device=dev)
+    _seed_weights(m, m.field.implicit_surface.encoding, 1)
+    m.populate()
+    _seed_occupancy(m)
+    return m
+
+
+def _ddp_rank(rank: int, world: int, work: str, device: str) -> None:
+    """One rank of `ddp_w4_train_4096`, started by `spawn`: a gloo group
+    whose ranks share cuda:0 (joined through a file in `work`, 60 s
+    timeout), the production step on this rank's 2048 of the 4096 rays
+    through `parallel.train.make_sharded_train_step` (its own draws; the
+    occupancy updates' draws the same on every rank): one warm-up step,
+    DDP_STEPS timed, one counted by the profiler (the compared steps,
+    before the first occupancy update, each step's mean gradients kept);
+    then two more under `_profile` and on through the first occupancy
+    update (the ranks compared with each other). Writes
+    `work/rank<r>.pt`."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from nr3d_lib_tpu_torch.ops import _build
+    from nr3d_lib_tpu_torch.parallel import make_mesh
+    from nr3d_lib_tpu_torch.parallel.train import (make_sharded_train_step,
+                                                   shard_rays)
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(work, "init"),
+        rank=rank, world_size=world, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh([world, 1])
+        model = _ddp_model(dev)
+        o, d = (torch.from_numpy(a).to(dev) for a in _rays(N_RAYS, seed=0))
+        batch = shard_rays({"o": o, "d": d}, mesh)
+        opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+        gen = torch.Generator(dev).manual_seed(DDP_DRAW_SEED + rank)
+        gen_lc = torch.Generator(dev).manual_seed(DDP_LC_SEED)
+        step = make_sharded_train_step(
+            lambda b, g: _step_loss(model, b["o"], b["d"], generator=g), opt,
+            mesh)
+        its = iter(range(1, 10 ** 6))
+        losses, grads = [], []
+
+        def one():
+            it = next(its)
+            model.training_before_per_step(it, gen_lc)
+            losses.append(step(batch, gen))
+            if it <= DDP_STEPS + 2:     # the compared steps (on the card)
+                grads.append({k: p.grad.detach().clone() for k, p in
+                              model.named_parameters()
+                              if p.grad is not None})
+            return it
+
+        one()
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        times = []
+        for _ in range(DDP_STEPS):
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_build.LAUNCHES)
+        counts = _device_kernel_counts(one)
+        out = {"rays": int(batch["o"].shape[0]),
+               "losses": [float(v) for v in losses],
+               "grads": [{k: g.cpu() for k, g in gs.items()}
+                         for gs in grads],
+               "params": {k: p.detach().cpu().clone() for k, p in
+                          model.named_parameters()},
+               "occ": model.accel.occ.val_grid.cpu().clone(),
+               "times": times,
+               "launches": launches, "counts": counts,
+               "mesh": str(mesh), "backend": dist.get_backend()}
+        # after the compared steps: two more under the profiler, each
+        # rank its own (both take part in every all-reduce), then on to
+        # the first occupancy update
+        _profile(one, statistics.median(times),
+                 f"ddp_w4_train_4096 rank {rank} step")
+        occ = model.accel.occ.val_grid.clone()
+        while one() < model.lifecycle_update_every:
+            pass
+        out["updated"] = not torch.equal(occ, model.accel.occ.val_grid)
+        out["occ_after_update"] = model.accel.occ.val_grid.cpu()
+        out["params_after_update"] = {k: p.detach().cpu() for k, p in
+                                      model.named_parameters()}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+def _loss_parts(model, o, d, generator):
+    """`_step_loss`'s MSE, and its eikonal term's sum and count."""
+    import torch
+
+    rendered, vb = model.ray_query(_tested(model, o, d), generator=generator)
+    mse = torch.mean((rendered["rgb_volume"] - torch.abs(d)) ** 2)
+    valid = (vb["ridx"] < o.shape[0]).float()
+    e = (torch.linalg.norm(vb["nablas_packed"], dim=-1) - 1.0) ** 2
+    return float(mse), float((e * valid).sum()), float(valid.sum())
+
+
+def _ddp_reference(dev, forced):
+    """One process on the two ranks' halves, with their draws
+    (`tests/torch_parallel_ranks.halves_reference`, the tier-1 tests'
+    reference), the lifecycle once a step, Adam stepping on the ranks'
+    gradients `forced`. Returns (losses, each step's gradients,
+    parameters, step 1's loss over the union of the halves' samples)."""
+    import torch
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_parallel_ranks import halves_reference
+
+    model = _ddp_model(dev)
+    o, d = (torch.from_numpy(a).to(dev) for a in _rays(N_RAYS, seed=0))
+    k = N_RAYS // DDP_RANKS
+    gen_lc = torch.Generator(dev).manual_seed(DDP_LC_SEED)
+    union = []
+
+    def before_step(it):
+        model.training_before_per_step(it, gen_lc)
+        if it == 1:
+            # the same samples as step 1's (fresh generators, same seeds):
+            # the eikonal term over the union, against the halves' mean
+            with torch.no_grad():
+                parts = [_loss_parts(model, o[r * k:(r + 1) * k],
+                                     d[r * k:(r + 1) * k], torch.Generator(
+                                         dev).manual_seed(DDP_DRAW_SEED + r))
+                         for r in range(DDP_RANKS)]
+            union.append(sum(p[0] for p in parts) / DDP_RANKS + 0.1 *
+                         sum(p[1] for p in parts) / sum(p[2] for p in parts))
+
+    losses, grads, params = halves_reference(
+        model, lambda oh, dh, g: _step_loss(model, oh, dh, generator=g),
+        o, d, [DDP_DRAW_SEED + r for r in range(DDP_RANKS)], DDP_STEPS + 2,
+        before_step=before_step, forced=forced)
+    return losses, grads, params, union[0]
+
+
+def _rel(a, b) -> float:
+    """‖a − b‖ / ‖b‖ in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _ddp_phase(dev, smi: str, paths: dict) -> None:
+    """ddp_w4_train_4096: two gloo ranks on cuda:0 against one process on
+    the same halves; then the step in an NCCL group of world size 1
+    against a plain step."""
+    import datetime
+    import multiprocessing as mp
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as work:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_ddp_rank,
+                             args=(r, DDP_RANKS, work, str(dev)))
+                 for r in range(DDP_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = t0 + DDP_JOIN_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(10)
+        codes = [p.exitcode for p in procs]
+        _require(not hung and codes == [0] * DDP_RANKS,
+                 f"ddp_w4_train_4096: rank exit codes {codes}")
+        wall = time.perf_counter() - t0
+        outs = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                           weights_only=False) for r in range(DDP_RANKS)]
+    # the reference steps on rank 0's gradients: B2's atomics differ in
+    # the last bits from run to run, and the render's discrete choices
+    # would turn that into other samples a few steps on
+    ref_losses, ref_grads, ref_params, union = _ddp_reference(
+        dev, outs[0]["grads"])
+    # the step's nablas are split (B3 forward, B4 backward), so B1 runs
+    # without its corner words: no brick4_fwd_g (PERF.md §6, B1 want_g)
+    names = ("brick4_fwd", "brick4_bwd", "brick4_dydx", "brick4_bwd2",
+             "gather1d")
+    for r, out in enumerate(outs):
+        med = statistics.median(out["times"])
+        print(f"[ddp_w4_train_4096] rank {r} of {DDP_RANKS} (gloo, cuda:0, "
+              f"{out['mesh']}): {out['rays']} rays, {DDP_STEPS} steps: "
+              f"median {med:.3f} ms/step (min {min(out['times']):.3f}, max "
+              f"{max(out['times']):.3f}) on {smi}; launches in the timed "
+              f"steps {out['launches']}; losses "
+              f"{' '.join(f'{v:.7f}' for v in out['losses'])}")
+        _require(out["rays"] == N_RAYS // DDP_RANKS, "a rank's rays")
+        for n in names:
+            _require(out["launches"].get(n, 0) >= DDP_STEPS,
+                     f"ddp rank {r}: {n} launched "
+                     f"{out['launches'].get(n, 0)} times in {DDP_STEPS} "
+                     "steps")
+    print(f"[ddp_w4_train_4096] rank 0's profiled step: {outs[0]['counts']}; "
+          f"the group's run {wall:.1f} s of wall time (spawn, model, "
+          f"steps)")
+    _require(all(outs[0]["counts"].get(k, 0) >= 1 for k in (
+        "brick4_fwd_kernel", "brick4_bwd_kernel", "brick4_dydx_kernel",
+        "brick4_bwd2_kernel")) and any(k.startswith("gather1d")
+                                       for k in outs[0]["counts"]),
+        "ddp: the profiled step misses a kernel")
+    g_errs = [max(_rel(got[k], g) for k, g in want.items())
+              for got, want in zip(outs[0]["grads"], ref_grads)]
+    l_err = [abs(a - b) / abs(b) for a, b in zip(outs[0]["losses"],
+                                                 ref_losses)]
+    p_err = max(_rel(outs[0]["params"][k], p) for k, p in ref_params.items())
+    print(f"[ddp_w4_train_4096] against one process on the two halves, "
+          f"Adam stepping on the ranks' gradients: each step's gradients "
+          f"{max(g_errs):.3e} relative L2 (largest over the parameters and "
+          f"the {len(g_errs)} steps, step 1 {g_errs[0]:.3e}; tolerance "
+          f"1e-5), the losses {max(l_err):.3e} relative (step 1 "
+          f"{l_err[0]:.3e}; tolerance 1e-6), the parameters after {len(ref_losses)} steps "
+          f"{p_err:.3e} (tolerance 1e-4); the mean of the halves' losses "
+          f"(the eikonal term is a mean over each half's samples); the "
+          f"steps stop before the occupancy update, whose threshold turns "
+          f"the atomics' last bits into flipped cells")
+    print(f"[ddp_w4_train_4096] step 1's loss as the mean of the ranks' "
+          f"losses {ref_losses[0]:.7f}, over the union of their samples "
+          f"{union:.7f}: {abs(ref_losses[0] - union) / abs(union):.3e} "
+          f"relative (the eikonal term weighs each rank's samples by its "
+          f"own count)")
+    _require(len(g_errs) == len(ref_losses) and
+             all(set(a) == set(b) for a, b in zip(outs[0]["grads"],
+                                                  ref_grads))
+             and max(g_errs) <= 1e-5, "ddp: the steps' gradients")
+    _require(max(l_err) <= 1e-6, "ddp: the losses")
+    _require(p_err <= 1e-4, "ddp: the parameters")
+    same = all(torch.equal(outs[0][p][k], outs[1][p][k])
+               for p in ("params", "params_after_update")
+               for k in outs[0][p]) and \
+        torch.equal(outs[0]["occ"], outs[1]["occ"]) and \
+        torch.equal(outs[0]["occ_after_update"], outs[1]["occ_after_update"])
+    print(f"[ddp_w4_train_4096] the ranks' parameters and occupancy grids "
+          f"the same bits after the compared steps and after the first "
+          f"occupancy update (it = 16; it changed the grid: "
+          f"{outs[0]['updated']}): {same}")
+    _require(same and outs[0]["updated"], "ddp: the ranks diverged")
+    paths["ddp_w4_train_4096 rank 0"] = (outs[0]["launches"], DDP_STEPS)
+
+    # ---- NCCL at world size 1, against a plain step
+    from nr3d_lib_tpu_torch.parallel import make_mesh
+    from nr3d_lib_tpu_torch.parallel.train import make_sharded_train_step
+
+    with tempfile.TemporaryDirectory() as work:
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(work, "init"),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=60))
+        try:
+            mesh = make_mesh([1, 1])
+            o, d = (torch.from_numpy(a).to(dev) for a in _rays(N_RAYS, 0))
+            models = [_ddp_model(dev) for _ in range(2)]
+            gens = [torch.Generator(dev).manual_seed(DDP_DRAW_SEED)
+                    for _ in range(2)]
+            m, plain = models
+            opt = torch.optim.Adam(m.parameters(), lr=5e-3)
+            step = make_sharded_train_step(
+                lambda b, g: _step_loss(m, b["o"], b["d"], generator=g), opt,
+                mesh)
+            loss = step({"o": o, "d": d}, gens[0])
+            ref = _step_loss(plain, o, d, generator=gens[1])
+            ref.backward()
+            ref = ref.detach()
+            err = max(_rel(p.grad, q.grad) for p, q in
+                      zip(m.parameters(), plain.parameters())
+                      if q.grad is not None)
+            backend = dist.get_backend(mesh.get_group("data"))
+        finally:
+            dist.destroy_process_group()
+    print(f"[ddp_w4_train_4096 nccl] world size 1 ({backend}; the step "
+          f"runs no collective in a group of one): loss "
+          f"{float(loss):.7f} vs the plain step's {float(ref):.7f}; step 1's "
+          f"gradients {err:.3e} relative L2 (tolerance 1e-5: B2's atomics "
+          f"sum in launch order)")
+    _require(backend == "nccl" and err <= 1e-5 and
+             float(loss) == float(ref), "ddp nccl: the step")
+
+
+def _zoo_rays(model, n: int, dev):
+    """Rays and per-ray inputs for a config's model family (the example
+    trainers' distributions)."""
+    import torch
+
+    name = type(model).__name__
+    if "Forest" in name:
+        o, d = _street_rays(n, seed=40)
+        extra = {}
+    elif name == "EmerNeRFModel":
+        o, d, ts = _scene_rays(n, seed=41)
+        extra = {"ts": ts}
+    elif "Generative" in name:
+        o, d, bidx, ts = _shape_rays(n, seed=42)
+        extra = {"bidx": bidx}
+    else:
+        o, d = _rays(n, seed=43)
+        extra = {"ts": np.random.default_rng(44).uniform(
+            -1.0, 1.0, n).astype(np.float32)} if "Dynamic" in name else {}
+    on = lambda a: torch.from_numpy(a).to(dev)
+    return on(o), on(d), {k: on(v) for k, v in extra.items()}
+
+
+def _zoo_loss(model, o, d, extra, generator):
+    """MSE(rgb, |d|), plus 0.1·the eikonal mean over the query's nablas
+    for an SDF family."""
+    import torch
+
+    rendered, vb = model.ray_query(_tested(model, o, d, extra),
+                                   generator=generator)
+    loss = torch.mean((rendered["rgb_volume"] - torch.abs(d)) ** 2)
+    nablas = vb.get("nablas_packed", vb.get("nablas"))
+    if nablas is not None:
+        loss = loss + 0.1 * torch.mean(
+            (torch.linalg.norm(nablas, dim=-1) - 1.0) ** 2)
+    return loss
+
+
+def _config_zoo(dev, smi: str, paths: dict) -> None:
+    """Each example config through the port's `load_config` and
+    `instantiate(cfg.model, seed=cfg.seed, device="cuda")`: a render of
+    `training.rays_per_batch` rays, its first ZOO_CPU_RAYS against the CPU
+    route of the same state, one Adam step at `training.lr`."""
+    import torch
+    from nr3d_lib_tpu_torch.config import instantiate, load_config
+    from nr3d_lib_tpu_torch.ops import _build
+
+    union = set()
+    for path in sorted((REPO / "examples" / "configs").glob("[!_]*.yaml")):
+        cfg = load_config(path)
+        n = int(cfg.training.rays_per_batch)
+        model = instantiate(cfg.model, seed=int(cfg.seed), device=dev)
+        model.populate()
+        cpu = instantiate(cfg.model, seed=int(cfg.seed), device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             model.state_dict().items()})
+        o, d, extra = _zoo_rays(model, n, dev)
+        def render():
+            return model.ray_query(_tested(model, o, d, extra))
+
+        with torch.no_grad():
+            render()                                           # warm-up
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            rendered, _ = render()
+            torch.cuda.synchronize()
+            render_ms = (time.perf_counter() - t0) * 1e3
+            render_launches = dict(_build.LAUNCHES)
+            _profile(render, render_ms, f"config_zoo {path.stem} render")
+            k = ZOO_CPU_RAYS
+            r_cpu, _ = cpu.ray_query(_tested(
+                cpu, o[:k].cpu(), d[:k].cpu(),
+                {a: v[:k].cpu() for a, v in extra.items()}))
+        err = (rendered["rgb_volume"][:k].cpu() - r_cpu["rgb_volume"]) \
+            .abs().reshape(k, -1).amax(-1)
+        share = float((err <= 1e-4).float().mean())
+        opt = torch.optim.Adam(model.parameters(), lr=float(cfg.training.lr))
+        gen = torch.Generator(dev).manual_seed(int(cfg.seed))
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        loss = _zoo_loss(model, o, d, extra, gen)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        loss = loss.detach()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        step_launches = dict(_build.LAUNCHES)
+        finite = all(bool(torch.isfinite(v).all()) for v in rendered.values())
+        label = f"config_zoo {path.stem}"
+        print(f"[{label}] {type(model).__module__}.{type(model).__name__}, "
+              f"{sum(p.numel() for p in model.parameters())} parameters; "
+              f"{n} rays on {smi}: render {render_ms:.3f} ms "
+              f"(launches {render_launches}), Adam({cfg.training.lr}) step "
+              f"{step_ms:.3f} ms (launches {step_launches}), loss "
+              f"{float(loss):.6f}; {share * 100:.2f}% of {k} rays within "
+              f"1e-4 of the CPU route in rgb (max {float(err.max()):.3e})")
+        _require(type(model).__module__.startswith("nr3d_lib_tpu_torch."),
+                 f"{label}: not the port's class")
+        _require(finite and bool(torch.isfinite(loss)), f"{label}: not "
+                 "finite")
+        _require(share >= 0.99, f"{label}: the card and the CPU disagree")
+        both = dict(render_launches)
+        for key, v in step_launches.items():
+            both[key] = both.get(key, 0) + v
+        paths[label] = (both, 1)
+        union |= set(both)
+        del model, cpu, opt
+    want = {"brick4_fwd", "brick4_bwd", "gather1d", "brick_fwd", "brick_bwd",
+            "brick_fwd_b", "brick_dydx_b", "brick_bwd_b", "brick_bwd2_b",
+            "permuto4_fwd", "permuto4_bwd", "permuto4_dydx"}
+    print(f"[config_zoo] kernels launched over the eight configs: "
+          f"{sorted(union)}; expected among them: {sorted(want)}")
+    _require(want <= union, f"config_zoo: missing {sorted(want - union)}")
+
+
+def _chunked_phase(w4, smi: str, paths: dict) -> None:
+    """`loop_chunks` over B1 and `scan_chunks` over B2 at the DMTet grid's
+    2,097,152 vertices of the --w4 object SDF, CHUNK points a chunk,
+    against one call each."""
+    import torch
+    from nr3d_lib_tpu_torch.models.tetrahedral import DMTet
+    from nr3d_lib_tpu_torch.ops import _build
+    from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
+    from nr3d_lib_tpu_torch.ops.chunking import loop_chunks, scan_chunks
+
+    dev = next(w4.parameters()).device
+    enc = w4.field.implicit_surface.encoding
+    meta = enc.meta
+    with torch.no_grad():
+        table = enc._build_table()
+        x = DMTet(resolution=DMTET_RES, device=dev).base_verts * 0.5 + 0.5
+        n = x.shape[0]
+        g = torch.from_numpy(np.random.default_rng(45).normal(
+            size=(n, 4 * len(meta.levels))).astype(np.float32)).to(dev)
+
+        def fwd_one():
+            return B4.brick4_encode(x, table, meta)
+
+        def fwd_chunks():
+            return loop_chunks(lambda xc: ((B4.brick4_encode(
+                xc, table, meta),), ()), (x,), n, CHUNK)[0][0]
+
+        def bwd_one():
+            return B4._bwd_cuda(x, g, meta, need_dx=False)[1]
+
+        def bwd_chunks():
+            return scan_chunks(lambda xc, gc: ((), (B4._bwd_cuda(
+                xc, gc, meta, need_dx=False)[1],)), (x, g), n, CHUNK,
+                (torch.zeros((meta.total_rows, 2 * B4.LANES), device=dev),)
+            )[1][0]
+
+        results = {}
+        for name, fn in (("fwd_one", fwd_one), ("fwd_chunks", fwd_chunks),
+                         ("bwd_one", bwd_one), ("bwd_chunks", bwd_chunks)):
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            results[name] = (fn(), dict(_build.LAUNCHES))
+            torch.cuda.synchronize()
+        times = {name: _time_ms(fn, iters=5, warmup=1) for name, fn in (
+            ("fwd_one", fwd_one), ("fwd_chunks", fwd_chunks),
+            ("bwd_one", bwd_one), ("bwd_chunks", bwd_chunks))}
+    same = torch.equal(results["fwd_one"][0], results["fwd_chunks"][0])
+    rel = _rel(results["bwd_chunks"][0], results["bwd_one"][0])
+    print(f"[chunked_w4] {n} points, chunks of {CHUNK}, on {smi}: "
+          f"loop_chunks over B1 {times['fwd_chunks']:.3f} ms vs one call "
+          f"{times['fwd_one']:.3f} ms, the same bits: {same}, launches "
+          f"{results['fwd_chunks'][1]} vs {results['fwd_one'][1]}; "
+          f"scan_chunks over B2 {times['bwd_chunks']:.3f} ms vs one call "
+          f"{times['bwd_one']:.3f} ms, dL/dtable {rel:.3e} relative L2 "
+          f"(tolerance 1e-6: B2's atomics sum in launch order), launches "
+          f"{results['bwd_chunks'][1]} vs {results['bwd_one'][1]}")
+    _require(same and results["fwd_chunks"][1] == {"brick4_fwd": 4} and
+             results["fwd_one"][1] == {"brick4_fwd": 1},
+             "chunked_w4: loop_chunks over B1")
+    _require(rel <= 1e-6 and results["bwd_chunks"][1] == {"brick4_bwd": 4}
+             and results["bwd_one"][1] == {"brick4_bwd": 1},
+             "chunked_w4: scan_chunks over B2")
+    paths["chunked_w4 loop_chunks"] = (results["fwd_chunks"][1], 1)
+    paths["chunked_w4 scan_chunks"] = (results["bwd_chunks"][1], 1)
+
+
+def _viewer_phase(w4, cpu, smi: str, paths: dict) -> None:
+    """`InteractiveViewer` over the --w4 object model at VIEWER_HW: every
+    layer's `frame_png` read back by the port's PNG reader against the
+    viewer's mapping of `NeuralRenderer`'s render at the same camera, bit
+    for bit; the occupancy and AABB layers drawn over it; the depth's
+    colours on the card against the CPU route's (on the middle
+    VIEWER_CPU_ROWS rows)."""
+    import torch
+    from nr3d_lib_tpu_torch import viewer as V
+    from nr3d_lib_tpu_torch.graphics.cameras import pinhole_get_rays
+    from nr3d_lib_tpu_torch.gui import NeuralRenderer
+    from nr3d_lib_tpu_torch.gui_datalayers import (aabb_datalayer,
+                                                   draw_datalayers,
+                                                   occgrid_datalayer)
+    from nr3d_lib_tpu_torch.ops import _build
+    from nr3d_lib_tpu_torch.plot import color_depth
+    from nr3d_lib_tpu_torch.utils import decode_png, img_to_uint8
+
+    cpu.load_state_dict({k: v.cpu() for k, v in w4.state_dict().items()})
+    layers = [occgrid_datalayer(w4.accel), aabb_datalayer(w4.space.aabb)]
+    v = V.InteractiveViewer(w4, hw=VIEWER_HW, overlays=layers)
+    cam = (0.6, 0.35, 2.5)
+    names = v.layers()
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    png = v.frame_png(*cam, names[0])
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.LAUNCHES)
+    _profile(lambda: v.frame_png(*cam, names[0]), frame_ms, "viewer frame")
+    c2w = v.camera(*cam)
+    images = NeuralRenderer(w4, VIEWER_HW).render(c2w)
+    bad = []
+    for name in names:
+        got = decode_png(v.frame_png(*cam, name))
+        if not np.array_equal(got, V._to_uint8_layer(images[name])):
+            bad.append(name)
+    rgb = decode_png(png)
+    same_rgb = np.array_equal(rgb, img_to_uint8(images["rgb_volume"]))
+    over = decode_png(v.frame_png(*cam, names[0], overlay=True))
+    want_over = draw_datalayers(rgb, layers, v._renderer.intr, c2w)
+    painted = int((over != rgb).any(-1).sum())
+    depth = torch.from_numpy(images["depth_volume"]).to(
+        next(w4.parameters()).device)
+    scale = float(depth.max())
+    cd_card = color_depth(depth, scale)
+    cd_same = np.array_equal(cd_card, color_depth(depth.cpu().numpy(),
+                                                  scale))
+    # the CPU route on the frame's middle VIEWER_CPU_ROWS rows
+    h, w = VIEWER_HW
+    r0 = (h - VIEWER_CPU_ROWS) // 2
+    rows = slice(r0 * w, (r0 + VIEWER_CPU_ROWS) * w)
+    cpu_r = NeuralRenderer(cpu, VIEWER_HW)
+    o, d = pinhole_get_rays(cpu_r.uv[rows], cpu_r.intr,
+                            torch.from_numpy(c2w))
+    with torch.no_grad():
+        r_cpu, _ = cpu.ray_query(cpu.ray_test(o, d))
+    cpu_depth = r_cpu["depth_volume"].reshape(VIEWER_CPU_ROWS, w)
+    cd_cpu = color_depth(cpu_depth, scale)
+    agree = float((cd_card[r0:r0 + VIEWER_CPU_ROWS] == cd_cpu).all(-1)
+                  .mean())
+    print(f"[viewer_w4] {VIEWER_HW[0]}x{VIEWER_HW[1]} on {smi}: layers "
+          f"{list(names)}; frame_png {frame_ms:.1f} ms (render, PNG "
+          f"encode), launches {launches}; every layer's PNG the bits of its "
+          f"render: {not bad} {bad}; rgb = img_to_uint8: {same_rgb}; the "
+          f"occupancy ({len(layers[0]['edges'])} edges) and AABB layers "
+          f"paint {painted} pixels, as draw_datalayers: "
+          f"{np.array_equal(over, want_over)}; color_depth on the card's "
+          f"depth the bits of its CPU copy: {cd_same}, and {agree * 100:.2f}"
+          f"% of the middle {VIEWER_CPU_ROWS} rows' pixels the colours of "
+          f"the CPU route's render")
+    _require(not bad and same_rgb, "viewer_w4: a frame is not its render")
+    _require(np.array_equal(over, want_over) and painted > 0,
+             "viewer_w4: the overlays")
+    _require(cd_same and agree >= 0.99, "viewer_w4: color_depth")
+    _require(all(launches.get(k, 0) >= 1 for k in (
+        "brick4_fwd", "brick4_dydx", "gather1d")), "viewer_w4: launches")
+    paths["viewer_w4"] = (launches, 1)
+
+
+def _profile_ckpt_phase(dev, smi: str, paths: dict) -> None:
+    """`Profiler(warmup=2, record_frames=5, sync=True)` around the
+    production step's stages, then `save_sharded`/`load_sharded` of the
+    model's and Adam's state on the card, the next step from both."""
+    import tempfile
+
+    import torch
+    from nr3d_lib_tpu_torch.checkpoint_sharded import (abstract_like,
+                                                       load_sharded,
+                                                       save_sharded)
+    from nr3d_lib_tpu_torch.profile import Profiler
+
+    model = _ddp_model(dev)
+    o, d = (torch.from_numpy(a).to(dev) for a in _rays(N_RAYS, seed=0))
+    opt = torch.optim.Adam(model.parameters(), lr=5e-3)
+    gen = torch.Generator(dev).manual_seed(9)
+    prof = Profiler(warmup=PROFILE_WARMUP, record_frames=PROFILE_FRAMES,
+                    sync=True)
+    for it in range(1, PROFILE_WARMUP + PROFILE_FRAMES + 1):
+        with prof.scope("step"):
+            with prof.scope("lifecycle"):
+                model.training_before_per_step(it, gen)
+            with prof.scope("forward"):
+                loss = _step_loss(model, o, d, generator=gen)
+            with prof.scope("backward"):
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+            with prof.scope("optimizer"):
+                opt.step()
+        prof.step_frame()
+    step = prof.root.children["step"]
+    step_ms = step.total / step.count * 1e3
+    print(f"[profile_ckpt] Profiler(warmup={PROFILE_WARMUP}, record_frames="
+          f"{PROFILE_FRAMES}, sync=True) over the production step on {smi}:")
+    for line in prof.report().splitlines():
+        print(f"[profile_ckpt]   {line}")
+    nodes = [step] + list(step.children.values())
+    _profile(lambda: _step_loss(model, o, d, generator=gen).backward(),
+             step_ms, "profile_ckpt forward and backward")
+    _require(set(step.children) == {"lifecycle", "forward", "backward",
+                                    "optimizer"} and
+             all(nd.count == PROFILE_FRAMES for nd in nodes) and
+             sum(c.total for c in step.children.values()) <= step.total,
+             "profile_ckpt: the profiler's tree")
+
+    state = {"model": model.state_dict(), "opt": opt.state_dict()}
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        path = save_sharded(os.path.join(work, "ckpt"), state)
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        t0 = time.perf_counter()
+        back = load_sharded(path, abstract_like(state))
+        load_s = time.perf_counter() - t0
+    twin = _ddp_model(dev)
+    twin.load_state_dict(back["model"])
+    twin_opt = torch.optim.Adam(twin.parameters(), lr=5e-3)
+    twin_opt.load_state_dict(back["opt"])
+    same_state = all(torch.equal(a, b) for a, b in zip(
+        model.state_dict().values(), twin.state_dict().values()))
+    # the next step: the loaded model's loss, and both optimizers fed the
+    # live step's gradients (B2's atomics make two backwards differ)
+    gens = [torch.Generator(dev).manual_seed(77) for _ in range(2)]
+    losses = []
+    for m, g in ((model, gens[0]), (twin, gens[1])):
+        m.training_before_per_step(PROFILE_WARMUP + PROFILE_FRAMES + 1, g)
+    for m, g in ((model, gens[0]), (twin, gens[1])):
+        losses.append(_step_loss(m, o, d, generator=g))
+    opt.zero_grad(set_to_none=True)
+    losses[0].backward()
+    for p, q in zip(model.parameters(), twin.parameters()):
+        q.grad = None if p.grad is None else p.grad.clone()
+    opt.step()
+    twin_opt.step()
+    same_step = losses[0].item() == losses[1].item() and all(
+        torch.equal(p, q) for p, q in zip(model.parameters(),
+                                          twin.parameters()))
+    same_adam = all(torch.equal(a["exp_avg_sq"], b["exp_avg_sq"]) for a, b in
+                    zip(opt.state_dict()["state"].values(),
+                        twin_opt.state_dict()["state"].values()))
+    print(f"[profile_ckpt] save_sharded {size / 2 ** 20:.1f} MiB (model and "
+          f"Adam state) in {save_s:.2f} s, load_sharded {load_s:.2f} s on "
+          f"{smi}; the loaded state the same bits: {same_state}; the next "
+          f"step's loss {losses[0].item():.7f} from both, parameters and "
+          f"Adam's moments after it the same bits: {same_step and same_adam}")
+    _require(same_state and same_step and same_adam,
+             "profile_ckpt: the checkpoint round trip")
+
+
+def _a15_paths(dev, smi: str, paths: dict, w4, cpu) -> None:
+    """Infra and multi-GPU (A15): the data-parallel production step, the
+    eight example configs through `instantiate`, chunked kernels, the
+    viewer, the profiler and the sharded checkpoint."""
+    t0 = time.perf_counter()
+    _ddp_phase(dev, smi, paths)
+    t1 = time.perf_counter()
+    _config_zoo(dev, smi, paths)
+    t2 = time.perf_counter()
+    _chunked_phase(w4, smi, paths)
+    _viewer_phase(w4, cpu, smi, paths)
+    t3 = time.perf_counter()
+    _profile_ckpt_phase(dev, smi, paths)
+    print(f"[time] A15: ddp {t1 - t0:.1f} s, config_zoo {t2 - t1:.1f} s, "
+          f"chunked and viewer {t3 - t2:.1f} s, profile_ckpt "
+          f"{time.perf_counter() - t3:.1f} s on {smi}")
 
 
 def _field_phase_classic(o, d, dev, paths: dict, smi: str) -> None:
@@ -4692,8 +5401,15 @@ def main() -> int:
           f"on {smi}")
     # ---- A14: DMTet, pose refinement, the pack and maths layers
     t_a14 = time.perf_counter()
-    _a14_paths(dev, smi, paths)
+    w4, w4_cpu = _a14_paths(dev, smi, paths)
     print(f"[time] the A14 phases: {time.perf_counter() - t_a14:.1f} s on "
+          f"{smi}")
+    # ---- A15: data-parallel training, the configs, chunking, the viewer,
+    # the profiler and the sharded checkpoint
+    t_a15 = time.perf_counter()
+    _a15_paths(dev, smi, paths, w4, w4_cpu)
+    del w4, w4_cpu
+    print(f"[time] the A15 phases: {time.perf_counter() - t_a15:.1f} s on "
           f"{smi}")
 
     # ------------------------- path E: 3D Gaussian splatting (B17, B18)

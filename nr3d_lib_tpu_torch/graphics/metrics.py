@@ -1,7 +1,6 @@
-"""Image metrics: PSNR and the sRGB transfer pair (port of
-nr3d_lib_tpu/graphics/metrics.py `psnr`, `linear_to_srgb`,
-`srgb_to_linear`; `ssim` waits in ROADMAP.md A19, and `lpips` is not
-ported: it needs downloaded weights)."""
+"""Image metrics: PSNR, SSIM (re-exported from `models/loss/ssim.py`),
+LPIPS through the `lpips` package where it is installed, and the sRGB
+transfer pair (port of nr3d_lib_tpu/graphics/metrics.py)."""
 
 from __future__ import annotations
 
@@ -9,7 +8,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["psnr", "linear_to_srgb", "srgb_to_linear"]
+from nr3d_lib_tpu_torch.models.loss.ssim import ssim  # noqa: F401
+
+__all__ = ["psnr", "ssim", "lpips", "linear_to_srgb", "srgb_to_linear"]
 
 
 def psnr(pred: torch.Tensor, gt: torch.Tensor, max_val: float = 1.0,
@@ -27,6 +28,24 @@ def psnr(pred: torch.Tensor, gt: torch.Tensor, max_val: float = 1.0,
     else:
         mse = torch.mean((pred - gt) ** 2)
     return 10.0 * torch.log10(max_val ** 2 / torch.clamp(mse, min=1e-12))
+
+
+def lpips(pred, gt, net: str = "vgg") -> float:
+    """Perceptual distance of two [H, W, 3] images in [0, 1] by the
+    `lpips` package, which needs its pretrained weights; raises
+    ImportError, as JAX's does, where the package does not import."""
+    try:
+        import lpips as _lpips_mod
+    except ImportError as e:
+        raise ImportError(
+            "LPIPS needs the `lpips` torch package with pretrained weights "
+            "(unavailable in zero-egress environments)") from e
+    model = _lpips_mod.LPIPS(net=net)
+    a = torch.as_tensor(pred, dtype=torch.float32).cpu()
+    b = torch.as_tensor(gt, dtype=torch.float32).cpu()
+    with torch.no_grad():
+        return float(model(a.permute(2, 0, 1)[None] * 2 - 1,
+                           b.permute(2, 0, 1)[None] * 2 - 1))
 
 
 def linear_to_srgb(x: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,9 @@ it is installed (port of nr3d_lib_tpu/logger.py `Logger`, `_write_png`).
 
 Only the master process writes: rank 0 of `torch.distributed` when it is
 initialised, else this process. Scalars always go to `scalars.jsonl`, one
-JSON object a line, with or without tensorboard. `add_figure`,
-`add_histogram` and `add_mesh` wait in ROADMAP.md A15.
+JSON object a line, with or without tensorboard. A figure is logged as
+its image (`plot.figure_to_image`), a histogram goes to tensorboard when
+there is one, and a mesh is written as an OBJ file under `meshes/`.
 """
 
 from __future__ import annotations
@@ -103,17 +104,27 @@ class Logger:
             self._tb.add_text(f"{category}/{k}", text, it)
 
     def add_figure(self, category: str, k: str, fig, it: int):
-        raise NotImplementedError("Logger.add_figure (matplotlib figures) "
-                                  "is not ported yet (ROADMAP.md A15)")
+        """A matplotlib figure, logged as its RGB image."""
+        if not self.is_master:
+            return
+        from nr3d_lib_tpu_torch.plot import figure_to_image
+
+        self.add_imgs(category, k, figure_to_image(fig), it)
 
     def add_histogram(self, category: str, k: str, values, it: int):
-        raise NotImplementedError("Logger.add_histogram is not ported yet "
-                                  "(ROADMAP.md A15)")
+        if self.is_master and self._tb is not None:
+            self._tb.add_histogram(f"{category}/{k}", to_numpy(values), it)
 
     def add_mesh(self, category: str, k: str, vertices, faces, it: int):
-        raise NotImplementedError("Logger.add_mesh is not ported yet "
-                                  "(ROADMAP.md A15); write the mesh with "
-                                  "graphics.trianglemesh.save_obj")
+        """Write the mesh to `meshes/<category>/<k>_<it>.obj`."""
+        if not self.is_master:
+            return
+        from nr3d_lib_tpu_torch.graphics.trianglemesh import save_obj
+
+        out_dir = os.path.join(self.root, "meshes", category)
+        os.makedirs(out_dir, exist_ok=True)
+        save_obj(os.path.join(out_dir, f"{k}_{it:08d}.obj"),
+                 vertices, faces)
 
     # --------------------------------------------------------------- stats
     def save_stats(self, filename: str = "stats.p"):

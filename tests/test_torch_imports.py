@@ -5,9 +5,10 @@
    package `nr3d_lib_tpu`: the port runs where none of them is
    installed. Every file is parsed with `ast`, so imports inside
    functions count too, and nothing is executed. Nor does any of them
-   import PIL, matplotlib, imageio, skimage or msgpack at module level,
-   which the card's machine lacks (inside a function, behind a fallback
-   the JAX package has too, they may).
+   import PIL, matplotlib, imageio, skimage, msgpack, yaml, cv2,
+   tensorboard or lpips at module level, which the card's machine
+   lacks (inside a function, behind a fallback the JAX package has
+   too, they may).
 2. An entry point's `device=None` means the card: `resolve_device(None)`
    raises when there is none, and never falls back to the CPU.
 """
@@ -22,7 +23,8 @@ from nr3d_lib_tpu_torch.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "nr3d_lib_tpu"}
-HOST_ONLY = {"PIL", "matplotlib", "imageio", "skimage", "msgpack"}
+HOST_ONLY = {"PIL", "matplotlib", "imageio", "skimage", "msgpack", "yaml",
+             "cv2", "tensorboard", "lpips"}
 SOURCES = sorted((REPO / "nr3d_lib_tpu_torch").rglob("*.py")) + \
     sorted((REPO / "examples_torch").glob("*.py")) + \
     [REPO / "chip_smoke.py", REPO / "chip_ab.py"]
@@ -73,7 +75,11 @@ def test_sources_are_found():
             "bindings.py", "plot_basic.py", "train_neus_object.py",
             "train_nerf_synthetic.py", "train_forest_street.py",
             "train_dynamic_scene.py", "train_generative_shapes.py",
-            "train_conditional_dynamic.py"} <= names
+            "train_conditional_dynamic.py", "config.py", "fmt.py",
+            "profile.py", "chunking.py", "checkpoint_sharded.py",
+            "forest_parallel.py", "table_parallel.py", "pipeline.py",
+            "plot_2d.py", "plot_3d.py", "gui_datalayers.py",
+            "viewer.py"} <= names
     assert len(SOURCES) > 30
 
 

@@ -83,7 +83,16 @@ TransformExpSE3 ∘ TransformRT) against
 the CPU route (loss within 1e-4 relative, the gradients in (w, v, θ)
 within 1e-2 relative L2, B1 want_g and B2 and B4 with dL/dx launched);
 `packed_sort` on the card bitwise the CPU's on keys with many ties
-(stable).
+(stable). Infra and multi-GPU (ROADMAP A15): a small F=4 NeuS step on two
+gloo ranks that share the card (`spawn`ed, the rank body in
+`tests/torch_parallel_ranks.py`; the kernels built before) against one
+process on the two halves with the same draws (losses within 1e-5 and
+step 1's gradients within 1e-5 relative L2 — B2's atomics —, the
+parameters within 1e-4; the two ranks the same bits); `loop_chunks`
+over B1 the bits of one call, one launch a chunk; `instantiate` of
+`examples/configs/lotd_nerf_w4.yaml` on the card (its render launches B1
+and B5 and agrees with the CPU route on at least 99% of the rays within
+1e-4).
 """
 
 import numpy as np
@@ -2954,3 +2963,88 @@ def test_packed_sort_stable_on_cuda(cuda):
     k, r, pay = want
     same = (k[1:] == k[:-1]) & (r[1:] == r[:-1])
     assert int(same.sum()) > n // 2 and bool((pay[1:] > pay[:-1])[same].all())
+
+
+def test_ddp_neus_step_on_two_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    import multiprocessing as mp
+    import os
+
+    import torch_parallel_ranks as R
+
+    _build.build_all(["brick4", "gather1d"])     # the ranks only load
+    inp = R.neus_inputs(2)
+    torch.save(inp, tmp_path / "inputs.pt")
+    procs = [mp.get_context("spawn").Process(
+        target=R.run, args=(r, 2, str(tmp_path), "cuda")) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+    assert not alive and [p.exitcode for p in procs] == [0, 0]
+    outs = [torch.load(os.path.join(tmp_path, f"rank{r}.pt"),
+                       weights_only=False) for r in range(2)]
+    # the reference steps on rank 0's gradients (B2's atomics): every
+    # step's loss and gradients are held on the ranks' own state
+    losses, grads, params = R.neus_reference(inp, cuda,
+                                             forced=outs[0]["neus_grads"])
+    for out in outs:
+        torch.testing.assert_close(out["neus_losses"], losses.cpu(),
+                                   rtol=1e-6, atol=0)
+        for got, want in zip(out["neus_grads"], grads):
+            assert set(got) == set(want)
+            for k, g in want.items():
+                assert float((got[k] - g).norm() / g.norm()) <= 1e-5, k
+        for k, p in params.items():
+            err = (out["neus_params"][k] - p.cpu()).norm() / p.norm().cpu()
+            assert float(err) <= 1e-4, k
+    for k, p in outs[0]["neus_params"].items():
+        assert torch.equal(p, outs[1]["neus_params"][k]), k
+    assert torch.equal(outs[0]["neus_occ"], outs[1]["neus_occ"])
+
+
+def test_loop_chunks_over_b1_is_bitwise(cuda):
+    from nr3d_lib_tpu_torch.ops.chunking import loop_chunks
+
+    meta, x, table = _inputs(cuda, 100_000, seed=71)
+    with torch.no_grad():
+        _build.LAUNCHES.clear()
+        one = B4.brick4_encode(x, table, meta)
+        (chunks,), _ = loop_chunks(
+            lambda xc: ((B4.brick4_encode(xc, table, meta),), ()), (x,),
+            x.shape[0], 30_000, pad_values=(0.5,))
+        torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"brick4_fwd": 5}
+    assert torch.equal(chunks, one)
+
+
+def test_instantiate_lotd_nerf_w4_on_the_card(cuda):
+    from pathlib import Path
+
+    from nr3d_lib_tpu_torch.config import instantiate, load_config
+
+    cfg = load_config(Path(__file__).resolve().parents[1] / "examples" /
+                      "configs" / "lotd_nerf_w4.yaml")
+    model = instantiate(cfg.model, seed=int(cfg.seed), device="cuda")
+    model.populate()
+    cpu = instantiate(cfg.model, seed=int(cfg.seed), device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(72)
+    o = rng.normal(size=(1024, 3))
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * 2.0
+    d = -o / 2.0 + rng.normal(size=(1024, 3)) * 0.1
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (torch.from_numpy(a.astype(np.float32)) for a in (o, d))
+    with torch.no_grad():
+        _build.LAUNCHES.clear()
+        got, _ = model.ray_query(model.ray_test(o.to(cuda), d.to(cuda)))
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        want, _ = cpu.ray_query(cpu.ray_test(o[:256], d[:256]))
+    assert type(model).__module__ == "nr3d_lib_tpu_torch.models.model_base"
+    assert launches.get("brick4_fwd", 0) >= 1 and \
+        launches.get("gather1d", 0) >= 1, launches
+    err = (got["rgb_volume"][:256].cpu() - want["rgb_volume"]).abs().amax(-1)
+    assert float((err <= 1e-4).float().mean()) >= 0.99

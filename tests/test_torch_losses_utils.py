@@ -15,9 +15,11 @@ ROADMAP A19 against the JAX package on the CPU.
   scheduler type (and Adam with `clip_grad_norm`) against optax on the
   same gradients; `batchify_query`, `calc_grad_norm` (L2 and inf) and
   `clip_grad_norm`.
-* The public names: each of the 17 port modules of ROADMAP A7c/A19 and
-  the 12 of A14 (the ray, pack and maths layers) exports every name of
-  its JAX counterpart's `__all__`; the A7c classes have JAX's methods;
+* The public names: every module of the JAX package (walked with
+  `ast`) has its counterpart at the same path in the port, with every
+  name of its `__all__` (or, without one, every public top-level
+  function and class; `utils`' three JAX names renamed to torch ones);
+  the A7c classes have JAX's methods;
   the names outside an `__all__` that A14 ports (the cameras' path and
   interpolation helpers, `fisheye_undistort`, `maths`' package exports,
   `brick4_encode_frozen_x`) exist in both.
@@ -29,6 +31,9 @@ squares), gradients within 1e-5 relative L2, the ray–sphere hit flags
 exact; schedules within 1e-6 relative; parameters after each optimizer
 step within 1e-6 of their scale (float32 updates in another order).
 """
+
+import ast
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -447,39 +452,33 @@ def test_grad_norms_and_clip_match_jax():
 
 
 # ------------------------------------------ the public names
-# (module path in both packages, names the port leaves out)
-MODULES = [
-    ("models.accelerations.occgrid", ()),
-    ("models.accelerations.occgrid_accel", ()),
-    ("models.spatial.aabb", ()),
-    ("models.blocks", ()),
-    ("models.fields.sdf", ()),
-    ("models.fields.neus", ()),
-    ("models.fields.nerf", ()),
-    ("graphics.nerf", ()),
-    ("graphics.neus", ()),
-    ("graphics.raytest", ()),
-    ("models.loss.regularization", ()),
-    ("models.loss.recon", ()),
-    ("models.loss.safe", ()),
-    ("models.loss.ssim", ()),
-    ("models.loss.gem", ()),
-    ("models.utils", ()),
-    ("models.grid_encodings.lotd.lotd_encoding", ()),
-    # ROADMAP A14: the ray, pack and maths layers
-    ("graphics.pack_ops", ()),
-    ("graphics.raysample", ()),
-    ("graphics.cameras", ()),
-    ("graphics.pointcloud", ()),
-    ("models.attributes", ()),
-    ("models.tetrahedral", ()),
-    ("maths.transforms", ()),
-    ("maths.common", ()),
-    ("maths.slerp", ()),
-    ("maths.knn", ()),
-    ("maths.depth_completion", ()),
-    ("coordinates", ()),
-]
+# Every module of the JAX package, found by walking its files: the names
+# of its `__all__`, or (without one) its public top-level functions and
+# classes, read with `ast`. Each must exist in the port's module at the
+# same path (and be in its `__all__` where JAX's has one). The port
+# renames three JAX-specific utils names and nothing else.
+JAX_ROOT = Path(__file__).resolve().parents[1] / "nr3d_lib_tpu"
+RENAMES = {("utils", "jax_dtype"): "torch_dtype",
+           ("utils", "check_to_jax"): "check_to_torch",
+           ("utils", "timeit_jax"): "timeit_torch"}
+
+
+def _module_names(path):
+    """(dotted module path, [public names], whether from `__all__`)."""
+    rel = path.relative_to(JAX_ROOT).with_suffix("")
+    parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ".".join(parts), list(ast.literal_eval(node.value)), True
+    return ".".join(parts), [n.name for n in tree.body if isinstance(
+        n, (ast.FunctionDef, ast.ClassDef)) and not n.name.startswith("_")], \
+        False
+
+
+MODULES = [_module_names(p) for p in sorted(JAX_ROOT.rglob("*.py"))]
+MODULES = [m for m in MODULES if m[0] and m[1]]
 # names outside an `__all__` (module, names)
 EXTRA_NAMES = [
     ("graphics.cameras", ("fisheye_undistort", "smoothed_motion_interpolation",
@@ -511,22 +510,33 @@ METHODS = {
 }
 
 
-@pytest.mark.parametrize("name, left_out", MODULES,
-                         ids=[m for m, _ in MODULES])
-def test_public_names_match_jax(name, left_out):
+@pytest.mark.parametrize("name, names, in_all", MODULES,
+                         ids=[m for m, _, _ in MODULES])
+def test_public_names_match_jax(name, names, in_all):
     import importlib
 
-    jm = importlib.import_module(f"nr3d_lib_tpu.{name}")
     tm = importlib.import_module(f"nr3d_lib_tpu_torch.{name}")
-    missing = set(jm.__all__) - set(tm.__all__) - set(left_out)
+    missing = [n for n in names
+               if not hasattr(tm, RENAMES.get((name, n), n))
+               or (in_all and RENAMES.get((name, n), n)
+                   not in getattr(tm, "__all__", ()))]
     assert not missing, missing
-    for n in tm.__all__:
+    for n in getattr(tm, "__all__", ()):
         assert hasattr(tm, n), n
     for (mod, cls), methods in METHODS.items():
         if mod == name:
+            jm = importlib.import_module(f"nr3d_lib_tpu.{name}")
             for m in methods:
                 assert hasattr(getattr(jm, cls), m), (cls, m)
                 assert hasattr(getattr(tm, cls), m), (cls, m)
+
+
+def test_the_inventory_walks_the_whole_package():
+    names = {m for m, _, _ in MODULES}
+    assert {"config", "utils", "parallel", "parallel.pipeline", "viewer",
+            "plot.plot_3d", "models.blocks", "ops.chunking",
+            "checkpoint_sharded"} <= names
+    assert len(MODULES) > 80
 
 
 @pytest.mark.parametrize("name, names", EXTRA_NAMES,
