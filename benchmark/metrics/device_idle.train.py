@@ -1,0 +1,5 @@
+"""device_idle.train: Percent of the traced steps' wall time, at the pace
+of the run's untraced steps, in which no kernel, memset or copy of
+theirs ran on the device: 1 - the union of their intervals over it."""
+
+from harness.readers import device_idle as read  # noqa: F401

@@ -1,0 +1,7 @@
+"""mfu.train: Percent of the H100's float32 peak (67 TFLOP/s) that the
+operations the traced steps need take of their wall time at the pace of
+the run's untraced steps: every Linear layer's 2*in*out a row (x3 with
+its backward), the decoder's input-gradient pass for the nablas (x3
+under the eikonal loss), and the encoding's own operations."""
+
+from harness.readers import mfu as read  # noqa: F401
