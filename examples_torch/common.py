@@ -24,6 +24,7 @@ import torch
 from nr3d_lib_tpu_torch.checkpoint import CheckpointIO
 from nr3d_lib_tpu_torch.device import resolve_device
 from nr3d_lib_tpu_torch.models.utils import clip_by_global_norm_
+from nr3d_lib_tpu_torch.profile import profile
 
 __all__ = ["SEED_SHIFT", "device_of", "default_out", "generator",
            "Trainer", "resume_losses"]
@@ -81,20 +82,30 @@ class Trainer:
         return ckpt
 
     def step(self, it: int):
-        """Train step `it`; returns (loss, rgb loss), detached, unsynced."""
-        if self.lifecycle_seed is not False and \
-                it % self.lifecycle_every == 0:
-            g = None if self.lifecycle_seed is None else \
-                generator(self.model.device, self.lifecycle_seed + it)
-            self.model.training_before_per_step(it, g)
-        batch = self.sample(self.rays, self.gen)
-        self.opt.zero_grad(set_to_none=True)
-        loss, rgb_l = self.loss_fn(self.model, batch, self.gen)
-        loss.backward()
-        if self.clip is not None:
-            clip_by_global_norm_(self.model.parameters(), self.clip)
-        self.opt.step()
-        return loss.detach(), (loss if rgb_l is None else rgb_l).detach()
+        """Train step `it`; returns (loss, rgb loss), detached, unsynced.
+        Its spans: `step` (unit `it`) around `step.lifecycle` (where the
+        hook runs), `step.sample`, `step.forward` (the loss function),
+        `step.backward`, `step.clip` and `step.optimizer`."""
+        with profile("step", unit=it):
+            if self.lifecycle_seed is not False and \
+                    it % self.lifecycle_every == 0:
+                with profile("step.lifecycle"):
+                    g = None if self.lifecycle_seed is None else \
+                        generator(self.model.device, self.lifecycle_seed + it)
+                    self.model.training_before_per_step(it, g)
+            with profile("step.sample"):
+                batch = self.sample(self.rays, self.gen)
+            self.opt.zero_grad(set_to_none=True)
+            with profile("step.forward"):
+                loss, rgb_l = self.loss_fn(self.model, batch, self.gen)
+            with profile("step.backward"):
+                loss.backward()
+            if self.clip is not None:
+                with profile("step.clip"):
+                    clip_by_global_norm_(self.model.parameters(), self.clip)
+            with profile("step.optimizer"):
+                self.opt.step()
+            return loss.detach(), (loss if rgb_l is None else rgb_l).detach()
 
     def train(self, iters: int, logger, log_rgb: bool = True,
               on_step: Optional[Callable[[int], None]] = None) -> Dict:

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from nr3d_lib_tpu_torch.profile import count_backward_sync
+
 __all__ = ["cumsum", "cumprod"]
 
 
@@ -20,4 +22,10 @@ def cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def cumprod(x: torch.Tensor, dim: int) -> torch.Tensor:
-    return torch.cumprod(x.to(torch.float64), dim).to(x.dtype)
+    """Under autograd its backward tests the factors for a zero on the
+    host, one wait for the device (`count_backward_sync`; a factor that
+    is exactly 0 takes a slower path with two more)."""
+    out = torch.cumprod(x.to(torch.float64), dim)
+    if out.requires_grad:
+        count_backward_sync(out)
+    return out.to(x.dtype)

@@ -29,6 +29,7 @@ from nr3d_lib_tpu_torch.graphics.neus_ray_query import _sort_tvs
 from nr3d_lib_tpu_torch.graphics.raysample import (CDF_EPS, Draw,
                                                    batch_sample_cdf,
                                                    batch_sample_step_linear)
+from nr3d_lib_tpu_torch.profile import profile
 
 __all__ = ["nerf_ray_query_march_occ", "nerf_ray_query_march_occ_compressed",
            "nerf_ray_query_march_occ_multi_upsample_compressed",
@@ -103,15 +104,18 @@ def nerf_ray_query_march_occ_compressed(
     near, far, ray_mask = ray_tested["near"], ray_tested["far"], \
         ray_tested["mask"]
     o_n, d_n = space.normalize_rays(rays_o, rays_d)
-    t, dt, smask = _march(accel, o_n, d_n, near, far, draw)
+    with profile("query.march"):
+        t, dt, smask = _march(accel, o_n, d_n, near, far, draw)
     r, s = t.shape
     smask = smask & ray_mask[:, None]
 
     # compaction 1: occupancy (per-ray budget)
     b1 = max(int(s * compression_factor), 1)
-    (t1, dt1), valid1 = po.dense_to_budgeted([t, dt], smask, b1)
+    with profile("query.compact"):
+        (t1, dt1), valid1 = po.dense_to_budgeted([t, dt], smask, b1)
     x1 = o_n[:, None, :] + d_n[:, None, :] * t1[..., None]    # [R,B1,3]
-    den = model.forward_density(x1.reshape(r * b1, 3))
+    with profile("query.field"):
+        den = model.forward_density(x1.reshape(r * b1, 3))
     sigma = den["sigma"].reshape(r, b1)
     alpha1 = torch.where(valid1, tau_to_alpha(sigma * dt1),
                          torch.zeros_like(sigma))
@@ -133,34 +137,40 @@ def _radiance_compressed(model, o_n, d_n, rays_d, t1, alpha1, h1, valid1,
     trans = _scan.cumprod(torch.cat(
         [torch.ones_like(alpha1[:, :1]), 1.0 - alpha1[:, :-1]], -1), -1)
     keep2 = valid1 & (alpha1 > 0) & (trans > early_stop_eps)
-    (t2, alpha2, h2), valid2 = po.dense_to_budgeted(
-        [t1, alpha1, h1], keep2, b2)
+    with profile("query.compact"):
+        (t2, alpha2, h2), valid2 = po.dense_to_budgeted(
+            [t1, alpha1, h1], keep2, b2)
     alpha2 = torch.where(valid2, alpha2, torch.zeros_like(alpha2))
-
-    vw = ray_alpha_to_vw(alpha2)
-    acc = torch.sum(vw, -1)
-    depth = torch.sum(vw * t2, -1) / torch.clamp(acc, min=1e-10)
-    zero = torch.zeros_like(acc)
-    rendered = {"mask_volume": torch.where(ray_mask, acc, zero),
-                "depth_volume": torch.where(ray_mask, depth, zero)}
     if with_rgb:
-        x2 = o_n[:, None, :] + d_n[:, None, :] * t2[..., None]
-        v2 = rays_d[:, None, :].expand(r, b2, 3)
-        rgb = model.radiance(x2.reshape(r * b2, 3), v2.reshape(r * b2, 3),
-                             None, h2.reshape(r * b2, -1)).reshape(r, b2, 3)
-        rgb_out = torch.sum(vw[..., None] * rgb, -2)
-        rendered["rgb_volume"] = torch.where(ray_mask[:, None], rgb_out,
-                                             torch.zeros_like(rgb_out))
-    # packed view for downstream pack_ops consumers
-    ridx2 = torch.where(valid2,
-                        torch.arange(r, dtype=torch.int32,
-                                     device=t2.device)[:, None],
-                        torch.full_like(valid2, r, dtype=torch.int32))
-    volume_buffer = {"t_packed": t2.reshape(-1), "ridx": ridx2.reshape(-1),
-                     "alpha_packed": alpha2.reshape(-1),
-                     "vw_packed": vw.reshape(-1), "ray_mask": ray_mask,
-                     "t": t2, "alpha": alpha2, "vw": vw, "valid": valid2,
-                     "n_compact": torch.sum(valid2)}
+        with profile("query.field"):
+            x2 = o_n[:, None, :] + d_n[:, None, :] * t2[..., None]
+            v2 = rays_d[:, None, :].expand(r, b2, 3)
+            rgb = model.radiance(x2.reshape(r * b2, 3),
+                                 v2.reshape(r * b2, 3), None,
+                                 h2.reshape(r * b2, -1)).reshape(r, b2, 3)
+
+    with profile("query.composite"):
+        vw = ray_alpha_to_vw(alpha2)
+        acc = torch.sum(vw, -1)
+        depth = torch.sum(vw * t2, -1) / torch.clamp(acc, min=1e-10)
+        zero = torch.zeros_like(acc)
+        rendered = {"mask_volume": torch.where(ray_mask, acc, zero),
+                    "depth_volume": torch.where(ray_mask, depth, zero)}
+        if with_rgb:
+            rgb_out = torch.sum(vw[..., None] * rgb, -2)
+            rendered["rgb_volume"] = torch.where(ray_mask[:, None], rgb_out,
+                                                 torch.zeros_like(rgb_out))
+        # packed view for downstream pack_ops consumers
+        ridx2 = torch.where(valid2,
+                            torch.arange(r, dtype=torch.int32,
+                                         device=t2.device)[:, None],
+                            torch.full_like(valid2, r, dtype=torch.int32))
+        volume_buffer = {"t_packed": t2.reshape(-1),
+                         "ridx": ridx2.reshape(-1),
+                         "alpha_packed": alpha2.reshape(-1),
+                         "vw_packed": vw.reshape(-1), "ray_mask": ray_mask,
+                         "t": t2, "alpha": alpha2, "vw": vw,
+                         "valid": valid2, "n_compact": torch.sum(valid2)}
     return rendered, volume_buffer
 
 

@@ -21,6 +21,7 @@ from nr3d_lib_tpu_torch.graphics.raysample import (CDF_EPS, Draw,
                                                    batch_sample_pdf,
                                                    batch_sample_step_linear,
                                                    linspace_f32)
+from nr3d_lib_tpu_torch.profile import profile
 
 __all__ = ["_upsample_rounds", "_final_composite",
            "neus_ray_query_coarse_multi_upsample",
@@ -53,28 +54,31 @@ def _upsample_rounds(sdf_fn, o_n: torch.Tensor, d_n: torch.Tensor,
     the JAX package's key order; None samples the fixed quantiles.
     Returns (t [R, S + rounds·n_importance] sorted, valid). Sample
     placement carries no gradient, so the rounds run under no_grad (the
-    reference's `with torch.no_grad()` around the loop)."""
+    reference's `with torch.no_grad()` around the loop). Each round is a
+    span `query.upsample`, each SDF evaluation a span `query.field`."""
     r = t.shape[0]
 
     def eval_sdf(t_):
-        x = o_n[:, None, :] + d_n[:, None, :] * t_[..., None]
-        return sdf_fn(x.reshape(-1, 3)).reshape(r, t_.shape[1])
+        with profile("query.field"):
+            x = o_n[:, None, :] + d_n[:, None, :] * t_[..., None]
+            return sdf_fn(x.reshape(-1, 3)).reshape(r, t_.shape[1])
 
     sdf = eval_sdf(t)                       # the one full-slab evaluation
     for factor in upsample_inv_s_factors:
-        t, valid, sdf = _sort_tvs(t, valid, far, sdf)
-        sdf_m = torch.where(valid, sdf, torch.full_like(sdf, _BIG_SDF))
-        alpha = neus_ray_sdf_to_alpha(sdf_m, inv_s_base * factor,
-                                      append_cdf_1=False)          # [R,S-1]
-        w = ray_alpha_to_vw(alpha)
-        u = None if draw is None else \
-            draw((r, n_importance), CDF_EPS, 1.0 - CDF_EPS)
-        t_new = batch_sample_pdf(t, w, n_importance, u)            # [R,n_imp]
-        sdf_new = eval_sdf(t_new)           # only the new samples
-        t = torch.cat([t, t_new], -1)
-        valid = torch.cat([valid, torch.ones_like(t_new, dtype=torch.bool)],
-                          -1)
-        sdf = torch.cat([sdf, sdf_new], -1)
+        with profile("query.upsample"):
+            t, valid, sdf = _sort_tvs(t, valid, far, sdf)
+            sdf_m = torch.where(valid, sdf, torch.full_like(sdf, _BIG_SDF))
+            alpha = neus_ray_sdf_to_alpha(sdf_m, inv_s_base * factor,
+                                          append_cdf_1=False)      # [R,S-1]
+            w = ray_alpha_to_vw(alpha)
+            u = None if draw is None else \
+                draw((r, n_importance), CDF_EPS, 1.0 - CDF_EPS)
+            t_new = batch_sample_pdf(t, w, n_importance, u)        # [R,n_imp]
+            sdf_new = eval_sdf(t_new)       # only the new samples
+            t = torch.cat([t, t_new], -1)
+            valid = torch.cat([valid, torch.ones_like(t_new,
+                                                      dtype=torch.bool)], -1)
+            sdf = torch.cat([sdf, sdf_new], -1)
     t, valid, _ = _sort_tvs(t, valid, far, sdf)
     return t, valid
 

@@ -23,6 +23,7 @@ from nr3d_lib_tpu_torch.graphics.neus import neus_ray_sdf_to_alpha
 from nr3d_lib_tpu_torch.graphics.neus_ray_query import _upsample_rounds
 from nr3d_lib_tpu_torch.graphics.raysample import (Draw,
                                                    batch_sample_step_linear)
+from nr3d_lib_tpu_torch.profile import profile
 
 __all__ = ["neus_ray_query_march_occ_multi_upsample_compressed",
            "neus_ray_query_dynamic", "neus_ray_query_batched",
@@ -53,16 +54,18 @@ def neus_ray_query_march_occ_multi_upsample_compressed(
     near, far, ray_mask = ray_tested["near"], ray_tested["far"], \
         ray_tested["mask"]
     o_n, d_n = space.normalize_rays(rays_o, rays_d)
-    u_march = None if draw is None else \
-        draw((rays_o.shape[0], accel.max_steps_per_ray), 0.0, 1.0)
-    t, _, smask = accel.ray_march(o_n, d_n, near, far, u=u_march)
+    with profile("query.march"):
+        u_march = None if draw is None else \
+            draw((rays_o.shape[0], accel.max_steps_per_ray), 0.0, 1.0)
+        t, _, smask = accel.ray_march(o_n, d_n, near, far, u=u_march)
 
     def sdf_fn(x):
         return model.forward_sdf(x)["sdf"]
 
     if march_budget_factor < 1.0:
         b0 = max(int(t.shape[1] * march_budget_factor), 1)
-        (t,), smask = po.dense_to_budgeted([t], smask, b0)
+        with profile("query.compact"):
+            (t,), smask = po.dense_to_budgeted([t], smask, b0)
 
     t, valid = _upsample_rounds(sdf_fn, o_n, d_n, t, smask, far,
                                 upsample_inv_s, upsample_inv_s_factors,
@@ -73,8 +76,9 @@ def neus_ray_query_march_occ_multi_upsample_compressed(
         # cheap SDF-only pass → alphas → keep-mask (early termination)
         big = torch.full_like(t, _BIG_SDF)
         x = o_n[:, None, :] + d_n[:, None, :] * t[..., None]
-        sdf = torch.where(valid, sdf_fn(x.reshape(r * s, 3)).reshape(r, s),
-                          big)
+        with profile("query.field"):
+            sdf = sdf_fn(x.reshape(r * s, 3))
+        sdf = torch.where(valid, sdf.reshape(r, s), big)
         alpha = neus_ray_sdf_to_alpha(sdf, inv_s, append_cdf_1=True)
         alpha = torch.where(valid & ray_mask[:, None], alpha,
                             torch.zeros_like(alpha))
@@ -84,12 +88,25 @@ def neus_ray_query_march_occ_multi_upsample_compressed(
         keep = valid & (trans_excl > early_stop_eps) & (alpha > 0)
 
     b1 = max(int(s * compression_factor), 1)
-    (t_b,), valid_b = po.dense_to_budgeted([t], keep, b1)
+    with profile("query.compact"):
+        (t_b,), valid_b = po.dense_to_budgeted([t], keep, b1)
     x_b = o_n[:, None, :] + d_n[:, None, :] * t_b[..., None]   # [R,B,3]
     v_b = rays_d[:, None, :].expand(r, b1, 3)
 
-    out = model(x_b.reshape(r * b1, 3), v_b.reshape(r * b1, 3),
-                with_rgb=with_rgb, with_nablas=True)
+    with profile("query.field"):
+        out = model(x_b.reshape(r * b1, 3), v_b.reshape(r * b1, 3),
+                    with_rgb=with_rgb, with_nablas=True)
+    with profile("query.composite"):
+        return _compressed_composite(out, t_b, valid_b, ray_mask, inv_s,
+                                     with_rgb)
+
+
+def _compressed_composite(out: Dict, t_b: torch.Tensor,
+                          valid_b: torch.Tensor, ray_mask: torch.Tensor,
+                          inv_s, with_rgb: bool) -> Tuple[Dict, Dict]:
+    """The NeuS composite of the compressed query's final [R, B] slab and
+    its volume buffer (dense and packed)."""
+    r, b1 = t_b.shape
     sdf_b = torch.where(valid_b, out["sdf"].reshape(r, b1),
                         torch.full_like(t_b, _BIG_SDF))
     alpha_b = torch.where(valid_b,

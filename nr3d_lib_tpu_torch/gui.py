@@ -10,6 +10,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from nr3d_lib_tpu_torch.profile import count_sync, profile
 from nr3d_lib_tpu_torch.utils import to_numpy
 
 __all__ = ["NeuralRenderer", "render_turntable"]
@@ -33,6 +34,7 @@ class NeuralRenderer:
         self.intr = torch.as_tensor(intr, dtype=torch.float32).to(self.device)
         self.uv = pixel_grid(self.h, self.w, device=self.device).reshape(-1, 2)
         self.ray_chunk = ray_chunk
+        self.frames = 0     # frames rendered: the unit of a frame's spans
 
     @torch.no_grad()
     def render(self, c2w, generator: Optional[torch.Generator] = None,
@@ -41,28 +43,42 @@ class NeuralRenderer:
                ) -> Dict[str, np.ndarray]:
         """c2w [4,4] → {output name: [h, w, ...] numpy}. ray_extras: scalar
         per-frame conditions broadcast to every ray, e.g. {"ts": 0.3} or
-        {"bidx": 2} (names ending in "idx" as int32)."""
+        {"bidx": 2} (names ending in "idx" as int32). Its spans: `frame`
+        (unit: the frames rendered before it) around `frame.rays`, then a
+        `frame.chunk` (ray test and query) and a `frame.to_host` (its
+        outputs to numpy) a chunk, and `frame.assemble`."""
         from nr3d_lib_tpu_torch.graphics.cameras import pinhole_get_rays
 
-        c2w = torch.as_tensor(c2w, dtype=torch.float32).to(self.device)
-        o, d = pinhole_get_rays(self.uv, self.intr, c2w)
-        outs = {}
-        for s in range(0, o.shape[0], self.ray_chunk):
-            rt = self.model.ray_test(o[s:s + self.ray_chunk],
-                                     d[s:s + self.ray_chunk])
-            n = rt["rays_o"].shape[0]
-            for name, val in (ray_extras or {}).items():
-                dt = torch.int32 if name.endswith("idx") else torch.float32
-                rt[name] = torch.full((n,), val, dtype=dt, device=self.device)
-            rendered, _ = self.model.ray_query(rt, generator=generator,
-                                               with_rgb=with_rgb)
-            for k, v in rendered.items():
-                outs.setdefault(k, []).append(to_numpy(v))
-        images = {}
-        for k, chunks in outs.items():
-            arr = np.concatenate(chunks, axis=0)
-            images[k] = arr.reshape((self.h, self.w) + arr.shape[1:])
-        return images
+        with profile("frame", unit=self.frames):
+            self.frames += 1
+            with profile("frame.rays"):
+                if not torch.is_tensor(c2w) or c2w.device.type == "cpu":
+                    count_sync()    # a host pose's copy to a card waits
+                c2w = torch.as_tensor(c2w, dtype=torch.float32).to(
+                    self.device)
+                o, d = pinhole_get_rays(self.uv, self.intr, c2w)
+            outs = {}
+            for s in range(0, o.shape[0], self.ray_chunk):
+                with profile("frame.chunk"):
+                    rt = self.model.ray_test(o[s:s + self.ray_chunk],
+                                             d[s:s + self.ray_chunk])
+                    n = rt["rays_o"].shape[0]
+                    for name, val in (ray_extras or {}).items():
+                        dt = torch.int32 if name.endswith("idx") else \
+                            torch.float32
+                        rt[name] = torch.full((n,), val, dtype=dt,
+                                              device=self.device)
+                    rendered, _ = self.model.ray_query(
+                        rt, generator=generator, with_rgb=with_rgb)
+                with profile("frame.to_host"):
+                    for k, v in rendered.items():
+                        outs.setdefault(k, []).append(to_numpy(v))
+            with profile("frame.assemble"):
+                images = {}
+                for k, chunks in outs.items():
+                    arr = np.concatenate(chunks, axis=0)
+                    images[k] = arr.reshape((self.h, self.w) + arr.shape[1:])
+            return images
 
 
 def render_turntable(model, *, n_frames: int = 12, radius: float = 3.0,

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from nr3d_lib_tpu_torch.ops.occgrid_march import occgrid_query
+from nr3d_lib_tpu_torch.profile import count_sync
 
 __all__ = ["OccGridEma", "OccGridGetter", "cell_centers",
            "sample_cells_uniform"]
@@ -35,6 +36,7 @@ def cell_centers(resolution: Sequence[int], dtype=torch.float32,
 def _cell_points(idx: torch.Tensor, resolution: Sequence[int],
                  generator: torch.Generator) -> torch.Tensor:
     """A uniform point inside each cell idx [n,3] → x [n,3] in [-1,1]."""
+    count_sync()        # the resolution's copy to the card waits for it
     res = torch.as_tensor(resolution, dtype=torch.float32, device=idx.device)
     u = torch.rand(idx.shape, generator=generator, device=idx.device)
     return (idx.to(torch.float32) + u) / res * 2.0 - 1.0

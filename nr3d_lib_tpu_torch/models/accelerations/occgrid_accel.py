@@ -14,6 +14,7 @@ from nr3d_lib_tpu_torch.models.accelerations.occgrid import (OccGridEma,
                                                             OccGridGetter)
 from nr3d_lib_tpu_torch.ops.occgrid_march import (occgrid_march_dense,
                                                   occgrid_query)
+from nr3d_lib_tpu_torch.profile import profile
 
 __all__ = ["OccGridAccel"]
 
@@ -54,13 +55,15 @@ class OccGridAccel(nn.Module):
              query_fn: Callable[[torch.Tensor], torch.Tensor]) -> None:
         """Per-iteration maintenance: every `update_every` iterations
         (it = 0 included, as in JAX), the EMA re-query of the grid, or the
-        getter's re-query of every cell (which draws nothing)."""
+        getter's re-query of every cell (which draws nothing), in the
+        span `occ.update`."""
         if it % self.update_every != 0:
             return
-        if self.use_ema:
-            self.occ.step_update(query_fn, generator)
-        else:
-            self.occ.update(query_fn)
+        with profile("occ.update"):
+            if self.use_ema:
+                self.occ.step_update(query_fn, generator)
+            else:
+                self.occ.update(query_fn)
 
     def collect_samples(self, x: torch.Tensor, vals: torch.Tensor) -> None:
         """Training-time samples into the EMA grid (the getter ignores

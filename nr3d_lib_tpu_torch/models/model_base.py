@@ -27,8 +27,20 @@ from nr3d_lib_tpu_torch.device import resolve_device
 from nr3d_lib_tpu_torch.graphics.raysample import Draw, uniform_draw
 from nr3d_lib_tpu_torch.models.accelerations import OccGridAccel
 from nr3d_lib_tpu_torch.models.spatial import AABBSpace
+from nr3d_lib_tpu_torch.profile import mark_kept, profile
 
 __all__ = ["ModelMixin", "LoTDNeuSModel", "LoTDNeRFModel"]
+
+
+def _query(fn, *args, **kwargs) -> Tuple[Dict, Dict]:
+    """The query `fn(*args, **kwargs)` in the span `query`; a compacting
+    query charges it its final slots (rays × budget of the last field
+    pass) and the tensor that counts those holding a sample."""
+    with profile("query"):
+        rendered, vb = fn(*args, **kwargs)
+        if "n_compact" in vb:
+            mark_kept(vb["valid"].numel(), vb["n_compact"])
+    return rendered, vb
 
 
 class ModelMixin:
@@ -146,9 +158,9 @@ class LoTDNeuSModel(nn.Module, ModelMixin):
         if draw is None and generator is not None:
             draw = uniform_draw(generator)
         if mode == "coarse_multi_upsample":
-            return Q.neus_ray_query_coarse_multi_upsample(
-                self, self.space, ray_tested, with_rgb=with_rgb, draw=draw,
-                **cfg)
+            return _query(Q.neus_ray_query_coarse_multi_upsample, self,
+                          self.space, ray_tested, with_rgb=with_rgb,
+                          draw=draw, **cfg)
         fn = {"march_occ_multi_upsample":
               Q.neus_ray_query_march_occ_multi_upsample,
               "march_occ_multi_upsample_compressed":
@@ -156,8 +168,8 @@ class LoTDNeuSModel(nn.Module, ModelMixin):
               "sphere_trace": Q.neus_ray_query_sphere_trace}.get(mode)
         if fn is None:
             raise ValueError(f"Unknown query_mode: {mode}")
-        return fn(self, self.accel, self.space, ray_tested,
-                  with_rgb=with_rgb, draw=draw, **cfg)
+        return _query(fn, self, self.accel, self.space, ray_tested,
+                      with_rgb=with_rgb, draw=draw, **cfg)
 
 
 class LoTDNeRFModel(nn.Module, ModelMixin):
@@ -226,5 +238,5 @@ class LoTDNeRFModel(nn.Module, ModelMixin):
               }.get(mode)
         if fn is None:
             raise ValueError(f"Unknown query_mode: {mode}")
-        return fn(self, self.accel, self.space, ray_tested,
-                  with_rgb=with_rgb, draw=draw, **cfg)
+        return _query(fn, self, self.accel, self.space, ray_tested,
+                      with_rgb=with_rgb, draw=draw, **cfg)

@@ -1,36 +1,87 @@
-"""Hierarchical profiler: a host wall-time tree whose nodes also annotate
-the device trace (port of nr3d_lib_tpu/profile.py).
+"""Hierarchical profiler and span recorder: a host wall-time tree whose
+nodes also annotate the device trace (port of nr3d_lib_tpu/profile.py),
+and an always-on ring of the spans the program opens.
 
 `Profiler(warmup, record_frames, record_depth, then, sync)`, the
 `@profile` decorator or `with profile("name"):` context, `debug_profile`
-and `device_trace` keep JAX's names. Each node is a
-`torch.profiler.record_function` span as well, so a trace taken by
-`device_trace` (or any `torch.profiler` session) carries the node names,
-as `jax.named_scope` does in an XLA trace. `sync=True` calls
-`torch.cuda.synchronize()` at node exit, so a node's host time covers
-the device work it queued.
+and `device_trace` keep JAX's names. Every scope opens a span:
+
+* it always goes into a bounded ring of the calling thread
+  (`RING_SPANS`, the oldest dropped first), which `spans()` reads
+  without clearing: its name, its parent span, its unit (the training
+  step's `it` or the renderer's frame number, the parent's where not
+  given), its start and end, and the counters charged to it
+  (`count_sync`, `count_backward_sync`, `mark_kept`);
+* it feeds a `Profiler`'s tree while that profiler records (`report()`);
+  `sync=True` calls `torch.cuda.synchronize()` at node exit, so a node's
+  host time covers the device work it queued;
+* while a `torch.profiler` session is on, and only then, it is a
+  record-function range as well, so a trace taken by `device_trace` (or
+  any session recording host activity) carries the span names, as
+  `jax.named_scope` does in an XLA trace.
+
+Spans are stamped in ns on `time.time_ns()`, the clock torch.profiler
+stamps its events with (`kineto_results.trace_start_ns()`, an event's
+`start_ns()`), so a span and the device work it queued share one
+timeline. Outside a profiler session a span costs two clock reads, a
+list and a ring append.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
+import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
 
 __all__ = ["Profiler", "profile", "debug_profile", "get_default_profiler",
-           "enable_profiling", "device_trace"]
+           "enable_profiling", "device_trace", "Span", "spans",
+           "count_sync", "count_backward_sync", "mark_kept", "RING_SPANS"]
+
+# spans each thread keeps: 50 s of the F=4 NeuS training step (~2,000
+# steps of ~21 spans) or of 800² frames (~670 of ~13) fit with room
+RING_SPANS = 65_536
+_now = time.time_ns
 
 
 def _sync() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
+        count_sync()
         torch.cuda.synchronize()
 
 
+class _Thread:
+    """One thread's recorder state: its ring of closed span records (the
+    oldest dropped first), its innermost open one, and its scopes by
+    name."""
+    __slots__ = ("ring", "cur", "scopes")
+
+    def __init__(self):
+        self.ring: Deque[list] = collections.deque(maxlen=RING_SPANS)
+        self.cur: Optional[list] = None
+        self.scopes: Dict[str, _Scope] = {}
+
+
+_local = threading.local()
+
+
+def _thread() -> _Thread:
+    try:
+        return _local.state
+    except AttributeError:
+        state = _local.state = _Thread()
+        _local.scopes = state.scopes
+        return state
+
+
 class ProfileNode:
-    __slots__ = ("name", "parent", "children", "total", "count", "_t0")
+    __slots__ = ("name", "parent", "children", "total", "count")
 
     def __init__(self, name: str, parent: Optional["ProfileNode"] = None):
         self.name = name
@@ -38,13 +89,159 @@ class ProfileNode:
         self.children: Dict[str, ProfileNode] = {}
         self.total = 0.0
         self.count = 0
-        self._t0 = 0.0
 
     def child(self, name: str) -> "ProfileNode":
         node = self.children.get(name)
         if node is None:
             node = self.children[name] = ProfileNode(name, self)
         return node
+
+
+# A span's record while it is open and in the ring, a list (the cheapest
+# object to make): [name, unit, parent record, t0, t1, syncs, slots,
+# kept, record_function or None, Profiler node or None]. `spans()` turns
+# records into `Span`s.
+class _Scope:
+    """A scope of one name (and unit) of the thread that made it, which
+    `with` enters any number of times, nested too: each entry opens a
+    record and each exit closes it into the thread's ring."""
+    __slots__ = ("name", "unit", "state")
+
+    def __init__(self, name: str, unit: Optional[int], state: _Thread):
+        self.name, self.unit, self.state = name, unit, state
+
+    def __enter__(self):
+        state = self.state
+        rec = [self.name, self.unit, state.cur, 0, 0, 0, 0, None, None,
+               None]
+        if _autograd_profiler._is_profiler_enabled:
+            rf = rec[8] = _RecordFunctionFast(self.name)
+            rf.__enter__()
+        state.cur = rec
+        rec[3] = _now()
+
+    def __exit__(self, exc_type, exc, tb):
+        t1 = _now()
+        state = self.state
+        rec = state.cur
+        rec[4] = t1
+        if rec[8] is not None:
+            rec[8].__exit__(exc_type, exc, tb)
+        state.cur = rec[2]
+        state.ring.append(rec)
+        return False
+
+    def __call__(self, fn):
+        """As a decorator: the span around every call of `fn`."""
+        name, unit = self.name, self.unit
+
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            with profile(name, unit):
+                return fn(*args, **kwargs)
+
+        return wrapped
+
+
+class _TreeScope(_Scope):
+    """A scope that also feeds `prof`'s tree while it records."""
+    __slots__ = ("prof",)
+
+    def __init__(self, name: str, unit: Optional[int], prof: "Profiler"):
+        super().__init__(name, unit, _thread())
+        self.prof = prof
+
+    def __enter__(self):
+        super().__enter__()
+        prof = self.prof
+        if prof.recording:
+            node = self.state.cur[9] = prof._cur.child(self.name)
+            prof._cur, prof._depth = node, prof._depth + 1
+
+    def __exit__(self, exc_type, exc, tb):
+        prof, rec = self.prof, self.state.cur
+        node = rec[9]
+        if node is not None and prof.sync:
+            _sync()
+        super().__exit__(exc_type, exc, tb)
+        if node is not None:
+            node.total += (rec[4] - rec[3]) * 1e-9
+            node.count += 1
+            prof._cur, prof._depth = node.parent, prof._depth - 1
+        return False
+
+    def __call__(self, fn):
+        name, unit, prof = self.name, self.unit, self.prof
+
+        @functools.wraps(fn)
+        def wrapped(*args, **kwargs):
+            with _TreeScope(name, unit, prof):
+                return fn(*args, **kwargs)
+
+        return wrapped
+
+
+class Span:
+    """A span as `spans()` gives it: its `name`; its `parent` span (None
+    at the top); its `unit`, the step or frame it belongs to (its
+    parent's where not given); `t0` and `t1`, ns on torch.profiler's
+    clock (`t1` 0 while open); `syncs`, the host's waits for the device
+    charged to it and not to a child; `slots` and `kept`, a query's
+    final sample slots (a host int) and the tensor that counts those
+    holding a sample (on the device: read only where a reader asks)."""
+    __slots__ = ("name", "parent", "unit", "t0", "t1", "syncs", "slots",
+                 "kept")
+
+    def __init__(self, rec: list, parent: Optional["Span"]):
+        self.name, self.parent = rec[0], parent
+        self.unit = rec[1] if rec[1] is not None or parent is None else \
+            parent.unit
+        self.t0, self.t1, self.syncs, self.slots, self.kept = rec[3:8]
+
+
+def spans() -> List[Span]:
+    """The calling thread's closed spans that the ring still holds, in the
+    order they closed (a parent after its children). Not cleared."""
+    made: Dict[int, Span] = {}
+
+    def span(rec: list) -> Span:
+        s = made.get(id(rec))
+        if s is None:
+            up = rec[2]
+            s = made[id(rec)] = Span(rec, None if up is None else span(up))
+        return s
+
+    return [span(rec) for rec in list(_thread().ring)]
+
+
+def count_sync(n: int = 1) -> None:
+    """Charge `n` host waits for the device to the innermost open span."""
+    cur = _thread().cur
+    if cur is not None:
+        cur[5] += n
+
+
+def count_backward_sync(t: torch.Tensor) -> None:
+    """The backward of the op that made `t` waits for the device once:
+    charge it, when it runs, to the span then innermost open in this
+    thread (autograd runs a card's backward in a thread of its own while
+    this one waits in `backward()`)."""
+    state = _thread()
+
+    def charge(grad):
+        cur = state.cur
+        if cur is not None:
+            cur[5] += 1
+
+    t.register_hook(charge)
+
+
+def mark_kept(slots: int, kept: torch.Tensor) -> None:
+    """Give the innermost open span a query's final sample slots and the
+    tensor that counts those holding a sample."""
+    cur = _thread().cur
+    if cur is not None:
+        cur[6], cur[7] = slots, kept
 
 
 class Profiler:
@@ -85,24 +282,8 @@ class Profiler:
                 and self._depth < self.record_depth)
 
     # -------------------------------------------------------------- scopes
-    @contextlib.contextmanager
-    def scope(self, name: str):
-        if not self.recording:
-            yield
-            return
-        node = self._cur.child(name)
-        parent = self._cur
-        self._cur, self._depth = node, self._depth + 1
-        node._t0 = time.perf_counter()
-        try:
-            with torch.profiler.record_function(name):
-                yield
-        finally:
-            if self.sync:
-                _sync()
-            node.total += time.perf_counter() - node._t0
-            node.count += 1
-            self._cur, self._depth = parent, self._depth - 1
+    def scope(self, name: str, unit: Optional[int] = None) -> _Scope:
+        return _TreeScope(name, unit, self)
 
     # -------------------------------------------------------------- report
     def report(self, min_frac: float = 0.0) -> str:
@@ -147,37 +328,25 @@ def enable_profiling(**kwargs) -> Profiler:
     return _default
 
 
-def profile(name_or_fn=None):
-    """``@profile`` decorator or ``with profile("name"):`` context, on the
-    default profiler."""
+def profile(name_or_fn=None, unit: Optional[int] = None) -> _Scope:
+    """``@profile`` decorator, or ``with profile("name"):`` context (also
+    a decorator, ``@profile("name")``): a span of the calling thread, on
+    the default profiler's tree while it is enabled. `unit` ids the step
+    or frame the span and its children belong to."""
+    if unit is None and not _default.enabled:
+        try:
+            return _local.scopes[name_or_fn]
+        except (AttributeError, KeyError):
+            pass
     if callable(name_or_fn):
-        fn = name_or_fn
-
-        @functools.wraps(fn)
-        def wrapped(*args, **kwargs):
-            with _default.scope(fn.__qualname__):
-                return fn(*args, **kwargs)
-
-        return wrapped
-    name = name_or_fn
-
-    class _Ctx:
-        def __enter__(self):
-            self._cm = _default.scope(name)
-            return self._cm.__enter__()
-
-        def __exit__(self, *exc):
-            return self._cm.__exit__(*exc)
-
-        def __call__(self, fn):
-            @functools.wraps(fn)
-            def wrapped(*args, **kwargs):
-                with _default.scope(name):
-                    return fn(*args, **kwargs)
-
-            return wrapped
-
-    return _Ctx()
+        return profile(name_or_fn.__qualname__, unit)(name_or_fn)
+    if _default.enabled:
+        return _TreeScope(name_or_fn, unit, _default)
+    state = _thread()
+    if unit is not None:
+        return _Scope(name_or_fn, unit, state)
+    scope = state.scopes[name_or_fn] = _Scope(name_or_fn, None, state)
+    return scope
 
 
 @contextlib.contextmanager

@@ -20,6 +20,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from nr3d_lib_tpu_torch.profile import count_sync
+
 __all__ = ["import_str", "nested_dict_keys", "nested_dict_items",
            "nested_dict_get", "nested_dict_set", "collate_nested_dict",
            "tree_map",
@@ -101,8 +103,11 @@ def tree_map(fn, tree):
 
 
 def to_numpy(x) -> np.ndarray:
-    """A tensor on any device, or an array-like → numpy."""
+    """A tensor on any device, or an array-like → numpy. A tensor's read
+    is one `syncs` of the innermost open span (on a card the host waits
+    for it)."""
     if hasattr(x, "detach"):
+        count_sync()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
