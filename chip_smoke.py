@@ -72,29 +72,31 @@
    must be ≥ 99%.
    - F=4 NeuS serving (`LoTDNeuSModel`, experiments/bench_render.py
      `main_train` kind neus_compressed_w4): 10 renders of 4096 rays (6 B1,
-     1 B3, 1 B5 per render); the nablas by autograd (B1 want_g, B2 with
-     dL/dx) against the split nablas (B3); one train step against the CPU
+     1 B3, 1 fused march `occ_march_budget` per render); the nablas by
+     autograd (B1 want_g, B2 with dL/dx) against the split nablas (B3); one train step against the CPU
      port; 2 warm-up and 20 timed train steps that cross an occupancy
-     update (6 B1 + 1 per update, 1 each of B2, B3, B4, B5 per step).
+     update (6 B1 + 1 per update, 1 each of B2, B3, B4 and the fused
+     march per step).
      One more render records the points of each B1 launch (`[B1
      launches]`: their sum against B1's row weighs its time).
    - Path A, F=2 NeRF serving (`LoTDNeRFModel`, bench_render.py `main`
      with use_brick=True, mode march_occ_compressed; 23,005 table rows):
-     10 renders of 8192 rays (1 B6 and 1 B5 per render), then one render
-     in the model's default mode march_occ (1 B6 on 786,432 points, 1 B5).
+     10 renders of 8192 rays (1 B6 and 1 fused march per render), then one
+     render in the model's default mode march_occ (1 B6 on 786,432 points,
+     1 B5).
    - Path B, F=2 NeuS (`LoTDNeuSModel`, bench_render.py `main_train` kind
      neus_compressed with use_brick=True; 9,648 table rows): 10 renders of
-     4096 rays (6 B6, 1 B8, 1 B5 per render; `[B6 launches]` as B1's,
+     4096 rays (6 B6, 1 B8, 1 fused march per render; `[B6 launches]` as B1's,
      its time over the bound the sum of the six launches' own times less
      their bounds);
      the autograd nablas (B6
      want_g, B7 with dL/dx); one train step against the CPU port; 2
      warm-up and 20 timed steps (6 B6 + 1 per update, 1 each of B7, B8,
-     B9, B5 per step).
+     B9 and the fused march per step).
    - `nerf_w4_serve_8192`, the F=4 NeRF (bench_render.py `main(w4=True)`:
      lod_res [16, 64, 512], F=4, Dense/Hash/Hash): 10 renders of 8192
-     rays in march_occ_compressed, then 10 in march_occ (1 B1 and 1 B5
-     per render in each).
+     rays in march_occ_compressed, then 10 in march_occ (1 B1 a render in
+     each, and 1 fused march or 1 B5).
    - `nerf_f2_fixed_train_4096`, the NeRF train step (bench_render.py
      `main_train` kind nerf, use_brick=True: path A's field,
      `nerf_ray_query_fixed` at 64 samples a ray, MSE(rgb, |d|),
@@ -173,7 +175,8 @@
      hit share.
    - `nerf_f2_mup_serve_8192`: path A's model in
      `march_occ_multi_upsample_compressed` (0.25, 32 fine samples, no
-     coarse ones): 10 renders of 8192 rays (2 B6, 1 B5 per render).
+     coarse ones): 10 renders of 8192 rays (2 B6, 1 fused march per
+     render).
    - `dyn_permuto_xla_serve_4096` and `dyn_permuto_xla_train_4096`:
      `DynamicPermutoNeuSModel` at its default field, the classic 4D
      lattice (res [8 … 128], 2 features, 2^17 entries a level: plain
@@ -757,10 +760,10 @@ def _profile(run, wall_ms: float, what: str) -> None:
     # a kernel's key is its signature, "void name<...>(...)" for a
     # template instance
     ours = [r for r in rows if r[2].removeprefix("void ").startswith(
-        ("brick", "gather1d", "permuto", "gs_blend"))]
+        ("brick", "gather1d", "occ_march", "permuto", "gs_blend"))]
     ours_ms = sum(r[0] for r in ours)
     print(f"[profile] the port's kernels (brick4_*, brick_*, gather1d, "
-          f"permuto4_*, permuto_*, gs_blend*): "
+          f"occ_march_*, permuto4_*, permuto_*, gs_blend*): "
           f"{ours_ms:.4f} ms, {ours_ms / max(total, 1e-9) * 100:.1f}% of the "
           f"device time")
     # the top 20, then the port's kernels below them
@@ -1409,8 +1412,10 @@ def _f4_kernel_phases(model, o, d, kernels) -> "torch.Tensor":
         print(f"[B5 gather1d] kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
               f"values[row, lane] {library_ms:.4f} ms | bound "
               f"{bound[0]:.4f} ms ({bound[1]})")
+        # launches counted where B5 still runs: the compressed queries
+        # march with occ_march_budget, the dense mode march_occ with B5
         _kernel_row(kernels, name="gather1d (B5)", key="gather1d",
-                    path="f4 render",
+                    path="nerf_w4_serve_8192 march_occ",
                     source="nr3d_lib_tpu_torch/csrc/gather1d.cu",
                     replaces="nr3d_lib_tpu/ops/gather1d.py:30", err=err,
                     ms=ms, plain_ms=plain_ms, bound=bound,
@@ -1559,6 +1564,76 @@ def _f4_kernel_phases(model, o, d, kernels) -> "torch.Tensor":
                     ms_permuted=ms_perm, atomics_naive=naive,
                     atomic_groups=groups)
     return x3
+
+
+def _occ_march_phase(dev, kernels) -> None:
+    """The fused march and first budget compaction (`occ_march_budget`,
+    `csrc/occ_march.cu`) at both benchmark cells' marches
+    (`tests/torch_march_cells.py`): t, dt and valid bitwise the dense
+    route's on the card (`occgrid_march_dense`, the ray mask,
+    `dense_to_budgeted`), the kernel timed beside that route and its
+    bound (each ray's inputs and [B] outputs once, the grid and the step
+    tables once)."""
+    import torch
+    from nr3d_lib_tpu_torch.graphics.pack_ops import dense_to_budgeted
+    from nr3d_lib_tpu_torch.ops import _build
+    from nr3d_lib_tpu_torch.ops import occgrid_march as OM
+    from torch.autograd import DeviceType
+
+    sys.path.insert(0, str(REPO / "tests"))
+    try:
+        import torch_march_cells as MC
+    finally:
+        sys.path.remove(str(REPO / "tests"))
+
+    for name in MC.CELLS:
+        c = MC.cell(name, dev, seed=5)
+        occ, mask, u, b = c["occ"], c["ray_mask"], c["u"], c["budget"]
+        args = (occ, c["o"], c["d"], c["near"], c["far"])
+        kw = dict(n_steps=c["n_steps"], step_size=c["step_size"], u=u)
+
+        def fused():
+            return OM.occgrid_march_budgeted(*args, **kw, budget=b,
+                                             ray_mask=mask)
+
+        def dense():
+            t, dt, m = OM.occgrid_march_dense(*args, **kw)
+            if mask is not None:
+                m = m & mask[:, None]
+            (t, dt), valid = dense_to_budgeted([t, dt], m, b)
+            return t, dt, valid
+
+        before = _build.LAUNCHES["occ_march_budget"]
+        got, want = fused(), dense()
+        torch.cuda.synchronize()
+        _require(_build.LAUNCHES["occ_march_budget"] == before + 1,
+                 f"{name}: one occ_march_budget launch")
+        same = all(torch.equal(a, w) for a, w in zip(got, want))
+        _require(same, f"{name}: the fused march is not the dense route's "
+                 f"bits")
+        r = c["o"].shape[0]
+        ms = _time_ms(fused)
+        plain_ms = _time_ms(dense)
+        events = sum(ev.count for ev in _profiled(dense, 1).key_averages()
+                     if ev.device_type == DeviceType.CUDA
+                     and "spin_kernel" not in ev.key)
+        n_bytes = (r * (24 + 8 + (mask is not None)) + r * b * 9 +
+                   occ.numel() + 8 * c["n_steps"] +
+                   (0 if u is None else u.numel() * 4))
+        bound = _bound(n_bytes, 0)
+        kept = float(want[2].sum(-1).float().mean())
+        print(f"[occ_march_budget] {name}: {r:,} rays, S={c['n_steps']}, "
+              f"B={b}, {kept:.3f} kept a ray; t, dt, valid bitwise the "
+              f"dense route's; kernel {ms:.4f} ms | the dense route "
+              f"{plain_ms:.4f} ms in {events} device events | bound "
+              f"{bound[0]:.4f} ms ({bound[1]}, {n_bytes / 1e6:.1f} MB)")
+        _kernel_row(kernels, name=f"occ_march_budget ({name})",
+                    key="occ_march_budget", path="f4 render",
+                    source="nr3d_lib_tpu_torch/csrc/occ_march.cu",
+                    replaces="nr3d_lib_tpu/ops/gather1d.py:30 + "
+                             "occgrid_march.py + pack_ops.dense_to_budgeted",
+                    err=0.0, ms=ms, plain_ms=plain_ms, bound=bound,
+                    plain_events=events)
 
 
 def _f2_kernel_phases(nerf, neus, o8, d8, o, d, kernels) -> "torch.Tensor":
@@ -3232,7 +3307,8 @@ def _device_kernel_counts(run) -> dict:
         if ev.device_type != DeviceType.CUDA:
             continue
         name = ev.key.removeprefix("void ").split("(")[0].split("<")[0]
-        if name.startswith(("brick", "gather1d", "permuto", "gs_blend")):
+        if name.startswith(("brick", "gather1d", "occ_march", "permuto",
+                             "gs_blend")):
             out[name] = out.get(name, 0) + ev.count
     return out
 
@@ -4109,7 +4185,7 @@ def _ddp_phase(dev, smi: str, paths: dict) -> None:
     # the step's nablas are split (B3 forward, B4 backward), so B1 runs
     # without its corner words: no brick4_fwd_g (PERF.md §6, B1 want_g)
     names = ("brick4_fwd", "brick4_bwd", "brick4_dydx", "brick4_bwd2",
-             "gather1d")
+             "occ_march_budget")
     for r, out in enumerate(outs):
         med = statistics.median(out["times"])
         print(f"[ddp_w4_train_4096] rank {r} of {DDP_RANKS} (gloo, cuda:0, "
@@ -4129,7 +4205,7 @@ def _ddp_phase(dev, smi: str, paths: dict) -> None:
           f"steps)")
     _require(all(outs[0]["counts"].get(k, 0) >= 1 for k in (
         "brick4_fwd_kernel", "brick4_bwd_kernel", "brick4_dydx_kernel",
-        "brick4_bwd2_kernel")) and any(k.startswith("gather1d")
+        "brick4_bwd2_kernel")) and any(k.startswith("occ_march_budget")
                                        for k in outs[0]["counts"]),
         "ddp: the profiled step misses a kernel")
     g_errs = [max(_rel(got[k], g) for k, g in want.items())
@@ -5218,13 +5294,15 @@ def main() -> int:
 
     # --------------------------------------------------- kernel phases
     x3 = _f4_kernel_phases(model, o, d, kernels)
+    _occ_march_phase(dev, kernels)
     x3b = _f2_kernel_phases(nerf, neus2, o8, d8, o, d, kernels)
     _permuto4_kernel_phases(dyn, o, d, ts_extra["ts"], kernels)
 
     # ----------------------------------- slices 1 and 2: the F=4 NeuS
     cpu = _cpu_twin(model, LoTDNeuSModel, PROD_CFG)
     launches, cpu_s = _serve(model, cpu, o, d, {
-        "brick4_fwd": 6, "brick4_dydx": 1, "gather1d": 1}, "f4 render", smi)
+        "brick4_fwd": 6, "brick4_dydx": 1, "occ_march_budget": 1},
+        "f4 render", smi)
     paths["f4 render"] = (launches, N_RENDERS)
     _launch_sizes(model, o, d, B4, "B1", kernels, "brick4_fwd")
     paths["f4 autograd nablas"] = (_autograd_nablas(model, x3, "brick4"), 1)
@@ -5232,14 +5310,15 @@ def main() -> int:
     paths["f4 train step"] = (_train(
         model, o, d, smi, "f4", {"brick4_fwd": 6, "brick4_bwd": 1,
                                  "brick4_dydx": 1, "brick4_bwd2": 1,
-                                 "gather1d": 1}, {"brick4_fwd": 1}), N_STEPS)
+                                 "occ_march_budget": 1}, {"brick4_fwd": 1}),
+        N_STEPS)
     _step_points(model, o, d, kernels, B4, {"_bwd_cuda": "brick4_bwd",
                                             "_bwd2_cuda": "brick4_bwd2"})
 
     # ------------------------------------ path A: the F=2 NeRF serving
     nerf_cpu = _cpu_twin(nerf, LoTDNeRFModel, NERF_CFG)
     launches, _ = _serve(nerf, nerf_cpu, o8, d8, {"brick_fwd": 1,
-                                                  "gather1d": 1},
+                                                  "occ_march_budget": 1},
                          "nerf render", smi)
     paths["nerf render"] = (launches, N_RENDERS)
     nerf.ray_query_cfg = {"query_mode": "march_occ"}   # the default mode
@@ -5251,7 +5330,8 @@ def main() -> int:
     # ------------------------------------ path B: the F=2 NeuS
     cpu2 = _cpu_twin(neus2, LoTDNeuSModel, NEUS_F2_CFG)
     launches, cpu_s = _serve(neus2, cpu2, o, d, {
-        "brick_fwd": 6, "brick_dydx": 1, "gather1d": 1}, "f2 render", smi)
+        "brick_fwd": 6, "brick_dydx": 1, "occ_march_budget": 1},
+        "f2 render", smi)
     paths["f2 render"] = (launches, N_RENDERS)
     _launch_sizes(neus2, o, d, B, "B6", kernels, "brick_fwd")
     paths["f2 autograd nablas"] = (_autograd_nablas(neus2, x3b, "brick"), 1)
@@ -5259,7 +5339,8 @@ def main() -> int:
     paths["f2 train step"] = (_train(
         neus2, o, d, smi, "f2", {"brick_fwd": 6, "brick_bwd": 1,
                                  "brick_dydx": 1, "brick_bwd2": 1,
-                                 "gather1d": 1}, {"brick_fwd": 1}), N_STEPS)
+                                 "occ_march_budget": 1}, {"brick_fwd": 1}),
+        N_STEPS)
     _step_points(neus2, o, d, kernels, B, {"_bwd_cuda": "brick_bwd"})
 
     # ---------------- A8b: the F=4 NeRF serving, in both NeRF modes
@@ -5270,8 +5351,10 @@ def main() -> int:
                         ("march_occ", "nerf_w4_serve_8192 march_occ")):
         nerf4.ray_query_cfg = dict(NERF_W4_CFG["ray_query_cfg"]) \
             if mode == "march_occ_compressed" else {"query_mode": mode}
+        march = "occ_march_budget" if mode == "march_occ_compressed" \
+            else "gather1d"
         launches, _ = _serve(nerf4, nerf4_cpu, o8, d8, {"brick4_fwd": 1,
-                                                        "gather1d": 1},
+                                                        march: 1},
                              label, smi)
         paths[label] = (launches, N_RENDERS)
 
@@ -5344,7 +5427,7 @@ def main() -> int:
     _classic_lotd_paths(dev, smi, paths)
     nerf.ray_query_cfg = {"query_mode": "march_occ_multi_upsample_compressed"}
     launches, _ = _serve(nerf, nerf_cpu, o8, d8, {"brick_fwd": 2,
-                                                  "gather1d": 1},
+                                                  "occ_march_budget": 1},
                          "nerf_f2_mup_serve_8192", smi)
     paths["nerf_f2_mup_serve_8192"] = (launches, N_RENDERS)
 

@@ -5,9 +5,10 @@
 `nerf_ray_query_fixed`).
 
 Dense [R, S] sample slabs with validity masks: padding never contributes
-(its alpha is forced to 0). The compressed mode compacts the marched slab
-row-locally on the occupancy mask before the density query, and again on
-the transmittance before the radiance query.
+(its alpha is forced to 0). The compressed modes keep each ray's first
+occupied steps as they march (`OccGridAccel.ray_march_budgeted`: one
+kernel on the card, no [R, S] slab) before the density query, and
+compact again on the transmittance before the radiance query.
 
 Randomness: a `draw` callable (`graphics.raysample`) hands the march its
 [R, S] uniforms, the draw the JAX version takes from `perturb_key`; None
@@ -42,6 +43,16 @@ def _march(accel, o_n, d_n, near, far, draw: Optional[Draw]):
     u = None if draw is None else \
         draw((o_n.shape[0], accel.max_steps_per_ray), 0.0, 1.0)
     return accel.ray_march(o_n, d_n, near, far, u=u)
+
+
+def _march_budgeted(accel, o_n, d_n, near, far, ray_mask, budget: int,
+                    draw: Optional[Draw]):
+    """The march and compaction 1: each ray's first `budget` occupied
+    steps → (t, dt, valid) [R, budget]."""
+    u = None if draw is None else \
+        draw((o_n.shape[0], accel.max_steps_per_ray), 0.0, 1.0)
+    return accel.ray_march_budgeted(o_n, d_n, near, far, budget, u=u,
+                                    ray_mask=ray_mask)
 
 
 def _composite(t: torch.Tensor, alpha: torch.Tensor, rgb: torch.Tensor,
@@ -95,24 +106,23 @@ def nerf_ray_query_march_occ_compressed(
         radiance_compression_factor: float = 0.5, with_rgb: bool = True,
         draw: Optional[Draw] = None) -> Out:
     """Occupancy-marched NeRF query with two row-local compactions: the
-    marched slab on its occupancy mask before the density query (budget
-    compression_factor × S per ray), then on the transmittance before the
-    radiance query (budget radiance_compression_factor of the first). A
-    ray with more occupied samples than the budget keeps its nearest ones
-    (see the JAX docstring)."""
+    march keeps each ray's first occupied samples (budget
+    compression_factor × S per ray) before the density query, then the
+    transmittance compaction before the radiance query (budget
+    radiance_compression_factor of the first). A ray with more occupied
+    samples than the budget keeps its nearest ones (see the JAX
+    docstring)."""
     rays_o, rays_d = ray_tested["rays_o"], ray_tested["rays_d"]
     near, far, ray_mask = ray_tested["near"], ray_tested["far"], \
         ray_tested["mask"]
     o_n, d_n = space.normalize_rays(rays_o, rays_d)
-    with profile("query.march"):
-        t, dt, smask = _march(accel, o_n, d_n, near, far, draw)
-    r, s = t.shape
-    smask = smask & ray_mask[:, None]
 
-    # compaction 1: occupancy (per-ray budget)
-    b1 = max(int(s * compression_factor), 1)
-    with profile("query.compact"):
-        (t1, dt1), valid1 = po.dense_to_budgeted([t, dt], smask, b1)
+    # the march and compaction 1: occupancy (per-ray budget)
+    b1 = max(int(accel.max_steps_per_ray * compression_factor), 1)
+    with profile("query.march"):
+        t1, dt1, valid1 = _march_budgeted(accel, o_n, d_n, near, far,
+                                          ray_mask, b1, draw)
+    r = t1.shape[0]
     x1 = o_n[:, None, :] + d_n[:, None, :] * t1[..., None]    # [R,B1,3]
     with profile("query.field"):
         den = model.forward_density(x1.reshape(r * b1, 3))
@@ -198,13 +208,14 @@ def nerf_ray_query_march_occ_multi_upsample_compressed(
     near, far, ray_mask = ray_tested["near"], ray_tested["far"], \
         ray_tested["mask"]
     o_n, d_n = space.normalize_rays(rays_o, rays_d)
-    t, _, smask = _march(accel, o_n, d_n, near, far, draw)
-    r, s = t.shape
-    smask = smask & ray_mask[:, None]
 
-    # compaction 1: occupancy (per-ray budget), + the optional coarse union
-    b1 = max(int(s * compression_factor), 1)
-    (t1,), valid1 = po.dense_to_budgeted([t], smask, b1)
+    # the march and compaction 1: occupancy (per-ray budget), + the
+    # optional coarse union
+    b1 = max(int(accel.max_steps_per_ray * compression_factor), 1)
+    with profile("query.march"):
+        t1, _, valid1 = _march_budgeted(accel, o_n, d_n, near, far,
+                                        ray_mask, b1, draw)
+    r = t1.shape[0]
     if n_coarse > 0:
         u = None if draw is None else draw((r, n_coarse), 0.0, 1.0)
         t_c, _ = batch_sample_step_linear(near, far, n_coarse, u)

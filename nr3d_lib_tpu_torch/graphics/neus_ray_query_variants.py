@@ -40,10 +40,10 @@ def neus_ray_query_march_occ_multi_upsample_compressed(
         march_budget_factor: float = 1.0, with_rgb: bool = True,
         draw: Optional[Draw] = None
         ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """``march_budget_factor`` < 1 budget-compacts the marched slab to
-    factor × S_max slots per ray before the upsample loop; a ray with more
-    occupied samples than that keeps its nearest ones (see the JAX
-    docstring).
+    """``march_budget_factor`` < 1 keeps factor × S_max slots per ray as
+    the march goes (`OccGridAccel.ray_march_budgeted`: one kernel on the
+    card) before the upsample loop; a ray with more occupied samples than
+    that keeps its nearest ones (see the JAX docstring).
 
     ``draw`` (see `graphics.raysample`) perturbs the samples for training:
     one [R, S_max] draw jitters the march, then one draw per upsample
@@ -57,15 +57,15 @@ def neus_ray_query_march_occ_multi_upsample_compressed(
     with profile("query.march"):
         u_march = None if draw is None else \
             draw((rays_o.shape[0], accel.max_steps_per_ray), 0.0, 1.0)
-        t, _, smask = accel.ray_march(o_n, d_n, near, far, u=u_march)
+        if march_budget_factor < 1.0:
+            b0 = max(int(accel.max_steps_per_ray * march_budget_factor), 1)
+            t, _, smask = accel.ray_march_budgeted(o_n, d_n, near, far, b0,
+                                                   u=u_march)
+        else:
+            t, _, smask = accel.ray_march(o_n, d_n, near, far, u=u_march)
 
     def sdf_fn(x):
         return model.forward_sdf(x)["sdf"]
-
-    if march_budget_factor < 1.0:
-        b0 = max(int(t.shape[1] * march_budget_factor), 1)
-        with profile("query.compact"):
-            (t,), smask = po.dense_to_budgeted([t], smask, b0)
 
     t, valid = _upsample_rounds(sdf_fn, o_n, d_n, t, smask, far,
                                 upsample_inv_s, upsample_inv_s_factors,

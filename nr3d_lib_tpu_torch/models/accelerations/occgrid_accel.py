@@ -1,7 +1,9 @@
 """OccGridAccel — occupancy acceleration for a single space (port of
 nr3d_lib_tpu/models/accelerations/occgrid_accel.py: `init`, `step`,
 `collect_samples`, `query`, `ray_march`, `try_shrink` and `debug_stats`,
-over the EMA grid or, with `use_ema=False`, the getter grid)."""
+over the EMA grid or, with `use_ema=False`, the getter grid), and
+`ray_march_budgeted`: the march with the compressed queries' first
+budget compaction, one kernel on a CUDA grid."""
 
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ from torch import nn
 
 from nr3d_lib_tpu_torch.models.accelerations.occgrid import (OccGridEma,
                                                             OccGridGetter)
-from nr3d_lib_tpu_torch.ops.occgrid_march import (occgrid_march_dense,
+from nr3d_lib_tpu_torch.ops.occgrid_march import (occgrid_march_budgeted,
+                                                  occgrid_march_dense,
                                                   occgrid_query)
 from nr3d_lib_tpu_torch.profile import profile
 
@@ -84,9 +87,26 @@ class OccGridAccel(nn.Module):
         in [0,1) jitters the steps (None: midpoints)."""
         return occgrid_march_dense(
             self.occ.occ(), rays_o, rays_d, near, far,
-            n_steps=n_steps or self.max_steps_per_ray,
+            n_steps=self.max_steps_per_ray,
             step_size=self.step_size, dt_gamma=self.dt_gamma,
             max_step_size=self.max_step_size, u=u)
+
+    def ray_march_budgeted(self, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                           near: torch.Tensor, far: torch.Tensor,
+                           budget: int, u: Optional[torch.Tensor] = None,
+                           ray_mask: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+        """March normalized-space rays and keep each ray's first `budget`
+        occupied steps → (t, dt, valid) [R, budget]
+        (`occgrid_march_budgeted`); `ray_mask` [R] leaves rays empty, `u`
+        [R, S] jitters the steps (None: midpoints)."""
+        return occgrid_march_budgeted(
+            self.occ.occ(), rays_o, rays_d, near, far,
+            n_steps=self.max_steps_per_ray,
+            step_size=self.step_size, dt_gamma=self.dt_gamma,
+            max_step_size=self.max_step_size, u=u, budget=budget,
+            ray_mask=ray_mask)
 
     def try_shrink(self) -> Optional[torch.Tensor]:
         """The EMA grid's tight occupied box [2, 3]; None for the getter."""

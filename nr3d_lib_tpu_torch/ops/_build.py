@@ -35,7 +35,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNEL_SOURCES = ("brick4", "brick", "gather1d", "permuto_cell4",
-                  "permuto_cell", "gaussian_blend")
+                  "permuto_cell", "gaussian_blend", "occ_march")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -6,20 +6,46 @@ lookup masks out candidates in empty voxels. Marching happens in the
 normalized [-1,1]^3 space of the grid.
 
 The voxel lookup goes through `gather_rows_lanes`, which runs the B5 kernel
-for a CUDA grid and plain indexing for a CPU one.
+for a CUDA grid and plain indexing for a CPU one. `occgrid_march_budgeted`
+marches and keeps each ray's first B occupied steps: on a CUDA grid in one
+kernel (`csrc/occ_march.cu`) that never makes the [R, S] slab, on a CPU
+grid as `occgrid_march_dense` then `pack_ops.dense_to_budgeted`.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from nr3d_lib_tpu_torch.graphics import _scan
+from nr3d_lib_tpu_torch.graphics.pack_ops import dense_to_budgeted
+from nr3d_lib_tpu_torch.ops import _build
 from nr3d_lib_tpu_torch.ops.gather1d import gather_rows_lanes
+from nr3d_lib_tpu_torch.profile import mark_fused
 
-__all__ = ["march_steps", "occgrid_query_axes", "occgrid_query",
-           "occgrid_march_dense", "occgrid_march_batched_dense"]
+__all__ = ["step_table", "march_steps", "occgrid_query_axes",
+           "occgrid_query", "occgrid_march_dense", "occgrid_march_budgeted",
+           "occgrid_march_batched_dense"]
+
+
+def step_table(n_steps: int, step_size: float, dt_gamma: float = 0.0,
+               max_step_size: Optional[float] = None,
+               dtype: torch.dtype = torch.float32, device=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The step sequence shared by every ray: (t_end − dt [S], dt [S]),
+    dt_i = clip(step_size·(1+γ)^i, ·, max_step_size), t_end its cumsum."""
+    i = torch.arange(n_steps, dtype=dtype, device=device)
+    if dt_gamma > 0.0:
+        dt = step_size * torch.pow(1.0 + dt_gamma, i)
+        if max_step_size is not None:
+            dt = torch.clamp(dt, max=max_step_size)
+    else:
+        dt = torch.full((n_steps,), step_size, dtype=dtype, device=device)
+    t_end = _scan.cumsum(dt, 0)
+    return t_end - dt, dt
 
 
 def march_steps(near: torch.Tensor, far: torch.Tensor, n_steps: int,
@@ -35,16 +61,9 @@ def march_steps(near: torch.Tensor, far: torch.Tensor, n_steps: int,
     samples (the JAX version's `perturb_key` draw, handed in), None
     takes the midpoints."""
     r = near.shape[0]
-    i = torch.arange(n_steps, dtype=near.dtype, device=near.device)
-    if dt_gamma > 0.0:
-        dt = step_size * torch.pow(1.0 + dt_gamma, i)
-        if max_step_size is not None:
-            dt = torch.clamp(dt, max=max_step_size)
-    else:
-        dt = torch.full((n_steps,), step_size, dtype=near.dtype,
-                        device=near.device)
-    t_end = _scan.cumsum(dt, 0)
-    t_start = (t_end - dt)[None, :] + near[:, None]          # [R,S]
+    t0, dt = step_table(n_steps, step_size, dt_gamma, max_step_size,
+                        near.dtype, near.device)
+    t_start = t0[None, :] + near[:, None]                    # [R,S]
     dt = dt[None, :].expand(r, n_steps)
     t = t_start + (0.5 if u is None else u) * dt
     in_range = (t < far[:, None]) & (t_start >= near[:, None] - 1e-9)
@@ -97,6 +116,107 @@ def occgrid_march_dense(occ: torch.Tensor, rays_o: torch.Tensor,
     xs = [rays_o[:, None, a] + rays_d[:, None, a] * t for a in range(3)]
     occ_hit = occgrid_query_axes(occ, *xs)
     return t, dt, in_range & occ_hit
+
+
+def occgrid_march_budgeted(occ: torch.Tensor, rays_o: torch.Tensor,
+                           rays_d: torch.Tensor, near: torch.Tensor,
+                           far: torch.Tensor, *, n_steps: int,
+                           step_size: float, dt_gamma: float = 0.0,
+                           max_step_size: Optional[float] = None,
+                           u: Optional[torch.Tensor] = None, budget: int,
+                           ray_mask: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """March normalized-space rays and keep each ray's first `budget`
+    occupied in-range steps, in step order → (t [R,B], dt [R,B],
+    valid [R,B]); unused slots are 0 with valid False. `ray_mask` [R]
+    (None: every ray) leaves a ray empty; `u` [R, S] jitters as in
+    `march_steps`.
+
+    A CPU grid takes the plain route: `occgrid_march_dense`, `& ray_mask`,
+    `dense_to_budgeted`. A CUDA grid launches `occ_march_budget`
+    (`csrc/occ_march.cu`), which gives that route's t, dt and valid bit
+    for bit, and charges `fused` to the innermost open span; any other
+    device raises."""
+    if occ.device.type == "cpu":
+        t, dt, mask = occgrid_march_dense(
+            occ, rays_o, rays_d, near, far, n_steps=n_steps,
+            step_size=step_size, dt_gamma=dt_gamma,
+            max_step_size=max_step_size, u=u)
+        if ray_mask is not None:
+            mask = mask & ray_mask[:, None]
+        (t, dt), valid = dense_to_budgeted([t, dt], mask, budget)
+        return t, dt, valid
+    if occ.device.type != "cuda":
+        raise ValueError(f"occgrid_march_budgeted: unsupported device "
+                         f"{occ.device}")
+    return _budgeted_cuda(occ, rays_o, rays_d, near, far, n_steps, step_size,
+                          dt_gamma, max_step_size, u, budget, ray_mask)
+
+
+def _lib():
+    vp, i32 = _build.VP, ctypes.c_int
+    return _build.load("occ_march", {"occ_march_budget": [
+        vp, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        ctypes.c_longlong, i32, i32, vp]})
+
+
+@functools.lru_cache(maxsize=16)
+def _device_step_table(n_steps, step_size, dt_gamma, max_step_size, device):
+    """`step_table` in float32 on a card, made once per settings: the same
+    tensors, computed by the same code, that the dense route makes every
+    call."""
+    return tuple(a.contiguous() for a in step_table(
+        n_steps, step_size, dt_gamma, max_step_size, torch.float32, device))
+
+
+def _budgeted_cuda(occ, rays_o, rays_d, near, far, n_steps, step_size,
+                   dt_gamma, max_step_size, u, budget, ray_mask):
+    dev = occ.device
+    r = rays_o.shape[0]
+    if occ.dim() != 3 or occ.dtype not in (torch.bool, torch.uint8):
+        raise ValueError(f"occgrid_march_budgeted: occ must be a bool or "
+                         f"uint8 [r0, r1, r2] grid, got {tuple(occ.shape)} "
+                         f"{occ.dtype}")
+    if budget < 1:
+        raise ValueError(f"occgrid_march_budgeted: budget {budget} < 1")
+    f32 = [rays_o, rays_d, near, far] + ([] if u is None else [u])
+    if any(a.dtype != torch.float32 or a.device != dev for a in f32):
+        raise ValueError(f"occgrid_march_budgeted: rays, near, far and u "
+                         f"must be float32 on {dev}")
+    if rays_o.shape != (r, 3) or rays_d.shape != (r, 3) or \
+            near.shape != (r,) or far.shape != (r,):
+        raise ValueError("occgrid_march_budgeted: rays must be [R, 3], "
+                         "near and far [R]")
+    if u is not None and u.shape != (r, n_steps):
+        raise ValueError(f"occgrid_march_budgeted: u must be [{r}, "
+                         f"{n_steps}], got {tuple(u.shape)}")
+    if ray_mask is not None and (ray_mask.shape != (r,) or
+                                 ray_mask.device != dev):
+        raise ValueError(f"occgrid_march_budgeted: ray_mask must be [{r}] "
+                         f"on {dev}")
+    t0, dts = _device_step_table(n_steps, step_size, dt_gamma,
+                                 max_step_size, dev)
+    occ = occ.contiguous()
+    rays_o, rays_d, near, far = (a.contiguous()
+                                 for a in (rays_o, rays_d, near, far))
+    if u is not None:
+        u = u.contiguous()
+    if ray_mask is not None:
+        ray_mask = ray_mask.to(torch.bool).contiguous()
+    t = torch.empty((r, budget), dtype=torch.float32, device=dev)
+    dt = torch.empty((r, budget), dtype=torch.float32, device=dev)
+    valid = torch.empty((r, budget), dtype=torch.bool, device=dev)
+    ptr = lambda a: None if a is None else a.data_ptr()
+    err = _lib().occ_march_budget(
+        occ.data_ptr(), *occ.shape, t0.data_ptr(), dts.data_ptr(),
+        rays_o.data_ptr(), rays_d.data_ptr(), near.data_ptr(),
+        far.data_ptr(), ptr(ray_mask), ptr(u), t.data_ptr(), dt.data_ptr(),
+        valid.data_ptr(), r, n_steps, budget, _build.stream_ptr(dev))
+    _build.check(err, "occ_march_budget")
+    _build.LAUNCHES["occ_march_budget"] += 1
+    mark_fused()
+    return t, dt, valid
 
 
 def occgrid_march_batched_dense(occ: torch.Tensor, bidx: torch.Tensor,

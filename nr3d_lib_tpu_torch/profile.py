@@ -11,7 +11,7 @@ and `device_trace` keep JAX's names. Every scope opens a span:
   without clearing: its name, its parent span, its unit (the training
   step's `it` or the renderer's frame number, the parent's where not
   given), its start and end, and the counters charged to it
-  (`count_sync`, `count_backward_sync`, `mark_kept`);
+  (`count_sync`, `count_backward_sync`, `mark_kept`, `mark_fused`);
 * it feeds a `Profiler`'s tree while that profiler records (`report()`);
   `sync=True` calls `torch.cuda.synchronize()` at node exit, so a node's
   host time covers the device work it queued;
@@ -42,7 +42,8 @@ from torch._C._profiler import _RecordFunctionFast
 
 __all__ = ["Profiler", "profile", "debug_profile", "get_default_profiler",
            "enable_profiling", "device_trace", "Span", "spans",
-           "count_sync", "count_backward_sync", "mark_kept", "RING_SPANS"]
+           "count_sync", "count_backward_sync", "mark_kept", "mark_fused",
+           "RING_SPANS"]
 
 # spans each thread keeps: 50 s of the F=4 NeuS training step (~2,000
 # steps of ~21 spans) or of 800² frames (~670 of ~13) fit with room
@@ -99,8 +100,8 @@ class ProfileNode:
 
 # A span's record while it is open and in the ring, a list (the cheapest
 # object to make): [name, unit, parent record, t0, t1, syncs, slots,
-# kept, record_function or None, Profiler node or None]. `spans()` turns
-# records into `Span`s.
+# kept, fused, record_function or None, Profiler node or None]. `spans()`
+# turns records into `Span`s.
 class _Scope:
     """A scope of one name (and unit) of the thread that made it, which
     `with` enters any number of times, nested too: each entry opens a
@@ -112,10 +113,10 @@ class _Scope:
 
     def __enter__(self):
         state = self.state
-        rec = [self.name, self.unit, state.cur, 0, 0, 0, 0, None, None,
+        rec = [self.name, self.unit, state.cur, 0, 0, 0, 0, None, 0, None,
                None]
         if _autograd_profiler._is_profiler_enabled:
-            rf = rec[8] = _RecordFunctionFast(self.name)
+            rf = rec[9] = _RecordFunctionFast(self.name)
             rf.__enter__()
         state.cur = rec
         rec[3] = _now()
@@ -125,8 +126,8 @@ class _Scope:
         state = self.state
         rec = state.cur
         rec[4] = t1
-        if rec[8] is not None:
-            rec[8].__exit__(exc_type, exc, tb)
+        if rec[9] is not None:
+            rec[9].__exit__(exc_type, exc, tb)
         state.cur = rec[2]
         state.ring.append(rec)
         return False
@@ -155,12 +156,12 @@ class _TreeScope(_Scope):
         super().__enter__()
         prof = self.prof
         if prof.recording:
-            node = self.state.cur[9] = prof._cur.child(self.name)
+            node = self.state.cur[10] = prof._cur.child(self.name)
             prof._cur, prof._depth = node, prof._depth + 1
 
     def __exit__(self, exc_type, exc, tb):
         prof, rec = self.prof, self.state.cur
-        node = rec[9]
+        node = rec[10]
         if node is not None and prof.sync:
             _sync()
         super().__exit__(exc_type, exc, tb)
@@ -188,15 +189,18 @@ class Span:
     clock (`t1` 0 while open); `syncs`, the host's waits for the device
     charged to it and not to a child; `slots` and `kept`, a query's
     final sample slots (a host int) and the tensor that counts those
-    holding a sample (on the device: read only where a reader asks)."""
+    holding a sample (on the device: read only where a reader asks);
+    `fused`, the marches in it that ran as one march-and-budget kernel
+    (a host int: 0 where the march took the dense route)."""
     __slots__ = ("name", "parent", "unit", "t0", "t1", "syncs", "slots",
-                 "kept")
+                 "kept", "fused")
 
     def __init__(self, rec: list, parent: Optional["Span"]):
         self.name, self.parent = rec[0], parent
         self.unit = rec[1] if rec[1] is not None or parent is None else \
             parent.unit
-        self.t0, self.t1, self.syncs, self.slots, self.kept = rec[3:8]
+        self.t0, self.t1, self.syncs, self.slots, self.kept, self.fused = \
+            rec[3:9]
 
 
 def spans() -> List[Span]:
@@ -242,6 +246,14 @@ def mark_kept(slots: int, kept: torch.Tensor) -> None:
     cur = _thread().cur
     if cur is not None:
         cur[6], cur[7] = slots, kept
+
+
+def mark_fused() -> None:
+    """Charge a march run as one march-and-budget kernel to the innermost
+    open span."""
+    cur = _thread().cur
+    if cur is not None:
+        cur[8] += 1
 
 
 class Profiler:

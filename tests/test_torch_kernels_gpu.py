@@ -103,9 +103,11 @@ from nr3d_lib_tpu_torch.ops import _build
 from nr3d_lib_tpu_torch.ops import gather1d as G
 from nr3d_lib_tpu_torch.ops import lotd_brick as B
 from nr3d_lib_tpu_torch.ops import lotd_brick4 as B4
+from nr3d_lib_tpu_torch.ops import occgrid_march as OM
 from nr3d_lib_tpu_torch.ops import permuto_cell as PC
 from nr3d_lib_tpu_torch.ops import permuto_cell4 as P4
 from torch_gs_tiles import near_floor_tiles
+import torch_march_cells as MC
 
 pytestmark = pytest.mark.gpu
 
@@ -273,7 +275,8 @@ def test_train_step_goes_through_the_kernels(cuda):
         torch.cuda.synchronize()
         assert dict(_build.LAUNCHES) == {
             "brick4_fwd": 6 + (it == 16), "brick4_bwd": 1, "brick4_dydx": 1,
-            "brick4_bwd2": 1, "gather1d": 1}, (it, dict(_build.LAUNCHES))
+            "brick4_bwd2": 1, "occ_march_budget": 1}, \
+            (it, dict(_build.LAUNCHES))
         assert torch.isfinite(loss)
         for p in model.parameters():
             assert p.grad is not None and torch.isfinite(p.grad).all()
@@ -315,7 +318,7 @@ def test_render_goes_through_the_kernels(cuda):
         rendered, _ = model.ray_query(model.ray_test(o, d))
     torch.cuda.synchronize()
     assert dict(_build.LAUNCHES) == {"brick4_fwd": 6, "brick4_dydx": 1,
-                                     "gather1d": 1}
+                                     "occ_march_budget": 1}
     for v in rendered.values():
         assert torch.isfinite(v).all()
 
@@ -453,11 +456,11 @@ def test_f2_step_and_render_go_through_the_kernels(cuda):
         rendered, _ = model.ray_query(model.ray_test(o, d))
     torch.cuda.synchronize()
     assert dict(_build.LAUNCHES) == {"brick_fwd": 6, "brick_dydx": 1,
-                                     "gather1d": 1}
+                                     "occ_march_budget": 1}
     for it in (15, 16):                      # 16: the occupancy update
         assert _step_launches(model, o, d, gen, it) == {
             "brick_fwd": 6 + (it == 16), "brick_bwd": 1, "brick_dydx": 1,
-            "brick_bwd2": 1, "gather1d": 1}, it
+            "brick_bwd2": 1, "occ_march_budget": 1}, it
     _build.LAUNCHES.clear()
     x = (o[:, None] * 0.25 + d[:, None] * 0.5).reshape(-1, 3)
     xr = x.clone().requires_grad_(True)
@@ -468,6 +471,10 @@ def test_f2_step_and_render_go_through_the_kernels(cuda):
 
 @pytest.mark.parametrize("mode", ["march_occ", "march_occ_compressed"])
 def test_nerf_render_goes_through_the_kernels(cuda, mode):
+    """The compressed mode marches with its budget in one fused kernel
+    (`occ_march_budget`, `fused` 1 on its `query.march` span); the dense
+    mode looks the grid up with B5."""
+    from nr3d_lib_tpu_torch import profile as PR
     from nr3d_lib_tpu_torch.models.model_base import LoTDNeRFModel
 
     model = LoTDNeRFModel(
@@ -486,7 +493,12 @@ def test_nerf_render_goes_through_the_kernels(cuda, mode):
         _build.LAUNCHES.clear()
         rendered, _ = model.ray_query(model.ray_test(o, d))
     torch.cuda.synchronize()
-    assert dict(_build.LAUNCHES) == {"brick_fwd": 1, "gather1d": 1}
+    march = "occ_march_budget" if mode == "march_occ_compressed" \
+        else "gather1d"
+    assert dict(_build.LAUNCHES) == {"brick_fwd": 1, march: 1}
+    if mode == "march_occ_compressed":
+        assert [s.fused for s in PR.spans()
+                if s.name == "query.march"][-1] == 1
     for v in rendered.values():
         assert torch.isfinite(v).all()
     # a train step of the density path: frozen x, so B7 without dL/dx
@@ -495,7 +507,7 @@ def test_nerf_render_goes_through_the_kernels(cuda, mode):
     rendered["rgb_volume"].square().mean().backward()
     torch.cuda.synchronize()
     assert dict(_build.LAUNCHES) == {"brick_fwd": 1, "brick_bwd": 1,
-                                     "gather1d": 1}
+                                     march: 1}
     assert model.field.encoding.flattened_params.grad.abs().max() > 0
 
 
@@ -2250,6 +2262,98 @@ def test_gather1d_tails_views_and_clamps(cuda, n):
         assert torch.equal(out, G.gather_rows_lanes_plain(values, r, c))
 
 
+# ------------------------- the fused march and budget (occ_march_budget)
+def _march_both(occ, o, d, near, far, *, n_steps, step_size, budget,
+                u=None, ray_mask=None, dt_gamma=0.0, max_step_size=None):
+    """The fused kernel against the dense route on the card (the march,
+    the ray mask, `dense_to_budgeted`): t, dt and valid the same bits, one
+    launch → valid."""
+    from nr3d_lib_tpu_torch.graphics.pack_ops import dense_to_budgeted
+
+    kw = dict(n_steps=n_steps, step_size=step_size, dt_gamma=dt_gamma,
+              max_step_size=max_step_size, u=u)
+    t, dt, mask = OM.occgrid_march_dense(occ, o, d, near, far, **kw)
+    if ray_mask is not None:
+        mask = mask & ray_mask[:, None]
+    (t, dt), valid = dense_to_budgeted([t, dt], mask, budget)
+    before = _build.LAUNCHES["occ_march_budget"]
+    got = OM.occgrid_march_budgeted(occ, o, d, near, far, budget=budget,
+                                    ray_mask=ray_mask, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["occ_march_budget"] == before + 1
+    assert got[0].shape == got[1].shape == got[2].shape == \
+        (o.shape[0], budget)
+    assert got[2].dtype == torch.bool
+    for a, b in zip(got, (t, dt, valid)):
+        assert torch.equal(a, b)
+    return valid
+
+
+@pytest.mark.parametrize("name", sorted(MC.CELLS))
+def test_occ_march_budget_at_the_cells_bitwise(cuda, name):
+    """The render cell's 800² orbit frame (640,000 rays, the band grid,
+    B = 24, the ray mask, no jitter) and the training cell's 16,384 drawn
+    rays (B = 48, drawn jitter, no mask)."""
+    c = MC.cell(name, cuda, seed=1)
+    valid = _march_both(c["occ"], c["o"], c["d"], c["near"], c["far"],
+                        n_steps=c["n_steps"], step_size=c["step_size"],
+                        budget=c["budget"], u=c["u"],
+                        ray_mask=c["ray_mask"])
+    kept = valid.sum(-1)
+    assert int((kept > 0).sum()) > 1000 and int((kept == 0).sum()) > 1000
+    if name == "nerf_w4_render_800":
+        assert int((kept == c["budget"]).sum()) > 1000
+
+
+def _edge_rays(dev, n: int, seed: int):
+    """Rays from inside the grid and from outside it: some leave the grid
+    before far, a tenth have near >= far, a few are NaN-free but parallel
+    to an axis."""
+    g = torch.Generator(dev).manual_seed(seed)
+    o = (torch.rand((n, 3), generator=g, device=dev) * 2 - 1) * 1.3
+    d = torch.randn((n, 3), generator=g, device=dev)
+    d[: n // 50, 1:] = 0.0                       # along the x axis
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    near = torch.rand(n, generator=g, device=dev) * 0.3
+    far = near + torch.rand(n, generator=g, device=dev) * 3.5
+    far[n // 10: n // 5] = near[n // 10: n // 5] - 0.25   # near >= far
+    mask = torch.rand(n, generator=g, device=dev) > 0.25
+    return o, d, near, far, mask, g
+
+
+@pytest.mark.parametrize("case", [
+    "midpoints", "jitter", "masked", "gamma_max_step", "budget_past_steps",
+    "full_grid", "one_ray", "no_rays"])
+def test_occ_march_budget_edge_cases_bitwise(cuda, case):
+    """Rays that leave the grid, rays with near >= far, masked rays, rays
+    with more occupied steps than the budget (a grid 60% or 100%
+    occupied), dt_gamma > 0 with max_step_size, a budget past S, one ray
+    and none, at 10,001 rays (a ragged last block)."""
+    n = {"one_ray": 1, "no_rays": 0}.get(case, 10_001)
+    o, d, near, far, mask, g = _edge_rays(cuda, max(n, 1), seed=7)
+    o, d, near, far, mask = (a[:n] for a in (o, d, near, far, mask))
+    res, s, b = (24, 32, 24), 96, 24
+    p = 1.0 if case == "full_grid" else 0.6
+    occ = torch.rand(res, generator=g, device=cuda) < p
+    kw = dict(n_steps=s, step_size=2.0 / 96, budget=b)
+    if case in ("jitter", "masked", "gamma_max_step", "full_grid"):
+        kw["u"] = torch.rand((n, s), generator=g, device=cuda)
+    if case in ("masked", "full_grid", "one_ray"):
+        kw["ray_mask"] = mask
+    if case == "gamma_max_step":
+        kw.update(n_steps=128, step_size=0.01, dt_gamma=0.02,
+                  max_step_size=0.04, budget=32,
+                  u=torch.rand((n, 128), generator=g, device=cuda))
+    if case == "budget_past_steps":
+        kw.update(n_steps=40, budget=45)
+    valid = _march_both(occ, o, d, near, far, **kw)
+    if n > 1 and case != "budget_past_steps":
+        assert int(valid.all(-1).sum()) > 100
+        assert not bool(valid[n // 10: n // 5].any())
+    if "ray_mask" in kw and n > 1:
+        assert not bool(valid[~kw["ray_mask"]].any())
+
+
 def test_gather1d_keeps_nd_shape(cuda):
     """B5 on [3, 7, 5] index arrays with entries clamped at both ends of
     the table: the output keeps the shape and equals the plain version."""
@@ -2971,7 +3075,7 @@ def test_ddp_neus_step_on_two_gloo_ranks_sharing_the_card(cuda, tmp_path):
 
     import torch_parallel_ranks as R
 
-    _build.build_all(["brick4", "gather1d"])     # the ranks only load
+    _build.build_all(["brick4", "occ_march"])    # the ranks only load
     inp = R.neus_inputs(2)
     torch.save(inp, tmp_path / "inputs.pt")
     procs = [mp.get_context("spawn").Process(

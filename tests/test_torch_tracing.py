@@ -54,11 +54,10 @@ NERF = dict(field_cfg={"encoding_cfg": ENC,
             accel_cfg=ACCEL,
             ray_query_cfg={"query_mode": "march_occ_compressed"})
 # the compressed NeuS query's spans under `query`, with their depths: the
-# march, its budget, the slab's SDF pass, three upsample rounds (each
+# march with its budget, the slab's SDF pass, three upsample rounds (each
 # with its new samples' SDF pass), the early-stop SDF pass, the
 # compaction, the final pass and the composite
-QUERY = [(0, "query"), (1, "query.march"), (1, "query.compact"),
-         (1, "query.field")] + \
+QUERY = [(0, "query"), (1, "query.march"), (1, "query.field")] + \
     [(1, "query.upsample"), (2, "query.field")] * 3 + \
     [(1, "query.field"), (1, "query.compact"), (1, "query.field"),
      (1, "query.composite")]
@@ -147,9 +146,8 @@ def test_render_span_tree_and_syncs():
         images = r.render(c2w)
     assert r.frames == frames + 2
     tree = _unit("frame", frames + 1)
-    q = [(2, "query"), (3, "query.march"), (3, "query.compact"),
-         (3, "query.field"), (3, "query.compact"), (3, "query.field"),
-         (3, "query.composite")]
+    q = [(2, "query"), (3, "query.march"), (3, "query.field"),
+         (3, "query.compact"), (3, "query.field"), (3, "query.composite")]
     chunk = [(1, "frame.chunk")] + q + [(1, "frame.to_host")]
     assert [(d, s.name) for d, s in tree] == \
         [(0, "frame"), (1, "frame.rays")] + chunk * 2 + \
