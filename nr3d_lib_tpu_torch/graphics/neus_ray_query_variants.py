@@ -23,7 +23,7 @@ from nr3d_lib_tpu_torch.graphics.neus import neus_ray_sdf_to_alpha
 from nr3d_lib_tpu_torch.graphics.neus_ray_query import _upsample_rounds
 from nr3d_lib_tpu_torch.graphics.raysample import (Draw,
                                                    batch_sample_step_linear)
-from nr3d_lib_tpu_torch.profile import profile
+from nr3d_lib_tpu_torch.profile import count, profile
 
 __all__ = ["neus_ray_query_march_occ_multi_upsample_compressed",
            "neus_ray_query_dynamic", "neus_ray_query_batched",
@@ -154,7 +154,10 @@ def neus_ray_query_dynamic(model, space, ray_tested: Dict, ts: torch.Tensor,
     samples ([R, n_coarse] in [0,1)) and then each upsample round, the
     order in which the JAX version splits its key; None renders at the
     bin midpoints and fixed quantiles. Only the final query and inv_s
-    carry gradients: the sampling runs under no_grad."""
+    carry gradients: the sampling runs under no_grad. Its final pass is a
+    span `query.field`, its composite `query.composite`, and it counts
+    its final samples (rays × slots) as `samples` on the span open around
+    it (the model's `query`)."""
     rays_o, rays_d = ray_tested["rays_o"], ray_tested["rays_d"]
     near, far, ray_mask = ray_tested["near"], ray_tested["far"], \
         ray_tested["mask"]
@@ -172,26 +175,29 @@ def neus_ray_query_dynamic(model, space, ray_tested: Dict, ts: torch.Tensor,
                                 upsample_inv_s, upsample_inv_s_factors,
                                 n_importance, draw)
     s = t.shape[1]
+    count("samples", r * s)
     x = (o_n[:, None, :] + d_n[:, None, :] * t[..., None]).reshape(r * s, 3)
     ts_rep = torch.repeat_interleave(ts, s)
     v = rays_d[:, None, :].expand(r, s, 3).reshape(r * s, 3)
-    out = model(x, v, ts_rep, with_rgb=with_rgb)
-    sdf = torch.where(valid, out["sdf"].reshape(r, s),
-                      torch.full_like(t, _BIG_SDF))
-    alpha = neus_ray_sdf_to_alpha(sdf, model.forward_inv_s(),
-                                  append_cdf_1=True)
-    alpha = torch.where(valid & ray_mask[:, None], alpha,
-                        torch.zeros_like(alpha))
-    vw = ray_alpha_to_vw(alpha)
-    acc = torch.sum(vw, -1)
-    zero_r = torch.zeros_like(acc)
-    depth = torch.sum(vw * t, -1) / torch.clamp(acc, min=1e-10)
-    rendered = {"mask_volume": torch.where(ray_mask, acc, zero_r),
-                "depth_volume": torch.where(ray_mask, depth, zero_r)}
-    if with_rgb:
-        rgb = torch.sum(vw[..., None] * out["rgb"].reshape(r, s, 3), -2)
-        rendered["rgb_volume"] = torch.where(ray_mask[:, None], rgb,
-                                             torch.zeros_like(rgb))
+    with profile("query.field"):
+        out = model(x, v, ts_rep, with_rgb=with_rgb)
+    with profile("query.composite"):
+        sdf = torch.where(valid, out["sdf"].reshape(r, s),
+                          torch.full_like(t, _BIG_SDF))
+        alpha = neus_ray_sdf_to_alpha(sdf, model.forward_inv_s(),
+                                      append_cdf_1=True)
+        alpha = torch.where(valid & ray_mask[:, None], alpha,
+                            torch.zeros_like(alpha))
+        vw = ray_alpha_to_vw(alpha)
+        acc = torch.sum(vw, -1)
+        zero_r = torch.zeros_like(acc)
+        depth = torch.sum(vw * t, -1) / torch.clamp(acc, min=1e-10)
+        rendered = {"mask_volume": torch.where(ray_mask, acc, zero_r),
+                    "depth_volume": torch.where(ray_mask, depth, zero_r)}
+        if with_rgb:
+            rgb = torch.sum(vw[..., None] * out["rgb"].reshape(r, s, 3), -2)
+            rendered["rgb_volume"] = torch.where(ray_mask[:, None], rgb,
+                                                 torch.zeros_like(rgb))
     return rendered, {"t": t, "alpha": alpha, "vw": vw,
                       "nablas": out["nablas"].reshape(r, s, 3)}
 

@@ -24,6 +24,7 @@ from nr3d_lib_tpu_torch.graphics.raymarch import (RaymarchRetBatched,
                                                   occgrid_raymarch_batched)
 from nr3d_lib_tpu_torch.models.accelerations.occgrid import (
     OccGridEma, sample_cells_uniform)
+from nr3d_lib_tpu_torch.profile import count, profile
 
 __all__ = ["OccGridEmaBatched", "OccGridAccelBatched", "OccGridAccelDynamic",
            "OccGridAccelStaticAndDynamic", "OccGridAccelBatchedDynamic"]
@@ -119,9 +120,14 @@ class OccGridAccelBatched(nn.Module):
     def step(self, it: int, generator: torch.Generator,
              query_fn: QueryFn) -> None:
         """Every `update_every` iterations (it = 0 included), the EMA
-        re-query of every grid."""
+        re-query of every grid, in the span `occ.update` with the counts
+        `keys` (the grids updated) and `cells` (the cells queried)."""
         if it % self.update_every == 0:
-            self.occ.step_update(generator, query_fn)
+            with profile("occ.update"):
+                idx, x = self.occ.sample_update_cells(generator)
+                count("keys", idx.shape[0])
+                count("cells", idx.shape[0] * idx.shape[1])
+                self.occ.apply_update(idx, x, query_fn)
 
     def collect_samples(self, bidx, x, vals) -> None:
         self.occ.collect_samples(bidx, x, vals)

@@ -190,7 +190,7 @@ class PermutoNeRF(nn.Module):
         """x in [-1,1] → {sigma, h}; the lattice sees x·0.5 + 0.5. The
         encode's backward computes dL/dx only when x needs it (B11
         otherwise, on CUDA)."""
-        h = self.decoder(self.bank.encode(x * 0.5 + 0.5))
+        h = self.decoder(self.bank(x * 0.5 + 0.5))
         return {"sigma": trunc_exp(h[..., 0]), "h": h[..., 1:]}
 
     def forward(self, x: torch.Tensor, v: Optional[torch.Tensor] = None

@@ -77,13 +77,13 @@ class SphereResidualDecoder(nn.Module):
         card)."""
         if self.bank.backend != "cell":
             sdf, h, nablas = autograd_nablas(
-                lambda xx: self._dec(xx, self.bank.encode(inp_of(xx))), x)
+                lambda xx: self._dec(xx, self.bank(inp_of(xx))), x)
             return {"sdf": sdf, "h": h, "nablas": nablas}
         inp = inp_of(x)
-        h_enc = self.bank.encode(inp)
+        h_enc = self.bank(inp)
         (sdf, h), dec_vjp = vjp(self._dec, x, h_enc)
         gx, gh = dec_vjp((torch.ones_like(sdf), torch.zeros_like(h)))
-        nablas = gx + 0.5 * self.bank.nablas(gh, inp)[..., :3]
+        nablas = gx + 0.5 * self.bank.nablas_path(inp, gh)[..., :3]
         return {"sdf": sdf, "h": h, "nablas": nablas}
 
 
@@ -190,7 +190,7 @@ class PermutoSDF(nn.Module):
 
     def forward_sdf(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """x in [-1,1] → {sdf, h}; the lattice sees x·0.5 + 0.5."""
-        sdf, h = self._dec(x, self.bank.encode(x * 0.5 + 0.5))
+        sdf, h = self._dec(x, self.bank(x * 0.5 + 0.5))
         return {"sdf": sdf, "h": h}
 
     def forward_sdf_nablas(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -201,16 +201,16 @@ class PermutoSDF(nn.Module):
         for F=2, B16 for F=4), times 0.5 for x → x·0.5+0.5."""
         if self.bank.backend != "cell":
             sdf, h, nablas = autograd_nablas(
-                lambda xx: self._dec(xx, self.bank.encode(xx * 0.5 + 0.5)),
+                lambda xx: self._dec(xx, self.bank(xx * 0.5 + 0.5)),
                 x)
             return {"sdf": sdf, "h": h, "nablas": nablas}
         batch = x.shape[:-1]
         xf = x.reshape(-1, 3)
         x01 = xf * 0.5 + 0.5
-        h_enc = self.bank.encode(x01)
+        h_enc = self.bank(x01)
         (sdf, h), dec_vjp = vjp(self._dec, xf, h_enc)
         gx, gh = dec_vjp((torch.ones_like(sdf), torch.zeros_like(h)))
-        nablas = gx + 0.5 * self.bank.nablas(gh, x01)
+        nablas = gx + 0.5 * self.bank.nablas_path(x01, gh)
         return {"sdf": sdf.reshape(batch),
                 "h": h.reshape(*batch, h.shape[-1]),
                 "nablas": nablas.reshape(*batch, 3)}

@@ -75,7 +75,7 @@ class GenerativePermutoConcatSDF(SphereResidualDecoder):
                     ) -> Dict[str, torch.Tensor]:
         """x [..., 3] in [-1,1]; z [..., z_dim] broadcastable to x's
         batch → {sdf, h}."""
-        sdf, h = self._dec(x, self.bank.encode(self._inp(x, z)))
+        sdf, h = self._dec(x, self.bank(self._inp(x, z)))
         return {"sdf": sdf, "h": h}
 
     def forward_sdf_nablas(self, x: torch.Tensor, z: torch.Tensor

@@ -44,7 +44,7 @@ class DynamicGenerativePermutoConcatSDF(SphereResidualDecoder):
 
     def forward_sdf(self, x: torch.Tensor, z: torch.Tensor, ts
                     ) -> Dict[str, torch.Tensor]:
-        sdf, h = self._dec(x, self.bank.encode(self._inp(x, z, ts)))
+        sdf, h = self._dec(x, self.bank(self._inp(x, z, ts)))
         return {"sdf": sdf, "h": h}
 
     def forward_sdf_nablas(self, x: torch.Tensor, z: torch.Tensor, ts

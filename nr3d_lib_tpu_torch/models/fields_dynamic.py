@@ -59,7 +59,7 @@ class DynamicPermutoConcatSDF(SphereResidualDecoder):
 
     def forward_sdf(self, x: torch.Tensor, ts) -> Dict[str, torch.Tensor]:
         """x in [-1,1], ts in [-1,1] → {sdf, h}."""
-        sdf, h = self._dec(x, self.bank.encode(self._inp(x, ts)))
+        sdf, h = self._dec(x, self.bank(self._inp(x, ts)))
         return {"sdf": sdf, "h": h}
 
     def forward_sdf_nablas(self, x: torch.Tensor, ts
@@ -120,7 +120,7 @@ class _EmerNeRFDynamic(nn.Module):
                                 seed=seed + 6, device=device)
 
     def _dyn_feats(self, x: torch.Tensor, ts) -> torch.Tensor:
-        return self.dyn_bank.encode(
+        return self.dyn_bank(
             torch.cat([x * 0.5 + 0.5, _ts_column(ts, x) * 0.5 + 0.5], -1))
 
     def query_flow(self, x: torch.Tensor, ts) -> Dict[str, torch.Tensor]:

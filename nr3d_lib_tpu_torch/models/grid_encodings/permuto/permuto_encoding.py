@@ -72,20 +72,22 @@ class PermutoParams(nn.Module):
             (self.meta.total_rows, PC.LANES * n_feats // 2), param_init_std,
             seed, device)
 
-    def encode(self, inp: torch.Tensor, frozen_x: bool = False,
-               ho: bool = False, **kw) -> torch.Tensor:
-        """inp [..., d] → [..., F·L]. The classic lattice (`xla`) is plain
-        PyTorch on any device and differentiable to any order; `kw`
-        (`level_weights`, `max_level`) reach `ops.permuto.permuto_encode`,
-        and `frozen_x`/`ho` change nothing there, as in JAX. The cell
-        backend: on a CUDA tensor the forward kernel (B10 or B14), with
-        the backward kernel (B11/B12 or B15) as its backward (`frozen_x`:
-        dL/dtable only). `ho=True` asks for the any-order plain
-        formulation, which the JAX package routes to XLA: plain PyTorch on
-        the tensor's own device, as the brick encoding's `ho`."""
+    def forward(self, x: torch.Tensor, frozen_x: bool = False,
+                ho: bool = False, **kw) -> torch.Tensor:
+        """x [..., d] → [..., F·L]: the brick encoding's entry point, x
+        first; `encode` is the JAX package's name for it. The classic
+        lattice (`xla`) is plain PyTorch on any device and differentiable
+        to any order; `kw` (`level_weights`, `max_level`) reach
+        `ops.permuto.permuto_encode`, and `frozen_x`/`ho` change nothing
+        there, as in JAX. The cell backend: on a CUDA tensor the forward
+        kernel (B10 or B14), with the backward kernel (B11/B12 or B15) as
+        its backward (`frozen_x`: dL/dtable only). `ho=True` asks for the
+        any-order plain formulation, which the JAX package routes to XLA:
+        plain PyTorch on the tensor's own device, as the brick encoding's
+        `ho`."""
         p = self.flattened_params
-        batch = inp.shape[:-1]
-        flat = inp.reshape(-1, inp.shape[-1])
+        batch = x.shape[:-1]
+        flat = x.reshape(-1, x.shape[-1])
         if self.backend == "xla":
             y = P.permuto_encode(flat, p, self.meta, **kw)
             return y.reshape(*batch, y.shape[-1])
@@ -98,19 +100,27 @@ class PermutoParams(nn.Module):
             y = enc(flat, p, self.meta)
         return y.reshape(*batch, y.shape[-1])
 
-    def nablas(self, g_up: torch.Tensor, inp: torch.Tensor) -> torch.Tensor:
-        """J_enc(inp)ᵀ·g_up in the lattice's [0,1] space (B13 or B16 on
-        CUDA; its backward is the plain vjp). Cell backends only, as in
-        JAX: the classic lattice differentiates `encode` instead."""
+    encode = forward
+
+    def nablas_path(self, x: torch.Tensor, g_up: torch.Tensor
+                    ) -> torch.Tensor:
+        """J_enc(x)ᵀ·g_up in the lattice's [0,1] space (B13 or B16 on
+        CUDA; its backward is the plain vjp), x first as the brick
+        encoding's entry point. Cell backends only, as in JAX: the
+        classic lattice differentiates `forward` instead."""
         if self.backend != "cell":
             raise ValueError("PermutoParams.nablas is the cell backends' "
                              "nablas kernel; differentiate encode() on the "
                              "classic lattice")
-        batch = inp.shape[:-1]
-        flat = inp.reshape(-1, inp.shape[-1])
+        batch = x.shape[:-1]
+        flat = x.reshape(-1, x.shape[-1])
         nab = _OPS[self.n_feats][3](g_up.reshape(-1, g_up.shape[-1]), flat,
                                     self.flattened_params, self.meta)
         return nab.reshape(*batch, nab.shape[-1])
+
+    def nablas(self, g_up: torch.Tensor, inp: torch.Tensor) -> torch.Tensor:
+        """`nablas_path` in the JAX package's argument order."""
+        return self.nablas_path(inp, g_up)
 
 
 class PermutoEncoding(nn.Module):

@@ -18,7 +18,7 @@ from nr3d_lib_tpu_torch.graphics.raysample import Draw, uniform_draw
 from nr3d_lib_tpu_torch.models.accelerations import (
     OccGridAccelDynamic, OccGridAccelStaticAndDynamic)
 from nr3d_lib_tpu_torch.models.autodecoder import AutoDecoderMixin
-from nr3d_lib_tpu_torch.models.model_base import ModelMixin
+from nr3d_lib_tpu_torch.models.model_base import ModelMixin, _query
 from nr3d_lib_tpu_torch.models.spatial import AABBDynamicSpace, AABBSpace
 
 __all__ = ["DynamicPermutoNeuSModel", "GenerativePermutoNeuSModelBatched",
@@ -98,9 +98,10 @@ class DynamicPermutoNeuSModel(nn.Module, ModelMixin):
                   generator: Optional[torch.Generator] = None,
                   with_rgb: bool = True, draw: Optional[Draw] = None
                   ) -> Tuple[Dict, Dict]:
-        """Render the tested rays at their `ts`. A `generator` (or a
-        `draw` callable, which takes precedence) perturbs the samples, as
-        for training; neither renders unperturbed."""
+        """Render the tested rays at their `ts`, in the span `query`. A
+        `generator` (or a `draw` callable, which takes precedence)
+        perturbs the samples, as for training; neither renders
+        unperturbed."""
         from nr3d_lib_tpu_torch.graphics.neus_ray_query_variants import \
             neus_ray_query_dynamic
 
@@ -108,9 +109,8 @@ class DynamicPermutoNeuSModel(nn.Module, ModelMixin):
         cfg.pop("query_mode", None)
         if draw is None and generator is not None:
             draw = uniform_draw(generator)
-        return neus_ray_query_dynamic(self, self.space, ray_tested,
-                                      ray_tested["ts"], with_rgb=with_rgb,
-                                      draw=draw, **cfg)
+        return _query(neus_ray_query_dynamic, self, self.space, ray_tested,
+                      ray_tested["ts"], with_rgb=with_rgb, draw=draw, **cfg)
 
 
 class _BatchedNeuSModelBase(nn.Module, ModelMixin):

@@ -22,8 +22,9 @@ CUDA tensor. On CUDA, `_Permuto4Encode` runs B14 forward and B15 backward
 whatever the order of the points); `_Permuto4Nablas` runs B16 forward and, as
 its backward, the plain PyTorch vjp of the plain nablas (gathers and
 `index_add_`): the JAX package computes that second order in XLA, not in a
-Pallas kernel. The barycentric weights are affine in x inside a simplex,
-so the nablas' derivative in x is zero.
+Pallas kernel. That backward is a span `enc.nablas_bwd`, charged to the
+forward's thread (`profile.backward_scope`). The barycentric weights are
+affine in x inside a simplex, so the nablas' derivative in x is zero.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from nr3d_lib_tpu_torch.ops.lotd_brick4 import _quantize4, pack_table4
 from nr3d_lib_tpu_torch.ops.permuto_cell import (
     LANES, PermutoCellMeta, _Meta, c_meta, check_cuda_args, encode_plain,
     make_permuto_cell_meta, nablas_plain)
+from nr3d_lib_tpu_torch.profile import backward_scope
 
 __all__ = ["make_permuto_cell4_meta", "permuto_cell4_encode",
            "permuto_cell4_encode_frozen_x", "permuto_cell4_nablas",
@@ -170,11 +172,13 @@ class _Permuto4Encode(torch.autograd.Function):
 
 
 class _Permuto4Nablas(torch.autograd.Function):
-    """B16 forward; the backward is the plain vjp of the plain nablas."""
+    """B16 forward; the backward is the plain vjp of the plain nablas, in
+    the span `enc.nablas_bwd`."""
 
     @staticmethod
     def forward(ctx, g_up, x, table, meta):
         ctx.meta = meta
+        ctx.span = backward_scope("enc.nablas_bwd")
         ctx.save_for_backward(g_up, x, table)
         return _dydx_cuda(g_up, x, pack_table4(table), meta)
 
@@ -182,8 +186,9 @@ class _Permuto4Nablas(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gg):
         g_up, x, table = ctx.saved_tensors
-        dgup, dx, dtab = permuto_cell4_nablas_bwd_xla(g_up, x, table, gg,
-                                                      ctx.meta)
+        with ctx.span:
+            dgup, dx, dtab = permuto_cell4_nablas_bwd_xla(g_up, x, table, gg,
+                                                          ctx.meta)
         need = ctx.needs_input_grad
         return (dgup if need[0] else None, dx if need[1] else None,
                 dtab if need[2] else None, None)

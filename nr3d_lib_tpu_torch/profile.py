@@ -11,7 +11,9 @@ and `device_trace` keep JAX's names. Every scope opens a span:
   without clearing: its name, its parent span, its unit (the training
   step's `it` or the renderer's frame number, the parent's where not
   given), its start and end, and the counters charged to it
-  (`count_sync`, `count_backward_sync`, `mark_kept`, `mark_fused`);
+  (`count_sync`, `count_backward_sync`, `mark_kept`, `mark_fused`,
+  `count`); a backward's span (`backward_scope`) goes into the ring of
+  the thread that ran its forward;
 * it feeds a `Profiler`'s tree while that profiler records (`report()`);
   `sync=True` calls `torch.cuda.synchronize()` at node exit, so a node's
   host time covers the device work it queued;
@@ -43,7 +45,7 @@ from torch._C._profiler import _RecordFunctionFast
 __all__ = ["Profiler", "profile", "debug_profile", "get_default_profiler",
            "enable_profiling", "device_trace", "Span", "spans",
            "count_sync", "count_backward_sync", "mark_kept", "mark_fused",
-           "RING_SPANS"]
+           "count", "backward_scope", "RING_SPANS"]
 
 # spans each thread keeps: 50 s of the F=4 NeuS training step (~2,000
 # steps of ~21 spans) or of 800² frames (~670 of ~13) fit with room
@@ -100,8 +102,8 @@ class ProfileNode:
 
 # A span's record while it is open and in the ring, a list (the cheapest
 # object to make): [name, unit, parent record, t0, t1, syncs, slots,
-# kept, fused, record_function or None, Profiler node or None]. `spans()`
-# turns records into `Span`s.
+# kept, fused, record_function or None, Profiler node or None, named
+# counts or None]. `spans()` turns records into `Span`s.
 class _Scope:
     """A scope of one name (and unit) of the thread that made it, which
     `with` enters any number of times, nested too: each entry opens a
@@ -114,7 +116,7 @@ class _Scope:
     def __enter__(self):
         state = self.state
         rec = [self.name, self.unit, state.cur, 0, 0, 0, 0, None, 0, None,
-               None]
+               None, None]
         if _autograd_profiler._is_profiler_enabled:
             rf = rec[9] = _RecordFunctionFast(self.name)
             rf.__enter__()
@@ -191,9 +193,10 @@ class Span:
     final sample slots (a host int) and the tensor that counts those
     holding a sample (on the device: read only where a reader asks);
     `fused`, the marches in it that ran as one march-and-budget kernel
-    (a host int: 0 where the march took the dense route)."""
+    (a host int: 0 where the march took the dense route); `counts`, its
+    named counters (`count`: host ints, a query's `samples` say)."""
     __slots__ = ("name", "parent", "unit", "t0", "t1", "syncs", "slots",
-                 "kept", "fused")
+                 "kept", "fused", "counts")
 
     def __init__(self, rec: list, parent: Optional["Span"]):
         self.name, self.parent = rec[0], parent
@@ -201,6 +204,7 @@ class Span:
             parent.unit
         self.t0, self.t1, self.syncs, self.slots, self.kept, self.fused = \
             rec[3:9]
+        self.counts = rec[11] or {}
 
 
 def spans() -> List[Span]:
@@ -246,6 +250,51 @@ def mark_kept(slots: int, kept: torch.Tensor) -> None:
     cur = _thread().cur
     if cur is not None:
         cur[6], cur[7] = slots, kept
+
+
+def count(name: str, n: int) -> None:
+    """Add `n` (a host int) to the counter `name` of the innermost open
+    span."""
+    cur = _thread().cur
+    if cur is not None:
+        counts = cur[11]
+        if counts is None:
+            counts = cur[11] = {}
+        counts[name] = counts.get(name, 0) + n
+
+
+class _BackwardScope:
+    """A span entered in the thread that runs a backward (autograd runs a
+    card's backward in a thread of its own) and recorded in the ring of
+    the thread that made the scope in the forward, under the span open
+    there when the backward runs (`step.backward` while `loss.backward()`
+    waits)."""
+    __slots__ = ("name", "state", "rec")
+
+    def __init__(self, name: str, state: _Thread):
+        self.name, self.state, self.rec = name, state, None
+
+    def __enter__(self):
+        rec = self.rec = [self.name, None, self.state.cur, 0, 0, 0, 0, None,
+                          0, None, None, None]
+        if _autograd_profiler._is_profiler_enabled:
+            rf = rec[9] = _RecordFunctionFast(self.name)
+            rf.__enter__()
+        rec[3] = _now()
+
+    def __exit__(self, exc_type, exc, tb):
+        rec = self.rec
+        rec[4] = _now()
+        if rec[9] is not None:
+            rec[9].__exit__(exc_type, exc, tb)
+        self.state.ring.append(rec)
+        return False
+
+
+def backward_scope(name: str) -> _BackwardScope:
+    """Made in a forward, entered in its backward: a span charged to the
+    forward's thread (`_BackwardScope`)."""
+    return _BackwardScope(name, _thread())
 
 
 def mark_fused() -> None:
